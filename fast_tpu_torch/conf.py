@@ -19,7 +19,7 @@ DEFAULTS = {
     "NPXLS": "auto",        # grid size, or 'auto' (resolution rules in engine)
     "DX": "auto",           # pixel scale [m/px], or 'auto'
     "NITER": 1000,          # number of Monte Carlo realizations
-    "SUBHARM": False,       # add low-order subharmonic modes (not ported yet)
+    "SUBHARM": False,       # add low-order subharmonic modes (iid runs)
     "FFTW": False,          # accepted for config compatibility; ignored
     "FFTW_THREADS": 1,      # accepted for config compatibility; ignored
     "NCHUNKS": 10,          # chunks to split NITER into (bounds device memory)
@@ -74,21 +74,23 @@ TPU_DEFAULTS = {
     "RNG": "threefry",      # accepted and ignored: the port draws from
                             # torch.Generator (plain paths, log-amplitude)
                             # and from the Philox4x32-10 generator written
-                            # into the synth-detect kernel
+                            # into the detect kernels
     "PSD_DEVICE": "cpu",    # the PSD stage always runs in float64 torch on
                             # the CPU, whatever the run device is; other
                             # values are accepted and ignored
     "SYNTH": "auto",        # 'auto' | 'pallas_fused' (the hand-written
-                            # synth-detect kernel) | 'matmul' (pruned DFT
-                            # in stock torch ops) | 'fft' (batched ifft2).
-                            # 'colfac', 'pallas_colfac' and 'pallas' are not
-                            # ported yet and raise NotImplementedError
+                            # synth-detect kernel) | 'pallas_colfac' (the
+                            # hand-written colfac-detect kernel) | 'matmul'
+                            # (pruned DFT in stock torch ops) | 'colfac'
+                            # (column-factored noise in stock torch ops) |
+                            # 'fft' (batched ifft2). 'pallas' is not ported
+                            # yet and raises NotImplementedError
     "PRECISION": "default", # accepted; every value means fp32 FMA on the
                             # card in this package for now (the TF32/bf16
                             # meaning of 'default' is still to come)
     "TEMPORAL_SYNTH": "auto",  # temporal mode only (not ported yet)
     "TEMPORAL_ALPHA": "auto",  # temporal mode only (not ported yet)
-    "MC_NOISE": "mixed",    # synth-detect kernel noise: 'mixed'
+    "MC_NOISE": "mixed",    # detect kernels' noise: 'mixed'
                             # (orthogonally mixed uniforms) | 'gauss'
                             # (Box-Muller). Plain paths always draw Gaussians.
     "TEMPORAL_NOISE": "uniform",  # temporal mode only (not ported yet)

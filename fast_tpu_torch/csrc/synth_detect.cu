@@ -10,7 +10,8 @@
 //   colour X' = z * s_t                       (s_t = sqrt(PSD)^T * df)
 //   DFT 1  G' = X' W^T                        (N, N) @ (N, P), complex
 //   DFT 2  H  = W G'                          (P, N) @ (N, P), complex
-//   detect sum(pm_t * cos/sin(Re H)), sum(pm_t * cos/sin(Im H))
+//   detect sum(pm_t * cos/sin(Re H + sh_r)), sum(pm_t * cos/sin(Im H + sh_i))
+//          with the transposed subharmonic screens sh, if given
 //
 // What bounds it on the card: arithmetic on the CUDA cores. At N=256, P=82
 // (padded to 96) one complex draw costs 4N^3 = 67 MFLOP of mixing product,
@@ -35,12 +36,14 @@
 // * Pass 2 is one block per draw: H = W G', then sincos and a fixed-order
 //   block reduction, so the result is the same from run to run (no
 //   atomics). The TPU kernel's k-draw batching has no counterpart here:
-//   blocks run in parallel on 132 SMs instead.
+//   blocks run in parallel on 132 SMs instead. Pass 2 is detect_pass of
+//   common.cuh, shared with the colfac-detect kernel (K1).
 //
 // Random bits. Philox4x32-10 (Salmon et al., SC'11) keyed by the 64-bit
 // seed (k0 = low word, k1 = high word). Counter layout, one call per grid
 // point of X' (row-major element index e = row * N + col):
 //   ctr = (e, draw index, stream, 0);  bits1 = out[0], bits2 = out[1].
+// The last word 0 keeps these streams apart from K1's, whose last word is 1.
 // The plain torch version in fast_tpu_torch/ops/synth_detect.py builds the
 // same counters, so kernel and plain version see identical noise.
 //
@@ -51,66 +54,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+using namespace fast;
+
 constexpr int kC = 64;    // column tile of X'
 constexpr int kKT = 32;   // depth tile of the mixing product
-constexpr int kK2 = 16;   // depth tile of pass 2
-
-constexpr float kS3 = 1.7320508075688772f;             // sqrt(3)
-constexpr float kS3Scale = 1.7320508075688772f * 1.1920928955078125e-07f;
-constexpr float kTwoM24 = 5.9604644775390625e-08f;     // 2^-24
-constexpr float kTwoM25 = 2.98023223876953125e-08f;    // 2^-25
-constexpr float kTwoPi = 6.2831855f;                    // float32(2 pi)
-
-struct U4 {
-  uint32_t x, y, z, w;
-};
-
-__device__ __forceinline__ U4 philox4x32_10(uint32_t c0, uint32_t c1,
-                                            uint32_t c2, uint32_t c3,
-                                            uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
-    const uint32_t n0 = hi1 ^ c1 ^ k0;
-    const uint32_t n2 = hi0 ^ c3 ^ k1;
-    c0 = n0;
-    c1 = lo1;
-    c2 = n2;
-    c3 = lo0;
-  }
-  return {c0, c1, c2, c3};
-}
-
-__device__ __forceinline__ void sincos_cw(float phi, float* s_out,
-                                          float* c_out) {
-  const float q = rintf(phi * 0.6366197723675814f);
-  float r = phi - q * 1.5703125f;
-  r = r - q * 4.837512969970703e-4f;
-  r = r - q * 7.549789948768648e-8f;
-  const float r2 = r * r;
-  const float s = r + r * r2 * (-1.6666654611e-1f +
-                                r2 * (8.3321608736e-3f +
-                                      r2 * -1.9515295891e-4f));
-  const float c = 1.0f + r2 * (-0.5f +
-                               r2 * (4.166664568298827e-2f +
-                                     r2 * (-1.388731625493765e-3f +
-                                           r2 * 2.443315711809948e-5f)));
-  const int qi = static_cast<int>(q);
-  float sv = (qi & 1) ? c : s;
-  float cv = (qi & 1) ? s : c;
-  if (qi & 2) sv = -sv;
-  if ((qi + 1) & 2) cv = -cv;
-  *s_out = sv;
-  *c_out = cv;
-}
 
 // Pass 1: one block per (draw, 16 * RR rows of X'). Writes G' rows.
 // At least two blocks per SM: without the bound ptxas keeps the 'mixed'
@@ -157,9 +108,7 @@ __global__ void __launch_bounds__(kThreads, 2)
           const U4 v = philox4x32_10(
               static_cast<uint32_t>((row0 + r) * N + c), draw, stream, 0u,
               k0, k1);
-          const uint32_t bits = comp == 0 ? v.x : v.y;
-          u = __fadd_rn(__fmul_rn(static_cast<float>(bits >> 8), kS3Scale),
-                        -kS3);
+          u = mixed_uniform(comp == 0 ? v.x : v.y);
         }
         us[r * US + c] = u;
       }
@@ -213,14 +162,10 @@ __global__ void __launch_bounds__(kThreads, 2)
           if (row < N && col < N) {
             const U4 v = philox4x32_10(static_cast<uint32_t>(row * N + col),
                                        draw, stream, 0u, k0, k1);
-            const float u1 = __fadd_rn(
-                __fmul_rn(static_cast<float>(v.x >> 8), kTwoM24), kTwoM25);
-            const float u2 = __fmul_rn(static_cast<float>(v.y >> 8), kTwoM24);
-            const float rad = sqrtf(-2.0f * logf(u1));
-            float st, ct;
-            sincos_cw(kTwoPi * u2, &st, &ct);
-            const float zc = comp == 0 ? rad * ct : rad * st;
-            x = zc * s_t[static_cast<size_t>(row) * N + col];
+            float zc, zs;
+            box_muller(v.x, v.y, &zc, &zs);
+            x = (comp == 0 ? zc : zs) *
+                s_t[static_cast<size_t>(row) * N + col];
           }
           xs[r * XS + cc] = x;
         }
@@ -270,99 +215,6 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// Pass 2: one block per draw. H = W G', sincos, weighted sums.
-template <int PJ>
-__global__ void __launch_bounds__(kThreads)
-    synth_pass2(const float* __restrict__ wr, const float* __restrict__ wi,
-                const float* __restrict__ g_re, const float* __restrict__ g_im,
-                const float* __restrict__ pm_t, float* __restrict__ out,
-                int N) {
-  constexpr int P = 16 * PJ;
-  constexpr int WS = P + 1;
-  __shared__ float swr[kK2 * WS], swi[kK2 * WS];
-  __shared__ float sgr[kK2 * P], sgi[kK2 * P];
-  __shared__ float red[kThreads / 32][4];
-
-  const int j = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const float* gr = g_re + static_cast<size_t>(j) * N * P;
-  const float* gi = g_im + static_cast<size_t>(j) * N * P;
-
-  float hr[PJ][PJ], hi[PJ][PJ];
-#pragma unroll
-  for (int a = 0; a < PJ; ++a)
-#pragma unroll
-    for (int b = 0; b < PJ; ++b) hr[a][b] = hi[a][b] = 0.0f;
-
-  for (int kb = 0; kb < N; kb += kK2) {
-    __syncthreads();
-    // rows of W and G' past N are zeros
-    for (int e = tid; e < P * kK2; e += kThreads) {
-      const int p = e / kK2, kk = e - p * kK2;
-      const bool in = kb + kk < N;
-      swr[kk * WS + p] = in ? wr[static_cast<size_t>(p) * N + kb + kk] : 0.0f;
-      swi[kk * WS + p] = in ? wi[static_cast<size_t>(p) * N + kb + kk] : 0.0f;
-    }
-    for (int e = tid; e < kK2 * P; e += kThreads) {
-      const bool in = kb + e / P < N;
-      sgr[e] = in ? gr[static_cast<size_t>(kb) * P + e] : 0.0f;
-      sgi[e] = in ? gi[static_cast<size_t>(kb) * P + e] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int kk = 0; kk < kK2; ++kk) {
-      float ar[PJ], ai[PJ], br[PJ], bi[PJ];
-#pragma unroll
-      for (int a = 0; a < PJ; ++a) {
-        ar[a] = swr[kk * WS + ty + 16 * a];
-        ai[a] = swi[kk * WS + ty + 16 * a];
-        br[a] = sgr[kk * P + tx + 16 * a];
-        bi[a] = sgi[kk * P + tx + 16 * a];
-      }
-#pragma unroll
-      for (int a = 0; a < PJ; ++a)
-#pragma unroll
-        for (int b = 0; b < PJ; ++b) {
-          hr[a][b] = fmaf(ar[a], br[b], hr[a][b]);
-          hr[a][b] = fmaf(-ai[a], bi[b], hr[a][b]);
-          hi[a][b] = fmaf(ar[a], bi[b], hi[a][b]);
-          hi[a][b] = fmaf(ai[a], br[b], hi[a][b]);
-        }
-    }
-  }
-
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int a = 0; a < PJ; ++a)
-#pragma unroll
-    for (int b = 0; b < PJ; ++b) {
-      const float w = pm_t[(ty + 16 * a) * P + tx + 16 * b];
-      float s, c;
-      sincos_cw(hr[a][b], &s, &c);
-      acc[0] = fmaf(w, c, acc[0]);
-      acc[1] = fmaf(w, s, acc[1]);
-      sincos_cw(hi[a][b], &s, &c);
-      acc[2] = fmaf(w, c, acc[2]);
-      acc[3] = fmaf(w, s, acc[3]);
-    }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
-  if ((tid & 31) == 0)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) red[tid >> 5][i] = acc[i];
-  __syncthreads();
-  if (tid < 4) {
-    float s = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) s += red[w][tid];
-    out[static_cast<size_t>(j) * 4 + tid] = s;
-  }
-}
-
 // Dynamic shared memory of pass 1. Must match _smem_bytes in
 // fast_tpu_torch/ops/synth_detect.py, which picks RR and decides which
 // shapes the wrapper takes.
@@ -378,8 +230,8 @@ template <bool kMixed, int PJ, int RR>
 cudaError_t launch(uint32_t k0, uint32_t k1, uint32_t stream_id, int draw0,
                    int nbatch, const float* s_t, const float* wr,
                    const float* wi, const float* pm_t, const float* mix,
-                   float* g_re, float* g_im, float* out, int N,
-                   cudaStream_t stream) {
+                   const float* sh_t, float* g_re, float* g_im, float* out,
+                   int N, cudaStream_t stream) {
   constexpr int P = 16 * PJ;
   const size_t smem = pass1_smem<kMixed>(N, P, RR);
   auto* k_pass1 = synth_pass1<kMixed, PJ, RR>;
@@ -392,8 +244,8 @@ cudaError_t launch(uint32_t k0, uint32_t k1, uint32_t stream_id, int draw0,
       k0, k1, stream_id, draw0, s_t, wr, wi, mix, g_re, g_im, N);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  synth_pass2<PJ><<<nbatch, kThreads, 0, stream>>>(wr, wi, g_re, g_im, pm_t,
-                                                   out, N);
+  detect_pass<PJ><<<nbatch, kThreads, 0, stream>>>(wr, wi, g_re, g_im, pm_t,
+                                                   sh_t, out, N);
   return cudaGetLastError();
 }
 
@@ -401,12 +253,13 @@ template <bool kMixed, int RR>
 cudaError_t dispatch(int P, uint32_t k0, uint32_t k1, uint32_t stream_id,
                      int draw0, int nbatch, const float* s_t, const float* wr,
                      const float* wi, const float* pm_t, const float* mix,
-                     float* g_re, float* g_im, float* out, int N,
-                     cudaStream_t stream) {
+                     const float* sh_t, float* g_re, float* g_im, float* out,
+                     int N, cudaStream_t stream) {
 #define FAST_CASE(PJ)                                                       \
   case PJ:                                                                  \
     return launch<kMixed, PJ, RR>(k0, k1, stream_id, draw0, nbatch, s_t, wr, \
-                                  wi, pm_t, mix, g_re, g_im, out, N, stream);
+                                  wi, pm_t, mix, sh_t, g_re, g_im, out, N,   \
+                                  stream);
   switch (P / 16) {
     FAST_CASE(1)
     FAST_CASE(2)
@@ -434,7 +287,9 @@ __global__ void sincos_kernel(const float* __restrict__ phi,
 // Shapes: s_t, mix (N, N); wr, wi (P, N); pm_t (P, P); g_re, g_im scratch
 // (nbatch, N, P); out (nbatch, 4) = (sum pm cos h1, sum pm sin h1,
 // sum pm cos h2, sum pm sin h2). mix == nullptr selects 'gauss' noise.
-// P must be a multiple of 16 and at most 128. rows (RR) is 1 or 2 for
+// sh_t: nullptr, or (nbatch, 2, P, P) transposed subharmonic screens added
+// to (Re H, Im H) before the detector. P must be a multiple of 16 and at
+// most 128. rows (RR) is 1 or 2 for
 // 'mixed' noise, whose pass-1 shared memory at (N, P, rows) must fit the
 // card; 'gauss' keeps no uniforms in shared memory and always takes 2.
 // Returns the cudaError_t of the launches (0 on success).
@@ -442,8 +297,9 @@ extern "C" int fast_synth_detect(uint32_t k0, uint32_t k1, uint32_t stream_id,
                                  int draw0, int nbatch, const float* s_t,
                                  const float* wr, const float* wi,
                                  const float* pm_t, const float* mix,
-                                 float* g_re, float* g_im, float* out, int N,
-                                 int P, int rows, void* stream) {
+                                 const float* sh_t, float* g_re, float* g_im,
+                                 float* out, int N, int P, int rows,
+                                 void* stream) {
   if (N <= 0 || P % 16 != 0 || P < 16 || P > 128 || nbatch <= 0 ||
       (rows != 1 && rows != 2))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -452,14 +308,14 @@ extern "C" int fast_synth_detect(uint32_t k0, uint32_t k1, uint32_t stream_id,
     if (rows == 2)
       return static_cast<int>(dispatch<true, 2>(P, k0, k1, stream_id, draw0,
                                                 nbatch, s_t, wr, wi, pm_t, mix,
-                                                g_re, g_im, out, N, st));
+                                                sh_t, g_re, g_im, out, N, st));
     return static_cast<int>(dispatch<true, 1>(P, k0, k1, stream_id, draw0,
                                               nbatch, s_t, wr, wi, pm_t, mix,
-                                              g_re, g_im, out, N, st));
+                                              sh_t, g_re, g_im, out, N, st));
   }
   return static_cast<int>(dispatch<false, 2>(P, k0, k1, stream_id, draw0,
                                              nbatch, s_t, wr, wi, pm_t, mix,
-                                             g_re, g_im, out, N, st));
+                                             sh_t, g_re, g_im, out, N, st));
 }
 
 // The kernel's sincos on its own, for accuracy checks against float64.

@@ -8,14 +8,19 @@ The iid Monte Carlo path of ``fast_tpu.engine`` in PyTorch:
   :func:`fast_tpu_torch.psd.assemble_main`.
 * **Device stage**: tables cast to float32 and moved to the run device
   once per configuration (:func:`fast_tpu_torch.interop.tables_from_numpy`),
-  then a loop over chunks. ``SYNTH='pallas_fused'`` (what 'auto' picks for
-  float32) runs the hand-written synth-detect kernel on CUDA and its plain
-  torch version on the CPU; ``'matmul'`` and ``'fft'`` are the stock-op
-  paths.
+  with the per-column Cholesky factors of the colfac paths (float32 on the
+  card, float64 on the CPU or where float32 fails), then a loop over
+  chunks. ``SYNTH='pallas_colfac'`` (what 'auto' picks for float32 at
+  N >= 512 with a pupil of at most 128 px) runs the hand-written
+  colfac-detect kernel K1 and ``'pallas_fused'`` (what 'auto' picks for
+  other float32 runs) the synth-detect kernel K2, on CUDA; on the CPU they
+  run their plain torch versions. ``'matmul'``, ``'colfac'`` and ``'fft'``
+  are the stock-op paths. ``SUBHARM=True`` adds the low-order subharmonic
+  screens on every path, inside the detect pass of both kernels.
 
 Not ported yet, and refused with ``NotImplementedError``: ``TEMPORAL``,
-``SUBHARM``, ``SYNTH`` in ('colfac', 'pallas_colfac', 'pallas') and
-``run(progress=True)`` (ROADMAP.md, queue 1).
+``SYNTH='pallas'`` (K7) and ``run(progress=True)`` (ROADMAP.md, queues 1
+and 2).
 """
 
 import logging
@@ -31,7 +36,8 @@ from .models import ao as ao_spectra
 from .models import atmosphere
 from .ops import apertures
 from .ops.rng import draw_seed, make_generator
-from .ops.synth_detect import supports, synth_detect
+from .ops import colfac_detect as cd
+from .ops.synth_detect import pack_subharm, supports, synth_detect
 from . import synthesis
 from .utils import fits
 from .utils.log import init_logging
@@ -39,12 +45,8 @@ from .utils.profiling import StageTimer
 
 logger = logging.getLogger(__name__)
 
-_NOT_PORTED = {
-    "colfac": "ROADMAP.md queue 1, item 4: colfac with the column-factor "
-              "build",
-    "pallas_colfac": "ROADMAP.md queue 2, K1",
-    "pallas": "ROADMAP.md queue 2, K7",
-}
+_NOT_PORTED = {"pallas": "ROADMAP.md queue 2, K7"}
+_PORTED = ("auto", "pallas_fused", "pallas_colfac", "matmul", "colfac", "fft")
 
 
 def l_path(h_sat, zeta):
@@ -78,14 +80,28 @@ def _resolve_device(device):
 def resolve_synth(synth, dtype, device, N, P, noise):
     """The synthesis path of a run.
 
-    'auto' is 'fft' for float64 runs (the exact path) and the synth-detect
-    kernel, 'pallas_fused', for float32 runs on any device. On a CUDA
-    device 'pallas_fused' raises here for a grid or pupil the kernel does
-    not take, rather than at the first chunk; on the CPU it runs the
-    kernel's plain version, which takes every shape.
+    'auto' is 'fft' for float64 runs (the exact path); for float32 runs on
+    any device it is the colfac-detect kernel, 'pallas_colfac', at
+    N >= 512 with a pupil of at most 128 px (the JAX package's rule) and
+    the synth-detect kernel, 'pallas_fused', elsewhere. 'pallas_colfac'
+    raises for a pupil over 128 px on any device. On a CUDA device
+    'pallas_fused' raises here for a grid or pupil the kernel does not
+    take, rather than at the first chunk; on the CPU it runs the kernel's
+    plain version, which takes every shape.
     """
     if synth == "auto":
-        synth = "fft" if dtype == torch.float64 else "pallas_fused"
+        if dtype == torch.float64:
+            synth = "fft"
+        elif N >= 512 and P <= 128:
+            synth = "pallas_colfac"
+        else:
+            synth = "pallas_fused"
+    if synth == "pallas_colfac" and not cd.supports(N, P):
+        raise ValueError(
+            f"the colfac-detect kernel (SYNTH='pallas_colfac') takes a pupil "
+            f"of at most 128 px; got NPXLS={N}, a {P} px pupil. The "
+            f"split-layout kernel for wider pupils (K3, ROADMAP.md queue 2) "
+            f"is not ported yet; SYNTH='matmul' runs the stock-op path")
     if (synth == "pallas_fused" and device.type == "cuda"
             and not supports(N, P, mixed=noise == "mixed")):
         raise ValueError(
@@ -97,31 +113,44 @@ def resolve_synth(synth, dtype, device, N, P, noise):
 
 
 def chunk_couplings(T, synth, nbatch, *, noise="mixed", seed=0, stream=0,
-                    generator=None):
+                    generator=None, sh=None):
     """Complex pupil couplings of one chunk: ``2 * nbatch`` screens.
 
-    ``T`` are the device tables of :func:`tables_from_numpy`. The
-    'pallas_fused' path draws from the synth-detect kernel's Philox keyed
-    by ``seed`` with counter word ``stream``; 'matmul' and 'fft' draw from
-    ``generator``. Returns the couplings scaled by ``dx^2 / norm``, before
-    the log-amplitude factor.
+    ``T`` are the device tables of :func:`tables_from_numpy`. The kernel
+    paths, 'pallas_fused' and 'pallas_colfac', draw from their Philox keyed
+    by ``seed`` with counter word ``stream``; 'matmul', 'colfac' and 'fft'
+    draw from ``generator``. ``sh`` are optional (nbatch, Npup, Npup)
+    complex subharmonic screens, added to the screens of every path.
+    Returns the couplings scaled by ``dx^2 / norm``, before the
+    log-amplitude factor.
     """
     dx, norm = float(T["dx"]), float(T["norm"])
-    if synth == "pallas_fused":
-        mix = T["mix"] if noise == "mixed" else None
-        c = synth_detect(seed, T["s_t"], T["wr"], T["wi"], T["pm_t"], nbatch,
-                         mix=mix, stream=stream)
+    if synth in ("pallas_fused", "pallas_colfac"):
+        sh_t = None if sh is None else pack_subharm(sh, T["wr"].shape[0])
+        if synth == "pallas_fused":
+            mix = T["mix"] if noise == "mixed" else None
+            c = synth_detect(seed, T["s_t"], T["wr"], T["wi"], T["pm_t"],
+                             nbatch, mix=mix, stream=stream, sh_t=sh_t)
+        else:
+            c = cd.colfac_detect(seed, T["S_colfac"], T["wr"], T["wi"],
+                                 T["pm_t"], nbatch, mixed=noise == "mixed",
+                                 stream=stream, sh_t=sh_t)
         return torch.complex(c[:, 0], c[:, 1]) * (dx ** 2 / norm)
     df = float(T["df"])
     if synth == "matmul":
         scr = synthesis.synthesize_screens_pruned(
             generator, T["sqrt_psd"], df, nbatch, T["W"])
+    elif synth == "colfac":
+        scr = synthesis.synthesize_screens_colfac(generator, T["L"], T["W"],
+                                                  nbatch)
     elif synth == "fft":
         lo, hi = (int(v) for v in T["pup_crop"])
         scr = synthesis.synthesize_screens_complex(
             generator, T["sqrt_psd"], df, nbatch, crop=(lo, hi))
     else:
         raise ValueError(f"unknown synthesis path {synth!r}")
+    if sh is not None:
+        scr = scr + sh
     return synthesis.detector_coupling(synthesis.double_screens(scr),
                                        T["pm"], dx, norm)
 
@@ -149,15 +178,11 @@ class Fast:
             raise NotImplementedError(
                 "TEMPORAL=True is not ported yet (ROADMAP.md queue 1, "
                 "item 7: the temporal slice)")
-        if p["SUBHARM"]:
-            raise NotImplementedError(
-                "SUBHARM=True is not ported yet (ROADMAP.md queue 1, "
-                "item 4: subharmonics)")
         if p["SYNTH"] in _NOT_PORTED:
             raise NotImplementedError(
                 f"SYNTH={p['SYNTH']!r} is not ported yet "
                 f"({_NOT_PORTED[p['SYNTH']]})")
-        if p["SYNTH"] not in ("auto", "pallas_fused", "matmul", "fft"):
+        if p["SYNTH"] not in _PORTED:
             raise ValueError(f"unknown SYNTH {p['SYNTH']!r}")
 
         if self.Niter % self.Nchunks != 0:
@@ -292,6 +317,10 @@ class Fast:
                 self.Npxls)
         self.Npxls_pup = int(np.ceil(self.D_ground / self.dx)) + 2
         self.freq = SpatialFrequencies(self.Npxls, self.dx)
+        # subharmonics are not used in temporal mode, as in the JAX package
+        self.subharmonics = bool(p["SUBHARM"]) and not self.temporal
+        if self.subharmonics:
+            self.freq.make_subharm_freqs()
 
     def init_ao_params(self):
         logger.info("Initialising AO parameters")
@@ -314,6 +343,11 @@ class Fast:
             modal_mult=self.modal_mult, Zmax=self.Zmax,
             D=self.D_ground).numpy()
         self.hf_mask = 1 - self.lf_mask
+        if self.subharmonics:
+            self.lf_mask_subharm = ao_spectra.mask_lf(
+                self.freq.subharm, self.Dsubap, modal=self.modal,
+                modal_mult=self.modal_mult, Zmax=self.Zmax,
+                D=self.D_ground).numpy()
 
     def init_pupil_mask(self):
         logger.info("Initialising pupil mask")
@@ -384,20 +418,27 @@ class Fast:
         with self.profile.stage("device_constants"):
             self._prepare_device_constants()
 
+    def _psd_args(self, g):
+        """The grid, the atmosphere and AO arguments and the flags of the
+        PSD assembly on the grid ``g``."""
+        grid = (g.fx, g.fy, g.fabs, g.fx_axis, g.fy_axis)
+        rest = (self.cn2, self.h, self.wind_vector, self.dtheta,
+                float(self.noise),
+                float(self.Dsubap if self.Dsubap is not None else 0.0),
+                float(self.texp), float(self.tloop), float(self.wvl),
+                float(self.D_ground), float(self.L0), float(self.l0))
+        x_max = (float(np.max(g.fabs) * self.D_ground / 2)
+                 if self.ao_mode == "LGSAO" else None)
+        flags = dict(mode=self.ao_mode, alias_on=bool(self.alias),
+                     noise_on=bool(self.noise > 0), x_max=x_max)
+        return grid, rest, flags
+
     def _compute_powerspec_host(self):
         logger.info("Computing (residual) phase power spectra")
         g = self.freq.main
-        x_max = (float(np.max(g.fabs) * self.D_ground / 2)
-                 if self.ao_mode == "LGSAO" else None)
-        out = psd.assemble_main(
-            g.fx, g.fy, g.fabs, g.fx_axis, g.fy_axis, g.f, self.lf_mask,
-            self.hf_mask, self.pupil_filter, self.cn2, self.h,
-            self.wind_vector, self.dtheta, float(self.noise),
-            float(self.Dsubap if self.Dsubap is not None else 0.0),
-            float(self.texp), float(self.tloop), float(self.wvl),
-            float(self.D_ground), float(self.L0), float(self.l0),
-            mode=self.ao_mode, alias_on=bool(self.alias),
-            noise_on=bool(self.noise > 0), x_max=x_max)
+        grid, rest, flags = self._psd_args(g)
+        out = psd.assemble_main(*grid, g.f, self.lf_mask, self.hf_mask,
+                                self.pupil_filter, *rest, **flags)
         ao_on = self.ao_mode != "NOAO"
         self.turb_powerspec = out["turb_powerspec"].numpy()
         self.G_ao = out["G_ao"].numpy()
@@ -412,6 +453,19 @@ class Fast:
             setattr(self, k, float(out[k]))
         self.phs_var_weights = out["phs_var_weights"].numpy()
         self.logamp_powerspec = out["logamp_powerspec"].numpy()
+        self.powerspec_subharm = self.phs_var_subharm = None
+        self.phs_var_weights_sh = None
+        if self.subharmonics:
+            logger.info("Computing subharmonics power spectra")
+            g = self.freq.subharm
+            grid, rest, flags = self._psd_args(g)
+            out = psd.assemble_subharm(*grid, g.df, self.lf_mask_subharm,
+                                       *rest, **flags)
+            self.powerspec_subharm_per_layer = (
+                out["powerspec_subharm_per_layer"].numpy())
+            self.powerspec_subharm = out["powerspec_subharm"].numpy()
+            self.phs_var_subharm = out["phs_var_subharm"].numpy()
+            self.phs_var_weights_sh = out["phs_var_weights_sh"].numpy()
         self.validate()
 
     def validate(self):
@@ -434,6 +488,8 @@ class Fast:
         _chk("lf_mask", self.lf_mask, lo=0, hi=1)
         _chk("pupil", self.pupil, lo=0)
         _chk("link_budget", list(self.link_budget.values()))
+        if self.subharmonics:
+            _chk("powerspec_subharm", self.powerspec_subharm, lo=0)
         if problems:
             raise ValueError("simulation state invalid: " + "; ".join(problems))
         return True
@@ -443,17 +499,63 @@ class Fast:
     # ------------------------------------------------------------------
 
     def _prepare_device_constants(self):
-        """Move the per-configuration tables to the run device."""
+        """Move the per-configuration tables to the run device, with the
+        column factors of the colfac paths and the subharmonic tables."""
+        synth = self._synth
+        if not synth.startswith("pallas"):
+            # the per-chunk noise tensor is the plain paths' peak allocation
+            itemsize = 8 if self.dtype == torch.float32 else 16  # complex
+            ncols = self.Npxls_pup if synth == "colfac" else self.Npxls
+            chunk_bytes = ((self.Niter_per_chunk // 2) * self.Npxls * ncols
+                           * itemsize)
+            if chunk_bytes > 8e9:
+                logger.warning(
+                    "per-chunk noise tensor is %.1f GB; increase NCHUNKS "
+                    "to bound device memory", chunk_bytes / 1e9)
         pm = self.pupil * self.pupil_mode
         self._norm = float(pm.sum() * self.dx ** 2)
-        self.tables = tables_from_numpy(dict(
-            powerspec=self.powerspec, pupil_mode=pm,
-            W_pruned=synthesis.pruned_ift2_matrix(
-                self.Npxls, *self.pup_crop, dtype=np.complex128),
+        W64 = synthesis.pruned_ift2_matrix(self.Npxls, *self.pup_crop,
+                                           dtype=np.complex128)
+        arrays = dict(
+            powerspec=self.powerspec, pupil_mode=pm, W_pruned=W64,
             df=self.freq.main.df, dx=self.dx, norm=self._norm,
             logamp_var=self.logamp_var,
-            diffraction_limit=self.diffraction_limit,
-            pup_crop=self.pup_crop), device=self.device, dtype=self.dtype)
+            diffraction_limit=self.diffraction_limit, pup_crop=self.pup_crop)
+        if synth in ("colfac", "pallas_colfac"):
+            with self.profile.stage("column_factors"):
+                arrays["L_colfac"] = self._column_factors(W64)
+        if self.subharmonics:
+            g = self.freq.subharm
+            modes = synthesis.make_subharm_modes(g.fx, g.fy, self.Npxls,
+                                                 self.dx)
+            arrays.update(
+                powerspec_subharm=self.powerspec_subharm, subharm_df=g.df,
+                subharm_modes=synthesis.subharm_mode_table(modes,
+                                                           self.pup_crop))
+        self.tables = tables_from_numpy(arrays, device=self.device,
+                                        dtype=self.dtype,
+                                        noise=self.params["MC_NOISE"])
+
+    def _column_factors(self, W64):
+        """The per-column Cholesky factors (N, Npup, Npup), numpy complex
+        in the working type.
+
+        A float32 run on the card builds them in float32 there; if a column
+        fails to factor in float32 it falls back, as the JAX package does,
+        to the float64 build on the CPU, cast to complex64. Other runs use
+        the float64 build directly.
+        """
+        sqrt_psd = np.sqrt(self.powerspec)
+        df = float(self.freq.main.df)
+        if self.device.type == "cuda" and self.dtype == torch.float32:
+            L = synthesis.column_factors_device(sqrt_psd, df, W64,
+                                                self.device)
+            if bool(torch.isfinite(torch.view_as_real(L)).all()):
+                return L.cpu().numpy()
+            logger.info("f32 device factorisation hit an ill-conditioned "
+                        "column; using the host float64 path")
+        cdt = np.complex64 if self.dtype == torch.float32 else np.complex128
+        return synthesis.column_factors(sqrt_psd, df, W64).numpy().astype(cdt)
 
     def set_seed(self, seed):
         self.seed = seed
@@ -479,12 +581,16 @@ class Fast:
         # kernel keys its Philox by seed_mc and counts chunks in `stream`
         dev_gen = make_generator(seed_mc, device=self.device)
         coherent = bool(self.params["COHERENT"])
+        T = self.tables
         B = self.Niter_per_chunk
         outs = []
         for i in range(self.Nchunks):
-            pc = chunk_couplings(self.tables, self._synth, B // 2,
+            sh = (synthesis.synthesize_subharm_complex(
+                dev_gen, T["sqrt_psd_sh"], T["sh_df"], T["sh_modes"], B // 2)
+                if self.subharmonics else None)
+            pc = chunk_couplings(T, self._synth, B // 2,
                                  noise=self.params["MC_NOISE"], seed=seed_mc,
-                                 stream=i, generator=dev_gen)
+                                 stream=i, generator=dev_gen, sh=sh)
             out = torch.exp(chi[i * B:(i + 1) * B]).to(pc.real.dtype) * pc
             outs.append(out if coherent else out.abs() ** 2)
         out = torch.cat(outs)

@@ -11,6 +11,7 @@ inputs. This module imports nothing of the JAX package.
 import numpy as np
 import torch
 
+from .ops.colfac_detect import pack_tables
 from .ops.synth_detect import mixing_matrix, pad_pupil
 
 #: The arrays :func:`tables_from_numpy` reads.
@@ -18,7 +19,8 @@ KEYS = ("powerspec", "pupil_mode", "W_pruned", "df", "dx", "norm",
         "logamp_var", "diffraction_limit", "pup_crop")
 
 
-def tables_from_numpy(arrays, device="cpu", dtype=torch.float32):
+def tables_from_numpy(arrays, device="cpu", dtype=torch.float32,
+                      noise="mixed"):
     """Device tables of one configuration.
 
     Args:
@@ -27,19 +29,32 @@ def tables_from_numpy(arrays, device="cpu", dtype=torch.float32):
             pupil * mode; ``W_pruned`` (Npup, N) pruned inverse-DFT matrix;
             the scalars ``df``, ``dx``, ``norm`` (sum of pupil * mode times
             dx^2), ``logamp_var``, ``diffraction_limit``; and ``pup_crop``
-            (lo, hi).
+            (lo, hi). Optionally: ``L_colfac`` (N, Npup,
+            Npup) complex, the column factors; ``powerspec_subharm``
+            (levels, 3, 3) with ``subharm_df`` (levels,) and
+            ``subharm_modes`` (levels, 3, 3, Npup, Npup) complex, the
+            mean-subtracted, cropped modes
+            (:func:`~fast_tpu_torch.synthesis.subharm_mode_table`).
         device: the run device.
         dtype: working type of the plain paths (float32 or float64).
+        noise: the colfac kernel's noise, 'mixed' or 'gauss', which its
+            packed factor table depends on.
 
     Returns:
         dict of tensors on ``device``: ``sqrt_psd`` (N, N), ``pm`` (Npup,
         Npup) and ``W`` (Npup, N, complex) in the working type for the
         plain paths; ``s_t`` (N, N) = sqrt(PSD)^T * df, ``wr``/``wi`` (P, N)
-        and ``pm_t`` (P, P), zero padded as the kernel takes them
+        and ``pm_t`` (P, P), zero padded as the kernels take them
         (:func:`~fast_tpu_torch.ops.synth_detect.pad_pupil`), and
         ``mix`` (N, N), all float32, for the synth-detect kernel; and 0-d
         float64 CPU tensors for the scalars, with ``pup_crop`` a (2,)
-        int64 tensor.
+        int64 tensor. With ``L_colfac``: ``L`` (N, Npup, Npup) complex in
+        the working type for ``SYNTH='colfac'`` and ``S_colfac``, the
+        colfac-detect kernel's float32 table
+        (:func:`~fast_tpu_torch.ops.colfac_detect.pack_tables`). With the
+        subharmonic tables: ``sqrt_psd_sh`` (levels, 3, 3), ``sh_df``
+        (levels,) and ``sh_modes`` (levels, 3, 3, Npup, Npup) complex, in
+        the working type.
     """
     missing = [k for k in KEYS if k not in arrays]
     if missing:
@@ -72,4 +87,14 @@ def tables_from_numpy(arrays, device="cpu", dtype=torch.float32):
     )
     for k in ("df", "dx", "norm", "logamp_var", "diffraction_limit"):
         T[k] = torch.tensor(float(arrays[k]), dtype=torch.float64)
+    if arrays.get("L_colfac") is not None:
+        L = dev(np.asarray(arrays["L_colfac"]).astype(np_cdt))
+        T["L"] = L
+        T["S_colfac"] = pack_tables(L, mixed=noise == "mixed")
+    if arrays.get("powerspec_subharm") is not None:
+        T["sqrt_psd_sh"] = dev(np.sqrt(arrays["powerspec_subharm"])
+                               .astype(np_dt))
+        T["sh_df"] = dev(np.asarray(arrays["subharm_df"]).astype(np_dt))
+        T["sh_modes"] = dev(np.asarray(arrays["subharm_modes"])
+                            .astype(np_cdt))
     return T

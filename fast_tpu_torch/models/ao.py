@@ -1,11 +1,13 @@
 """AO residual power spectra in torch float64.
 
-The port of ``fast_tpu.models.ao`` for the main frequency grid: the
-Zernike Fourier filters, the WFS-corrected mask, the open-loop WFS noise
-and aliasing PSDs and the PAOLA anisoplanatism/servo-lag transfer
-function. Each function takes a grid object with ``fx``, ``fy``,
+The port of ``fast_tpu.models.ao`` for the main and the subharmonic
+frequency grids: the Zernike Fourier filters, the WFS-corrected mask, the
+open-loop WFS noise and aliasing PSDs and the PAOLA anisoplanatism/servo-lag
+transfer function. Each function takes a grid object with ``fx``, ``fy``,
 ``fabs``, ``fx_axis`` and ``fy_axis`` (numpy arrays or tensors) and returns
-float64 tensors on the grid's device.
+float64 tensors on the grid's device. A grid may carry leading axes (the
+subharmonic levels: (levels, 3, 3) meshes over (levels, 3) axes), which
+broadcast through; per-layer results put the layer axis first.
 
 The JAX package's deliberate fixes of reference quirks are kept: WFS-noise
 pixels where the sinc response vanishes are zeroed instead of becoming
@@ -27,6 +29,11 @@ _F64 = torch.float64
 def _t(x):
     return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
                            dtype=_F64)
+
+
+def _per_layer(col, ndim):
+    """A (nlayers,) column viewed against a grid of ``ndim`` axes."""
+    return col[(slice(None),) + (None,) * ndim]
 
 
 def _radial_terms(fabs, D, orders, x_max=None):
@@ -132,19 +139,21 @@ def Jol_alias_openloop(freq, Dsubap, p, lf_mask, v, Delta_t, lmax=3, kmax=3,
     v = _t(v).reshape(-1, 2)
     mid2, mid1 = fx.shape[-2] // 2, fy.shape[-1] // 2
     # unrotated axis meshes (the reference shifts the axes)
-    X = fx_axis[None, :] * torch.ones_like(fy_axis)[:, None]
-    Y = torch.ones_like(fx_axis)[None, :] * fy_axis[:, None]
+    X = fx_axis[..., None, :] * torch.ones_like(fy_axis)[..., :, None]
+    Y = torch.ones_like(fx_axis)[..., None, :] * fy_axis[..., :, None]
 
-    v_dot_kappa = fx[None] * v[:, 0, None, None] + fy[None] * v[:, 1, None, None]
+    v_dot_kappa = (fx[None] * _per_layer(v[:, 0], fx.ndim)
+                   + fy[None] * _per_layer(v[:, 1], fy.ndim))
     sinc_term = torch.sinc(Delta_t * v_dot_kappa / (2 * np.pi)) ** 2
 
     fabs_safe = torch.where(fabs == 0, 1.0, fabs)
     term_0 = fx ** 2 * fy ** 2 / fabs_safe ** 4
-    row_mask = torch.zeros_like(fx)
+    # masks of the last two axes, broadcast over any leading ones
+    row_mask = torch.zeros(fx.shape[-2:], dtype=_F64)
     row_mask[mid2, :] = 1.0
-    col_mask = torch.zeros_like(fx)
+    col_mask = torch.zeros(fx.shape[-2:], dtype=_F64)
     col_mask[:, mid1] = 1.0
-    dc_mask = torch.zeros_like(fx)
+    dc_mask = torch.zeros(fx.shape[-2:], dtype=_F64)
     dc_mask[mid2, mid1] = 1.0
 
     acc = torch.zeros((1,) + fabs.shape, dtype=_F64)
@@ -166,7 +175,7 @@ def Jol_alias_openloop(freq, Dsubap, p, lf_mask, v, Delta_t, lmax=3, kmax=3,
             if k == 0:
                 mult = mult * (1 - col_mask) + term_2 * col_mask
             acc = acc + mult
-    alias = acc * p[:, None, None]
+    alias = acc * _per_layer(p, fabs.ndim)
     alias = alias * sinc_term * lf_mask
     return torch.nan_to_num(alias, nan=0.0, posinf=0.0, neginf=0.0)
 
@@ -190,9 +199,11 @@ def G_AO_PAOLA(freq, mask, mode="AO", h=None, v=None, dtheta=(0, 0), Tx=None,
     h = _t(h).reshape(-1)
     dtheta = _t(dtheta)
     dr = dtheta[None, :] / 206265.0 * h[:, None]  # (nlayers, 2)
-    dr_dot_kappa = fx[None] * dr[:, 0, None, None] + fy[None] * dr[:, 1, None, None]
+    dr_dot_kappa = (fx[None] * _per_layer(dr[:, 0], fx.ndim)
+                    + fy[None] * _per_layer(dr[:, 1], fy.ndim))
     v = _t(v).reshape(-1, 2)
-    v_dot_kappa = fx[None] * v[:, 0, None, None] + fy[None] * v[:, 1, None, None]
+    v_dot_kappa = (fx[None] * _per_layer(v[:, 0], fx.ndim)
+                   + fy[None] * _per_layer(v[:, 1], fy.ndim))
 
     term_1 = 2 * torch.cos(dr_dot_kappa - tl * v_dot_kappa)
     term_2 = torch.sinc(Delta_t * v_dot_kappa / (2 * math.pi))

@@ -1,12 +1,15 @@
 """Build and load the package's CUDA kernels.
 
-``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
-shared library with a plain C interface, under ``build/fast_tpu_torch/``
-beside the package, at first use. The library name carries a hash of the
-source, so an edited source is never served by a stale build. It is loaded
-with ``ctypes``; callers pass pointers and the CUDA stream as integers.
+``csrc/<name>.cu`` (with the shared ``csrc/*.cuh`` headers) is compiled by
+``nvcc`` for Hopper (``sm_90a``) into a shared library of its own with a
+plain C interface, under ``build/fast_tpu_torch/`` beside the package, at
+first use. The library name carries a hash of the sources, so an edited
+source is never served by a stale build. It is loaded with ``ctypes``;
+callers pass pointers and the CUDA stream as integers.
+:func:`build_all` runs one ``nvcc`` per source, all at once.
 """
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -63,6 +66,13 @@ def build(name):
     os.replace(tmp, out)
     return BuildInfo(out, time.perf_counter() - t0,
                      proc.stdout + proc.stderr)
+
+
+def build_all(names):
+    """Build several libraries at once (one ``nvcc`` process each);
+    returns ``{name: BuildInfo}``."""
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load_library(name):

@@ -17,6 +17,13 @@ Output layout, as the TPU kernel's: ``(2 * nbatch, 2)`` float32, rows
 ``0..nbatch-1`` the screens from the real parts and rows
 ``nbatch..2*nbatch-1`` those from the imaginary parts; columns
 ``(sum pm cos phi, sum pm sin phi)``, not yet scaled by ``dx^2 / norm``.
+
+The pieces both detect kernels share live here too: Philox, sincos, the
+noise transforms, the pupil padding and :func:`detect_reference`, the
+plain version of the detect pass (``csrc/common.cuh``) that ends K2 and
+the colfac-detect kernel K1 (:mod:`fast_tpu_torch.ops.colfac_detect`).
+Optional subharmonic screens (:func:`pack_subharm`) are added to the
+phase before the detector, as the TPU kernels do.
 """
 
 import ctypes
@@ -126,6 +133,24 @@ def _key(seed):
     return seed & _MASK32, (seed >> 32) & _MASK32
 
 
+def uniforms(bits):
+    """'mixed' noise: unit-variance uniforms from the top 24 bits of
+    32-bit words, ``(bits >> 8) * sqrt(3) 2^-23 - sqrt(3)`` in float32."""
+    s3 = float(np.float32(np.sqrt(3.0)))
+    scale = float(np.float32(s3) * np.float32(2.0 ** -23))
+    return (bits.to(torch.int64) >> 8).to(torch.float32) * scale - s3
+
+
+def box_muller(b1, b2):
+    """'gauss' noise: ``(r cos, r sin)`` from two 32-bit words' top 24
+    bits, ``u1 = i1 2^-24 + 2^-25``, ``u2 = i2 2^-24``."""
+    u1 = (b1.to(torch.int64) >> 8).to(torch.float32) * 2.0 ** -24 + 2.0 ** -25
+    u2 = (b2.to(torch.int64) >> 8).to(torch.float32) * 2.0 ** -24
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    st, ct = sincos(float(np.float32(2 * np.pi)) * u2)
+    return r * ct, r * st
+
+
 def philox_bits(seed, nbatch, N, stream=0, device="cpu", draw0=0):
     """The kernel's two random words per grid point: ``(b1, b2)``, each an
     int64 tensor of 32-bit values, shape (nbatch, N, N), for draws
@@ -155,8 +180,26 @@ def _pack(out):
                         torch.cat([out[:, 1], out[:, 3]])], dim=-1)
 
 
+def detect_reference(gr, gi, wr, wi, pm_t, sh_t=None):
+    """The detect pass that ends both kernels, in stock torch ops: the
+    transposed screens ``H = W G'`` of each draw from its ``G'`` (``gr``,
+    ``gi``: (nb, N, P)), plus the transposed subharmonic screens ``sh_t``
+    ((nb, 2, P, P)) if given, then ``(sum pm_t cos, sum pm_t sin)`` of
+    ``Re H`` and ``Im H``: (nb, 4) float32."""
+    h1 = wr @ gr - wi @ gi
+    h2 = wr @ gi + wi @ gr
+    if sh_t is not None:
+        h1 = h1 + sh_t[:, 0]
+        h2 = h2 + sh_t[:, 1]
+    s1, c1 = sincos(h1)
+    s2, c2 = sincos(h2)
+    return torch.stack([(pm_t * c1).sum((-2, -1)), (pm_t * s1).sum((-2, -1)),
+                        (pm_t * c2).sum((-2, -1)), (pm_t * s2).sum((-2, -1))],
+                       dim=-1)
+
+
 def synth_detect_reference(seed, s_t, wr, wi, pm_t, nbatch, mix=None,
-                           stream=0, draw0=0, bits=None):
+                           stream=0, draw0=0, bits=None, sh_t=None):
     """K2 in stock torch ops (see the module docstring).
 
     Args:
@@ -172,6 +215,8 @@ def synth_detect_reference(seed, s_t, wr, wi, pm_t, nbatch, mix=None,
         draw0: counter index of the first draw.
         bits: optional ``(b1, b2)`` integer tensors (nbatch, N, N) of
             32-bit values in place of the Philox bits.
+        sh_t: optional (nbatch, 2, P, P) float32 transposed subharmonic
+            screens (:func:`pack_subharm`).
 
     Returns:
         (2 * nbatch, 2) float32 tensor.
@@ -186,37 +231,18 @@ def synth_detect_reference(seed, s_t, wr, wi, pm_t, nbatch, mix=None,
                             draw0=draw0 + d0)
         else:
             b = (bits[0][d0:d0 + nb], bits[1][d0:d0 + nb])
-        parts.append(_reference_sums(b, s_t, wr, wi, pm_t, mix))
+        if mix is not None:
+            z1, z2 = uniforms(b[0]) @ mix, uniforms(b[1]) @ mix
+        else:
+            z1, z2 = box_muller(*b)
+        xr = z1 * s_t
+        xi = z2 * s_t
+        gr = xr @ wr.T - xi @ wi.T
+        gi = xr @ wi.T + xi @ wr.T
+        parts.append(detect_reference(
+            gr, gi, wr, wi, pm_t,
+            None if sh_t is None else sh_t[d0:d0 + nb]))
     return _pack(torch.cat(parts))
-
-
-def _reference_sums(bits, s_t, wr, wi, pm_t, mix):
-    """(nb, 4) per-draw sums of the plain version from the draws' bits."""
-    i1 = (bits[0].to(torch.int64) >> 8).to(torch.float32)
-    i2 = (bits[1].to(torch.int64) >> 8).to(torch.float32)
-    if mix is not None:
-        s3 = float(np.float32(np.sqrt(3.0)))
-        scale = float(np.float32(s3) * np.float32(2.0 ** -23))
-        z1 = (i1 * scale - s3) @ mix
-        z2 = (i2 * scale - s3) @ mix
-    else:
-        u1 = i1 * 2.0 ** -24 + 2.0 ** -25
-        u2 = i2 * 2.0 ** -24
-        r = torch.sqrt(-2.0 * torch.log(u1))
-        st, ct = sincos(float(np.float32(2 * np.pi)) * u2)
-        z1 = r * ct
-        z2 = r * st
-    xr = z1 * s_t
-    xi = z2 * s_t
-    gr = xr @ wr.T - xi @ wi.T
-    gi = xr @ wi.T + xi @ wr.T
-    h1 = wr @ gr - wi @ gi
-    h2 = wr @ gi + wi @ gr
-    s1, c1 = sincos(h1)
-    s2, c2 = sincos(h2)
-    return torch.stack([(pm_t * c1).sum((-2, -1)), (pm_t * s1).sum((-2, -1)),
-                        (pm_t * c2).sum((-2, -1)), (pm_t * s2).sum((-2, -1))],
-                       dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -239,6 +265,36 @@ def pad_pupil(wr, wi, pm_t):
         wi = torch.nn.functional.pad(wi, (0, 0, 0, pad))
         pm_t = torch.nn.functional.pad(pm_t, (0, pad, 0, pad))
     return wr, wi, pm_t
+
+
+def pack_subharm(sh, P=None):
+    """Subharmonic screens as the detect pass takes them: (nbatch, npup,
+    npup) complex -> (nbatch, 2, P, P) float32, the transposed real and
+    imaginary parts zero padded to ``P`` (default
+    :func:`padded_pupil`); padded pixels fall where ``pm_t`` is zero. The
+    port of ``fast_tpu.ops.pallas_synth.pad_subharm_screens`` in the
+    transposed layout of K2's ``pm_t``."""
+    npup = sh.shape[-1]
+    P = padded_pupil(npup) if P is None else int(P)
+    out = torch.zeros((sh.shape[0], 2, P, P), dtype=torch.float32,
+                      device=sh.device)
+    out[:, 0, :npup, :npup] = sh.real.transpose(-2, -1)
+    out[:, 1, :npup, :npup] = sh.imag.transpose(-2, -1)
+    return out
+
+
+def check_subharm(sh_t, nbatch, P, device):
+    """Raise unless ``sh_t`` is None or a contiguous float32 (nbatch, 2,
+    P, P) tensor on ``device``."""
+    if sh_t is None:
+        return
+    if tuple(sh_t.shape) != (int(nbatch), 2, P, P):
+        raise ValueError(f"sh_t must be {(int(nbatch), 2, P, P)}, got "
+                         f"{tuple(sh_t.shape)}")
+    if sh_t.dtype != torch.float32 or sh_t.device != device:
+        raise TypeError(f"sh_t must be float32 on {device}")
+    if not sh_t.is_contiguous():
+        raise ValueError("sh_t must be contiguous")
 
 
 def _smem_bytes(N, P, mixed, rows):
@@ -277,7 +333,7 @@ def _library():
     if not getattr(lib, "_fast_typed", False):
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
         lib.fast_synth_detect.argtypes = [u, u, u, i, i, p, p, p, p, p, p, p,
-                                          p, i, i, i, p]
+                                          p, p, i, i, i, p]
         lib.fast_synth_detect.restype = i
         lib.fast_sincos.argtypes = [p, p, p, i, p]
         lib.fast_sincos.restype = i
@@ -292,10 +348,29 @@ def build():
     return _library()[1]
 
 
-def _raise_on(lib, err, what):
+def raise_on(lib, err, what):
     if err:
         raise RuntimeError(f"{what} failed: CUDA error {err} "
                            f"({lib.fast_error_string(err).decode()})")
+
+
+def check_tables(tables, nbatch):
+    """Raise unless each ``name: (tensor, shape)`` of ``tables`` (the first
+    one's shape None: it sets the device) is a contiguous float32 tensor
+    of that shape on the first one's device, and ``nbatch`` > 0."""
+    (name0, (t0, _)), *_ = tables.items()
+    for name, (t, shape) in tables.items():
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != t0.device:
+            raise ValueError(f"{name} is on {t.device}, {name0} on "
+                             f"{t0.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if int(nbatch) <= 0:
+        raise ValueError("nbatch must be positive")
 
 
 def _check(s_t, wr, wi, pm_t, nbatch, mix):
@@ -303,25 +378,16 @@ def _check(s_t, wr, wi, pm_t, nbatch, mix):
         raise ValueError(f"s_t must be (N, N), got {tuple(s_t.shape)}")
     N = s_t.shape[0]
     P = wr.shape[0]
-    shapes = {"wr": (wr, (P, N)), "wi": (wi, (P, N)), "pm_t": (pm_t, (P, P))}
+    tables = {"s_t": (s_t, None), "wr": (wr, (P, N)), "wi": (wi, (P, N)),
+              "pm_t": (pm_t, (P, P))}
     if mix is not None:
-        shapes["mix"] = (mix, (N, N))
-    for name, (t, shape) in shapes.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    for name, t in [("s_t", s_t)] + [(k, v[0]) for k, v in shapes.items()]:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.device != s_t.device:
-            raise ValueError(f"{name} is on {t.device}, s_t on {s_t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if int(nbatch) <= 0:
-        raise ValueError("nbatch must be positive")
+        tables["mix"] = (mix, (N, N))
+    check_tables(tables, nbatch)
     return N, P
 
 
-def synth_detect(seed, s_t, wr, wi, pm_t, nbatch, mix=None, stream=0):
+def synth_detect(seed, s_t, wr, wi, pm_t, nbatch, mix=None, stream=0,
+                 sh_t=None):
     """K2 on ``nbatch`` complex draws; arguments as
     :func:`synth_detect_reference`.
 
@@ -329,13 +395,13 @@ def synth_detect(seed, s_t, wr, wi, pm_t, nbatch, mix=None, stream=0):
     most 4096 draws, the n-th launch from draw ``4096 * n``) on the
     current stream and counts each launch in ``synth_detect.LAUNCHES``, or
     raises for a shape it does not take (:func:`supports`); on CPU tensors
-    it runs the plain version.
+    it runs the plain version. ``sh_t`` is padded as ``wr`` is.
     """
     N, P = _check(s_t, wr, wi, pm_t, nbatch, mix)
     dev = s_t.device
     if dev.type == "cpu":
         return synth_detect_reference(seed, s_t, wr, wi, pm_t, nbatch,
-                                      mix=mix, stream=stream)
+                                      mix=mix, stream=stream, sh_t=sh_t)
     if dev.type != "cuda":
         raise ValueError(f"synth_detect runs on CPU or CUDA, not {dev}")
     rows = _rows_per_thread(N, P, mix is not None)
@@ -349,6 +415,7 @@ def synth_detect(seed, s_t, wr, wi, pm_t, nbatch, mix=None, stream=0):
     k0, k1 = _key(seed)
     wr, wi, pm_t = pad_pupil(wr, wi, pm_t)
     Pp = wr.shape[0]
+    check_subharm(sh_t, nbatch, Pp, dev)
     lib, _ = _library()
     nbatch = int(nbatch)
     out = torch.empty((nbatch, 4), dtype=torch.float32, device=dev)
@@ -361,10 +428,11 @@ def synth_detect(seed, s_t, wr, wi, pm_t, nbatch, mix=None, stream=0):
             err = lib.fast_synth_detect(
                 k0, k1, int(stream), d0, nb, s_t.data_ptr(), wr.data_ptr(),
                 wi.data_ptr(), pm_t.data_ptr(),
-                None if mix is None else mix.data_ptr(), g[0].data_ptr(),
-                g[1].data_ptr(), out[d0:d0 + nb].data_ptr(), N, Pp, rows,
-                cs)
-            _raise_on(lib, err, "synth_detect launch")
+                None if mix is None else mix.data_ptr(),
+                None if sh_t is None else sh_t[d0].data_ptr(),
+                g[0].data_ptr(), g[1].data_ptr(), out[d0:d0 + nb].data_ptr(),
+                N, Pp, rows, cs)
+            raise_on(lib, err, "synth_detect launch")
             synth_detect.LAUNCHES += 1
     return _pack(out)
 
@@ -385,5 +453,5 @@ def device_sincos(phi):
         err = lib.fast_sincos(phi.data_ptr(), s.data_ptr(), c.data_ptr(),
                               phi.numel(),
                               torch.cuda.current_stream().cuda_stream)
-    _raise_on(lib, err, "sincos launch")
+    raise_on(lib, err, "sincos launch")
     return s, c

@@ -1,8 +1,9 @@
 """Monte Carlo synthesis in stock torch ops: phase screens and detector.
 
-The plain paths of the iid run (``SYNTH='matmul'`` and ``'fft'``), the
-pruned inverse-DFT matrix that every path shares, and the log-amplitude
-draws:
+The plain paths of the iid run (``SYNTH='matmul'``, ``'colfac'`` and
+``'fft'``), the tables every path shares (the pruned inverse-DFT matrix,
+the per-column Cholesky factors of the colfac basis, the subharmonic
+modes), the subharmonic screens and the log-amplitude draws:
 
     complex normals -> colour by sqrt(PSD) df -> pruned (or full) centred
     inverse DFT -> real and imaginary parts as two screens -> pupil-overlap
@@ -11,6 +12,8 @@ draws:
 The Hermitian doubling trick of the reference (``fast/funcs.py:220-222``)
 is kept: one complex draw gives two independent screens.
 """
+
+import contextlib
 
 import numpy as np
 import torch
@@ -52,6 +55,116 @@ def synthesize_screens_pruned(generator, sqrt_powerspec, df, nbatch, W):
                           dtype=W.dtype)
     rand = rand * (sqrt_powerspec * df)
     return W @ rand @ W.T
+
+
+def _factor(C, jitter, floor):
+    """Cholesky factors of the batched Hermitian ``C`` with a diagonal
+    jitter of ``jitter`` times each matrix's mean diagonal, floored at
+    ``1e-3`` of the batch mean plus ``floor`` so that fully masked columns
+    factor; failed factors come back as NaN."""
+    tr = torch.diagonal(C, dim1=-2, dim2=-1).real.sum(-1) / C.shape[-1]
+    tr = torch.maximum(tr, tr.mean() * 1e-3 + floor)
+    eye = torch.eye(C.shape[-1], dtype=C.dtype, device=C.device)
+    L, info = torch.linalg.cholesky_ex(C + (jitter * tr)[:, None, None] * eye)
+    L[info != 0] = float("nan")
+    return L
+
+
+def column_factors(sqrt_powerspec, df, W, jitter=1e-10):
+    """Per-column Cholesky factors of the pupil-row covariance, float64 on
+    the CPU.
+
+    The columns of ``G = W X`` are independent with covariance
+    ``C_m = A_m A_m^H``, ``A_m = W diag(S[:, m] df)``; drawing
+    ``G[:, m] = L_m z_m`` is the same process with Npup instead of N
+    random numbers per column (``fast_tpu.synthesis.column_factors``).
+    Returns an (N, Npup, Npup) complex128 tensor.
+    """
+    W = torch.as_tensor(np.asarray(W, np.complex128))
+    S = torch.as_tensor(np.asarray(sqrt_powerspec, np.float64) * float(df))
+    A = W[None, :, :] * S.T[:, None, :]          # (cols, Npup, N)
+    return _factor(A @ A.conj().transpose(1, 2), jitter, 1e-300)
+
+
+@contextlib.contextmanager
+def _full_fp32():
+    """Matrix products in full float32 (no TF32) inside the block."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def column_factors_device(sqrt_powerspec, df, W, device, jitter=3e-6):
+    """The column factors in float32 on ``device``: one batched product
+    and a batched Cholesky (``fast_tpu.synthesis.column_factors_device``).
+
+    The f32 factors reproduce the column covariances to ~1e-6 relative. A
+    column whose f32 Cholesky fails comes back as NaN, and the caller falls
+    back to :func:`column_factors`. Returns (N, Npup, Npup) complex64 on
+    ``device``.
+    """
+    W = torch.as_tensor(np.asarray(W).astype(np.complex64), device=device)
+    S = torch.as_tensor((np.asarray(sqrt_powerspec) * float(df))
+                        .astype(np.float32), device=device)
+    A = W[None, :, :] * S.T[:, None, :]
+    with _full_fp32():
+        C = A @ A.conj().transpose(1, 2)
+    return _factor(C, jitter, 1e-30)
+
+
+def synthesize_screens_colfac(generator, L, W, nbatch):
+    """Pupil-cropped complex screens from the column factors ``L``: the
+    noise is drawn in the (Npup x N) basis of ``G = W X``, then ``G W^T``.
+    The same process as :func:`synthesize_screens_pruned`."""
+    ncols, npup, _ = L.shape
+    z = complex_normal((nbatch, ncols, npup), generator, dtype=L.dtype)
+    G = torch.einsum("mpq,bmq->bpm", L, z)
+    return torch.einsum("bpm,cm->bpc", G, W.to(L.dtype))
+
+
+def make_subharm_modes(subharm_fx, subharm_fy, N, dx):
+    """Complex exponential modes ``exp(i(x fx + y fy))`` of the subharmonic
+    grids on the real-space grid of the main screen: (levels, 3, 3, N, N)
+    complex128 host numpy (``fast_tpu.synthesis.make_subharm_modes``)."""
+    D = dx * N
+    coords = np.arange(-D / 2, D / 2, dx)
+    if len(coords) == N + 1:
+        coords = coords[:-1]
+    x, y = np.meshgrid(coords, coords)
+    fx = np.asarray(subharm_fx, dtype=np.float64)
+    fy = np.asarray(subharm_fy, dtype=np.float64)
+    phase = (x[None, None, None] * fx[..., None, None]
+             + y[None, None, None] * fy[..., None, None])
+    return np.exp(1j * phase)
+
+
+def subharm_mode_table(modes, crop):
+    """Each mode less its mean over the full grid, then cropped to
+    ``crop = (lo, hi)`` on both axes: (levels, 3, 3, P, P).
+
+    A subharmonic screen is mean-subtracted over the full grid before the
+    pupil crop (``fast/funcs.py:253``); subtracting each mode's mean once
+    here gives the same screens without ever forming a full-grid one.
+    """
+    lo, hi = crop
+    return (modes[..., lo:hi, lo:hi]
+            - modes.mean(axis=(-2, -1), keepdims=True))
+
+
+def synthesize_subharm_complex(generator, sqrt_powerspec_sh, df_sh,
+                               mode_table, nbatch):
+    """Low-order subharmonic screens: ``nbatch`` complex (P, P) screens as
+    sums of the 27 modes of :func:`subharm_mode_table` with complex normal
+    weights of variance ``PSD df^2`` per level."""
+    cdtype = (torch.complex64 if sqrt_powerspec_sh.dtype == torch.float32
+              else torch.complex128)
+    rand = complex_normal((nbatch,) + tuple(sqrt_powerspec_sh.shape),
+                          generator, dtype=cdtype)
+    weights = rand * (sqrt_powerspec_sh * df_sh[:, None, None])
+    return torch.einsum("bimn,imnxy->bxy", weights, mode_table.to(cdtype))
 
 
 def double_screens(scr):

@@ -106,7 +106,8 @@ CPU, CUDA = torch.device("cpu"), torch.device("cuda")
 @pytest.mark.parametrize("args,synth", [
     (("auto", torch.float32, CUDA, 256, 82, "mixed"), "pallas_fused"),
     (("auto", torch.float32, CUDA, 102, 102, "mixed"), "pallas_fused"),
-    (("auto", torch.float32, CUDA, 4096, 128, "gauss"), "pallas_fused"),
+    (("pallas_fused", torch.float32, CUDA, 4096, 128, "gauss"),
+     "pallas_fused"),
     (("auto", torch.float32, CPU, 1024, 402, "mixed"), "pallas_fused"),
     (("auto", torch.float64, CUDA, 1024, 402, "mixed"), "fft"),
     (("matmul", torch.float32, CUDA, 1024, 402, "mixed"), "matmul"),

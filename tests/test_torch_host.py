@@ -115,9 +115,6 @@ def test_default_device_needs_a_card():
 
 @pytest.mark.parametrize("overrides,match", [
     ({"TEMPORAL": True}, "TEMPORAL"),
-    ({"SUBHARM": True}, "SUBHARM"),
-    ({"SYNTH": "colfac"}, "colfac"),
-    ({"SYNTH": "pallas_colfac"}, "K1"),
     ({"SYNTH": "pallas"}, "K7"),
 ])
 def test_unported_options_raise(overrides, match):
