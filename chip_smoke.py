@@ -6,10 +6,11 @@ Phases, in order; any failure exits non-zero before the result line:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
    fails without a CUDA device;
-2. build the synth-detect kernel K2 (``csrc/synth_detect.cu``) and the
-   colfac-detect kernel K1 (``csrc/colfac_detect.cu``), one ``nvcc`` each,
-   started together; print ptxas registers, spills and shared memory of
-   each pass at the flagships' padded pupil (P=96);
+2. build the synth-detect kernel K2 (``csrc/synth_detect.cu``), the
+   colfac-detect kernel K1 (``csrc/colfac_detect.cu``) and the AR flow
+   kernels K4 and K5 (``csrc/ar_flow.cu``), one ``nvcc`` each, started
+   together; print ptxas registers, spills and shared memory of each pass
+   at the flagships' padded pupil (P=96);
 3. K2 against its plain torch version on the card, 'mixed' and 'gauss'
    noise, from the same Philox bits: at the 256^2 flagship shapes (N=256,
    P=82) over 4100 draws, which takes two launches, the second from draw
@@ -30,16 +31,36 @@ Phases, in order; any failure exits non-zero before the result line:
    not K2, and agree with 'matmul' (NCHUNKS=64, for memory);
 7. subharmonics: SUBHARM=True at 256^2 through K2 and at 512^2
    (NITER=65536) through K1, each against 'matmul' with SUBHARM=True;
-8. times: each kernel's ms per 4096 draws beside its bound and its plain
-   version's; the factor build at 512^2; warm ``run()`` rates at 256^2
-   (K2, 'matmul', K2 'gauss', K1 pinned) and at 512^2 (K1, 'colfac',
-   'matmul', K2 pinned at NITER=65536); then one warm run of the K2, K1,
-   'colfac' and 'matmul' paths under ``torch.profiler``.
+8. K4 (``ar_flow_fused``) against its plain version at the temporal
+   flagship's shapes (N=256, 4 layers, P=82) from the same initial state
+   and the same Philox bits: pure frozen flow, 'uniform' and 'gauss'
+   boiling, over 4100 steps (two launches: the carried state and the
+   absolute-step counter), the final state bit for bit and the couplings
+   within the limit, with the TF32 control; K5 (``ar_flow_streamed``) the
+   same on the 16-layer 512^2 link over 260 steps in launches of 256, and
+   K5 against K4 on the 4-layer flagship;
+9. the temporal slice: ``Fast(flagship(TEMPORAL=True, TEMPORAL_SYNTH='ar',
+   DT=0.001, NITER=65536, NCHUNKS=16), device="cuda").run()`` must launch
+   K4 and no other kernel, return finite power with a lag-1
+   autocorrelation over 0.9, and agree in its marginal with the iid
+   'matmul' run (mean within 5 standard errors at the series' effective
+   sample count, KS test on the series thinned beyond its integrated
+   autocorrelation time); the 16-layer 512^2 link through K5 at
+   NITER=8192; the 'ar' kernel route against the SYNTH='fft' route from
+   one seed; one 'screens' run;
+10. times: each kernel's ms per 4096 draws or steps beside its bound and
+   its plain version's; the factor build at 512^2; warm ``run()`` rates at
+   256^2 (K2, 'matmul', K2 'gauss', K1 pinned), at 512^2 (K1, 'colfac',
+   'matmul' and K2 pinned at fewer realizations) and of the temporal
+   routes (K4, 'fft', K5); then one warm run of the K2, K1, 'colfac',
+   'matmul', K4 and K5 paths under ``torch.profiler``.
 
 The last lines are the card, one JSON object of per-kernel numbers and
 one of the run's device. The flagship config is the AO-corrected 0.8 m
 uplink at 1550 nm through a 4-layer HV57/Bufton profile, at DX=0.01 m:
-a 256^2 grid (``__graft_entry__.py``) and the same link at 512^2.
+a 256^2 grid (``__graft_entry__.py``) and the same link at 512^2; the
+temporal mode runs it at DT = 1 ms, and through a 16-layer profile at
+512^2.
 """
 
 import json
@@ -54,6 +75,18 @@ import torch
 NITER = 262144
 NCHUNKS = 16
 NITER_SMALL = 65536   # realizations of the slower or secondary runs
+NITER_K2_512 = 32768  # K2 pinned at 512^2, the slowest yardstick
+NSTEPS = 4100         # steps of a K4-against-plain check: two launches of
+                      # at most 4096 steps
+NSTEPS_K5 = 260       # steps of a K5 check at 16 layers x 512^2, in
+MAX_STEPS_K5 = 256    # launches of at most 256 steps (its plain version
+                      # draws 4.2 M Philox words per step)
+NITER_T = 65536       # steps of the temporal slice (NCHUNKS=16)
+NITER_T16 = 8192      # steps of the 16-layer 512^2 temporal run
+NITER_FFT = 8192      # steps of the timed SYNTH='fft' temporal run
+ACF_MIN = 0.9         # lag-1 autocorrelation of a temporal power series
+KS_PVALUE = 1e-3      # thinned temporal series against the iid draws
+FFT_RTOL = 2e-3       # 'ar' kernel route against the SYNTH='fft' route
 NDRAWS = 4100         # complex draws of a kernel-against-plain check: two
                       # launches of at most 4096 draws
 NTIME = 4096          # complex draws of a timed call: one launch
@@ -76,20 +109,28 @@ def fail(msg):
     raise SystemExit(1)
 
 
-def flagship(**overrides):
+def flagship(nlayers=4, **overrides):
     from fast_tpu_torch import conf, turbulence_models
-    h, cn2, w = turbulence_models.HV57_Bufton_profile(4)
+    h, cn2, w = turbulence_models.HV57_Bufton_profile(nlayers)
     p = dict(conf.DEFAULTS)
     p.update({
         "NPXLS": 256, "DX": 0.01, "NITER": NITER, "NCHUNKS": NCHUNKS,
         "TEMPORAL": False, "D_GROUND": 0.8, "WVL": 1550e-9,
         "ZENITH_ANGLE": 55, "AO_MODE": "AO", "DSUBAP": 0.1, "TLOOP": 0.001,
         "TEXP": 0.001, "ALIAS": True, "H_TURB": h, "CN2_TURB": cn2,
-        "WIND_SPD": w, "WIND_DIR": np.array([0.0, 90.0, 180.0, 270.0]),
+        "WIND_SPD": w, "WIND_DIR": np.arange(nlayers) * (360.0 / nlayers),
         "SEED": 1, "LOGLEVEL": "WARNING",
     })
     p.update(overrides)
     return p
+
+
+def temporal(nlayers=4, **overrides):
+    """The flagship link as a time series at DT = 1 ms on the AR route."""
+    kw = dict(TEMPORAL=True, TEMPORAL_SYNTH="ar", DT=0.001, NITER=NITER_T,
+              NCHUNKS=16)
+    kw.update(overrides)
+    return flagship(nlayers, **kw)
 
 
 def default_config(**overrides):
@@ -101,9 +142,11 @@ def default_config(**overrides):
     return p
 
 
-def cuda_ms(fn, reps):
-    """Mean device milliseconds of ``fn()`` over ``reps`` warm calls."""
-    fn()
+def cuda_ms(fn, reps, warm=True):
+    """Mean device milliseconds of ``fn()`` over ``reps`` calls, after one
+    more to warm up unless the caller has run it before."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
@@ -155,6 +198,20 @@ def k1_bound(N, P, nbatch, mixed):
     return _bound(flops, nbytes)
 
 
+def ar_bound(L, N, P, nsteps, boiling):
+    """K4's and K5's least time in ms for ``nsteps`` steps of L layers at
+    an (N, N) grid and a P px pupil: per step 8PN^2 FLOPs for G' and
+    4P^2 N for the real screen, plus 8LN^2 in the recurrence and layer sum
+    and 8LN^2 more with boiling (the noise's scale and its scaled add),
+    at the fp32 rate; or state, phasors and noise scale in, state and
+    couplings out at the memory rate."""
+    flops = nsteps * (8 * P * N * N + 4 * P * P * N
+                      + (16 if boiling else 8) * L * N * N)
+    nbytes = 4 * ((7 if boiling else 6) * L * N * N + 2 * P * N + P * P
+                  + 2 * nsteps)
+    return _bound(flops, nbytes)
+
+
 def _bound(flops, nbytes):
     t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
@@ -185,22 +242,33 @@ def phase_env():
 
 _PASS = re.compile(r"(synth_pass1|colfac_pass1|detect_pass)I(?:Lb([01])E)?"
                    rf"Li{PJ}E(?:Li([12])E)?E")
+# the AR passes: the update at 4 layers a thread (K4 at the flagship, and
+# K5's layer block) per noise kind, the two products at the padded pupil
+_AR_PASS = re.compile(rf"(ar_update)ILi4ELi([012])EE|(ar_dft|ar_detect)"
+                      rf"ILi{PJ}EE")
 
 
 def phase_build():
     from fast_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    infos = _build.build_all(["synth_detect", "colfac_detect"])
-    print(f"build: both kernels in {time.perf_counter() - t0:.1f} s ("
+    infos = _build.build_all(["synth_detect", "colfac_detect", "ar_flow"])
+    print(f"build: three libraries in {time.perf_counter() - t0:.1f} s ("
           + ", ".join(f"{k}.cu nvcc {v.seconds:.1f} s"
                       for k, v in infos.items()) + ")")
     for name, info in infos.items():
-        fn = None
+        fn = ar = None
         for line in info.log.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 fn = _PASS.search(m.group(1))
+                ar = _AR_PASS.search(m.group(1))
                 continue
+            if ar and ("Used" in line or "spill" in line):
+                kind = ("" if ar.group(3) else " 4 layers "
+                        + ("frozen", "uniform", "gauss")[int(ar.group(2))])
+                print(f"  ptxas {name}: {ar.group(1) or ar.group(3)}"
+                      f"{kind or f' P={16 * PJ}'}: "
+                      f"{line.split(':', 1)[-1].strip()}")
             if fn and ("Used" in line or "spill" in line):
                 mode = {"1": " mixed", "0": " gauss", None: ""}[fn.group(2)]
                 rows = f" rows={fn.group(3)}" if fn.group(3) else ""
@@ -385,20 +453,281 @@ def slice_run(sim, kernel, counter, other, label):
     return r, launches, secs
 
 
-def rates(runs, card, where):
+def ar_inputs(sim, noise):
+    """One AR series' arguments from a temporal sim's tables: the initial
+    state drawn with numpy from SEED and coloured by sqrt(PSD) df, the
+    phasor and noise scale (pure frozen flow: the unit phasor and none),
+    W and pupil * mode."""
+    T = sim.tables
+    rng = np.random.default_rng(SEED & 0xFFFFFFFF)
+    z = rng.standard_normal((2,) + tuple(T["sqrt_psd_df"].shape),
+                            dtype=np.float32)
+    z = torch.from_numpy(z).to(DEVICE)
+    a0 = torch.complex(z[0], z[1]) * T["sqrt_psd_df"]
+    if noise is None:
+        return a0, T["step_phasor"], None, T["W"], T["pm"]
+    return a0, T["ph"], T["ns"], T["W"], T["pm"]
+
+
+def check_ar(kernel, fn, inputs, nsteps, kw, label):
+    """An AR kernel against the plain version on the same inputs: the
+    final state bit for bit, the couplings within the limit. Returns (max
+    |d| of the couplings, the plain version's couplings)."""
+    from fast_tpu_torch.ops import ar_flow as af
+    before = fn.LAUNCHES
+    ck, ak = fn(SEED, *inputs, nsteps, **kw)
+    cp, ap = af.ar_flow_reference(SEED, *inputs, nsteps,
+                                  noise=kw.get("noise", "uniform"))
+    torch.cuda.synchronize()
+    launches = fn.LAUNCHES - before
+    fn.LAUNCHES = before  # the main path's count excludes these
+    if not bool(torch.isfinite(ck).all()):
+        fail(f"{kernel} ({label}) gave non-finite sums")
+    serr = float((ak - ap).abs().max())
+    err = float((ck - cp).abs().max())
+    limit = KERNEL_REL * float(cp.abs().max())
+    print(f"{kernel} {label}, {nsteps} steps in {launches} launches: max "
+          f"|kernel - plain| = {err:.3e} in the couplings (limit "
+          f"{limit:.3e}; max |sum| {float(cp.abs().max()):.3e}), {serr:.3e} "
+          f"in the final state (limit 0; max |a| "
+          f"{float(ap.abs().max()):.3e})")
+    if serr != 0.0:
+        fail(f"{kernel} ({label}): the final state differs from the plain "
+             f"version's")
+    if not err <= limit:
+        fail(f"{kernel} ({label}) disagrees with its plain version")
+    return err, cp
+
+
+def ar_tf32_control(kernel, inputs, noise, c32, label):
+    """The plain version with its products at TF32 against the fp32 one
+    on the first 512 steps; must land outside the limit."""
+    from fast_tpu_torch.ops import ar_flow as af
+    n = min(512, c32.shape[0])
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ct = af.ar_flow_reference(SEED, *inputs, n,
+                                  noise=noise or "uniform")[0]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    terr = float((ct - c32[:n]).abs().max())
+    limit = KERNEL_REL * float(c32[:n].abs().max())
+    print(f"control: plain {kernel} {label} with TF32 products vs fp32, {n} "
+          f"steps: max |d| = {terr:.3e}, {terr / limit:.1f}x the limit")
+    if not terr > limit:
+        fail(f"the limit does not reject TF32 products ({kernel} {label})")
+
+
+def time_ar(fn, inputs, nsteps, kw, reps):
+    """(kernel ms, plain ms) per ``nsteps`` steps; the launches do not
+    count."""
+    from fast_tpu_torch.ops import ar_flow as af
+    before = fn.LAUNCHES
+    ms = cuda_ms(lambda: fn(SEED, *inputs, nsteps, **kw), reps)
+    plain_ms = cuda_ms(lambda: af.ar_flow_reference(
+        SEED, *inputs, nsteps, noise=kw.get("noise", "uniform")), 1,
+        warm=False)  # the checks before ran it
+    fn.LAUNCHES = before
+    return ms, plain_ms
+
+
+def phase_ar(sim_t, sim_t16):
+    """K4 at the temporal flagship's shapes and K5 at the 16-layer 512^2
+    link's, each against the plain version, and K5 against K4."""
+    from fast_tpu_torch.ops import ar_flow as af
+    k4, k5 = {"max_abs_err": 0.0}, {"max_abs_err": 0.0}
+    L, N, P = len(sim_t.h), sim_t.Npxls, sim_t.Npxls_pup
+    for noise in (None, "uniform", "gauss"):
+        label = f"{noise or 'frozen flow'} {N}^2, {L} layers, P={P}"
+        inputs = ar_inputs(sim_t, noise)
+        kw = {"noise": noise} if noise else {}
+        err, cp = check_ar("K4", af.ar_flow_fused, inputs, NSTEPS, kw, label)
+        k4["max_abs_err"] = max(k4["max_abs_err"], err)
+        ar_tf32_control("K4", inputs, noise, cp, noise or "frozen flow")
+        # K5's layer blocks (one layer, then three and one) against K4
+        cf = af.ar_flow_fused(SEED, *inputs, 600, **kw)
+        for lb in (1, 3):
+            cs = af.ar_flow_streamed(SEED, *inputs, 600, lb_layers=lb, **kw)
+            d = float((cs[0] - cf[0]).abs().max())
+            ds = float((cs[1] - cf[1]).abs().max())
+            print(f"K5 in blocks of {lb} against K4, {label}, 600 steps: max "
+                  f"|d| = {d:.3e} in the couplings, {ds:.3e} in the state "
+                  f"(limit 0 for both: the same sums in the same order)")
+            if d != 0.0 or ds != 0.0:
+                fail(f"K5 (blocks of {lb}) differs from K4 ({label})")
+        af.ar_flow_fused.LAUNCHES = af.ar_flow_streamed.LAUNCHES = 0
+    inputs = ar_inputs(sim_t, "uniform")
+    k4["ms"], k4["plain_ms"] = time_ar(af.ar_flow_fused, inputs, NTIME,
+                                       {"noise": "uniform"}, 5)
+    k4["bound_ms"], k4["bound_by"], flops = ar_bound(L, N, P, NTIME, True)
+    print(f"K4 uniform: {k4['ms']:.3f} ms kernel ({1e3 * k4['ms'] / NTIME:.3f}"
+          f" us per step), {k4['plain_ms']:.3f} ms plain (the plain scan: "
+          f"{1e3 * NTIME / k4['plain_ms']:.0f} steps/s), bound "
+          f"{k4['bound_ms']:.3f} ms ({flops / NTIME / 1e6:.1f} MFLOP per "
+          f"step; {k4['bound_ms'] / k4['ms']:.1%} of it) per {NTIME} steps "
+          f"at {N}^2, {L} layers; A and G' through device memory: "
+          f"{8 * N * (N + 16 * PJ) * 2 / 1e6:.2f} MB per step")
+    for noise in (None, "gauss"):
+        ms = cuda_ms(lambda: af.ar_flow_fused(
+            SEED, *ar_inputs(sim_t, noise), NTIME,
+            **({"noise": noise} if noise else {})), 5)
+        k4["ms_" + (noise or "frozen")] = ms
+        print(f"K4 {noise or 'frozen flow'}: {ms:.3f} ms per {NTIME} steps")
+    af.ar_flow_fused.LAUNCHES = 0
+
+    L, N, P = len(sim_t16.h), sim_t16.Npxls, sim_t16.Npxls_pup
+    for noise in (None, "uniform", "gauss"):
+        label = f"{noise or 'frozen flow'} {N}^2, {L} layers, P={P}"
+        inputs = ar_inputs(sim_t16, noise)
+        kw = {"max_steps": MAX_STEPS_K5}
+        if noise:
+            kw["noise"] = noise
+        err, cp = check_ar("K5", af.ar_flow_streamed, inputs, NSTEPS_K5, kw,
+                           label)
+        k5["max_abs_err"] = max(k5["max_abs_err"], err)
+        if noise == "uniform":  # the products are the same in every case
+            ar_tf32_control("K5", inputs, noise, cp, noise)
+    inputs = ar_inputs(sim_t16, "uniform")
+    k5["ms"], k5["plain_ms"] = time_ar(af.ar_flow_streamed, inputs,
+                                       MAX_STEPS_K5, {"noise": "uniform"}, 3)
+    k5["bound_ms"], k5["bound_by"], flops = ar_bound(L, N, P, MAX_STEPS_K5,
+                                                     True)
+    k5["ms_4096"] = cuda_ms(lambda: af.ar_flow_streamed(
+        SEED, *inputs, NTIME, noise="uniform"), 1)
+    print(f"K5 uniform: {k5['ms']:.3f} ms kernel "
+          f"({1e3 * k5['ms'] / MAX_STEPS_K5:.3f} us per step; "
+          f"{k5['ms_4096']:.3f} ms per {NTIME} steps), {k5['plain_ms']:.3f} "
+          f"ms plain, bound {k5['bound_ms']:.3f} ms "
+          f"({flops / MAX_STEPS_K5 / 1e6:.1f} MFLOP per step; "
+          f"{k5['bound_ms'] / k5['ms']:.1%} of it) per {MAX_STEPS_K5} steps "
+          f"at {N}^2, {L} layers")
+    af.ar_flow_streamed.LAUNCHES = 0
+    return k4, k5
+
+
+def acf_time(x):
+    """Integrated autocorrelation time of a series in steps, 1 + 2 sum of
+    the autocorrelation up to the first lag M with M >= 5 tau(M) (Sokal's
+    window), and the lag-1 autocorrelation."""
+    x = x - x.mean()
+    n = x.size
+    f = np.fft.rfft(x, 2 * n)
+    acf = np.fft.irfft(f * np.conj(f))[:n] / np.arange(n, 0, -1)
+    acf = acf / acf[0]
+    tau = 1.0 + 2.0 * np.cumsum(acf[1:])
+    lags = np.arange(1, n)
+    ok = lags >= 5 * tau
+    m = int(np.argmax(ok)) if ok.any() else n - 2
+    return float(max(tau[m], 1.0)), float(acf[1])
+
+
+def temporal_run(sim, kernel, counter, others, label):
+    """The main path of a temporal slice: ``sim.run()`` with every
+    kernel's count at 0; fails unless it launched ``kernel`` and no other,
+    and returned a finite, correlated series. Returns (series, launches,
+    integrated autocorrelation time)."""
+    for o in others:
+        o.LAUNCHES = 0
+    (res, secs), launches = launches_of(lambda: timed_run(sim), counter)
+    r = series(res)
+    other = sum(o.LAUNCHES for o in others)
+    if r.shape != (sim.Niter,) or not np.isfinite(r).all():
+        fail(f"{label}: output is not finite of shape (NITER,)")
+    tau, lag1 = acf_time(r)
+    print(f"{label}: {sim.Niter} steps in {secs:.3f} s (first run), "
+          f"{launches} {kernel} launches, {other} of the other kernels; avg "
+          f"power {res.avg_power_dBm:.4f} dBm; lag-1 autocorrelation "
+          f"{lag1:.5f}, integrated autocorrelation time {tau:.1f} steps")
+    if kernel and launches == 0:
+        fail(f"{label}: Fast.run() did not launch {kernel}")
+    if other:
+        fail(f"{label}: Fast.run() launched another kernel")
+    if not lag1 > ACF_MIN:
+        fail(f"{label}: lag-1 autocorrelation {lag1:.4f} is not over "
+             f"{ACF_MIN}")
+    return r, launches, tau
+
+
+def phase_temporal(ctx):
+    """The temporal slices through K4 and K5, the kernel route against
+    the exact route, and a frozen-flow 'screens' run."""
+    from scipy.stats import ks_2samp
+    from fast_tpu_torch import Fast
+    from fast_tpu_torch.ops import ar_flow as af
+    from fast_tpu_torch.ops import colfac_detect as cd
+    from fast_tpu_torch.ops import synth_detect as sd
+    K1, K2 = cd.colfac_detect, sd.synth_detect
+    K4, K5 = af.ar_flow_fused, af.ar_flow_streamed
+
+    sim_t = Fast(temporal(), device=DEVICE)
+    t0 = time.perf_counter()
+    sim_t16 = Fast(temporal(16, NPXLS=512, NITER=NITER_T16, NCHUNKS=2),
+                   device=DEVICE)
+    print(f"16-layer 512^2 temporal link: Fast() in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for sim, route in ((sim_t, K4), (sim_t16, K5)):
+        if sim._ar_route != "kernel" or af.select(len(sim.h)) is not route:
+            fail(f"the {len(sim.h)}-layer temporal run is not on "
+                 f"{route.__name__}")
+        print(f"temporal {sim.Npxls}^2, {len(sim.h)} layers: alpha per layer "
+              + " ".join(f"{a:.6f}" for a in sim._ar_alpha))
+        if not (sim._ar_alpha < 1).any():
+            fail("TEMPORAL_ALPHA='auto' gave no boiling at this length")
+    k4, k5 = phase_ar(sim_t, sim_t16)
+
+    r_t, k4["launches"], tau = temporal_run(
+        sim_t, "K4", K4, (K1, K2, K5), "temporal slice 256^2")
+    r_iid = ctx["r_iid"]
+    n_eff = r_t.size / tau
+    se = np.hypot(r_t.std() / np.sqrt(n_eff),
+                  r_iid.std() / np.sqrt(r_iid.size))
+    dmean = abs(r_t.mean() - r_iid.mean())
+    thin = r_t[::int(np.ceil(2 * tau))]
+    pval = float(ks_2samp(thin, r_iid).pvalue)
+    print(f"temporal slice 256^2 against the iid matmul run: mean normalised "
+          f"power {r_t.mean():.6f} against {r_iid.mean():.6f} "
+          f"({dmean / se:.2f} SE at {n_eff:.0f} effective samples); KS on "
+          f"{thin.size} samples thinned by {int(np.ceil(2 * tau))}: "
+          f"p = {pval:.4f}")
+    if not dmean <= MEAN_SIGMAS * se:
+        fail("temporal slice: the mean power disagrees with the iid run")
+    if not pval > KS_PVALUE:
+        fail("temporal slice: the marginal disagrees with the iid run (KS)")
+    _, k5["launches"], _ = temporal_run(
+        sim_t16, "K5", K5, (K1, K2, K4), "temporal 512^2, 16 layers")
+
+    # the kernel route against the exact route from one seed, with boiling
+    kw = dict(NITER=512, NCHUNKS=2, TEMPORAL_ALPHA=0.98, SEED=9)
+    r_k = series(Fast(temporal(**kw), device=DEVICE).run())
+    r_f = series(Fast(temporal(SYNTH="fft", **kw), device=DEVICE).run())
+    d = float(np.abs(r_k / r_f - 1).max())
+    print(f"'ar' kernel route against the SYNTH='fft' route, 512 steps from "
+          f"one seed: max relative difference {d:.3e} (limit {FFT_RTOL})")
+    if not d <= FFT_RTOL:
+        fail("the 'ar' kernel route disagrees with the SYNTH='fft' route")
+    sim_s = Fast(temporal(TEMPORAL_SYNTH="screens", NPXLS="auto", NITER=1024,
+                          NCHUNKS=4), device=DEVICE)
+    temporal_run(sim_s, "", K4, (K1, K2, K4, K5),
+                 f"'screens' run on the grown {sim_s.Npxls}^2 grid")
+    sim_tf = Fast(temporal(SYNTH="fft", NITER=NITER_FFT, NCHUNKS=16),
+                  device=DEVICE)
+    return k4, k5, (sim_t, sim_t16, sim_tf)
+
+
+def rates(runs, card, where, unit="realizations"):
     """Warm ``run()`` rates of the named sims, two each, in the given
-    order; prints and returns {name: [r/s, ...]}."""
+    order; prints and returns {name: [per second, ...]}."""
     out = {}
     for name, sim in runs:
         out.setdefault(name, []).append(sim.Niter / timed_run(sim)[1])
     for name, v in out.items():
         print(f"rate {where}: {name}: " + ", ".join(f"{r:.0f}" for r in v)
-              + f" realizations/s (warm run() of {dict(runs)[name].Niter};"
+              + f" {unit}/s (warm run() of {dict(runs)[name].Niter};"
               f" {card})")
     return out
 
 
-def phase_slices(card):
+def phase_slices():
     from fast_tpu_torch import Fast
     from fast_tpu_torch.ops import colfac_detect as cd
     from fast_tpu_torch.ops import synth_detect as sd
@@ -423,7 +752,8 @@ def phase_slices(card):
     # 256^2: the K2 path
     r_k, k2["launches"], _ = slice_run(sim_k, "K2", K2, K1, "slice 256^2")
     sim_p = Fast(flagship(SYNTH="matmul"), device=DEVICE)
-    agree(r_k, series(timed_run(sim_p)[0]), "slice 256^2", "K2")
+    r_p = series(timed_run(sim_p)[0])
+    agree(r_k, r_p, "slice 256^2", "K2")
     r_d = slice_run(sim_d, "K2", K2, K1, "default config")[0]
     agree(r_d, series(Fast(default_config(SYNTH="matmul"),
                            device=DEVICE).run()),
@@ -431,8 +761,8 @@ def phase_slices(card):
 
     # 512^2: the K1 path
     r_c, k1["launches"], _ = slice_run(sim_c, "K1", K1, K2, "slice 512^2")
-    sim_cm = Fast(flagship(NPXLS=512, SYNTH="matmul", NCHUNKS=64),
-                  device=DEVICE)
+    sim_cm = Fast(flagship(NPXLS=512, SYNTH="matmul", NITER=NITER_SMALL,
+                           NCHUNKS=16), device=DEVICE)
     agree(r_c, series(timed_run(sim_cm)[0]), "slice 512^2", "K1")
 
     # subharmonics through both kernels
@@ -446,7 +776,19 @@ def phase_slices(card):
                            device=DEVICE).run())
         agree(r_s, r_sm, f"SUBHARM {npx}^2", kernel)
 
-    # warm rates, interleaved; launches here do not count
+    return dict(k2=k2, k1=k1, sim_k=sim_k, sim_p=sim_p, sim_c=sim_c,
+                sim_cm=sim_cm, r_iid=r_p)
+
+
+def phase_times(card, ctx, tsims):
+    """Warm ``run()`` rates, interleaved, and the profiles; launches here
+    do not count."""
+    from fast_tpu_torch import Fast
+    from fast_tpu_torch.ops import ar_flow as af
+    from fast_tpu_torch.ops import colfac_detect as cd
+    from fast_tpu_torch.ops import synth_detect as sd
+    sim_k, sim_p = ctx["sim_k"], ctx["sim_p"]
+    sim_c, sim_cm = ctx["sim_c"], ctx["sim_cm"]
     sim_g = Fast(flagship(MC_NOISE="gauss"), device=DEVICE)
     sim_k1 = Fast(flagship(SYNTH="pallas_colfac"), device=DEVICE)
     for sim in (sim_g, sim_k1):
@@ -459,21 +801,31 @@ def phase_slices(card):
     print(f"512^2 column factors, second build: "
           f"{sim_cc.timings['column_factors']:.3f} s (float32 on the card)")
     sim_c2 = Fast(flagship(NPXLS=512, SYNTH="pallas_fused",
-                           NITER=NITER_SMALL), device=DEVICE)
+                           NITER=NITER_K2_512), device=DEVICE)
     for sim in (sim_cc, sim_c2):
         timed_run(sim)
     rates_512 = rates([("K1", sim_c), ("colfac", sim_cc), ("matmul", sim_cm),
                        ("K2 pinned", sim_c2), ("K2 pinned", sim_c2),
                        ("matmul", sim_cm), ("colfac", sim_cc), ("K1", sim_c)],
                       card, "512^2")
+    sim_t, sim_t16, sim_tf = tsims
+    timed_run(sim_tf)
+    rates_t = rates([("K4", sim_t), ("fft route", sim_tf), ("K5", sim_t16),
+                     ("K5", sim_t16), ("fft route", sim_tf), ("K4", sim_t)],
+                    card, "temporal", "steps")
     profile([("K2 256^2", sim_k), ("K1 512^2", sim_c),
-             ("colfac 512^2", sim_cc), ("matmul 512^2", sim_cm)])
-    K1.LAUNCHES = K2.LAUNCHES = 0
-    return k2, k1, rates_256, rates_512
+             ("colfac 512^2", sim_cc), ("matmul 512^2", sim_cm),
+             ("K4 temporal 256^2", sim_t),
+             ("K5 temporal 512^2, 16 layers", sim_t16)])
+    for fn in (cd.colfac_detect, sd.synth_detect, af.ar_flow_fused,
+               af.ar_flow_streamed):
+        fn.LAUNCHES = 0
+    return rates_256, rates_512, rates_t
 
 
 def _short(name):
-    m = re.search(r"(synth_pass1|colfac_pass1|detect_pass)", name)
+    m = re.search(r"(synth_pass1|colfac_pass1|detect_pass|ar_update|ar_dft|"
+                  r"ar_detect)", name)
     return m.group(1) if m else name[:48]
 
 
@@ -493,16 +845,16 @@ def profile(runs):
               f" {top}")
 
 
-def kernel_entry(name, source, replaces, res, shape, run_rates):
+def kernel_entry(name, source, replaces, res, shape, run_rates, timed):
     """One kernel's entry of the result line: the contract's keys, then
-    the 'gauss' numbers and the run rates."""
+    what else was measured and the run rates. No single PyTorch call
+    computes any of these functions, so there is no library time."""
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by")
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": res["launches"],
-            "max_abs_err": res["max_abs_err"], "ms": res["ms"],
-            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-            "bound_by": res["bound_by"], "library_ms": None,
-            "shape": shape, "timed_draws": NTIME,
-            **{k: v for k, v in res.items() if k.endswith(("_gauss", "_sh"))},
+            "replaces": replaces, **{k: res[k] for k in keys},
+            "library_ms": None, "shape": shape, **timed,
+            **{k: v for k, v in res.items() if k not in keys},
             "run_rates": {k: max(v) for k, v in run_rates.items()}}
 
 
@@ -510,14 +862,24 @@ def main():
     t_start = time.perf_counter()
     card = phase_env()
     phase_build()
-    k2, k1, rates_256, rates_512 = phase_slices(card)
+    ctx = phase_slices()
+    k4, k5, tsims = phase_temporal(ctx)
+    rates_256, rates_512, rates_t = phase_times(card, ctx, tsims)
     line = {"kernels": [
         kernel_entry("synth_detect", "fast_tpu_torch/csrc/synth_detect.cu",
-                     "fast_tpu/ops/pallas_synth.py:289", k2,
-                     "256^2, P=82, mixed", rates_256),
+                     "fast_tpu/ops/pallas_synth.py:289", ctx["k2"],
+                     "256^2, P=82, mixed", rates_256, {"timed_draws": NTIME}),
         kernel_entry("colfac_detect", "fast_tpu_torch/csrc/colfac_detect.cu",
-                     "fast_tpu/ops/pallas_synth.py:724", k1,
-                     "512^2, P=82, mixed", rates_512),
+                     "fast_tpu/ops/pallas_synth.py:724", ctx["k1"],
+                     "512^2, P=82, mixed", rates_512, {"timed_draws": NTIME}),
+        kernel_entry("ar_flow_fused", "fast_tpu_torch/csrc/ar_flow.cu",
+                     "fast_tpu/ops/pallas_synth.py:996", k4,
+                     "256^2, 4 layers, P=82, uniform", rates_t,
+                     {"timed_steps": NTIME}),
+        kernel_entry("ar_flow_streamed", "fast_tpu_torch/csrc/ar_flow.cu",
+                     "fast_tpu/ops/pallas_synth.py:1736", k5,
+                     "512^2, 16 layers, P=82, uniform", rates_t,
+                     {"timed_steps": MAX_STEPS_K5}),
     ], "seconds": time.perf_counter() - t_start}
     print(card)
     print(json.dumps(line))

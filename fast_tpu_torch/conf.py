@@ -23,7 +23,7 @@ DEFAULTS = {
     "FFTW": False,          # accepted for config compatibility; ignored
     "FFTW_THREADS": 1,      # accepted for config compatibility; ignored
     "NCHUNKS": 10,          # chunks to split NITER into (bounds device memory)
-    "TEMPORAL": False,      # frozen-flow time series (not ported yet)
+    "TEMPORAL": False,      # frozen-flow time series instead of iid draws
     "DT": 0.001,            # timestep for TEMPORAL mode [s]
     "LOGFILE": None,
     "LOGLEVEL": "INFO",
@@ -88,12 +88,23 @@ TPU_DEFAULTS = {
     "PRECISION": "default", # accepted; every value means fp32 FMA on the
                             # card in this package for now (the TF32/bf16
                             # meaning of 'default' is still to come)
-    "TEMPORAL_SYNTH": "auto",  # temporal mode only (not ported yet)
-    "TEMPORAL_ALPHA": "auto",  # temporal mode only (not ported yet)
+    "TEMPORAL_SYNTH": "auto",  # temporal mode: 'screens' (large per-layer
+                            # screens sampled along the wind, the grid
+                            # grown to the series) | 'ar' (AR(1) in Fourier
+                            # space on the fixed grid: the hand-written AR
+                            # kernels for float32, the exact batched ifft2
+                            # for SYNTH='fft' or float64) | 'auto'
+                            # ('screens' while the grown grid stays within
+                            # 2048 px, else 'ar')
+    "TEMPORAL_ALPHA": "auto",  # AR mode survival per step: a number, or
+                            # 'auto' (1 while the series is shorter than
+                            # one grid wrap, else exp(-1 / wrap steps))
     "MC_NOISE": "mixed",    # detect kernels' noise: 'mixed'
                             # (orthogonally mixed uniforms) | 'gauss'
                             # (Box-Muller). Plain paths always draw Gaussians.
-    "TEMPORAL_NOISE": "uniform",  # temporal mode only (not ported yet)
+    "TEMPORAL_NOISE": "uniform",  # AR mode boiling noise: 'uniform'
+                            # (unit-variance uniforms) | 'gauss'
+                            # (Box-Muller), on every AR route
 }
 
 

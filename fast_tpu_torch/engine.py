@@ -1,6 +1,7 @@
 """Simulation engine: configuration -> power spectra -> Monte Carlo run.
 
-The iid Monte Carlo path of ``fast_tpu.engine`` in PyTorch:
+The iid Monte Carlo path and the temporal (frozen-flow) mode of
+``fast_tpu.engine`` in PyTorch:
 
 * **Host stage** (numpy, float64): config resolution ('auto' grid rules),
   atmosphere and beam geometry, pupils and fibre mode, link budget.
@@ -17,8 +18,18 @@ The iid Monte Carlo path of ``fast_tpu.engine`` in PyTorch:
   run their plain torch versions. ``'matmul'``, ``'colfac'`` and ``'fft'``
   are the stock-op paths. ``SUBHARM=True`` adds the low-order subharmonic
   screens on every path, inside the detect pass of both kernels.
+* **Temporal mode** (``TEMPORAL=True``): a time series instead of iid
+  draws, with a log-amplitude series coloured by the temporal PSD.
+  ``TEMPORAL_SYNTH='screens'`` draws one large screen per layer (the grid
+  grown to the series) and samples it along the wind; ``'ar'`` evolves the
+  per-layer Fourier state on the fixed grid by an AR(1) recursion, through
+  the hand-written AR kernels K4 and K5 (:mod:`fast_tpu_torch.ops.ar_flow`)
+  for float32 on CUDA (their plain torch version on the CPU), or through
+  the exact batched ``ift2`` for ``SYNTH='fft'`` or float64. Every AR route
+  draws the kernels' Philox noise keyed by the absolute step, so the
+  series does not depend on ``NCHUNKS``.
 
-Not ported yet, and refused with ``NotImplementedError``: ``TEMPORAL``,
+Not ported yet, and refused with ``NotImplementedError``:
 ``SYNTH='pallas'`` (K7) and ``run(progress=True)`` (ROADMAP.md, queues 1
 and 2).
 """
@@ -34,8 +45,12 @@ from .grids import SpatialFrequencies
 from .interop import tables_from_numpy
 from .models import ao as ao_spectra
 from .models import atmosphere
+from .models.scintillation import (PupilFilterSampler,
+                                   temporal_logamp_powerspec)
 from .ops import apertures
-from .ops.rng import draw_seed, make_generator
+from .ops import ar_flow
+from .ops.fourier import ift2
+from .ops.rng import complex_normal, draw_seed, make_generator
 from .ops import colfac_detect as cd
 from .ops.synth_detect import pack_subharm, supports, synth_detect
 from . import synthesis
@@ -174,10 +189,6 @@ class Fast:
         self.seed = p["SEED"]
         self.temporal = p["TEMPORAL"]
         self.dt = p["DT"]
-        if self.temporal:
-            raise NotImplementedError(
-                "TEMPORAL=True is not ported yet (ROADMAP.md queue 1, "
-                "item 7: the temporal slice)")
         if p["SYNTH"] in _NOT_PORTED:
             raise NotImplementedError(
                 f"SYNTH={p['SYNTH']!r} is not ported yet "
@@ -201,9 +212,12 @@ class Fast:
             self.init_atmos()
             self.init_beam_params()
             self.init_frequency_grid()
-        self._synth = resolve_synth(p["SYNTH"], self.dtype, self.device,
-                                    self.Npxls, self.Npxls_pup,
-                                    p["MC_NOISE"])
+        if self.temporal:
+            self._resolve_temporal_route()
+        else:
+            self._synth = resolve_synth(p["SYNTH"], self.dtype, self.device,
+                                        self.Npxls, self.Npxls_pup,
+                                        p["MC_NOISE"])
         with self.profile.stage("init_masks"):
             self.init_ao_params()
         with self.profile.stage("init_pupils"):
@@ -291,8 +305,23 @@ class Fast:
             logger.info("Auto set DX to %s", self.dx)
         else:
             self.dx = p["DX"]
+        # no-wrap pixel bound of the reference's frozen-flow mode
+        # (``fast/fast.py:181-185``); the AR route does not grow the grid
+        # with NITER, so it ignores this bound
+        wind_spd_raw = np.asarray(p["WIND_SPD"], dtype=float)
+        temporal_npxls = (int(wind_spd_raw.max() * p["DT"] * p["NITER"]
+                              / self.dx / 2) if self.temporal else 0)
+        self._temporal_synth = p.get("TEMPORAL_SYNTH", "auto")
+        if self._temporal_synth == "auto":
+            self._temporal_synth = ("screens" if temporal_npxls <= 2048
+                                    else "ar")
+        if self._temporal_synth not in ("screens", "ar"):
+            raise ValueError("TEMPORAL_SYNTH must be 'auto'|'screens'|'ar'")
+        if p.get("TEMPORAL_NOISE", "uniform") not in ("uniform", "gauss"):
+            raise ValueError("TEMPORAL_NOISE must be 'uniform'|'gauss'")
         if p.get("MC_NOISE", "gauss") not in ("gauss", "mixed"):
             raise ValueError("MC_NOISE must be 'gauss'|'mixed'")
+        grow = self.temporal and self._temporal_synth == "screens"
 
         if p["NPXLS"] == "auto":
             nyq_aniso = np.pi / (self.h[-1] * self.paa / 206265.0)
@@ -301,7 +330,8 @@ class Fast:
             nyq = np.min([nyq_aniso, nyq_servo, nyq_fitting])
             nyq_npxls = int(2 * np.ceil(2 * np.pi / (nyq * self.dx) / 2))
             ap_npxls = int(2 * np.ceil(p["D_GROUND"] / self.dx / 2)) + 2
-            self.Npxls = int(np.max([nyq_npxls, ap_npxls]))
+            self.Npxls = int(np.max([nyq_npxls, ap_npxls,
+                                     temporal_npxls if grow else 0]))
             logger.info("Auto set NPXLS to %s", self.Npxls)
             if p["AO_MODE"] == "NOAO" and not np.isinf(p["L0"]):
                 L0_npxls = int(2 * np.ceil((p["L0"] * 2) / self.dx) / 2)
@@ -311,14 +341,28 @@ class Fast:
                         "undersampled. Recommended NPXLS: %s", L0_npxls)
         else:
             self.Npxls = p["NPXLS"]
+            if grow and self.Npxls < temporal_npxls:
+                logger.warning("NPXLS likely too small; recommended: %s",
+                               temporal_npxls)
         if self.Npxls > 2048:
             logger.warning(
                 "NPXLS is large (%s) and may cause very high memory usage",
                 self.Npxls)
         self.Npxls_pup = int(np.ceil(self.D_ground / self.dx)) + 2
         self.freq = SpatialFrequencies(self.Npxls, self.dx)
-        # subharmonics are not used in temporal mode, as in the JAX package
-        self.subharmonics = bool(p["SUBHARM"]) and not self.temporal
+        self.subharmonics = bool(p["SUBHARM"])
+        if self.temporal:
+            # the meshed temporal grids are informational and kept only at
+            # modest sizes; the PSD assembly streams over the axes
+            self._temporal_materialized = (
+                len(self.h) * self.Npxls * self.Niter <= 2 ** 25)
+            self.freq.make_temporal_freqs(
+                len(self.h), self.Npxls, self.Niter, self.wind_speed,
+                self.wind_dir, self.dt,
+                materialize=self._temporal_materialized)
+            if self.subharmonics:
+                logger.info("SUBHARM not used in TEMPORAL mode")
+                self.subharmonics = False
         if self.subharmonics:
             self.freq.make_subharm_freqs()
 
@@ -348,6 +392,32 @@ class Fast:
                 self.freq.subharm, self.Dsubap, modal=self.modal,
                 modal_mult=self.modal_mult, Zmax=self.Zmax,
                 D=self.D_ground).numpy()
+        if self.temporal and self._temporal_materialized:
+            self.lf_mask_temporal = ao_spectra.mask_lf(
+                self.freq.temporal, self.Dsubap, modal=self.modal,
+                modal_mult=self.modal_mult, Zmax=self.Zmax,
+                D=self.D_ground).numpy()
+
+    def _resolve_temporal_route(self):
+        """The route of a temporal run: ``_ar_route`` is None for the
+        frozen-flow screens, 'kernel' for the AR kernels (float32 and
+        ``SYNTH != 'fft'``: K4 or K5 on a CUDA device, their plain version
+        on the CPU) and 'fft' for the exact batched ``ift2``. On a CUDA
+        device a pupil the kernels do not take raises here."""
+        p = self.params
+        exact = p["SYNTH"] == "fft" or self.dtype == torch.float64
+        self._synth = "fft" if exact else p["SYNTH"]
+        self._ar_route = None
+        if self._temporal_synth != "ar":
+            return
+        self._ar_route = "fft" if exact else "kernel"
+        if (self._ar_route == "kernel" and self.device.type == "cuda"
+                and not ar_flow.supports(self.Npxls, self.Npxls_pup)):
+            raise ValueError(
+                f"the AR flow kernels (TEMPORAL_SYNTH='ar', float32) take a "
+                f"pupil of at most 128 px; got NPXLS={self.Npxls}, a "
+                f"{self.Npxls_pup} px pupil. SYNTH='fft' runs the exact "
+                f"stock-op route")
 
     def init_pupil_mask(self):
         logger.info("Initialising pupil mask")
@@ -368,8 +438,27 @@ class Fast:
         lo = (self.Npxls - self.Npxls_pup) // 2
         hi = (self.Npxls + self.Npxls_pup) // 2
         self.pup_crop = (lo, hi)
+        self.pup_coords = np.array([np.arange(lo, hi), np.arange(lo, hi)])
         self.pupil = self.pupil[lo:hi, lo:hi]
         self.pupil_mode = self.pupil_mode[lo:hi, lo:hi]
+
+        if self.temporal:
+            # high-resolution pupil filter for the temporal log-amplitude PSD
+            f_max = max(self.freq.temporal.fx_axis.max(),
+                        self.freq.temporal.fy_axis.max())
+            dx_req = np.pi / f_max
+            n_req = int(2 * np.ceil(
+                2 * np.pi / (self.freq.main.df * dx_req) / 2))
+            pupil_temporal = apertures.compute_pupil(
+                n_req, dx_req, self.D_ground, self.obsc_ground,
+                Ny=2 * self.Npxls_pup)
+            mode_temporal, _ = apertures.compute_gaussian_mode(
+                pupil_temporal, dx_req, W0=self.W0, ptype="gauss")
+            self.freq.make_logamp_freqs(
+                Nx=n_req, dx=dx_req, Ny=2 * self.Npxls_pup, dy=self.dx)
+            self.pupil_filter_temporal = PupilFilterSampler(
+                apertures.pupil_filter(pupil_temporal * mode_temporal),
+                self.freq.logamp.fx_axis, self.freq.logamp.fy_axis)
         return self.pupil
 
     # ------------------------------------------------------------------
@@ -466,6 +555,19 @@ class Fast:
             self.powerspec_subharm = out["powerspec_subharm"].numpy()
             self.phs_var_subharm = out["phs_var_subharm"].numpy()
             self.phs_var_weights_sh = out["phs_var_weights_sh"].numpy()
+        self.temporal_logamp_powerspec = None
+        if self.temporal:
+            logger.info("Computing temporal power spectra")
+            dts = np.arange(1, self.Niter_per_chunk + 1) * self.dt
+            self.pixel_shifts = (dts * self.wind_vector[..., np.newaxis]
+                                 / self.dx)
+            # streamed per temporal bin: O(Ny * block) memory instead of
+            # the reference's O(nlayers * Ny * NITER)
+            t = self.freq.temporal
+            self.temporal_logamp_powerspec = temporal_logamp_powerspec(
+                t.fx_axis, t.fy_axis, self.h, self.cn2, self.wvl,
+                self.pupil_filter_temporal, float(self.freq.main.dfy),
+                L0=self.L0, l0=self.l0)
         self.validate()
 
     def validate(self):
@@ -490,6 +592,9 @@ class Fast:
         _chk("link_budget", list(self.link_budget.values()))
         if self.subharmonics:
             _chk("powerspec_subharm", self.powerspec_subharm, lo=0)
+        if self.temporal:
+            _chk("temporal_logamp_powerspec",
+                 self.temporal_logamp_powerspec, lo=0)
         if problems:
             raise ValueError("simulation state invalid: " + "; ".join(problems))
         return True
@@ -502,7 +607,7 @@ class Fast:
         """Move the per-configuration tables to the run device, with the
         column factors of the colfac paths and the subharmonic tables."""
         synth = self._synth
-        if not synth.startswith("pallas"):
+        if not self.temporal and not synth.startswith("pallas"):
             # the per-chunk noise tensor is the plain paths' peak allocation
             itemsize = 8 if self.dtype == torch.float32 else 16  # complex
             ncols = self.Npxls_pup if synth == "colfac" else self.Npxls
@@ -521,7 +626,7 @@ class Fast:
             df=self.freq.main.df, dx=self.dx, norm=self._norm,
             logamp_var=self.logamp_var,
             diffraction_limit=self.diffraction_limit, pup_crop=self.pup_crop)
-        if synth in ("colfac", "pallas_colfac"):
+        if synth in ("colfac", "pallas_colfac") and not self.temporal:
             with self.profile.stage("column_factors"):
                 arrays["L_colfac"] = self._column_factors(W64)
         if self.subharmonics:
@@ -532,9 +637,43 @@ class Fast:
                 powerspec_subharm=self.powerspec_subharm, subharm_df=g.df,
                 subharm_modes=synthesis.subharm_mode_table(modes,
                                                            self.pup_crop))
+        if self.temporal:
+            arrays.update(self._temporal_arrays())
         self.tables = tables_from_numpy(arrays, device=self.device,
                                         dtype=self.dtype,
                                         noise=self.params["MC_NOISE"])
+
+    def _temporal_arrays(self):
+        """The temporal mode's host arrays for :func:`tables_from_numpy`,
+        with the AR routes' mode-survival factor ``_ar_alpha`` per layer:
+        'auto' keeps pure frozen flow (alpha = 1) while the series is
+        shorter than one grid wrap, else decorrelates the modes over one
+        wrap time so that the fixed grid never repeats visibly."""
+        arrays = dict(powerspec_per_layer=self.powerspec_per_layer,
+                      temporal_ps=self.temporal_logamp_powerspec)
+        np_dt = np.float32 if self.dtype == torch.float32 else np.float64
+        self._sqrt_psd_layers = np.sqrt(self.powerspec_per_layer).astype(np_dt)
+        alpha_cfg = self.params.get("TEMPORAL_ALPHA", "auto")
+        wrap_steps = np.where(
+            self.wind_speed > 0,
+            self.Npxls * self.dx / (np.maximum(self.wind_speed, 1e-30)
+                                    * self.dt), np.inf)
+        if alpha_cfg == "auto":
+            alpha = np.where(self.Niter <= wrap_steps, 1.0,
+                             np.exp(-1.0 / wrap_steps))
+        else:
+            alpha = np.full(len(self.h), float(alpha_cfg))
+        self._ar_alpha = alpha.astype(np_dt)
+        if self._temporal_synth == "ar":
+            g = self.freq.main
+            arrays.update(
+                step_phase=synthesis.ar_step_phase(g.fx, g.fy,
+                                                   self.wind_vector, self.dt),
+                ar_alpha=alpha)
+        else:
+            arrays.update(wind_vector=self.wind_vector, dt=self.dt,
+                          pup_coords=self.pup_coords[0])
+        return arrays
 
     def _column_factors(self, W64):
         """The per-column Cholesky factors (N, Npup, Npup), numpy complex
@@ -564,33 +703,27 @@ class Fast:
         """Draw all Monte Carlo realizations; returns :class:`FastResult`."""
         if progress:
             raise NotImplementedError(
-                "run(progress=True) is not ported yet (ROADMAP.md queue 1, "
-                "item 4)")
+                "run(progress=True) is not ported yet, for iid and for "
+                "TEMPORAL runs (ROADMAP.md queue 1, item 4)")
         with self.profile.stage("mc_run"):
             return self._run()
 
     def _run(self):
-        gen = make_generator(self.seed)
-        self._logamp_seed = draw_seed(gen)
+        self._logamp_seed, seed_mc = self._run_seeds()
         self._logamp_cache = None
-        seed_mc = draw_seed(gen)
-        chi = synthesis.draw_logamp(make_generator(self._logamp_seed),
-                                    self.Niter, self.logamp_var,
-                                    dtype=self.dtype).to(self.device)
-        # plain paths draw on the run device from one generator; the
-        # kernel keys its Philox by seed_mc and counts chunks in `stream`
-        dev_gen = make_generator(seed_mc, device=self.device)
+        chi = self._draw_logamp().to(self.device)
+        # the complex pupil couplings of every chunk, before the
+        # log-amplitude factor
+        if not self.temporal:
+            chunks = self._iid_chunks(seed_mc)
+        elif self._ar_route is None:
+            chunks = self._temporal_screens_chunks(seed_mc)
+        else:
+            chunks = self._temporal_ar_chunks(seed_mc)
         coherent = bool(self.params["COHERENT"])
-        T = self.tables
         B = self.Niter_per_chunk
         outs = []
-        for i in range(self.Nchunks):
-            sh = (synthesis.synthesize_subharm_complex(
-                dev_gen, T["sqrt_psd_sh"], T["sh_df"], T["sh_modes"], B // 2)
-                if self.subharmonics else None)
-            pc = chunk_couplings(T, self._synth, B // 2,
-                                 noise=self.params["MC_NOISE"], seed=seed_mc,
-                                 stream=i, generator=dev_gen, sh=sh)
+        for i, pc in enumerate(chunks):
             out = torch.exp(chi[i * B:(i + 1) * B]).to(pc.real.dtype) * pc
             outs.append(out if coherent else out.abs() ** 2)
         out = torch.cat(outs)
@@ -603,6 +736,113 @@ class Fast:
                                  moments=(mean, si))
         logger.info(self.result)
         return self.result
+
+    def _run_seeds(self):
+        """The seeds of a run, from the sim's seed: that of the
+        log-amplitude series and that of the screens (the Monte Carlo
+        draws of an iid run)."""
+        gen = make_generator(self.seed)
+        return draw_seed(gen), draw_seed(gen)
+
+    def _draw_logamp(self):
+        """The run's log-amplitude series from its seed, on the CPU: iid,
+        or coloured by the temporal PSD in temporal mode."""
+        return synthesis.draw_logamp(
+            make_generator(self._logamp_seed), self.Niter, self.logamp_var,
+            temporal_powerspec=(self.tables["temporal_ps"].cpu()
+                                if self.temporal else None),
+            dtype=self.dtype)
+
+    def _iid_chunks(self, seed_mc):
+        """The couplings of every chunk of an iid run."""
+        # plain paths draw on the run device from one generator; the
+        # kernel keys its Philox by seed_mc and counts chunks in `stream`
+        dev_gen = make_generator(seed_mc, device=self.device)
+        T = self.tables
+        B = self.Niter_per_chunk
+        for i in range(self.Nchunks):
+            sh = (synthesis.synthesize_subharm_complex(
+                dev_gen, T["sqrt_psd_sh"], T["sh_df"], T["sh_modes"], B // 2)
+                if self.subharmonics else None)
+            yield chunk_couplings(T, self._synth, B // 2,
+                                  noise=self.params["MC_NOISE"], seed=seed_mc,
+                                  stream=i, generator=dev_gen, sh=sh)
+
+    def _frozen_flow_coords(self, chunk):
+        """Fractional (rows, cols) pixel coordinates of the pupil along the
+        wind for the steps of one chunk: (nlayers, B, Npup) each, in the
+        working type. Made in float64 from the absolute step, so a step's
+        coordinates do not depend on how the series is cut into chunks."""
+        T = self.tables
+        B = self.Niter_per_chunk
+        steps = torch.arange(chunk * B + 1, (chunk + 1) * B + 1,
+                             dtype=torch.float64, device=self.device)
+        shifts = (steps * float(T["dt"])) * T["wind_px"][..., None]
+        coords = T["pup_coords"][None, None, None, :] + shifts[..., None]
+        return coords[:, 0].to(self.dtype), coords[:, 1].to(self.dtype)
+
+    def _temporal_screens_chunks(self, seed_scr):
+        """The frozen-flow ('screens') route: one large screen per layer,
+        sampled along the wind chunk by chunk."""
+        T = self.tables
+        screens = synthesis.synthesize_layer_screens(
+            make_generator(seed_scr, device=self.device),
+            T["sqrt_psd_layers"], float(T["df"]))
+        for i in range(self.Nchunks):
+            phs = synthesis.sample_frozen_flow(
+                screens, *self._frozen_flow_coords(i))
+            yield synthesis.detector_coupling(phs, T["pm"], float(T["dx"]),
+                                              float(T["norm"]))
+
+    def _ar_start(self, seed_scr):
+        """The initial Fourier state of an AR series and the seed of its
+        boiling noise, both from the run's screen seed."""
+        T = self.tables
+        gen = make_generator(seed_scr, device=self.device)
+        cdtype = (torch.complex64 if self.dtype == torch.float32
+                  else torch.complex128)
+        a = complex_normal(tuple(T["sqrt_psd_df"].shape), gen,
+                           dtype=cdtype) * T["sqrt_psd_df"]
+        return a, draw_seed(gen)
+
+    def _ar_series_chunks(self, a, seed_noise):
+        """The layer-summed Fourier coefficients (B, N, N) of every chunk
+        from the stock-op recursion, with the AR kernels' noise stream."""
+        T = self.tables
+        B = self.Niter_per_chunk
+        boiling = bool((T["alpha"] < 1).any())
+        alpha = T["alpha"][:, None, None]
+        sqrt1ma = torch.sqrt(torch.clamp(1.0 - alpha ** 2, min=0.0))
+        noise = ar_flow.NoiseStream(
+            seed_noise, a.shape[0], self.Npxls, self.Niter,
+            noise=self.params["TEMPORAL_NOISE"], device=self.device,
+            dtype=a.dtype)
+        for i in range(self.Nchunks):
+            a, A = synthesis.ar_flow_series(
+                a, noise, T["step_phasor"], T["sqrt_psd_df"], alpha, sqrt1ma,
+                B, boiling, step0=i * B)
+            yield A
+
+    def _temporal_ar_chunks(self, seed_scr):
+        """The AR routes: through the AR kernel (its plain version on the
+        CPU), one call per chunk from the chunk's absolute step, or
+        through the exact batched ``ift2`` of the stock-op recursion."""
+        T = self.tables
+        B = self.Niter_per_chunk
+        dx, norm = float(T["dx"]), float(T["norm"])
+        a, seed_noise = self._ar_start(seed_scr)
+        if self._ar_route == "kernel":
+            kernel = ar_flow.select(a.shape[0])
+            for i in range(self.Nchunks):
+                c, a = kernel(seed_noise, a, T["ph"], T.get("ns"), T["W"],
+                              T["pm"], B, noise=self.params["TEMPORAL_NOISE"],
+                              step0=i * B)
+                yield torch.complex(c[:, 0], c[:, 1]) * (dx ** 2 / norm)
+            return
+        lo, hi = self.pup_crop
+        for A in self._ar_series_chunks(a, seed_noise):
+            phs = ift2(A, 1.0).real[:, lo:hi, lo:hi]
+            yield synthesis.detector_coupling(phs, T["pm"], dx, norm)
 
     @property
     def I(self):
@@ -618,10 +858,62 @@ class Fast:
         if getattr(self, "_logamp_seed", None) is None:
             raise AttributeError("logamp is available after run()")
         if self._logamp_cache is None:
-            self._logamp_cache = synthesis.draw_logamp(
-                make_generator(self._logamp_seed), self.Niter,
-                self.logamp_var, dtype=self.dtype).numpy()
+            self._logamp_cache = self._draw_logamp().numpy()
         return self._logamp_cache
+
+    # ------------------------------------------------------------------
+    # reference-API methods of the temporal mode (``fast/fast.py`` names);
+    # run() does not use them
+    # ------------------------------------------------------------------
+
+    def compute_logamp(self):
+        """Draw (or return) the full log-amplitude series
+        (``fast/fast.py:639-645``)."""
+        if getattr(self, "_logamp_seed", None) is None:
+            self._logamp_seed = self._run_seeds()[0]
+            self._logamp_cache = None
+        return self.logamp
+
+    def compute_phs_temporal(self, chunk=0, seed=None):
+        """Sample one chunk of the frozen-flow phase series
+        (``fast/fast.py:607-637``): stores and returns ``self.phs``,
+        (Niter_per_chunk, Npup, Npup). ``seed`` defaults to the screen seed
+        of :meth:`run`, so ``chunk=k`` is the k-th window of the run's own
+        trajectory; in AR mode the state is evolved from the series start
+        through the stock-op recursion and the exact centred ``ift2``."""
+        if not self.temporal:
+            raise ValueError("compute_phs_temporal requires TEMPORAL=True")
+        if seed is None:
+            seed = self._run_seeds()[1]
+        if self._ar_route is None:
+            screens = synthesis.synthesize_layer_screens(
+                make_generator(seed, device=self.device),
+                self.tables["sqrt_psd_layers"], float(self.tables["df"]))
+            phs = synthesis.sample_frozen_flow(
+                screens, *self._frozen_flow_coords(chunk))
+        else:
+            lo, hi = self.pup_crop
+            series = self._ar_series_chunks(*self._ar_start(seed))
+            for _ in range(chunk + 1):
+                A = next(series)
+            phs = ift2(A, 1.0).real[:, lo:hi, lo:hi]
+        self.phs = phs.cpu().numpy()
+        return self.phs
+
+    def compute_detector(self, chunk=0):
+        """Pupil-overlap couplings for the phases in ``self.phs``
+        (``fast/fast.py:647-668``), times the chunk's log-amplitude
+        factor. Requires :meth:`compute_phs_temporal` first."""
+        if getattr(self, "phs", None) is None:
+            raise ValueError("call compute_phs_temporal first")
+        T = self.tables
+        phs = torch.as_tensor(self.phs, dtype=self.dtype, device=self.device)
+        pc = synthesis.detector_coupling(phs, T["pm"], float(T["dx"]),
+                                         float(T["norm"])).cpu().numpy()
+        B = self.phs.shape[0]
+        chi = self.compute_logamp()[chunk * B:(chunk + 1) * B]
+        out = np.exp(chi[:pc.shape[0]]) * pc
+        return out if bool(self.params["COHERENT"]) else np.abs(out) ** 2
 
     # ------------------------------------------------------------------
     # persistence

@@ -35,6 +35,14 @@ def tables_from_numpy(arrays, device="cpu", dtype=torch.float32,
             ``subharm_modes`` (levels, 3, 3, Npup, Npup) complex, the
             mean-subtracted, cropped modes
             (:func:`~fast_tpu_torch.synthesis.subharm_mode_table`).
+            Temporal mode: ``powerspec_per_layer`` (nlayers, N, N) and
+            ``temporal_ps`` (NITER,), the temporal log-amplitude PSD;
+            with them either ``step_phase`` (nlayers, N, N), the float64
+            per-step phase wrapped into (-pi, pi]
+            (:func:`~fast_tpu_torch.synthesis.ar_step_phase`), and
+            ``ar_alpha`` (nlayers,) for the AR routes, or ``wind_vector``
+            (nlayers, 2), ``dt`` and ``pup_coords`` (Npup,) for the
+            frozen-flow screens.
         device: the run device.
         dtype: working type of the plain paths (float32 or float64).
         noise: the colfac kernel's noise, 'mixed' or 'gauss', which its
@@ -54,7 +62,16 @@ def tables_from_numpy(arrays, device="cpu", dtype=torch.float32,
         (:func:`~fast_tpu_torch.ops.colfac_detect.pack_tables`). With the
         subharmonic tables: ``sqrt_psd_sh`` (levels, 3, 3), ``sh_df``
         (levels,) and ``sh_modes`` (levels, 3, 3, Npup, Npup) complex, in
-        the working type.
+        the working type. Temporal mode (no ``mix``, which only the iid
+        kernel reads): ``sqrt_psd_layers`` (nlayers, N, N) and
+        ``temporal_ps`` in the working type. AR routes: ``sqrt_psd_df`` =
+        sqrt(PSD) df, ``step_phase``, ``step_phasor`` (complex) and
+        ``alpha`` (nlayers,) in the working type for the exact route, and
+        for the AR kernels ``ph`` (nlayers, N, N) complex64 =
+        alpha e^{i phase} and, where some alpha < 1, ``ns`` float32 =
+        sqrt(1 - alpha^2) sqrt(PSD) df, both folded in float64 before the
+        cast. Screens route: ``wind_px`` (nlayers, 2) = wind / dx in pixels
+        per second and ``pup_coords`` (Npup,), float64, with ``dt``.
     """
     missing = [k for k in KEYS if k not in arrays]
     if missing:
@@ -82,9 +99,11 @@ def tables_from_numpy(arrays, device="cpu", dtype=torch.float32,
         W=dev(W.astype(np_cdt)),
         s_t=dev(s32.T * np.float32(arrays["df"])),
         wr=wr, wi=wi, pm_t=pm_t,
-        mix=dev(mixing_matrix(N)),
         pup_crop=torch.as_tensor(np.asarray(arrays["pup_crop"], np.int64)),
     )
+    temporal = arrays.get("powerspec_per_layer") is not None
+    if not temporal:
+        T["mix"] = dev(mixing_matrix(N))
     for k in ("df", "dx", "norm", "logamp_var", "diffraction_limit"):
         T[k] = torch.tensor(float(arrays[k]), dtype=torch.float64)
     if arrays.get("L_colfac") is not None:
@@ -97,4 +116,40 @@ def tables_from_numpy(arrays, device="cpu", dtype=torch.float32,
         T["sh_df"] = dev(np.asarray(arrays["subharm_df"]).astype(np_dt))
         T["sh_modes"] = dev(np.asarray(arrays["subharm_modes"])
                             .astype(np_cdt))
+    if temporal:
+        sqrt_layers = np.sqrt(np.asarray(arrays["powerspec_per_layer"],
+                                         np.float64)).astype(np_dt)
+        T["sqrt_psd_layers"] = dev(sqrt_layers)
+        T["temporal_ps"] = dev(np.asarray(arrays["temporal_ps"]).astype(np_dt))
+        if arrays.get("step_phase") is not None:
+            _ar_tables(T, arrays, sqrt_layers, np_dt, dev)
+        else:
+            T["wind_px"] = dev(np.asarray(arrays["wind_vector"], np.float64)
+                               / float(arrays["dx"]))
+            T["pup_coords"] = dev(np.asarray(arrays["pup_coords"],
+                                             np.float64))
+            T["dt"] = torch.tensor(float(arrays["dt"]), dtype=torch.float64)
     return T
+
+
+def _ar_tables(T, arrays, sqrt_layers, np_dt, dev):
+    """The AR routes' tables, as ``fast_tpu.engine`` builds them
+    (``_build_run_all_fn_temporal_ar``): the per-layer sqrt-PSD is cast to
+    the working type before the float64 ``df`` scales it, ``alpha`` is
+    rounded to the working type before it is folded, and the phasor and
+    the noise scale are folded in float64 and cast once."""
+    phase = np.asarray(arrays["step_phase"], np.float64)
+    alpha = np.asarray(arrays["ar_alpha"], np.float64).astype(np_dt)
+    sqrt_psd_df = (sqrt_layers * np.float64(arrays["df"])).astype(np_dt)
+    T["sqrt_psd_df"] = dev(sqrt_psd_df)
+    T["step_phase"] = dev(phase.astype(np_dt))
+    T["step_phasor"] = torch.complex(torch.cos(T["step_phase"]),
+                                     torch.sin(T["step_phase"]))
+    T["alpha"] = dev(alpha)
+    if np_dt == np.float32:
+        ph = np.exp(1j * phase) * alpha[:, None, None]
+        T["ph"] = dev(ph.astype(np.complex64))
+        if np.any(alpha < 1.0):
+            sqrt1ma = np.sqrt(np.maximum(0.0, 1.0 - np.float64(alpha) ** 2))
+            T["ns"] = dev((sqrt1ma[:, None, None]
+                           * np.float64(sqrt_psd_df)).astype(np.float32))

@@ -23,6 +23,11 @@ _BUILD = Path(__file__).resolve().parents[2] / "build" / "fast_tpu_torch"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# ar_flow.cu keeps its recurrence free of contracted multiply-adds, so that
+# thousands of steps agree bit for bit with the plain torch version; its
+# matrix products call fmaf themselves
+_EXTRA_FLAGS = {"ar_flow": ["-fmad=false"]}
+
 _LIBS = {}
 
 
@@ -50,15 +55,16 @@ def build(name):
     exists; returns a :class:`BuildInfo`."""
     src = _CSRC / f"{name}.cu"
     deps = sorted(_CSRC.glob("*.cuh")) + [src]
+    flags = _NVCC_FLAGS + _EXTRA_FLAGS.get(name, [])
     digest = hashlib.sha1(b"".join(p.read_bytes() for p in deps)
-                          + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+                          + " ".join(flags).encode()).hexdigest()[:16]
     out = _BUILD / f"lib{name}-{digest}.so"
     if out.exists():
         return BuildInfo(out, 0.0, "")
     _BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(src)],
+    proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}\n"

@@ -144,8 +144,8 @@ def _np_ft2(g, delta):
 def pupil_filter(pupil):
     """Pupil spatial filter ``|FT(pupil)|^2 / pupil.sum()^2``.
 
-    Reference ``fast/funcs.py:308-315`` (ndarray branch; the spline branch
-    belongs to the temporal path, which this package does not run yet).
+    Reference ``fast/funcs.py:308-315`` (ndarray branch; the temporal mode
+    resamples its table with ``models.scintillation.PupilFilterSampler``).
     """
     P = np.abs(_np_ft2(pupil, 1)) ** 2
     return P / pupil.sum() ** 2

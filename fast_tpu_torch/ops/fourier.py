@@ -1,5 +1,6 @@
 """Centered FFT conventions over ``torch.fft``.
 
+* ``ft(g, dx)   = fftshift(fft(fftshift(g))) * dx`` and its inverse ``ift``
 * ``ft2(g, dx)  = fftshift(fft2(fftshift(g))) * dx**2``
 * ``ift2(G, df) = ifftshift(ifft2(ifftshift(G))) * (N * df)**2``
 
@@ -11,6 +12,22 @@ into its autocovariance (the same convention as ``fast_tpu.ops.fourier``).
 import torch
 
 _AX = (-2, -1)
+
+
+def ft(g, delta):
+    """1-D centered forward DFT over the last axis; ``delta`` = sample
+    spacing."""
+    return torch.fft.fftshift(
+        torch.fft.fft(torch.fft.fftshift(g, dim=-1), dim=-1), dim=-1) * delta
+
+
+def ift(G, delta_f):
+    """1-D centered inverse DFT over the last axis; ``delta_f`` = bin
+    spacing."""
+    n = G.shape[-1]
+    return torch.fft.ifftshift(
+        torch.fft.ifft(torch.fft.ifftshift(G, dim=-1), dim=-1),
+        dim=-1) * (n * delta_f)
 
 
 def ft2(g, delta):

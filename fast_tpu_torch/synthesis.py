@@ -3,7 +3,9 @@
 The plain paths of the iid run (``SYNTH='matmul'``, ``'colfac'`` and
 ``'fft'``), the tables every path shares (the pruned inverse-DFT matrix,
 the per-column Cholesky factors of the colfac basis, the subharmonic
-modes), the subharmonic screens and the log-amplitude draws:
+modes), the subharmonic screens, the log-amplitude draws, and the temporal
+mode's stock-op pieces (per-layer frozen-flow screens and their sampling,
+the AR(1)-in-Fourier recursion). The iid chain:
 
     complex normals -> colour by sqrt(PSD) df -> pruned (or full) centred
     inverse DFT -> real and imaginary parts as two screens -> pupil-overlap
@@ -18,7 +20,8 @@ import contextlib
 import numpy as np
 import torch
 
-from .ops.fourier import ift2
+from .ops.fourier import ft, ift2
+from .ops.interp import bilinear_periodic
 from .ops.rng import complex_normal
 
 
@@ -181,8 +184,135 @@ def detector_coupling(phs, pupil_mode, dx, normalisation):
     return c * (dx ** 2 / normalisation)
 
 
-def draw_logamp(generator, niter, logamp_var, dtype=torch.float32):
-    """iid ``N(0, logamp_var)`` log-amplitude draws for all iterations."""
-    r = torch.randn((niter,), generator=generator, dtype=dtype,
-                    device=generator.device)
-    return r * float(np.sqrt(logamp_var))
+def synthesize_layer_screens(generator, sqrt_powerspec_per_layer, df):
+    """One real frozen-flow screen per layer (``fast/fast.py:611-614``):
+    (nlayers, N, N) from the per-layer ``sqrt(PSD)``."""
+    sqrt_ps = sqrt_powerspec_per_layer
+    cdtype = (torch.complex64 if sqrt_ps.dtype == torch.float32
+              else torch.complex128)
+    rand = complex_normal(tuple(sqrt_ps.shape), generator, dtype=cdtype)
+    return ift2(rand * (sqrt_ps * df), 1.0).real
+
+
+def sample_frozen_flow(screens, row_coords, col_coords):
+    """The summed phase along the frozen-flow trajectory.
+
+    ``screens`` (nlayers, N, N) periodic; ``row_coords`` and
+    ``col_coords`` (nlayers, T, Npup) fractional pixel coordinates of the
+    pupil's rows and columns at each step. Returns (T, Npup, Npup): per
+    layer the periodic bilinear samples on the outer product of its row
+    and column coordinates, summed over the layers
+    (``fast/fast.py:619-633`` without the spline and the wrap
+    bookkeeping).
+    """
+    phs = 0
+    for scr, rows, cols in zip(screens, row_coords, col_coords):
+        phs = phs + bilinear_periodic(scr, rows[:, :, None], cols[:, None, :])
+    return phs
+
+
+def ar_step_phase(fx, fy, wind_vector, dt):
+    """The per-step translation phase ``kappa . v dt`` of every layer and
+    mode, wrapped into (-pi, pi] in float64 (host numpy): the raw phase
+    grows with ``|kappa|`` and a float32 cast would lose the fractional
+    cycle that is all that matters. ``fx``, ``fy`` (N, N) meshes,
+    ``wind_vector`` (nlayers, 2); returns (nlayers, N, N)."""
+    v = np.asarray(wind_vector, np.float64)
+    fx = np.asarray(fx, np.float64)
+    fy = np.asarray(fy, np.float64)
+    phase = (fx[None] * v[:, 0, None, None]
+             + fy[None] * v[:, 1, None, None]) * float(dt)
+    return np.angle(np.exp(1j * phase))
+
+
+def _ar_noise(noise, step, a):
+    """Complex unit noise of one step: from a ``torch.Generator``, or from
+    a callable of the absolute step (the AR kernels' Philox stream,
+    :class:`fast_tpu_torch.ops.ar_flow.NoiseStream`)."""
+    if isinstance(noise, torch.Generator):
+        return complex_normal(tuple(a.shape), noise, dtype=a.dtype)
+    return noise(step)
+
+
+def ar_flow_series(a, noise, step_phasor, sqrt_psd_df, alpha, sqrt1ma, nsteps,
+                   boiling, step0=0):
+    """Evolve the AR(1)-in-Fourier frozen-flow state by ``nsteps`` steps.
+
+    Per Fourier mode kappa and layer l (Srinath et al. 2015,
+    arXiv:1512.05424):
+
+        a[t+1] = alpha_l * e^{i kappa . v_l dt} * a[t]
+                 + sqrt(1 - alpha_l^2) * sqrt(PSD_l) df * zeta[t]
+
+    The unit phasor is exact periodic translation on the fixed grid;
+    ``alpha < 1`` adds per-mode boiling that also keeps the series from
+    wrapping periodically. The stationary distribution equals the standard
+    FFT screen draw for any ``alpha``.
+
+    Args:
+        a: (nlayers, N, N) complex state at the block start.
+        noise: a ``torch.Generator`` or a callable ``noise(step)`` giving
+            the complex (nlayers, N, N) unit noise of an absolute step;
+            read only when ``boiling``.
+        step_phasor: (nlayers, N, N) complex ``e^{i kappa . v dt}``.
+        sqrt_psd_df: (nlayers, N, N) real ``sqrt(PSD) * df``.
+        alpha, sqrt1ma: (nlayers, 1, 1) AR factors.
+        nsteps: block length.
+        boiling: False skips the noise (pure frozen flow, ``alpha == 1``).
+        step0: absolute step of the block's first step.
+
+    Returns:
+        ``(a_final, A)`` with ``A`` (nsteps, N, N) the layer-summed
+        coefficients after each step.
+    """
+    A = torch.empty((nsteps,) + tuple(a.shape[1:]), dtype=a.dtype,
+                    device=a.device)
+    for t in range(nsteps):
+        a = step_phasor * a
+        if boiling:
+            z = _ar_noise(noise, step0 + t, a)
+            a = alpha * a + sqrt1ma * (z * sqrt_psd_df)
+        A[t] = a.sum(0)
+    return a, A
+
+
+def ar_flow_couplings(a, noise, step_phasor, sqrt_psd_df, alpha, sqrt1ma,
+                      chi, W, pm, dx, norm, boiling, step0=0):
+    """The AR(1) step, the pruned DFT and the detector, step by step: the
+    process of :func:`ar_flow_series` followed by the centred ``ift2``,
+    the pupil crop and :func:`detector_coupling`, with each step's screen
+    made by the pruned inverse-DFT products ``Re(W A W^T)`` and reduced at
+    once. ``chi`` (nsteps,) is the block's log-amplitude series. Returns
+    ``(a_final, out)`` with ``out`` (nsteps,) complex couplings scaled by
+    ``exp(chi) dx^2 / norm``."""
+    out = []
+    for t in range(chi.shape[0]):
+        a = step_phasor * a
+        if boiling:
+            z = _ar_noise(noise, step0 + t, a)
+            a = alpha * a + sqrt1ma * (z * sqrt_psd_df)
+        phs = (W @ a.sum(0) @ W.T).real
+        pc = detector_coupling(phs, pm, dx, norm)
+        out.append(torch.exp(chi[t]).to(pc.real.dtype) * pc)
+    return a, torch.stack(out)
+
+
+def draw_logamp(generator, niter, logamp_var, temporal_powerspec=None,
+                dtype=torch.float32, r_fourier=None):
+    """Log-amplitude draws for all iterations: iid ``N(0, logamp_var)``,
+    or, in temporal mode, a series coloured by the 1-D temporal
+    log-amplitude PSD ``temporal_powerspec`` (niter,) through a centred FT
+    and scaled to the same total variance (``fast/funcs.py:358-375``).
+    ``r_fourier`` (niter,) complex replaces the coloured branch's own
+    complex normal draw."""
+    if temporal_powerspec is None:
+        r = torch.randn((niter,), generator=generator, dtype=dtype,
+                        device=generator.device)
+        return r * float(np.sqrt(logamp_var))
+    cdtype = torch.complex64 if dtype == torch.float32 else torch.complex128
+    ps = torch.as_tensor(temporal_powerspec)
+    if r_fourier is None:
+        r_fourier = complex_normal((niter,), generator, dtype=cdtype)
+    r_fourier = r_fourier.to(cdtype) * torch.sqrt(ps / ps.sum()).to(cdtype)
+    r = ft(r_fourier, 1.0)
+    return (r.real * float(np.sqrt(logamp_var))).to(dtype)

@@ -1,0 +1,252 @@
+"""K4 and K5 of fast_tpu_torch (``ops/ar_flow``) against fast_tpu.
+
+* The plain versions against ``pallas_synth.ar_flow_fused`` and
+  ``ar_flow_streamed`` in the Pallas interpreter (``precision="highest"``),
+  as ``tests/test_pallas.py`` runs them: pure frozen flow, and boiling with
+  the interpreter's zero random bits for 'uniform' and 'gauss'. Couplings
+  to 2e-4 of the largest |sum| (float32 products in another order; the JAX
+  tests use rtol = atol = 5e-3), the final state to 2e-6 absolute on states
+  of order 0.05 (the interpreter contracts the update differently; the JAX
+  tests use 2e-4).
+* The plain version with its own Philox bits against a float64 numpy
+  evaluation of the definition (1e-3 of the largest |sum|: float32
+  recurrence over 8 steps and float32 products).
+* A series cut into calls is the same series, bit for bit (the counter
+  holds the absolute step).
+* On the card, the kernels against the plain version from identical bits:
+  state bit for bit, couplings within KERNEL_REL of the largest |sum|.
+
+The card-only cases run where JAX is not installed:
+
+    python -m pytest --noconftest tests/test_torch_ar_flow.py -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from fast_tpu_torch import synthesis as ts
+from fast_tpu_torch.ops import ar_flow as af
+
+torch.set_num_threads(1)
+
+KERNEL_REL = 4e-6
+SEED = 0xABCDEF0123
+
+
+def ar_inputs(L=2, N=64, lo=20, hi=44, seed=6, boiling=False, alpha=0.9,
+              scale=0.02):
+    """Numpy inputs of one series: state of about ``scale`` per mode (a
+    screen of a few radians), random unit phasors times ``alpha`` if
+    boiling, a noise scale, the pruned DFT matrix and a pupil * mode."""
+    npup = hi - lo
+    rng = np.random.default_rng(seed)
+    a0 = (scale * (rng.normal(size=(L, N, N))
+                   + 1j * rng.normal(size=(L, N, N)))).astype(np.complex64)
+    ph = np.exp(1j * rng.uniform(-3, 3, (L, N, N)))
+    ph = ((alpha if boiling else 1.0) * ph).astype(np.complex64)
+    ns = (0.01 * rng.random((L, N, N))).astype(np.float32) if boiling else None
+    W = ts.pruned_ift2_matrix(N, lo, hi, dtype=np.complex64)
+    pm = rng.random((npup, npup)).astype(np.float32)
+    return a0, ph, ns, W, pm
+
+
+def tensors(inputs, device="cpu"):
+    return tuple(None if x is None else torch.from_numpy(x).to(device)
+                 for x in inputs)
+
+
+def definition_numpy(a0, ph, ns, W, pm, nsteps, z=None):
+    """The series from its definition in float64 numpy; ``z`` (nsteps, L,
+    N, N) complex noise."""
+    a = a0.astype(np.complex128)
+    W = W.astype(np.complex128)
+    out = np.zeros((nsteps, 2))
+    for t in range(nsteps):
+        a = ph.astype(np.complex128) * a
+        if ns is not None:
+            a = a + z[t] * ns
+        phi = (W @ a.sum(0) @ W.T).real
+        out[t] = (pm * np.cos(phi)).sum(), (pm * np.sin(phi)).sum()
+    return out, a
+
+
+# --------------------------------------------------------------------------
+# (a) the plain versions against the TPU kernels in the Pallas interpreter
+# --------------------------------------------------------------------------
+
+
+JAX_ENTRIES = {"fused": "ar_flow_fused", "streamed": "ar_flow_streamed"}
+CASES = [(None, 2), ("uniform", 2), ("gauss", 2), (None, 3)]
+
+
+@pytest.mark.parametrize("noise,L", CASES,
+                         ids=lambda v: str(v) if v is None else None)
+@pytest.mark.parametrize("entry", ["fused", "streamed"])
+def test_plain_matches_pallas_interpret(entry, noise, L):
+    import jax.numpy as jnp
+    from fast_tpu.ops import pallas_synth
+
+    nsteps = 8
+    a0, ph, ns, W, pm = inp = ar_inputs(L=L, seed=7 + L,
+                                        boiling=noise is not None)
+    c_ref, a_ref = getattr(pallas_synth, JAX_ENTRIES[entry])(
+        1, jnp.asarray(a0), jnp.asarray(ph),
+        None if ns is None else jnp.asarray(ns), W, pm, nsteps,
+        interpret=True, precision="highest", noise=noise or "uniform")
+    c_ref, a_ref = np.asarray(c_ref), np.asarray(a_ref)
+    fn = af.ar_flow_fused if entry == "fused" else af.ar_flow_streamed
+    # the wrappers run the plain version on CPU tensors; zero bits need it
+    # called directly
+    if noise is None:
+        c, a = fn(1, *tensors(inp), nsteps)
+    else:
+        c, a = af.ar_flow_reference(1, *tensors(inp), nsteps, noise=noise,
+                                    bits="zero")
+    assert c.shape == (nsteps, 2) and c.dtype == torch.float32
+    assert a.shape == a0.shape and a.dtype == torch.complex64
+    assert np.abs(c.numpy() - c_ref).max() <= 2e-4 * np.abs(c_ref).max()
+    assert np.abs(a.numpy() - a_ref).max() <= 2e-6
+
+
+@pytest.mark.parametrize("noise", [None, "uniform", "gauss"])
+def test_plain_matches_definition_with_philox_bits(noise):
+    nsteps, L, N = 8, 3, 64
+    a0, ph, ns, W, pm = inp = ar_inputs(L=L, seed=3, boiling=noise is not None)
+    z = None
+    if noise is not None:
+        b1, b2 = (b.numpy() >> 8 for b in af.ar_bits(SEED, 5, nsteps, L, N))
+        if noise == "uniform":
+            s3 = np.sqrt(3.0)
+            z = ((b1 * (s3 * 2.0 ** -23) - s3)
+                 + 1j * (b2 * (s3 * 2.0 ** -23) - s3))
+        else:
+            r = np.sqrt(-2 * np.log(b1 * 2.0 ** -24 + 2.0 ** -25))
+            z = r * np.exp(2j * np.pi * (b2 * 2.0 ** -24))
+        assert abs(z.real.var() - 1) < 0.02 and abs(z.imag.var() - 1) < 0.02
+    ref, a_ref = definition_numpy(a0, ph, ns, W, pm, nsteps, z)
+    c, a = af.ar_flow_reference(SEED, *tensors(inp), nsteps,
+                                noise=noise or "uniform", step0=5)
+    assert np.abs(c.numpy() - ref).max() <= 1e-3 * np.abs(ref).max()
+    assert np.abs(a.numpy() - a_ref).max() <= 1e-6
+
+
+@pytest.mark.parametrize("noise", [None, "uniform", "gauss"])
+@pytest.mark.parametrize("entry", ["fused", "streamed"])
+def test_series_cut_into_calls_is_the_same_series(entry, noise):
+    """5 + 3 steps with the state carried and step0 = 5 equal 8 steps, and
+    so do two launches of the wrapper's own cut (max_steps)."""
+    fn = af.ar_flow_fused if entry == "fused" else af.ar_flow_streamed
+    a0, ph, ns, W, pm = t = tensors(ar_inputs(L=3, seed=4,
+                                              boiling=noise is not None))
+    kw = {"noise": noise or "uniform"}
+    c8, a8 = fn(SEED, *t, 8, **kw)
+    c5, a5 = fn(SEED, *t, 5, **kw)
+    c3, a3 = fn(SEED, a5, ph, ns, W, pm, 3, step0=5, **kw)
+    assert torch.equal(torch.cat([c5, c3]), c8) and torch.equal(a3, a8)
+    cm, am = fn(SEED, *t, 8, max_steps=3, **kw)
+    assert torch.equal(cm, c8) and torch.equal(am, a8)
+    assert torch.equal(a0, t[0])  # the caller's state is not advanced
+
+
+def test_fused_and_streamed_agree_and_count_nothing_on_cpu():
+    t = tensors(ar_inputs(L=3, seed=8, boiling=True))
+    before = af.ar_flow_fused.LAUNCHES, af.ar_flow_streamed.LAUNCHES
+    cf, af_ = af.ar_flow_fused(SEED, *t, 6, noise="gauss")
+    for lb in (1, 2, 4):
+        cs, as_ = af.ar_flow_streamed(SEED, *t, 6, noise="gauss",
+                                      lb_layers=lb)
+        assert torch.equal(cs, cf) and torch.equal(as_, af_)
+    assert (af.ar_flow_fused.LAUNCHES,
+            af.ar_flow_streamed.LAUNCHES) == before
+
+
+def test_noise_stream_is_the_kernels_noise():
+    L, N = 2, 16
+    z1, z2 = af.ar_noise(SEED, 3, 6, L, N, "gauss")
+    stream = af.NoiseStream(SEED, L, N, end=9, noise="gauss",
+                            dtype=torch.complex128)
+    for i, step in enumerate(range(3, 9)):
+        z = stream(step)
+        assert z.dtype == torch.complex128 and z.shape == (L, N, N)
+        assert torch.equal(z.real.float(), z1[i])
+        assert torch.equal(z.imag.float(), z2[i])
+    # zero bits: the constants the Pallas interpreter's PRNG gives
+    u1, u2 = af.ar_noise(0, 0, 1, 1, 4, "uniform", bits="zero")
+    assert torch.all(u1 == -np.float32(np.sqrt(3.0))) and torch.equal(u1, u2)
+    g1, g2 = af.ar_noise(0, 0, 1, 1, 4, "gauss", bits="zero")
+    np.testing.assert_allclose(g1.numpy(), np.sqrt(50 * np.log(2)), rtol=1e-6)
+    assert torch.all(g2 == 0)
+
+
+def test_the_rule_and_what_the_wrappers_refuse():
+    assert af.select(4) is af.ar_flow_fused
+    assert af.select(af.FUSED_MAX_LAYERS) is af.ar_flow_fused
+    assert af.select(16) is af.ar_flow_streamed
+    assert af.supports(256, 82) and not af.supports(1024, 402)
+    assert af.tile_steps(256) == 256 and af.tile_steps(512) == 64
+    t = tensors(ar_inputs(L=9, N=16, lo=4, hi=12))
+    with pytest.raises(ValueError, match="ar_flow_streamed"):
+        af.ar_flow_fused(1, *t, 2)
+    c, a = af.ar_flow_streamed(1, *t, 2)
+    assert c.shape == (2, 2) and a.shape == (9, 16, 16)
+    with pytest.raises(ValueError, match="noise"):
+        af.ar_flow_streamed(1, *t, 2, noise="banana")
+    with pytest.raises(ValueError, match="lb_layers"):
+        af.ar_flow_streamed(1, *t, 2, lb_layers=9)
+    with pytest.raises(ValueError, match="complex"):
+        af.ar_flow_streamed(1, t[0].real, *t[1:], 2)
+
+
+# --------------------------------------------------------------------------
+# (f) on the card
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    return torch.device("cuda")
+
+
+# (entry, L, N, lo, hi, steps, max_steps): two launches with the state
+# carried; a grid side that is no multiple of 32 with its pupil as wide as
+# the grid; more layers than the fused kernel holds (streamed only)
+KERNEL_CASES = [(d, *c) for d in ("fused", "streamed")
+                for c in [(3, 64, 20, 44, 300, 256), (2, 102, 0, 102, 40, 4096)]
+                ] + [("streamed", 10, 64, 20, 44, 40, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", KERNEL_CASES,
+                         ids=lambda c: f"{c[0]}-L{c[1]}N{c[2]}x{c[5]}")
+@pytest.mark.parametrize("noise", [None, "uniform", "gauss"])
+def test_kernel_matches_plain_on_card(cuda_device, noise, case):
+    entry, L, N, lo, hi, nsteps, max_steps = case
+    fn = af.ar_flow_fused if entry == "fused" else af.ar_flow_streamed
+    t = tensors(ar_inputs(L=L, N=N, lo=lo, hi=hi, seed=9,
+                          boiling=noise is not None, alpha=0.99),
+                cuda_device)
+    kw = {"noise": noise or "uniform", "step0": 7}
+    before = fn.LAUNCHES
+    c, a = fn(SEED, *t, nsteps, max_steps=max_steps, **kw)
+    c_ref, a_ref = af.ar_flow_reference(SEED, *t, nsteps, **kw)
+    torch.cuda.synchronize()
+    assert fn.LAUNCHES == before + -(-nsteps // max_steps)
+    assert bool(torch.isfinite(c).all())
+    assert torch.equal(a, a_ref)
+    err = float((c - c_ref).abs().max())
+    assert err <= KERNEL_REL * float(c_ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise", [None, "uniform", "gauss"])
+def test_streamed_equals_fused_on_card(cuda_device, noise):
+    t = tensors(ar_inputs(L=4, seed=10, boiling=noise is not None),
+                cuda_device)
+    kw = {"noise": noise or "uniform"}
+    cf, af_ = af.ar_flow_fused(SEED, *t, 70, **kw)
+    for lb in (1, 3):
+        cs, as_ = af.ar_flow_streamed(SEED, *t, 70, lb_layers=lb, **kw)
+        assert torch.equal(cs, cf) and torch.equal(as_, af_)

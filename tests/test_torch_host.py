@@ -118,8 +118,12 @@ def test_default_device_needs_a_card():
     ({"SYNTH": "pallas"}, "K7"),
 ])
 def test_unported_options_raise(overrides, match):
+    """What is still to port raises: SYNTH='pallas' at construction, and a
+    TEMPORAL sim (which now constructs) at ``run(progress=True)``."""
     with pytest.raises(NotImplementedError, match=match):
-        fast_tpu_torch.Fast(small_params(**overrides), device="cpu")
+        sim = fast_tpu_torch.Fast(small_params(**overrides), device="cpu")
+        assert sim.temporal
+        sim.run(progress=True)
 
 
 def test_progress_run_not_ported(sims):
