@@ -6,11 +6,13 @@ Phases, in order; any failure exits non-zero before the result line:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
    fails without a CUDA device;
-2. build the synth-detect kernel K2 (``csrc/synth_detect.cu``), the
-   colfac-detect kernel K1 (``csrc/colfac_detect.cu``) and the AR flow
-   kernels K4 and K5 (``csrc/ar_flow.cu``), one ``nvcc`` each, started
+2. build the synth-detect and synth-screens kernels K2 and K7
+   (``csrc/synth_detect.cu``), the colfac-detect kernels K1
+   (``csrc/colfac_detect.cu``) and K3 (``csrc/colfac_split.cu``) and the AR
+   flow kernels K4 and K5 (``csrc/ar_flow.cu``), one ``nvcc`` each, started
    together; print ptxas registers, spills and shared memory of each pass
-   at the flagships' padded pupil (P=96);
+   at the flagships' padded pupil (P=96) and at the 4 m link's (P=416, in
+   tiles and column groups of 112 px);
 3. K2 against its plain torch version on the card, 'mixed' and 'gauss'
    noise, from the same Philox bits: at the 256^2 flagship shapes (N=256,
    P=82) over 4100 draws, which takes two launches, the second from draw
@@ -48,7 +50,20 @@ Phases, in order; any failure exits non-zero before the result line:
    autocorrelation time); the 16-layer 512^2 link through K5 at
    NITER=8192; the 'ar' kernel route against the SYNTH='fft' route from
    one seed; one 'screens' run;
-10. times: each kernel's ms per 4096 draws or steps beside its bound and
+10. the wide-pupil slice, the 1024^2 link with a 4 m telescope
+   (``flagship(NPXLS=1024, D_GROUND=4.0, DSUBAP=0.5)``: a 402 px pupil,
+   padded to 416): K2 ('mixed', 'gauss', 'mixed' with subharmonic
+   screens), K3 ('mixed', 'gauss') and K7 against their plain versions from
+   identical Philox bits over 640 draws, which take two launches of at
+   most 630 (2 GiB of G' scratch), with the TF32 control; the stock-op
+   detector on K7's screens against K2 'gauss'; the same three kernels at
+   a 144 px pupil on a 192^2 grid (two tiles of 80 px an axis, the second
+   ragged); then ``Fast(...).run()`` through 'auto' (K2, NITER=16384),
+   pinned 'pallas_colfac' (K3, 8192) and 'pallas' (K7, 8192), each of
+   which must launch its kernel and no other and agree with a 'matmul' run
+   (4096); times per 630-draw launch beside bounds and plain versions,
+   warm rates and one profile per path;
+11. times: each kernel's ms per 4096 draws or steps beside its bound and
    its plain version's; the factor build at 512^2; warm ``run()`` rates at
    256^2 (K2, 'matmul', K2 'gauss', K1 pinned), at 512^2 (K1, 'colfac',
    'matmul' and K2 pinned at fewer realizations) and of the temporal
@@ -60,7 +75,9 @@ one of the run's device. The flagship config is the AO-corrected 0.8 m
 uplink at 1550 nm through a 4-layer HV57/Bufton profile, at DX=0.01 m:
 a 256^2 grid (``__graft_entry__.py``) and the same link at 512^2; the
 temporal mode runs it at DT = 1 ms, and through a 16-layer profile at
-512^2.
+512^2; the wide-pupil link is the same uplink from a 4 m telescope with
+0.5 m subapertures on a 1024^2 grid (``bench.py``'s large-telescope
+configuration).
 """
 
 import json
@@ -98,6 +115,18 @@ SI_REL = 0.05         # scintillation index, relative
 SEED = 0x5EED_1234_ABCD
 DEVICE = "cuda"
 PJ = 6                # the flagships' pupil, 82 px, padded to 16 * PJ = 96
+PJ_W = 7              # the 4 m link's pupil, 402 px, padded to 416: tiles
+                      # and column groups of 16 * PJ_W = 112 px
+WIDE = dict(NPXLS=1024, D_GROUND=4.0, DSUBAP=0.5)  # the wide-pupil link
+WIDE_SHAPE = (1024, 402)  # its grid side and pupil width
+NITER_W = 16384       # its realizations through 'auto' (K2), NCHUNKS=4
+NITER_W_SMALL = 8192  # through K3 and K7
+NITER_W_MATMUL = 4096  # through 'matmul', whose noise is 8.4 MB a draw
+NDRAWS_W = 640        # draws of a wide kernel check: two launches, since
+                      # 2 GiB of G' scratch hold 630 draws at N=1024, P=416
+SI_SIGMAS = 5.0       # scintillation index of a short run: combined
+                      # standard errors from 16 blocks, where that is wider
+                      # than SI_REL
 # the H100 SXM's published rates (NVIDIA data sheet, at 700 W): float32
 # outside the tensor cores, and device memory
 PEAK_FP32 = 67e12     # FLOP/s
@@ -198,6 +227,27 @@ def k1_bound(N, P, nbatch, mixed):
     return _bound(flops, nbytes)
 
 
+def k3_bound(N, P, nbatch, mixed):
+    """K3's least time in ms: per draw and column the complex (1 x Kq) @
+    (Kq x P) factor product as four real ones (Kq = the pupil rounded up
+    to 128 lanes for 'mixed', P for 'gauss') and 8P^2 N for the column
+    contraction, at the fp32 rate; or its factor table, W and pm in and
+    sums out at the memory rate."""
+    Kq = -(-P // 128) * 128 if mixed else P
+    flops = nbatch * (N * 2 * Kq * 2 * P * 2 + 8 * P * P * N)
+    nbytes = 4 * (N * Kq * 2 * P + 2 * P * N + P * P + 4 * nbatch)
+    return _bound(flops, nbytes)
+
+
+def k7_bound(N, P, nbatch):
+    """K7's least time in ms: K2's count with Box-Muller noise, 8N^2 P for
+    G' and 8P^2 N for the screens per draw, at the fp32 rate; or sqrt(PSD)
+    and W in and two P x P screens out per draw at the memory rate."""
+    flops = nbatch * (8 * N * N * P + 8 * P * P * N)
+    nbytes = 4 * (N * N + 2 * P * N + 2 * P * P * nbatch)
+    return _bound(flops, nbytes)
+
+
 def ar_bound(L, N, P, nsteps, boiling):
     """K4's and K5's least time in ms for ``nsteps`` steps of L layers at
     an (N, N) grid and a P px pupil: per step 8PN^2 FLOPs for G' and
@@ -240,40 +290,59 @@ def phase_env():
     return card
 
 
-_PASS = re.compile(r"(synth_pass1|colfac_pass1|detect_pass)I(?:Lb([01])E)?"
-                   rf"Li{PJ}E(?:Li([12])E)?E")
-# the AR passes: the update at 4 layers a thread (K4 at the flagship, and
-# K5's layer block) per noise kind, the two products at the padded pupil
-_AR_PASS = re.compile(rf"(ar_update)ILi4ELi([012])EE|(ar_dft|ar_detect)"
-                      rf"ILi{PJ}EE")
+# a kernel's name and template arguments in its mangled entry name
+_ENTRY = re.compile(r"(synth_pass1|colfac_pass1|split_pass1|detect_pass|"
+                    r"screens_pass|ar_update|ar_dft|ar_detect)"
+                    r"I((?:L[bi]\d+E)+)E")
+
+
+def _describe(name, a):
+    """What one compiled pass is, or None for those not printed: the
+    passes at the flagships' padded pupil (P=96, one tile) and at the 4 m
+    link's (P=416 in tiles and groups of 112 px), and the AR passes at 4
+    layers a thread."""
+    noise = ("gauss", "mixed")
+    if name == "synth_pass1" and (a[1], a[3]) in ((PJ, 1), (PJ_W, 4)):
+        return (f"P={16 * PJ if a[3] == 1 else 416} {noise[a[0]]} "
+                f"rows={a[2]} groups={a[3]}")
+    if name == "colfac_pass1" and a[1] == PJ:
+        return f"P={16 * PJ} {noise[a[0]]}"
+    if name == "split_pass1" and a[1] == PJ_W:
+        return f"P=416 {noise[a[0]]}"
+    if name in ("detect_pass", "screens_pass") and tuple(a) in ((PJ, 1),
+                                                                (PJ_W, 0)):
+        return f"P={16 * PJ if a[1] else 416}"
+    if name == "ar_update" and a[0] == 4:
+        return "4 layers " + ("frozen", "uniform", "gauss")[a[1]]
+    if name in ("ar_dft", "ar_detect") and a[0] == PJ:
+        return f"P={16 * PJ}"
+    return None
+
+
+LIBRARIES = ["synth_detect", "colfac_detect", "colfac_split", "ar_flow"]
 
 
 def phase_build():
     from fast_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    infos = _build.build_all(["synth_detect", "colfac_detect", "ar_flow"])
-    print(f"build: three libraries in {time.perf_counter() - t0:.1f} s ("
-          + ", ".join(f"{k}.cu nvcc {v.seconds:.1f} s"
-                      for k, v in infos.items()) + ")")
+    infos = _build.build_all(LIBRARIES)
+    print(f"build: {len(infos)} libraries in {time.perf_counter() - t0:.1f} "
+          f"s (" + ", ".join(f"{k}.cu nvcc {v.seconds:.1f} s"
+                             for k, v in infos.items()) + ")")
     for name, info in infos.items():
-        fn = ar = None
+        what = None
         for line in info.log.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                fn = _PASS.search(m.group(1))
-                ar = _AR_PASS.search(m.group(1))
+                e = _ENTRY.search(m.group(1))
+                what = e and _describe(
+                    e.group(1), [int(v) for v in
+                                 re.findall(r"L[bi](\d+)E", e.group(2))])
+                what = what and f"{e.group(1)} {what}"
                 continue
-            if ar and ("Used" in line or "spill" in line):
-                kind = ("" if ar.group(3) else " 4 layers "
-                        + ("frozen", "uniform", "gauss")[int(ar.group(2))])
-                print(f"  ptxas {name}: {ar.group(1) or ar.group(3)}"
-                      f"{kind or f' P={16 * PJ}'}: "
+            if what and ("Used" in line or "spill" in line):
+                print(f"  ptxas {name}: {what}: "
                       f"{line.split(':', 1)[-1].strip()}")
-            if fn and ("Used" in line or "spill" in line):
-                mode = {"1": " mixed", "0": " gauss", None: ""}[fn.group(2)]
-                rows = f" rows={fn.group(3)}" if fn.group(3) else ""
-                print(f"  ptxas {name}: {fn.group(1)} P={16 * PJ}{mode}"
-                      f"{rows}: {line.split(':', 1)[-1].strip()}")
 
 
 def check(kernel, fn, ref_fn, args, kw, label):
@@ -297,10 +366,10 @@ def check(kernel, fn, ref_fn, args, kw, label):
     return err, cp
 
 
-def tf32_control(kernel, ref_fn, args, kw, c32, label):
+def tf32_control(kernel, ref_fn, args, kw, c32, label, n=512):
     """The plain version with its products at TF32 against the fp32 one
-    on the first 512 draws; prints how far over the limit it lands."""
-    n = min(512, args[-1])
+    on the first ``n`` draws; prints how far over the limit it lands."""
+    n = min(n, args[-1])
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         ct = ref_fn(*args[:-1], n, **kw)
@@ -315,12 +384,13 @@ def tf32_control(kernel, ref_fn, args, kw, c32, label):
         fail(f"the limit does not reject TF32 products ({kernel} {label})")
 
 
-def time_kernel(fn, ref_fn, args, kw):
-    """(kernel ms, plain ms) per NTIME draws; the launches do not count."""
-    args = args[:-1] + (NTIME,)
+def time_kernel(fn, ref_fn, args, kw, ntime=NTIME, reps=(10, 3)):
+    """(kernel ms, plain ms) per ``ntime`` draws; the launches do not
+    count."""
+    args = args[:-1] + (ntime,)
     before = fn.LAUNCHES
-    ms = cuda_ms(lambda: fn(*args, **kw), 10)
-    plain_ms = cuda_ms(lambda: ref_fn(*args, **kw), 3)
+    ms = cuda_ms(lambda: fn(*args, **kw), reps[0])
+    plain_ms = cuda_ms(lambda: ref_fn(*args, **kw), reps[1])
     fn.LAUNCHES = before
     return ms, plain_ms
 
@@ -411,21 +481,39 @@ def phase_k1(sim):
     return res
 
 
-def agree(r_k, r_p, what, name="kernel"):
+def si_standard_error(r, blocks=16):
+    """Standard error of a series' scintillation index, from the spread of
+    the index over ``blocks`` consecutive blocks."""
+    b = r[:r.size // blocks * blocks].reshape(blocks, -1)
+    return float((b.var(axis=1) / b.mean(axis=1) ** 2).std(ddof=1)
+                 / np.sqrt(blocks))
+
+
+def agree(r_k, r_p, what, name="kernel", short=False):
     """Mean within MEAN_SIGMAS combined standard errors, scintillation
-    index within SI_REL; prints both."""
+    index within SI_REL; prints both. ``short``: a run too short for
+    SI_REL holds the index to SI_SIGMAS combined standard errors instead,
+    where that is the wider of the two."""
     for who, r in ((name, r_k), ("matmul", r_p)):
         if r.ndim != 1 or not np.isfinite(r).all():
             fail(f"{what}: {who} path output is not finite of shape (n,)")
     se = np.hypot(r_k.std() / np.sqrt(r_k.size), r_p.std() / np.sqrt(r_p.size))
     dmean = abs(r_k.mean() - r_p.mean())
     si_k, si_p = r_k.var() / r_k.mean() ** 2, r_p.var() / r_p.mean() ** 2
+    si_tol, why = SI_REL * si_p, f"{SI_REL:.0%}"
+    if short:
+        si_se = np.hypot(si_standard_error(r_k), si_standard_error(r_p))
+        if SI_SIGMAS * si_se > si_tol:
+            si_tol = SI_SIGMAS * si_se
+            why = (f"{SI_SIGMAS:.0f} combined standard errors, one being "
+                   f"{si_se / si_p:.1%} of the index at {r_k.size} and "
+                   f"{r_p.size} realizations: wider than {SI_REL:.0%}")
     print(f"{what}: mean normalised power {name} {r_k.mean():.6f}, matmul "
           f"{r_p.mean():.6f} ({dmean / se:.2f} combined SE); scintillation "
-          f"index {name} {si_k:.5f}, matmul {si_p:.5f}")
+          f"index {name} {si_k:.5f}, matmul {si_p:.5f} (limit {why})")
     if not dmean <= MEAN_SIGMAS * se:
         fail(f"{what}: mean power of the {name} path disagrees with matmul")
-    if not abs(si_k - si_p) <= SI_REL * si_p:
+    if not abs(si_k - si_p) <= si_tol:
         fail(f"{what}: scintillation index of the {name} path disagrees")
 
 
@@ -714,6 +802,239 @@ def phase_temporal(ctx):
     return k4, k5, (sim_t, sim_t16, sim_tf)
 
 
+def random_link(N, lo, hi, seed=5, phase_rms=1.5):
+    """Tables of a made-up link from a numpy seed, on the card: K2's and
+    K7's (``s_t``, ``wr``, ``wi``, ``pm_t``, ``mix``, ``pm``) with a PSD
+    scaled to screens of ``phase_rms`` rad rms, and K3's 'mixed' table from
+    random factors of the same scale."""
+    from fast_tpu_torch import synthesis
+    from fast_tpu_torch.ops import colfac_detect as cd
+    from fast_tpu_torch.ops import synth_detect as sd
+    npup = hi - lo
+    rng = np.random.default_rng(seed)
+    sqrt_ps = (rng.random((N, N)) + 0.2).astype(np.float32)
+    df = phase_rms / float(np.sqrt((sqrt_ps.astype(np.float64) ** 2).sum()))
+    W = synthesis.pruned_ift2_matrix(N, lo, hi, dtype=np.complex64)
+    pm = rng.random((npup, npup)).astype(np.float32)
+    L = (rng.normal(size=(N, npup, npup))
+         + 1j * rng.normal(size=(N, npup, npup)))
+    L = (L * phase_rms / np.sqrt(2 * npup * N)).astype(np.complex64)
+
+    def dev(a):
+        return torch.from_numpy(np.array(a, order="C")).to(DEVICE)
+
+    wr, wi, pm_t = sd.pad_pupil(dev(W.real), dev(W.imag), dev(pm.T))
+    return dict(s_t=dev(sqrt_ps.T * np.float32(df)), wr=wr, wi=wi, pm_t=pm_t,
+                pm=dev(pm), mix=dev(sd.mixing_matrix(N)),
+                T_colfac=cd.pack_tables_split(dev(L), mixed=True))
+
+
+def check_screens(T, npup, ndraws, label):
+    """K7 against its plain version on the same inputs (max |d phi| within
+    2N 2^-24 of max |phi|: a depth-N fp32 sum per DFT side in another
+    order), the plain version at TF32 as the control, and the stock-op
+    detector on K7's screens against K2 with Box-Muller noise from the
+    same seed. Returns max |d phi|."""
+    from fast_tpu_torch import synthesis
+    from fast_tpu_torch.ops import synth_detect as sd
+    N = T["s_t"].shape[0]
+    args = (SEED, T["s_t"], T["wr"], T["wi"], ndraws)
+    kw = {"npup": npup, "stream": 2}
+    before = sd.synth_screens.LAUNCHES, sd.synth_detect.LAUNCHES
+    sk = sd.synth_screens(*args, **kw)
+    launches = sd.synth_screens.LAUNCHES - before[0]
+    sp = sd.synth_screens_reference(*args, **kw)
+    n = min(64, ndraws)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        st = sd.synth_screens_reference(*args[:-1], n, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    c7 = synthesis.detector_coupling(sk, T["pm"], 1.0, 1.0)
+    c2 = sd.synth_detect(SEED, T["s_t"], T["wr"], T["wi"], T["pm_t"], ndraws,
+                         mix=None, stream=2)
+    torch.cuda.synchronize()
+    sd.synth_screens.LAUNCHES, sd.synth_detect.LAUNCHES = before
+    if sk.shape != (2 * ndraws, npup, npup) or not bool(
+            torch.isfinite(sk).all()):
+        fail(f"K7 ({label}) gave screens that are not finite of shape "
+             f"(2 * draws, {npup}, {npup})")
+    err, top = float((sk - sp).abs().max()), float(sp.abs().max())
+    limit = 2 * N * 2.0 ** -24 * top
+    sp32 = sp.reshape(2, ndraws, npup, npup)[:, :n].reshape(st.shape)
+    terr = float((st - sp32).abs().max())
+    print(f"K7 {label}, {ndraws} draws in {launches} launches: max |kernel - "
+          f"plain| = {err:.3e} rad (limit {limit:.3e} = 2N 2^-24 max |phi|; "
+          f"max |phi| {top:.3e}, rms {float(sp.std()):.3f}); control: plain "
+          f"K7 with TF32 products vs fp32, {n} draws: {terr:.3e}, "
+          f"{terr / limit:.1f}x the limit")
+    if not err <= limit:
+        fail(f"K7 ({label}) disagrees with its plain version")
+    if not terr > limit:
+        fail(f"the limit does not reject TF32 products (K7 {label})")
+    c2 = torch.complex(c2[:, 0], c2[:, 1])
+    cerr, ctop = float((c7 - c2).abs().max()), float(c2.abs().max())
+    print(f"K7 {label}: stock-op detector on its screens against K2 gauss, "
+          f"one seed: max |d| = {cerr:.3e} (limit {KERNEL_REL * ctop:.3e}; "
+          f"max |sum| {ctop:.3e})")
+    if not cerr <= KERNEL_REL * ctop:
+        fail(f"K7's screens ({label}) are not the ones K2 gauss detects")
+    return err
+
+
+def wide_run(sim, kernel, counters, label):
+    """The main path of one wide-pupil run: ``sim.run()`` with every
+    kernel's count at 0; fails unless it launched ``kernel`` (a key of
+    ``counters``; None for a stock-op path) and no other. Returns
+    (series, launches)."""
+    for c in counters.values():
+        c.LAUNCHES = 0
+    res, secs = timed_run(sim)
+    torch.cuda.synchronize()
+    counts = {k: c.LAUNCHES for k, c in counters.items()}
+    r = series(res)
+    print(f"{label}: {sim.Niter} realizations in {secs:.3f} s (first run), "
+          f"launches " + ", ".join(f"{k} {v}" for k, v in counts.items())
+          + f"; avg power {res.avg_power_dBm:.4f} dBm, phs_var "
+          f"{sim.phs_var:.4f} rad^2")
+    if kernel and counts[kernel] == 0:
+        fail(f"{label}: Fast.run() did not launch {kernel}")
+    if any(v for k, v in counts.items() if k != kernel):
+        fail(f"{label}: Fast.run() launched another kernel")
+    if r.shape != (sim.Niter,) or not np.isfinite(r).all():
+        fail(f"{label}: output is not finite of shape (NITER,)")
+    return r, counts.get(kernel, 0)
+
+
+def phase_wide(card):
+    """The wide-pupil slice: the 1024^2 link with a 4 m telescope through
+    K2 ('auto'), K3 (pinned 'pallas_colfac') and K7 ('pallas'), each
+    kernel against its plain version first."""
+    from fast_tpu_torch import Fast
+    from fast_tpu_torch.ops import ar_flow as af
+    from fast_tpu_torch.ops import colfac_detect as cd
+    from fast_tpu_torch.ops import synth_detect as sd
+    counters = {"K1": cd.colfac_detect, "K2": sd.synth_detect,
+                "K3": cd.colfac_detect_split, "K7": sd.synth_screens,
+                "K4": af.ar_flow_fused, "K5": af.ar_flow_streamed}
+
+    def wide(**kw):
+        return Fast(flagship(**WIDE, NCHUNKS=4, SEED=3, **kw), device=DEVICE)
+
+    t0 = time.perf_counter()
+    sim_2 = wide(NITER=NITER_W)
+    init_s = time.perf_counter() - t0
+    N, P = sim_2.Npxls, sim_2.Npxls_pup
+    Pp = sd.padded_pupil(P)
+    per = sd.draws_per_launch(N, Pp)
+    if sim_2._synth != "pallas_fused" or (N, P) != WIDE_SHAPE:
+        fail(f"the wide link resolved to {sim_2._synth!r} at {N}^2, P={P}")
+    t0 = time.perf_counter()
+    sim_3 = wide(SYNTH="pallas_colfac", NITER=NITER_W_SMALL)
+    init3_s = time.perf_counter() - t0
+    if sim_3._synth != "pallas_colfac" or "T_colfac" not in sim_3.tables:
+        fail("pinned 'pallas_colfac' at a 402 px pupil is not on K3")
+    sim_7 = wide(SYNTH="pallas", NITER=NITER_W_SMALL)
+    sim_m = wide(SYNTH="matmul", NITER=NITER_W_MATMUL)
+    T = sim_3.tables
+    print(f"{N}^2 link, 4 m pupil: P={P} padded to {Pp}, {per} draws a "
+          f"launch; Fast() {init_s:.2f} s ('auto', powerspec "
+          f"{sim_2.timings['powerspec']:.2f} s), {init3_s:.2f} s with the "
+          f"column factors ({sim_3.timings['column_factors']:.3f} s, float32 "
+          f"on the card; L {T['L'].numel() * 8 / 1e9:.2f} GB, split table "
+          f"{T['T_colfac'].numel() * 4 / 1e9:.2f} GB)")
+
+    # the kernels against their plain versions, two launches each
+    label = f"{N}^2, P={P}"
+    k2w, k3, k7 = ({"max_abs_err": 0.0} for _ in range(3))
+    base = (SEED, T["s_t"], T["wr"], T["wi"], T["pm_t"], NDRAWS_W)
+    for noise in ("mixed", "gauss"):
+        mixed = noise == "mixed"
+        kw = {"mix": T["mix"] if mixed else None}
+        err, cp = check("K2", sd.synth_detect, sd.synth_detect_reference,
+                        base, kw, f"{noise} {label}")
+        k2w["max_abs_err"] = max(k2w["max_abs_err"], err)
+        tf32_control("K2", sd.synth_detect_reference, base, kw, cp,
+                     f"{noise} {label}", n=64)
+        tab = (T["T_colfac"] if mixed
+               else cd.pack_tables_split(T["L"], mixed=False))
+        args3 = (SEED, tab) + base[2:]
+        kw3 = {"mixed": mixed, "stream": 3}
+        err, cp = check("K3", cd.colfac_detect_split,
+                        cd.colfac_split_reference, args3, kw3,
+                        f"{noise} {label}")
+        k3["max_abs_err"] = max(k3["max_abs_err"], err)
+        tf32_control("K3", cd.colfac_split_reference, args3, kw3, cp,
+                     f"{noise} {label}", n=64)
+        if not mixed:
+            del tab
+            continue
+        # times per launch of `per` draws, 'mixed' (the default noise)
+        for res, fn, ref, a, k, bound in (
+                (k2w, sd.synth_detect, sd.synth_detect_reference, base, kw,
+                 k2_bound(N, P, per, True)),
+                (k3, cd.colfac_detect_split, cd.colfac_split_reference,
+                 args3, kw3, k3_bound(N, P, per, True))):
+            res["ms"], res["plain_ms"] = time_kernel(fn, ref, a, k, per,
+                                                     (3, 1))
+            res["bound_ms"], res["bound_by"], flops = bound
+            print(f"{'K2' if res is k2w else 'K3'} mixed: {res['ms']:.3f} ms "
+                  f"kernel ({res['ms'] / per:.4f} ms a draw), "
+                  f"{res['plain_ms']:.3f} ms plain, bound "
+                  f"{res['bound_ms']:.3f} ms ({flops / per / 1e9:.2f} GFLOP "
+                  f"per draw; {res['bound_ms'] / res['ms']:.1%} of it) per "
+                  f"launch of {per} complex draws at {label}")
+    g = torch.Generator(device=DEVICE).manual_seed(11)
+    sh = torch.complex(*torch.randn((2, NDRAWS_W, P, P), device=DEVICE,
+                                    generator=g))
+    k2w["max_abs_err_sh"] = check(
+        "K2", sd.synth_detect, sd.synth_detect_reference, base,
+        {"mix": T["mix"], "sh_t": sd.pack_subharm(sh, Pp)},
+        f"mixed with subharmonic screens, {label}")[0]
+    del sh
+    k7["max_abs_err"] = check_screens(T, P, NDRAWS_W, label)
+    a7 = (SEED, T["s_t"], T["wr"], T["wi"], per)
+    k7["ms"], k7["plain_ms"] = time_kernel(
+        sd.synth_screens, sd.synth_screens_reference, a7, {"npup": P}, per,
+        (3, 1))
+    k7["bound_ms"], k7["bound_by"], flops = k7_bound(N, P, per)
+    k2w["ms_gauss"] = cuda_ms(lambda: sd.synth_detect(*base[:-1], per), 3)
+    sd.synth_detect.LAUNCHES = 0
+    print(f"K7: {k7['ms']:.3f} ms kernel ({k7['ms'] / per:.4f} ms a draw; "
+          f"K2 gauss {k2w['ms_gauss']:.3f} ms), {k7['plain_ms']:.3f} ms "
+          f"plain, bound {k7['bound_ms']:.3f} ms ({flops / per / 1e9:.2f} "
+          f"GFLOP per draw; {k7['bound_ms'] / k7['ms']:.1%} of it) per launch "
+          f"of {per} complex draws at {label}")
+
+    # a narrow grid with a wide pupil: two tiles an axis, the second ragged
+    R = random_link(192, 24, 168)
+    rl = "192^2, P=144 (tiles of 80 px)"
+    rbase = (SEED, R["s_t"], R["wr"], R["wi"], R["pm_t"], 300)
+    check("K2", sd.synth_detect, sd.synth_detect_reference, rbase,
+          {"mix": R["mix"]}, f"mixed {rl}")
+    check("K3", cd.colfac_detect_split, cd.colfac_split_reference,
+          (SEED, R["T_colfac"]) + rbase[2:], {"mixed": True}, f"mixed {rl}")
+    check_screens(R, 144, 300, rl)
+    del R
+
+    # the slice: each route of the engine against 'matmul'
+    r_m, _ = wide_run(sim_m, None, counters, "wide slice, matmul")
+    runs = (("K2", sim_2, k2w, "launches_wide"), ("K3", sim_3, k3, "launches"),
+            ("K7", sim_7, k7, "launches"))
+    for name, sim, res, key in runs:
+        r, res[key] = wide_run(sim, name, counters,
+                               f"wide slice, SYNTH={sim.params['SYNTH']!r}")
+        agree(r, r_m, f"wide slice {label}", name, short=True)
+    wide_rates = rates([("K2", sim_2), ("K3", sim_3), ("K7", sim_7),
+                        ("matmul", sim_m), ("matmul", sim_m), ("K7", sim_7),
+                        ("K3", sim_3), ("K2", sim_2)], card, "1024^2, 4 m")
+    profile([("K2 1024^2, 4 m", sim_2), ("K3 1024^2, 4 m", sim_3),
+             ("K7 1024^2, 4 m", sim_7), ("matmul 1024^2, 4 m", sim_m)])
+    for c in counters.values():
+        c.LAUNCHES = 0
+    return k2w, k3, k7, wide_rates
+
+
 def rates(runs, card, where, unit="realizations"):
     """Warm ``run()`` rates of the named sims, two each, in the given
     order; prints and returns {name: [per second, ...]}."""
@@ -824,8 +1145,8 @@ def phase_times(card, ctx, tsims):
 
 
 def _short(name):
-    m = re.search(r"(synth_pass1|colfac_pass1|detect_pass|ar_update|ar_dft|"
-                  r"ar_detect)", name)
+    m = re.search(r"(synth_pass1|colfac_pass1|split_pass1|detect_pass|"
+                  r"screens_pass|sum_tiles|ar_update|ar_dft|ar_detect)", name)
     return m.group(1) if m else name[:48]
 
 
@@ -865,6 +1186,13 @@ def main():
     ctx = phase_slices()
     k4, k5, tsims = phase_temporal(ctx)
     rates_256, rates_512, rates_t = phase_times(card, ctx, tsims)
+    del ctx["sim_k"], ctx["sim_p"], ctx["sim_c"], ctx["sim_cm"], tsims
+    torch.cuda.empty_cache()
+    k2w, k3, k7, rates_w = phase_wide(card)
+    ctx["k2"].update({f"{k}_1024": v for k, v in k2w.items()
+                      if k != "launches_wide"},
+                     launches_1024=k2w["launches_wide"])
+    wide_shape = "1024^2, P=402"
     line = {"kernels": [
         kernel_entry("synth_detect", "fast_tpu_torch/csrc/synth_detect.cu",
                      "fast_tpu/ops/pallas_synth.py:289", ctx["k2"],
@@ -872,6 +1200,10 @@ def main():
         kernel_entry("colfac_detect", "fast_tpu_torch/csrc/colfac_detect.cu",
                      "fast_tpu/ops/pallas_synth.py:724", ctx["k1"],
                      "512^2, P=82, mixed", rates_512, {"timed_draws": NTIME}),
+        kernel_entry("colfac_detect_split",
+                     "fast_tpu_torch/csrc/colfac_split.cu",
+                     "fast_tpu/ops/pallas_synth.py:531", k3,
+                     wide_shape + ", mixed", rates_w, {"timed_draws": 630}),
         kernel_entry("ar_flow_fused", "fast_tpu_torch/csrc/ar_flow.cu",
                      "fast_tpu/ops/pallas_synth.py:996", k4,
                      "256^2, 4 layers, P=82, uniform", rates_t,
@@ -880,6 +1212,10 @@ def main():
                      "fast_tpu/ops/pallas_synth.py:1736", k5,
                      "512^2, 16 layers, P=82, uniform", rates_t,
                      {"timed_steps": MAX_STEPS_K5}),
+        kernel_entry("synth_screens", "fast_tpu_torch/csrc/synth_detect.cu",
+                     "fast_tpu/ops/pallas_synth.py:175", k7,
+                     wide_shape + ", Box-Muller", rates_w,
+                     {"timed_draws": 630}),
     ], "seconds": time.perf_counter() - t_start}
     print(card)
     print(json.dumps(line))

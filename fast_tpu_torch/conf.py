@@ -80,11 +80,13 @@ TPU_DEFAULTS = {
                             # values are accepted and ignored
     "SYNTH": "auto",        # 'auto' | 'pallas_fused' (the hand-written
                             # synth-detect kernel) | 'pallas_colfac' (the
-                            # hand-written colfac-detect kernel) | 'matmul'
-                            # (pruned DFT in stock torch ops) | 'colfac'
+                            # hand-written colfac-detect kernels: merged
+                            # layout up to a 128 px pupil, split above) |
+                            # 'pallas' (the hand-written screens-out kernel
+                            # and the stock-op detector) | 'matmul' (pruned
+                            # DFT in stock torch ops) | 'colfac'
                             # (column-factored noise in stock torch ops) |
-                            # 'fft' (batched ifft2). 'pallas' is not ported
-                            # yet and raises NotImplementedError
+                            # 'fft' (batched ifft2)
     "PRECISION": "default", # accepted; every value means fp32 FMA on the
                             # card in this package for now (the TF32/bf16
                             # meaning of 'default' is still to come)

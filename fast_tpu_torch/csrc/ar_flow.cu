@@ -37,7 +37,7 @@
 //   pupil pixels x (re, im). It writes G' in the layout of the iid
 //   kernels' G' (N x P per step).
 // * ar_detect: one block per step. The iid kernels' detect pass
-//   (common.cuh) without its imaginary half: the series is the real part
+//   (detect.cuh) without its imaginary half: the series is the real part
 //   of the complex screen. Fixed-order block reduction, no atomics, so a
 //   run is reproducible bit for bit on one card.
 // A and G' go through device memory in tiles of `tile` steps (at most 134
@@ -218,7 +218,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The detect pass of common.cuh for one real screen per step: h = Re(W G')
+// The detect pass of detect.cuh for one real screen per step: h = Re(W G')
 // (P x P, the transposed screen), then sum(pm_t cos h), sum(pm_t sin h) in
 // a fixed order. g_re/g_im: (nsteps, N, P); out: (nsteps, 2).
 template <int PJ>

@@ -2,7 +2,9 @@
 // (sm_90a).
 //
 // Replaces fast_tpu/ops/pallas_synth.py::_colfac_detect_kernel_merged, the
-// TPU kernel behind SYNTH='pallas_colfac'. The pruned screen W X W^T is
+// TPU kernel behind SYNTH='pallas_colfac' for pupils of at most 128 px (wider
+// ones take the split layout, K3 in colfac_split.cu). The pruned screen
+// W X W^T is
 // drawn in the column-factored basis: the columns of G = W X are
 // independent with covariance C_m = L_m L_m^H, so G[:, m] = L_m z_m with a
 // white z_m of the pupil's length instead of a full grid column. Per
@@ -24,7 +26,7 @@
 //   S_m[2q, p] = (Re B[q, p], Im B[q, p]),  S_m[2q+1, p] = (-Im B, Re B).
 // fast_tpu_torch/ops/colfac_detect.py::pack_tables builds it. G' = G^T is
 // exactly the G' of the synth-detect kernel (K2), so pass 2 is K2's own
-// detect pass (common.cuh), with the same transposed pm and screens.
+// detect pass (detect.cuh), with the same transposed pm and screens.
 //
 // Mixing width. The TPU kernel mixes 128 uniforms per component per column
 // (its 128-lane tile), so every z is a sum of 128 uniforms; K = 256 rows
@@ -56,14 +58,14 @@
 // k1 = high word). Counter of lane q (0..127) of column m of draw d:
 //   ctr = (m * 128 + q, d, stream, 1);  bits1 = out[0] (u_r or u1),
 //   bits2 = out[1] (u_i or u2).
-// The last word 1 keeps K1's streams apart from K2's (last word 0). The
-// plain torch version builds the same counters, so kernel and plain
-// version see identical noise.
+// The last word 1 keeps K1's streams apart from those of K2 and K7 (0), the
+// AR kernels (2) and K3 (3). The plain torch version builds the same
+// counters, so kernel and plain version see identical noise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "common.cuh"
+#include "detect.cuh"
 
 namespace {
 
@@ -167,9 +169,9 @@ cudaError_t launch(uint32_t k0, uint32_t k1, uint32_t stream_id, int draw0,
       k0, k1, stream_id, draw0, nbatch, S, g_re, g_im, N, K);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  detect_pass<PJ><<<nbatch, kThreads, 0, stream>>>(wr, wi, g_re, g_im, pm_t,
-                                                   sh_t, out, N);
-  return cudaGetLastError();
+  // a pupil of at most 128 px is one tile: no partial sums
+  return launch_detect(16 * PJ, nbatch, wr, wi, g_re, g_im, pm_t, sh_t,
+                       nullptr, out, N, stream);
 }
 
 template <bool kMixed>

@@ -13,11 +13,14 @@ The iid Monte Carlo path and the temporal (frozen-flow) mode of
   card, float64 on the CPU or where float32 fails), then a loop over
   chunks. ``SYNTH='pallas_colfac'`` (what 'auto' picks for float32 at
   N >= 512 with a pupil of at most 128 px) runs the hand-written
-  colfac-detect kernel K1 and ``'pallas_fused'`` (what 'auto' picks for
-  other float32 runs) the synth-detect kernel K2, on CUDA; on the CPU they
-  run their plain torch versions. ``'matmul'``, ``'colfac'`` and ``'fft'``
-  are the stock-op paths. ``SUBHARM=True`` adds the low-order subharmonic
-  screens on every path, inside the detect pass of both kernels.
+  colfac-detect kernels, K1 up to a 128 px pupil and K3 (split layout)
+  above; ``'pallas_fused'`` (what 'auto' picks for other float32 runs,
+  wide pupils among them) the synth-detect kernel K2; ``'pallas'`` the
+  screens-out kernel K7 followed by the stock-op detector, on CUDA; on
+  the CPU they run their plain torch versions. ``'matmul'``, ``'colfac'``
+  and ``'fft'`` are the stock-op paths. ``SUBHARM=True`` adds the
+  low-order subharmonic screens on every path, inside the detect pass of
+  K1, K2 and K3, and to K7's screens.
 * **Temporal mode** (``TEMPORAL=True``): a time series instead of iid
   draws, with a log-amplitude series coloured by the temporal PSD.
   ``TEMPORAL_SYNTH='screens'`` draws one large screen per layer (the grid
@@ -30,8 +33,7 @@ The iid Monte Carlo path and the temporal (frozen-flow) mode of
   series does not depend on ``NCHUNKS``.
 
 Not ported yet, and refused with ``NotImplementedError``:
-``SYNTH='pallas'`` (K7) and ``run(progress=True)`` (ROADMAP.md, queues 1
-and 2).
+``run(progress=True)`` (ROADMAP.md, queue 1).
 """
 
 import logging
@@ -52,7 +54,8 @@ from .ops import ar_flow
 from .ops.fourier import ift2
 from .ops.rng import complex_normal, draw_seed, make_generator
 from .ops import colfac_detect as cd
-from .ops.synth_detect import pack_subharm, supports, synth_detect
+from .ops.synth_detect import (pack_subharm, supports, synth_detect,
+                               synth_screens)
 from . import synthesis
 from .utils import fits
 from .utils.log import init_logging
@@ -60,8 +63,8 @@ from .utils.profiling import StageTimer
 
 logger = logging.getLogger(__name__)
 
-_NOT_PORTED = {"pallas": "ROADMAP.md queue 2, K7"}
-_PORTED = ("auto", "pallas_fused", "pallas_colfac", "matmul", "colfac", "fft")
+_PORTED = ("auto", "pallas", "pallas_fused", "pallas_colfac", "matmul",
+           "colfac", "fft")
 
 
 def l_path(h_sat, zeta):
@@ -98,11 +101,13 @@ def resolve_synth(synth, dtype, device, N, P, noise):
     'auto' is 'fft' for float64 runs (the exact path); for float32 runs on
     any device it is the colfac-detect kernel, 'pallas_colfac', at
     N >= 512 with a pupil of at most 128 px (the JAX package's rule) and
-    the synth-detect kernel, 'pallas_fused', elsewhere. 'pallas_colfac'
-    raises for a pupil over 128 px on any device. On a CUDA device
-    'pallas_fused' raises here for a grid or pupil the kernel does not
-    take, rather than at the first chunk; on the CPU it runs the kernel's
-    plain version, which takes every shape.
+    the synth-detect kernel, 'pallas_fused', elsewhere. No pupil width is
+    refused: pinned 'pallas_colfac' runs K1 up to 128 px and K3 above
+    (:func:`~fast_tpu_torch.ops.colfac_detect.colfac_layout`). On a CUDA
+    device 'pallas_fused' raises here, rather than at the first chunk,
+    for the one shape K2 does not take ('mixed' noise on a grid over
+    2368 px); on the CPU it runs the kernel's plain version, which takes
+    every shape.
     """
     if synth == "auto":
         if dtype == torch.float64:
@@ -111,19 +116,13 @@ def resolve_synth(synth, dtype, device, N, P, noise):
             synth = "pallas_colfac"
         else:
             synth = "pallas_fused"
-    if synth == "pallas_colfac" and not cd.supports(N, P):
-        raise ValueError(
-            f"the colfac-detect kernel (SYNTH='pallas_colfac') takes a pupil "
-            f"of at most 128 px; got NPXLS={N}, a {P} px pupil. The "
-            f"split-layout kernel for wider pupils (K3, ROADMAP.md queue 2) "
-            f"is not ported yet; SYNTH='matmul' runs the stock-op path")
     if (synth == "pallas_fused" and device.type == "cuda"
             and not supports(N, P, mixed=noise == "mixed")):
         raise ValueError(
             f"the synth-detect kernel (SYNTH='pallas_fused', what 'auto' "
-            f"picks for float32) takes a pupil of at most 128 px and, with "
-            f"MC_NOISE='mixed', a grid of at most 2368 px; got NPXLS={N}, "
-            f"a {P} px pupil. SYNTH='matmul' runs the stock-op path")
+            f"picks for float32) takes, with MC_NOISE='mixed', a grid of at "
+            f"most 2368 px; got NPXLS={N}, a {P} px pupil. SYNTH='matmul' "
+            f"runs the stock-op path")
     return synth
 
 
@@ -132,26 +131,38 @@ def chunk_couplings(T, synth, nbatch, *, noise="mixed", seed=0, stream=0,
     """Complex pupil couplings of one chunk: ``2 * nbatch`` screens.
 
     ``T`` are the device tables of :func:`tables_from_numpy`. The kernel
-    paths, 'pallas_fused' and 'pallas_colfac', draw from their Philox keyed
-    by ``seed`` with counter word ``stream``; 'matmul', 'colfac' and 'fft'
-    draw from ``generator``. ``sh`` are optional (nbatch, Npup, Npup)
-    complex subharmonic screens, added to the screens of every path.
-    Returns the couplings scaled by ``dx^2 / norm``, before the
-    log-amplitude factor.
+    paths, 'pallas_fused', 'pallas_colfac' and 'pallas', draw from their
+    Philox keyed by ``seed`` with counter word ``stream``; 'matmul',
+    'colfac' and 'fft' draw from ``generator``. 'pallas' draws Box-Muller
+    noise whatever ``noise`` says, as the TPU kernel does. ``sh`` are
+    optional (nbatch, Npup, Npup) complex subharmonic screens, added to
+    the screens of every path. Returns the couplings scaled by
+    ``dx^2 / norm``, before the log-amplitude factor.
     """
     dx, norm = float(T["dx"]), float(T["norm"])
     if synth in ("pallas_fused", "pallas_colfac"):
         sh_t = None if sh is None else pack_subharm(sh, T["wr"].shape[0])
+        mixed = noise == "mixed"
         if synth == "pallas_fused":
-            mix = T["mix"] if noise == "mixed" else None
             c = synth_detect(seed, T["s_t"], T["wr"], T["wi"], T["pm_t"],
-                             nbatch, mix=mix, stream=stream, sh_t=sh_t)
+                             nbatch, mix=T["mix"] if mixed else None,
+                             stream=stream, sh_t=sh_t)
+        elif "T_colfac" in T:
+            c = cd.colfac_detect_split(seed, T["T_colfac"], T["wr"], T["wi"],
+                                       T["pm_t"], nbatch, mixed=mixed,
+                                       stream=stream, sh_t=sh_t)
         else:
             c = cd.colfac_detect(seed, T["S_colfac"], T["wr"], T["wi"],
-                                 T["pm_t"], nbatch, mixed=noise == "mixed",
+                                 T["pm_t"], nbatch, mixed=mixed,
                                  stream=stream, sh_t=sh_t)
         return torch.complex(c[:, 0], c[:, 1]) * (dx ** 2 / norm)
     df = float(T["df"])
+    if synth == "pallas":
+        phs = synth_screens(seed, T["s_t"], T["wr"], T["wi"], nbatch,
+                            npup=T["pm"].shape[0], stream=stream)
+        if sh is not None:
+            phs = phs + synthesis.double_screens(sh)
+        return synthesis.detector_coupling(phs, T["pm"], dx, norm)
     if synth == "matmul":
         scr = synthesis.synthesize_screens_pruned(
             generator, T["sqrt_psd"], df, nbatch, T["W"])
@@ -189,10 +200,6 @@ class Fast:
         self.seed = p["SEED"]
         self.temporal = p["TEMPORAL"]
         self.dt = p["DT"]
-        if p["SYNTH"] in _NOT_PORTED:
-            raise NotImplementedError(
-                f"SYNTH={p['SYNTH']!r} is not ported yet "
-                f"({_NOT_PORTED[p['SYNTH']]})")
         if p["SYNTH"] not in _PORTED:
             raise ValueError(f"unknown SYNTH {p['SYNTH']!r}")
 

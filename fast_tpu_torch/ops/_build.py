@@ -20,8 +20,11 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "fast_tpu_torch"
+# -split-compile 0: the kernels of one source are optimised on all the
+# host's cores (synth_detect.cu holds 66 of them)
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+               "-split-compile", "0"]
 
 # ar_flow.cu keeps its recurrence free of contracted multiply-adds, so that
 # thousands of steps agree bit for bit with the plain torch version; its

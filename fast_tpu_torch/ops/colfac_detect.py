@@ -1,10 +1,13 @@
-"""K1: colfac-basis synthesis and pupil-overlap detection.
+"""K1 and K3: colfac-basis synthesis and pupil-overlap detection.
 
-The port of ``fast_tpu.ops.pallas_synth.fused_colfac_detect`` (merged
-layout, ``_colfac_detect_kernel_merged``). For ``nbatch`` complex draws it
-draws each column of ``G = W X`` as ``L_m z_m`` from the per-column
-Cholesky factors of the pupil-row covariance, applies ``W`` and returns the
-pupil-overlap sums of both screens of each draw, in K2's output layout.
+The port of ``fast_tpu.ops.pallas_synth.fused_colfac_detect``: K1 is its
+merged layout (``_colfac_detect_kernel_merged``), for pupils of at most
+128 px, K3 its split layout (``_colfac_detect_kernel``), for wider ones;
+:func:`colfac_layout` is the rule between them. For ``nbatch`` complex
+draws each draws every column of ``G = W X`` as ``L_m z_m`` from the
+per-column Cholesky factors of the pupil-row covariance, applies ``W`` and
+returns the pupil-overlap sums of both screens of each draw, in K2's
+output layout.
 
 * :func:`pack_tables` turns the factors ``L`` (N, npup, npup) into the
   kernel's table ``S`` (N, K, P, 2) float32: per column the real-block
@@ -19,9 +22,17 @@ pupil-overlap sums of both screens of each draw, in K2's output layout.
   from the same Philox bits: counter ``(m * 128 + q, draw, stream, 1)``
   for lane ``q`` of column ``m``.
 
-Mixing width: 'mixed' noise mixes 128 uniforms per component per column,
-as the TPU kernel does over its 128-lane tile, whatever the pupil width;
-'gauss' draws only the lanes that meet nonzero rows of ``L``.
+* :func:`pack_tables_split`, :func:`colfac_detect_split` and
+  :func:`colfac_split_reference` are the same three for K3: the table
+  ``T`` (N, Kq, P, 2) holds ``M L_m^T`` (or ``L_m^T``) once, real and
+  imaginary parts interleaved per pupil pixel, and the Philox counter is
+  ``(m * LW + q, draw, stream, 3)`` with ``LW`` the pupil rounded up to
+  128 (``csrc/colfac_split.cu``).
+
+Mixing width: 'mixed' noise mixes 128 uniforms per component per column
+in K1, as the TPU kernel does over its 128-lane tile, and ``LW`` in K3,
+the TPU kernel's lane width there; 'gauss' draws only the lanes that meet
+nonzero rows of ``L``.
 """
 
 import ctypes
@@ -30,18 +41,31 @@ import numpy as np
 import torch
 
 from . import _build
-from .synth_detect import (_MAX_DRAWS, _P_MAX, _REF_POINTS, _key, _pack,
-                           box_muller, check_subharm, check_tables,
-                           detect_reference, mixing_matrix, padded_pupil,
-                           philox4x32_10, raise_on, uniforms)
+from .synth_detect import (_P_MAX, _REF_POINTS, _key, _pack, box_muller,
+                           check_subharm, check_tables, detect_reference,
+                           draws_per_launch, mixing_matrix, padded_pupil,
+                           philox4x32_10, pupil_tiles, raise_on, uniforms)
 
 LANES = 128  # Philox lanes per column; 'mixed' noise mixes all of them
 
 
 def supports(N, P):
-    """Whether the kernel takes an (N, N) grid with a P-pixel pupil: a
-    pupil of at most 128 px and at most 65535 columns."""
+    """Whether K1 takes an (N, N) grid with a P-pixel pupil: a pupil of at
+    most 128 px and at most 65535 columns."""
     return 0 < P <= _P_MAX and 0 < N <= 65535
+
+
+def colfac_layout(npup):
+    """The colfac kernel of a pupil width: 'merged' (K1) up to 128 px,
+    'split' (K3) above; the geometry rule of
+    ``fast_tpu.ops.pallas_synth.colfac_layout``."""
+    return "split" if int(npup) > _P_MAX else "merged"
+
+
+def lane_width(npup):
+    """K3's Philox lanes a column and its mixing width: the pupil rounded
+    up to a multiple of 128, the TPU kernel's lane width."""
+    return -(-int(npup) // LANES) * LANES
 
 
 def pack_tables(L, mixed=True):
@@ -75,19 +99,22 @@ def pack_tables(L, mixed=True):
     return S.reshape(N, 2 * Kq, P, 2).contiguous()
 
 
-def colfac_bits(seed, nbatch, N, lanes, stream=0, device="cpu", draw0=0):
+def colfac_bits(seed, nbatch, N, lanes, stream=0, device="cpu", draw0=0,
+                lane_stride=LANES, word=1):
     """The kernel's two random words per noise lane: ``(b1, b2)``, int64
     tensors of 32-bit values, shape (nbatch, N, lanes), for draws
-    ``draw0 .. draw0 + nbatch - 1``; counter ``(m * 128 + q, d, stream,
-    1)``, key the 64-bit ``seed``."""
+    ``draw0 .. draw0 + nbatch - 1``; counter ``(m * lane_stride + q, d,
+    stream, word)``, key the 64-bit ``seed``. K1: a stride of 128 and last
+    word 1; K3: :func:`lane_width` and 3."""
     k0, k1 = _key(seed)
     m = torch.arange(N, dtype=torch.int64, device=device)[:, None]
     q = torch.arange(lanes, dtype=torch.int64, device=device)[None, :]
-    e = (m * LANES + q).reshape(1, -1)
+    e = (m * int(lane_stride) + q).reshape(1, -1)
     d = torch.arange(draw0, draw0 + nbatch, dtype=torch.int64,
                      device=device)[:, None]
     zero = torch.zeros((), dtype=torch.int64, device=device)
-    x0, x1, _, _ = philox4x32_10(e, d, zero + int(stream), zero + 1, k0, k1)
+    x0, x1, _, _ = philox4x32_10(e, d, zero + int(stream), zero + int(word),
+                                 k0, k1)
     return x0.reshape(nbatch, N, lanes), x1.reshape(nbatch, N, lanes)
 
 
@@ -167,11 +194,12 @@ def colfac_detect(seed, S, wr, wi, pm_t, nbatch, mixed=True, stream=0,
     """K1 on ``nbatch`` complex draws; arguments as
     :func:`colfac_detect_reference`.
 
-    On CUDA tensors this launches the kernel (two passes per launch of at
-    most 4096 draws, the n-th launch from draw ``4096 * n``) on the
-    current stream and counts each launch in ``colfac_detect.LAUNCHES``,
-    or raises for a shape it does not take (:func:`supports`); on CPU
-    tensors it runs the plain version.
+    On CUDA tensors this launches the kernel (two passes per launch of
+    :func:`~fast_tpu_torch.ops.synth_detect.draws_per_launch` draws, each
+    launch from the draw index it starts at) on the current stream and
+    counts each launch in ``colfac_detect.LAUNCHES``, or raises for a
+    shape it does not take (:func:`supports`); on CPU tensors it runs the
+    plain version.
     """
     N, K, P = _check(S, wr, wi, pm_t, nbatch, mixed)
     dev = S.device
@@ -192,7 +220,7 @@ def colfac_detect(seed, S, wr, wi, pm_t, nbatch, mixed=True, stream=0,
     lib, _ = _library()
     nbatch = int(nbatch)
     out = torch.empty((nbatch, 4), dtype=torch.float32, device=dev)
-    per = min(nbatch, _MAX_DRAWS)
+    per = draws_per_launch(N, P, nbatch)
     g = torch.empty((2, per, N, P), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         cs = torch.cuda.current_stream(dev).cuda_stream
@@ -211,3 +239,151 @@ def colfac_detect(seed, S, wr, wi, pm_t, nbatch, mixed=True, stream=0,
 
 colfac_detect.LAUNCHES = 0
 
+
+# ---------------------------------------------------------------------------
+# K3: the split layout, for pupils over 128 px
+# ---------------------------------------------------------------------------
+
+
+def pack_tables_split(L, mixed=True):
+    """K3's factor table from ``L`` (N, npup, npup) complex.
+
+    Float32 whatever the working type: ``T`` (N, Kq, P, 2) with
+    ``P = padded_pupil(npup)`` and ``Kq`` noise lanes a column:
+    :func:`lane_width` for 'mixed' noise, ``P`` for 'gauss'.
+    ``T[m, q, p] = (Re, Im) B_m[q, p]`` with ``B = M L^T`` ('mixed', ``M``
+    the ``LW x LW`` mixing matrix folded in float64) or ``B = L^T``, zero
+    padded: the transposed, cropped
+    ``fast_tpu.ops.pallas_synth.colfac_pack_tables(L, W, 'highest',
+    noise)``, each part stored once. Runs on ``L``'s device, 64 columns
+    at a time (1.7 GB of table at N=1024 with a 402 px pupil).
+    """
+    L = L.to(torch.complex64)
+    N, npup, _ = L.shape
+    P = padded_pupil(npup)
+    Kq = lane_width(npup) if mixed else P
+    T = torch.zeros((N, Kq, P, 2), dtype=torch.float32, device=L.device)
+    if not mixed:
+        T[:, :npup, :npup] = torch.view_as_real(L.transpose(1, 2))
+        return T
+    M = torch.from_numpy(mixing_matrix(Kq).astype(np.float64)).to(L.device)
+    for m0 in range(0, N, 64):
+        # (Kq, npup) @ (cols, npup, npup real-imag pairs), in float64
+        Lt = torch.view_as_real(L[m0:m0 + 64].transpose(1, 2)).double()
+        T[m0:m0 + 64, :, :npup] = torch.einsum(
+            "jq,mqpc->mjpc", M[:, :npup], Lt).float()
+    return T
+
+
+def colfac_split_reference(seed, T, wr, wi, pm_t, nbatch, mixed=True,
+                           stream=0, draw0=0, bits=None, sh_t=None, LW=None):
+    """K3 in stock torch ops (see the module docstring).
+
+    Args: as :func:`colfac_detect_reference`, with ``T`` (N, Kq, P, 2) of
+    :func:`pack_tables_split`, ``bits`` of shape (nbatch, N, Kq) and ``LW``
+    the lane stride of the Philox counter (default: ``Kq`` rounded up to
+    128, which is :func:`lane_width` of the pupil for both noises).
+
+    Returns:
+        (2 * nbatch, 2) float32 tensor, the layout of K2's.
+    """
+    N, Kq, P, _ = T.shape
+    LW = lane_width(Kq) if LW is None else int(LW)
+    tr, ti = T[..., 0].contiguous(), T[..., 1].contiguous()
+    per = max(1, _REF_POINTS // (N * Kq))
+    parts = []
+    for d0 in range(0, int(nbatch), per):
+        nb = min(per, int(nbatch) - d0)
+        if bits is None:
+            b = colfac_bits(seed, nb, N, Kq, stream, device=T.device,
+                            draw0=draw0 + d0, lane_stride=LW, word=3)
+        else:
+            b = (bits[0][d0:d0 + nb], bits[1][d0:d0 + nb])
+        zr, zi = ((uniforms(b[0]), uniforms(b[1])) if mixed
+                  else box_muller(*b))
+        # (m, nb, Kq) @ (m, Kq, P): every column's noise times its factor
+        zr, zi = zr.transpose(0, 1), zi.transpose(0, 1)
+        gr = (zr @ tr - zi @ ti).transpose(0, 1)
+        gi = (zr @ ti + zi @ tr).transpose(0, 1)
+        parts.append(detect_reference(
+            gr, gi, wr, wi, pm_t,
+            None if sh_t is None else sh_t[d0:d0 + nb]))
+    return _pack(torch.cat(parts))
+
+
+def _library_split():
+    lib, info = _build.load_library("colfac_split")
+    if not getattr(lib, "_fast_typed", False):
+        p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+        lib.fast_colfac_split.argtypes = [u, u, u, i, i, p, p, p, p, p, p, p,
+                                          p, p, i, i, i, i, i, p]
+        lib.fast_colfac_split.restype = i
+        lib.fast_error_string.argtypes = [i]
+        lib.fast_error_string.restype = ctypes.c_char_p
+        lib._fast_typed = True
+    return lib, info
+
+
+def _check_split(T, wr, wi, pm_t, nbatch, LW):
+    if T.ndim != 4 or T.shape[-1] != 2:
+        raise ValueError(f"T must be (N, Kq, P, 2), got {tuple(T.shape)}")
+    N, Kq, P, _ = T.shape
+    LW = lane_width(Kq) if LW is None else int(LW)
+    if Kq % 16 or not 0 < Kq <= LW:
+        raise ValueError(f"T must have a multiple of 16 lanes, at most the "
+                         f"lane stride {LW}; got {Kq}")
+    if P % 16 or N > 65535 or N * LW >= 2 ** 32:
+        raise ValueError(
+            f"the split colfac-detect kernel takes a pupil padded to a "
+            f"multiple of 16 px and at most 65535 columns; got N={N}, P={P}")
+    check_tables({"T": (T, None), "wr": (wr, (P, N)), "wi": (wi, (P, N)),
+                  "pm_t": (pm_t, (P, P))}, nbatch)
+    return N, Kq, P, LW
+
+
+def colfac_detect_split(seed, T, wr, wi, pm_t, nbatch, mixed=True, stream=0,
+                        sh_t=None, LW=None):
+    """K3 on ``nbatch`` complex draws; arguments as
+    :func:`colfac_split_reference`.
+
+    On CUDA tensors this launches the kernel (launches as
+    :func:`colfac_detect`'s) on the current stream and counts each launch
+    in ``colfac_detect_split.LAUNCHES``, or raises; on CPU tensors it runs
+    the plain version.
+    """
+    N, Kq, P, LW = _check_split(T, wr, wi, pm_t, nbatch, LW)
+    dev = T.device
+    check_subharm(sh_t, nbatch, P, dev)
+    if dev.type == "cpu":
+        return colfac_split_reference(seed, T, wr, wi, pm_t, nbatch,
+                                      mixed=mixed, stream=stream, sh_t=sh_t,
+                                      LW=LW)
+    if dev.type != "cuda":
+        raise ValueError(f"colfac_detect_split runs on CPU or CUDA, not {dev}")
+    if not 0 <= int(stream) < 2 ** 32:
+        raise ValueError("stream must fit in 32 bits")
+    k0, k1 = _key(seed)
+    lib, _ = _library_split()
+    nbatch = int(nbatch)
+    out = torch.empty((nbatch, 4), dtype=torch.float32, device=dev)
+    per = draws_per_launch(N, P, nbatch)
+    g = torch.empty((2, per, N, P), dtype=torch.float32, device=dev)
+    part = torch.empty((per, pupil_tiles(P) ** 2, 4), dtype=torch.float32,
+                       device=dev)
+    with torch.cuda.device(dev):
+        cs = torch.cuda.current_stream(dev).cuda_stream
+        for d0 in range(0, nbatch, per):
+            nb = min(per, nbatch - d0)
+            err = lib.fast_colfac_split(
+                k0, k1, int(stream), d0, nb, T.data_ptr(), wr.data_ptr(),
+                wi.data_ptr(), pm_t.data_ptr(),
+                None if sh_t is None else sh_t[d0].data_ptr(),
+                g[0].data_ptr(), g[1].data_ptr(), part.data_ptr(),
+                out[d0:d0 + nb].data_ptr(), N, P, Kq, LW, int(bool(mixed)),
+                cs)
+            raise_on(lib, err, "colfac_detect_split launch")
+            colfac_detect_split.LAUNCHES += 1
+    return _pack(out)
+
+
+colfac_detect_split.LAUNCHES = 0

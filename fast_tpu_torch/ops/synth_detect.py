@@ -1,9 +1,13 @@
-"""K2: fused synthesis and pupil-overlap detection (the iid hot loop).
+"""K2: fused synthesis and pupil-overlap detection (the iid hot loop), and
+K7: the same synthesis with the screens as its output.
 
 The port of ``fast_tpu.ops.pallas_synth.fused_synthesis_detect``. For
 ``nbatch`` complex draws it makes the full-grid noise, colours it by the
 transposed ``sqrt(PSD) * df``, applies the pruned inverse DFT from both
 sides and returns the pupil-overlap sums of both screens of each draw.
+:func:`synth_screens` (K7, the port of ``fused_synthesis``) returns the
+screens themselves, from Box-Muller noise: with ``mix=None`` K2 detects
+exactly K7's screens of the same seed.
 
 * :func:`synth_detect` is the wrapper: on a CUDA tensor it launches the
   hand-written kernel of ``csrc/synth_detect.cu`` (built at first use) or
@@ -12,6 +16,14 @@ sides and returns the pupil-overlap sums of both screens of each draw.
   with a Philox4x32-10 written in torch integer ops that yields the
   kernel's bits from the same seed and counter layout, so the two agree
   numerically on the card and not only in distribution.
+* :func:`synth_screens` and :func:`synth_screens_reference` are that pair
+  for K7.
+
+Any pupil width: the kernels tile the pupil axis (``csrc/detect.cuh``), so
+only 'mixed' noise on a grid over 2368 px is refused. The Philox counter's
+last word keeps the kernels' streams of one seed apart: 0 for K2 and K7, 1
+for K1 (:mod:`~fast_tpu_torch.ops.colfac_detect`), 2 for the AR kernels
+(:mod:`~fast_tpu_torch.ops.ar_flow`), 3 for K3.
 
 Output layout, as the TPU kernel's: ``(2 * nbatch, 2)`` float32, rows
 ``0..nbatch-1`` the screens from the real parts and rows
@@ -20,7 +32,7 @@ Output layout, as the TPU kernel's: ``(2 * nbatch, 2)`` float32, rows
 
 The pieces both detect kernels share live here too: Philox, sincos, the
 noise transforms, the pupil padding and :func:`detect_reference`, the
-plain version of the detect pass (``csrc/common.cuh``) that ends K2 and
+plain version of the detect pass (``csrc/detect.cuh``) that ends K2 and
 the colfac-detect kernel K1 (:mod:`fast_tpu_torch.ops.colfac_detect`).
 Optional subharmonic screens (:func:`pack_subharm`) are added to the
 phase before the detector, as the TPU kernels do.
@@ -38,15 +50,18 @@ _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
-# most draws per launch: bounds the G' scratch (2 x draws x N x P floats,
-# 0.8 GB at N=256, P=96)
+# most draws per launch, and most bytes of the G' scratch (2 x draws x N x P
+# floats: 0.8 GB for 4096 draws at N=256, P=96; 3.4 MB a draw at N=1024,
+# P=416, so 630 draws a launch there)
 _MAX_DRAWS = 4096
+_G_BYTES = 2 << 30
 # most grid points the plain version draws at once: bounds its int64
 # Philox temporaries to about 3 GB (512 draws at N=256)
 _REF_POINTS = 1 << 25
 _SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block can use
 _P_ALIGN = 16         # the kernel pads the pupil axis to this multiple
-_P_MAX = 128          # widest padded pupil the kernel takes
+_P_MAX = 128          # widest tile of the pupil axis (csrc/detect.cuh);
+                      # the AR kernels and K1 take no wider pupil
 
 
 # ---------------------------------------------------------------------------
@@ -198,6 +213,27 @@ def detect_reference(gr, gi, wr, wi, pm_t, sh_t=None):
                        dim=-1)
 
 
+def _gprime_reference(seed, s_t, wr, wi, nbatch, mix, stream, draw0, bits):
+    """Pass 1 in stock torch ops, in pieces of bounded size: yields
+    ``(d0, gr, gi)``, the ``G' = X' W^T`` (nb, N, P) of draws ``d0 ..``."""
+    N = s_t.shape[-1]
+    per = max(1, _REF_POINTS // (N * N))
+    for d0 in range(0, int(nbatch), per):
+        nb = min(per, int(nbatch) - d0)
+        if bits is None:
+            b = philox_bits(seed, nb, N, stream, device=s_t.device,
+                            draw0=draw0 + d0)
+        else:
+            b = (bits[0][d0:d0 + nb], bits[1][d0:d0 + nb])
+        if mix is not None:
+            z1, z2 = uniforms(b[0]) @ mix, uniforms(b[1]) @ mix
+        else:
+            z1, z2 = box_muller(*b)
+        xr = z1 * s_t
+        xi = z2 * s_t
+        yield d0, xr @ wr.T - xi @ wi.T, xr @ wi.T + xi @ wr.T
+
+
 def synth_detect_reference(seed, s_t, wr, wi, pm_t, nbatch, mix=None,
                            stream=0, draw0=0, bits=None, sh_t=None):
     """K2 in stock torch ops (see the module docstring).
@@ -221,28 +257,34 @@ def synth_detect_reference(seed, s_t, wr, wi, pm_t, nbatch, mix=None,
     Returns:
         (2 * nbatch, 2) float32 tensor.
     """
-    N = s_t.shape[-1]
-    per = max(1, _REF_POINTS // (N * N))
-    parts = []
-    for d0 in range(0, int(nbatch), per):
-        nb = min(per, int(nbatch) - d0)
-        if bits is None:
-            b = philox_bits(seed, nb, N, stream, device=s_t.device,
-                            draw0=draw0 + d0)
-        else:
-            b = (bits[0][d0:d0 + nb], bits[1][d0:d0 + nb])
-        if mix is not None:
-            z1, z2 = uniforms(b[0]) @ mix, uniforms(b[1]) @ mix
-        else:
-            z1, z2 = box_muller(*b)
-        xr = z1 * s_t
-        xi = z2 * s_t
-        gr = xr @ wr.T - xi @ wi.T
-        gi = xr @ wi.T + xi @ wr.T
-        parts.append(detect_reference(
-            gr, gi, wr, wi, pm_t,
-            None if sh_t is None else sh_t[d0:d0 + nb]))
+    parts = [detect_reference(gr, gi, wr, wi, pm_t,
+                              None if sh_t is None
+                              else sh_t[d0:d0 + gr.shape[0]])
+             for d0, gr, gi in _gprime_reference(seed, s_t, wr, wi, nbatch,
+                                                 mix, stream, draw0, bits)]
     return _pack(torch.cat(parts))
+
+
+def synth_screens_reference(seed, s_t, wr, wi, nbatch, npup=None, stream=0,
+                            draw0=0, bits=None):
+    """K7 in stock torch ops: the phase screens ``Re, Im (W X W^T)`` of
+    ``nbatch`` complex draws of Box-Muller noise, K2's 'gauss' draws of
+    the same seed, stream and draw index.
+
+    Args: as :func:`synth_detect_reference`; ``npup`` is the pupil width
+    the screens are cropped to (default: the rows of ``wr``).
+
+    Returns:
+        (2 * nbatch, npup, npup) float32, the screens from the real parts
+        first, un-transposed (``fast_tpu.ops.pallas_synth.fused_synthesis``).
+    """
+    npup = wr.shape[0] if npup is None else int(npup)
+    re, im = [], []
+    for _, gr, gi in _gprime_reference(seed, s_t, wr[:npup], wi[:npup],
+                                       nbatch, None, stream, draw0, bits):
+        re.append((wr[:npup] @ gr - wi[:npup] @ gi).transpose(-2, -1))
+        im.append((wr[:npup] @ gi + wi[:npup] @ gr).transpose(-2, -1))
+    return torch.cat(re + im).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -258,12 +300,14 @@ def padded_pupil(P):
 
 def pad_pupil(wr, wi, pm_t):
     """Zero-pad the pupil axis of the kernel's W and pupil-mode tables to
-    :func:`padded_pupil`; padded pixels add nothing to the sums."""
+    :func:`padded_pupil`; padded pixels add nothing to the sums. ``pm_t``
+    may be None (K7 has no detector)."""
     pad = padded_pupil(wr.shape[0]) - wr.shape[0]
     if pad:
         wr = torch.nn.functional.pad(wr, (0, 0, 0, pad))
         wi = torch.nn.functional.pad(wi, (0, 0, 0, pad))
-        pm_t = torch.nn.functional.pad(pm_t, (0, pad, 0, pad))
+        if pm_t is not None:
+            pm_t = torch.nn.functional.pad(pm_t, (0, pad, 0, pad))
     return wr, wi, pm_t
 
 
@@ -297,23 +341,36 @@ def check_subharm(sh_t, nbatch, P, device):
         raise ValueError("sh_t must be contiguous")
 
 
+def _pass1_geom(P):
+    """How pass 1 covers a padded pupil ``P``: ``(PJ, NG, nz)``, NG column
+    groups of width 16 * PJ a block and nz blocks along the pupil
+    (``pass1_geom`` of the CUDA source): one group up to 128 px, else 4
+    groups a block, up to 512 px, split evenly over the blocks."""
+    if P <= _P_MAX:
+        return P // 16, 1, 1
+    nz = -(-P // 512)
+    per = -(-(P // 16) // nz)
+    return -(-per // 4), 4, nz
+
+
 def _smem_bytes(N, P, mixed, rows):
     """Dynamic shared memory of pass 1 (``pass1_smem`` of the CUDA source):
-    x tile, two W tiles and, with 'mixed' noise, a mixing-matrix tile and
-    one component's uniforms of ``16 * rows`` grid rows; the grid side is
-    padded to a multiple of 64 and strides by one word against bank
-    conflicts."""
+    x tile, two W tiles of one column group's width and, with 'mixed'
+    noise, a mixing-matrix tile and one component's uniforms of
+    ``16 * rows`` grid rows; the grid side is padded to a multiple of 64
+    and strides by one word against bank conflicts."""
     NC = -(-N // 64) * 64
     R = 16 * rows
+    GW = 16 * _pass1_geom(padded_pupil(P))[0]
     mixed_part = 32 * 64 + R * (NC + 1) if mixed else 0
-    return 4 * (R * 65 + 2 * 64 * (padded_pupil(P) + 1) + mixed_part)
+    return 4 * (R * 65 + 2 * 64 * (GW + 1) + mixed_part)
 
 
 def _rows_per_thread(N, P, mixed):
     """Pass 1's rows per thread (2, or 1 for grids too wide for 32 rows of
     uniforms in shared memory); 0 where the kernel does not take the
     shape. 'gauss' noise always takes 2."""
-    if N <= 0 or not 0 < P <= _P_MAX:
+    if N <= 0 or P <= 0:
         return 0
     for rows in ((2, 1) if mixed else (2,)):
         if _smem_bytes(N, P, mixed, rows) <= _SMEM_LIMIT:
@@ -323,9 +380,21 @@ def _rows_per_thread(N, P, mixed):
 
 def supports(N, P, mixed=True):
     """Whether the kernel takes an (N, N) grid with a P-pixel pupil: any
-    N, a pupil of at most 128 px, and with 'mixed' noise 16 grid rows of
-    uniforms within shared memory (N up to 2368 at P <= 128)."""
+    N and any pupil width, but with 'mixed' noise 16 grid rows of uniforms
+    within shared memory (N up to 2368 at a 128 px pupil)."""
     return _rows_per_thread(N, P, mixed) > 0
+
+
+def draws_per_launch(N, P, nbatch=_MAX_DRAWS):
+    """Complex draws one launch takes at a padded pupil ``P``: at most 4096
+    and at most 2 GiB of G' scratch (2 N P floats a draw)."""
+    return max(1, min(int(nbatch), _MAX_DRAWS, _G_BYTES // (8 * N * P)))
+
+
+def pupil_tiles(P):
+    """Tiles per axis of the detect pass at a padded pupil ``P``
+    (``pupil_tiles`` of ``csrc/detect.cuh``): one up to 128 px."""
+    return -(-P // _P_MAX)
 
 
 def _library():
@@ -333,8 +402,11 @@ def _library():
     if not getattr(lib, "_fast_typed", False):
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
         lib.fast_synth_detect.argtypes = [u, u, u, i, i, p, p, p, p, p, p, p,
-                                          p, p, i, i, i, p]
+                                          p, p, p, i, i, i, p]
         lib.fast_synth_detect.restype = i
+        lib.fast_synth_screens.argtypes = [u, u, u, i, i, p, p, p, p, p, p, p,
+                                           i, i, i, p]
+        lib.fast_synth_screens.restype = i
         lib.fast_sincos.argtypes = [p, p, p, i, p]
         lib.fast_sincos.restype = i
         lib.fast_error_string.argtypes = [i]
@@ -378,12 +450,27 @@ def _check(s_t, wr, wi, pm_t, nbatch, mix):
         raise ValueError(f"s_t must be (N, N), got {tuple(s_t.shape)}")
     N = s_t.shape[0]
     P = wr.shape[0]
-    tables = {"s_t": (s_t, None), "wr": (wr, (P, N)), "wi": (wi, (P, N)),
-              "pm_t": (pm_t, (P, P))}
+    tables = {"s_t": (s_t, None), "wr": (wr, (P, N)), "wi": (wi, (P, N))}
+    if pm_t is not None:
+        tables["pm_t"] = (pm_t, (P, P))
     if mix is not None:
         tables["mix"] = (mix, (N, N))
     check_tables(tables, nbatch)
     return N, P
+
+
+def _launch_args(s_t, wr, wi, nbatch, mix, stream, what):
+    """Checks shared by the kernels' launches; returns ``(N, rows)``."""
+    N = s_t.shape[0]
+    rows = _rows_per_thread(N, wr.shape[0], mix is not None)
+    if not rows:
+        raise ValueError(
+            f"the {what} kernel takes, with 'mixed' noise, 16 grid rows of "
+            f"uniforms within {_SMEM_LIMIT} B of shared memory (a grid of at "
+            f"most 2368 px); got N={N}, P={wr.shape[0]}")
+    if not 0 <= int(stream) < 2 ** 32:
+        raise ValueError("stream must fit in 32 bits")
+    return N, rows
 
 
 def synth_detect(seed, s_t, wr, wi, pm_t, nbatch, mix=None, stream=0,
@@ -391,11 +478,12 @@ def synth_detect(seed, s_t, wr, wi, pm_t, nbatch, mix=None, stream=0,
     """K2 on ``nbatch`` complex draws; arguments as
     :func:`synth_detect_reference`.
 
-    On CUDA tensors this launches the kernel (two passes per launch of at
-    most 4096 draws, the n-th launch from draw ``4096 * n``) on the
-    current stream and counts each launch in ``synth_detect.LAUNCHES``, or
-    raises for a shape it does not take (:func:`supports`); on CPU tensors
-    it runs the plain version. ``sh_t`` is padded as ``wr`` is.
+    On CUDA tensors this launches the kernel (two passes per launch of
+    :func:`draws_per_launch` draws, each launch from the draw index it
+    starts at) on the current stream and counts each launch in
+    ``synth_detect.LAUNCHES``, or raises for a shape it does not take
+    (:func:`supports`); on CPU tensors it runs the plain version.
+    ``sh_t`` is padded as ``wr`` is.
     """
     N, P = _check(s_t, wr, wi, pm_t, nbatch, mix)
     dev = s_t.device
@@ -404,14 +492,7 @@ def synth_detect(seed, s_t, wr, wi, pm_t, nbatch, mix=None, stream=0,
                                       mix=mix, stream=stream, sh_t=sh_t)
     if dev.type != "cuda":
         raise ValueError(f"synth_detect runs on CPU or CUDA, not {dev}")
-    rows = _rows_per_thread(N, P, mix is not None)
-    if not rows:
-        raise ValueError(
-            f"the synth-detect kernel takes a pupil of at most {_P_MAX} px "
-            f"and, with 'mixed' noise, 16 grid rows of uniforms within "
-            f"{_SMEM_LIMIT} B of shared memory; got N={N}, P={P}")
-    if not 0 <= int(stream) < 2 ** 32:
-        raise ValueError("stream must fit in 32 bits")
+    N, rows = _launch_args(s_t, wr, wi, nbatch, mix, stream, "synth-detect")
     k0, k1 = _key(seed)
     wr, wi, pm_t = pad_pupil(wr, wi, pm_t)
     Pp = wr.shape[0]
@@ -419,8 +500,10 @@ def synth_detect(seed, s_t, wr, wi, pm_t, nbatch, mix=None, stream=0,
     lib, _ = _library()
     nbatch = int(nbatch)
     out = torch.empty((nbatch, 4), dtype=torch.float32, device=dev)
-    per = min(nbatch, _MAX_DRAWS)
+    per = draws_per_launch(N, Pp, nbatch)
     g = torch.empty((2, per, N, Pp), dtype=torch.float32, device=dev)
+    part = torch.empty((per, pupil_tiles(Pp) ** 2, 4), dtype=torch.float32,
+                       device=dev)
     with torch.cuda.device(dev):
         cs = torch.cuda.current_stream(dev).cuda_stream
         for d0 in range(0, nbatch, per):
@@ -430,14 +513,60 @@ def synth_detect(seed, s_t, wr, wi, pm_t, nbatch, mix=None, stream=0,
                 wi.data_ptr(), pm_t.data_ptr(),
                 None if mix is None else mix.data_ptr(),
                 None if sh_t is None else sh_t[d0].data_ptr(),
-                g[0].data_ptr(), g[1].data_ptr(), out[d0:d0 + nb].data_ptr(),
-                N, Pp, rows, cs)
+                g[0].data_ptr(), g[1].data_ptr(), part.data_ptr(),
+                out[d0:d0 + nb].data_ptr(), N, Pp, rows, cs)
             raise_on(lib, err, "synth_detect launch")
             synth_detect.LAUNCHES += 1
     return _pack(out)
 
 
 synth_detect.LAUNCHES = 0
+
+
+def synth_screens(seed, s_t, wr, wi, nbatch, npup=None, stream=0):
+    """K7 on ``nbatch`` complex draws: (2 * nbatch, npup, npup) float32
+    screens; arguments as :func:`synth_screens_reference`.
+
+    On CUDA tensors this launches the kernel (K2's pass 1 with Box-Muller
+    noise, then the screens pass; launches as :func:`synth_detect`'s) on
+    the current stream and counts each launch in
+    ``synth_screens.LAUNCHES``; on CPU tensors it runs the plain version.
+    """
+    npup = wr.shape[0] if npup is None else int(npup)
+    if not 0 < npup <= wr.shape[0]:
+        raise ValueError(f"npup must be in 1..{wr.shape[0]}, got {npup}")
+    _check(s_t, wr, wi, None, nbatch, None)
+    dev = s_t.device
+    if dev.type == "cpu":
+        return synth_screens_reference(seed, s_t, wr, wi, nbatch, npup=npup,
+                                       stream=stream)
+    if dev.type != "cuda":
+        raise ValueError(f"synth_screens runs on CPU or CUDA, not {dev}")
+    N, _ = _launch_args(s_t, wr, wi, nbatch, None, stream, "synth-screens")
+    k0, k1 = _key(seed)
+    wr, wi, _ = pad_pupil(wr, wi, None)
+    Pp = wr.shape[0]
+    lib, _ = _library()
+    nbatch = int(nbatch)
+    scr = torch.empty((2, nbatch, npup, npup), dtype=torch.float32,
+                      device=dev)
+    per = draws_per_launch(N, Pp, nbatch)
+    g = torch.empty((2, per, N, Pp), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        cs = torch.cuda.current_stream(dev).cuda_stream
+        for d0 in range(0, nbatch, per):
+            nb = min(per, nbatch - d0)
+            err = lib.fast_synth_screens(
+                k0, k1, int(stream), d0, nb, s_t.data_ptr(), wr.data_ptr(),
+                wi.data_ptr(), g[0].data_ptr(), g[1].data_ptr(),
+                scr[0, d0].data_ptr(), scr[1, d0].data_ptr(), N, Pp, npup,
+                cs)
+            raise_on(lib, err, "synth_screens launch")
+            synth_screens.LAUNCHES += 1
+    return scr.reshape(2 * nbatch, npup, npup)
+
+
+synth_screens.LAUNCHES = 0
 
 
 def device_sincos(phi):

@@ -101,20 +101,25 @@ def _full_fp32():
 
 
 def column_factors_device(sqrt_powerspec, df, W, device, jitter=3e-6):
-    """The column factors in float32 on ``device``: one batched product
-    and a batched Cholesky (``fast_tpu.synthesis.column_factors_device``).
+    """The column factors in float32 on ``device``: batched products, 128
+    columns at a time, and one batched Cholesky
+    (``fast_tpu.synthesis.column_factors_device``).
 
     The f32 factors reproduce the column covariances to ~1e-6 relative. A
     column whose f32 Cholesky fails comes back as NaN, and the caller falls
     back to :func:`column_factors`. Returns (N, Npup, Npup) complex64 on
-    ``device``.
+    ``device``. The blocks bound the (128, Npup, N) intermediate: 0.4 GB at
+    N=1024 with a 402 px pupil, where all columns at once take 3.4 GB.
     """
     W = torch.as_tensor(np.asarray(W).astype(np.complex64), device=device)
     S = torch.as_tensor((np.asarray(sqrt_powerspec) * float(df))
                         .astype(np.float32), device=device)
-    A = W[None, :, :] * S.T[:, None, :]
+    npup, N = W.shape
+    C = torch.empty((N, npup, npup), dtype=torch.complex64, device=device)
     with _full_fp32():
-        C = A @ A.conj().transpose(1, 2)
+        for m0 in range(0, N, 128):
+            A = W[None, :, :] * S.T[m0:m0 + 128, None, :]
+            C[m0:m0 + 128] = A @ A.conj().transpose(1, 2)
     return _factor(C, jitter, 1e-30)
 
 

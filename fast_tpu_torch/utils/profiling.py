@@ -41,7 +41,10 @@ def device_breakdown(fn):
     to the device's end, the seconds of device work (the sum of the
     kernel, copy and fill durations the profiler recorded; the run
     queues them on one stream, so they do not overlap) and ``{name:
-    seconds}`` of that work by name, the largest first.
+    seconds}`` of that work by name, the largest first. A few small fills
+    run first inside the trace: the profiler can lose the records of the
+    first kernels launched after it starts (seen on an H100 with torch
+    2.11: up to three launches of tens of ms missing from a run's sum).
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -49,6 +52,9 @@ def device_breakdown(fn):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            torch.zeros(1024, device="cuda")
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()

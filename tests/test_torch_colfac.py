@@ -341,10 +341,14 @@ def test_resolve_synth_colfac_rule(args, synth):
 
 @pytest.mark.parametrize("device", [CPU, CUDA])
 def test_pinned_pallas_colfac_refuses_wide_pupils(device):
+    """Pinned 'pallas_colfac' used to refuse a pupil over 128 px; it now
+    refuses no width and takes the split-layout kernel K3 there."""
     from fast_tpu_torch.engine import resolve_synth
-    with pytest.raises(ValueError, match="K3"):
-        resolve_synth("pallas_colfac", torch.float32, device, 512, 130,
-                      "mixed")
+    for npup in (130, 402, 1000):
+        assert resolve_synth("pallas_colfac", torch.float32, device, 1024,
+                             npup, "mixed") == "pallas_colfac"
+        assert cd.colfac_layout(npup) == "split"
+    assert cd.colfac_layout(128) == cd.colfac_layout(82) == "merged"
 
 
 def test_plain_path_memory_warning(caplog):

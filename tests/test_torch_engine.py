@@ -109,6 +109,7 @@ CPU, CUDA = torch.device("cpu"), torch.device("cuda")
     (("pallas_fused", torch.float32, CUDA, 4096, 128, "gauss"),
      "pallas_fused"),
     (("auto", torch.float32, CPU, 1024, 402, "mixed"), "pallas_fused"),
+    (("auto", torch.float32, CUDA, 1024, 402, "mixed"), "pallas_fused"),
     (("auto", torch.float64, CUDA, 1024, 402, "mixed"), "fft"),
     (("matmul", torch.float32, CUDA, 1024, 402, "mixed"), "matmul"),
 ])
@@ -117,7 +118,6 @@ def test_resolve_synth(args, synth):
 
 
 @pytest.mark.parametrize("args", [
-    ("auto", torch.float32, CUDA, 1024, 402, "mixed"),
     ("pallas_fused", torch.float32, CUDA, 4096, 128, "mixed"),
 ])
 def test_resolve_synth_refuses_what_the_kernel_does_not_take(args):

@@ -118,8 +118,16 @@ def test_default_device_needs_a_card():
     ({"SYNTH": "pallas"}, "K7"),
 ])
 def test_unported_options_raise(overrides, match):
-    """What is still to port raises: SYNTH='pallas' at construction, and a
-    TEMPORAL sim (which now constructs) at ``run(progress=True)``."""
+    """What is still to port raises: ``run(progress=True)``, here of a
+    TEMPORAL sim. SYNTH='pallas' (K7) used to raise at construction; it
+    now constructs on its own path and runs."""
+    if overrides.get("SYNTH") == "pallas":
+        sim = fast_tpu_torch.Fast(small_params(NITER=64, NCHUNKS=2,
+                                               **overrides), device="cpu")
+        assert sim._synth == "pallas"
+        power = sim.run().power
+        assert power.shape == (64,) and np.isfinite(power).all()
+        return
     with pytest.raises(NotImplementedError, match=match):
         sim = fast_tpu_torch.Fast(small_params(**overrides), device="cpu")
         assert sim.temporal

@@ -178,7 +178,16 @@ def test_kernel_shape_rule():
     assert sd.supports(256, 82) and sd.supports(64, 42)
     assert sd.supports(102, 102) and sd.supports(96, 30)  # any grid side
     assert sd.supports(512, 128) and sd.supports(2368, 128)
-    assert not sd.supports(256, 129)
+    # any pupil width: the pupil axis is tiled past 128 px
+    assert sd.supports(256, 129) and sd.supports(1024, 402)
+    assert sd.supports(2368, 402) and not sd.supports(4096, 402)
+    assert sd._rows_per_thread(1024, 402, True) == 2
+    assert sd._pass1_geom(96) == (6, 1, 1) and sd._pass1_geom(144) == (3, 4, 1)
+    assert sd._pass1_geom(416) == (7, 4, 1) and sd._pass1_geom(1040) == (6, 4, 3)
+    assert sd.pupil_tiles(128) == 1 and sd.pupil_tiles(416) == 4
+    assert sd.draws_per_launch(256, 96) == 4096
+    assert sd.draws_per_launch(1024, 416) == 630
+    assert sd.draws_per_launch(1024, 416, 8) == 8
     # 16 rows of 'mixed' uniforms overflow shared memory; 'gauss' keeps none
     assert not sd.supports(2369, 128) and sd.supports(4096, 128, mixed=False)
     assert sd._rows_per_thread(256, 82, True) == 2
