@@ -9,7 +9,7 @@ Phases, in order; any failure exits non-zero before the result line:
 2. build the synth-detect and synth-screens kernels K2 and K7
    (``csrc/synth_detect.cu``), the colfac-detect kernels K1
    (``csrc/colfac_detect.cu``) and K3 (``csrc/colfac_split.cu``) and the AR
-   flow kernels K4 and K5 (``csrc/ar_flow.cu``), one ``nvcc`` each, started
+   flow kernels K4, K5 and K6 (``csrc/ar_flow.cu``), one ``nvcc`` each, started
    together; print ptxas registers, spills and shared memory of each pass
    at the flagships' padded pupil (P=96) and at the 4 m link's (P=416, in
    tiles and column groups of 112 px);
@@ -68,7 +68,41 @@ Phases, in order; any failure exits non-zero before the result line:
    256^2 (K2, 'matmul', K2 'gauss', K1 pinned), at 512^2 (K1, 'colfac',
    'matmul' and K2 pinned at fewer realizations) and of the temporal
    routes (K4, 'fft', K5); then one warm run of the K2, K1, 'colfac',
-   'matmul', K4 and K5 paths under ``torch.profiler``.
+   'matmul', K4 and K5 paths under ``torch.profiler``;
+12. the orbit passes, each with every kernel's count at 0 first: the iid
+   pass of ``bench.py``'s ``measure_orbit_pass`` (16 samples of a 600 km
+   pass, 65,536 realizations each, NCHUNKS=4, at the 256^2 flagship)
+   through ``build_sweep`` and ``run_scan_sharded`` on a (1, 1) mesh, which
+   must launch K2 and no other kernel and agree per sample with the same
+   pass on 'matmul' (mean within 5 combined standard errors, scintillation
+   index within 5% or 5 combined standard errors where wider); then the
+   temporal pass with ``examples/orbit_temporal_scan.py``'s geometry (16
+   samples of a 550 km pass at the temporal flagship, 16,384 steps each)
+   through ``FAST_sat_orbit_from_geometry`` and ``run_orbit_sweep``, which
+   must launch K6 and no other kernel and give finite series;
+   ``run(progress=True)`` against ``run()``, bit for bit; 4 samples (the
+   pass's samples 0, 5, 10 and 15) x 4,096 steps of the K6 route against
+   the scan's SYNTH='fft' route (the first 1,024 steps within 2e-3), and
+   the pass's lag-1 autocorrelations within 0.05 of that exact route's
+   there and over its least less 0.05 everywhere (the pass's slew moves
+   the upper layers 15-30 px a step); K6 against its plain version
+   ('uniform' and 'gauss', final states bit for bit, each with the TF32
+   control): at the pass's own shape (all 16 series, 512 steps in two
+   launches) and on four of its series for 1,024 steps; K6 with one
+   series against K4; K6's time per
+   256 steps of the 16 series; one K6 scan against 16 serial ``run()``
+   calls through K4; end-to-end rates, the sweep or the ``Fast()`` inits
+   inside the wall;
+13. the AR kernels past 128 px: K6 and its plain version against a
+   float64 numpy evaluation on inputs of the 64^2 amplitudes (screens of
+   tens of radians) at 144 px (two tiles) and 112 px (one tile) on a
+   192^2 grid and at 402 px on a 1024^2 grid, where the kernel's error
+   may not exceed 10 times the plain version's; K4, K5 and K6 against
+   their plain versions
+   at a 144 px pupil on a 192^2 grid and at the 1024^2 link's 402 px
+   pupil, times per 256 steps there, and the wide link's temporal run
+   (``Fast(temporal(NPXLS=1024, D_GROUND=4.0, DSUBAP=0.5))``, 2,048 steps)
+   through K4.
 
 The last lines are the card, one JSON object of per-kernel numbers and
 one of the run's device. The flagship config is the AO-corrected 0.8 m
@@ -85,6 +119,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -102,6 +137,10 @@ NITER_T = 65536       # steps of the temporal slice (NCHUNKS=16)
 NITER_T16 = 8192      # steps of the 16-layer 512^2 temporal run
 NITER_FFT = 8192      # steps of the timed SYNTH='fft' temporal run
 ACF_MIN = 0.9         # lag-1 autocorrelation of a temporal power series
+ACF_ORBIT_TOL = 0.05  # the temporal orbit pass's lag-1 autocorrelations
+                      # against the exact route's on the same geometry: its
+                      # slew (ANISO_DL) moves the upper layers 15-30 px a
+                      # step, so 0.9 does not hold there
 KS_PVALUE = 1e-3      # thinned temporal series against the iid draws
 FFT_RTOL = 2e-3       # 'ar' kernel route against the SYNTH='fft' route
 NDRAWS = 4100         # complex draws of a kernel-against-plain check: two
@@ -124,6 +163,18 @@ NITER_W_SMALL = 8192  # through K3 and K7
 NITER_W_MATMUL = 4096  # through 'matmul', whose noise is 8.4 MB a draw
 NDRAWS_W = 640        # draws of a wide kernel check: two launches, since
                       # 2 GiB of G' scratch hold 630 draws at N=1024, P=416
+NSAMP = 16            # samples of an orbit pass
+NITER_OI = 65536      # realizations a sample of the iid orbit pass (NCHUNKS=4)
+NITER_OT = 16384      # steps a sample of the temporal orbit pass (NCHUNKS=4)
+NSTEPS_K6 = 1024      # steps of a K6-against-plain check on 4 series
+NSTEPS_K6_MAIN = 512  # steps of the check at the pass's own shape (16
+MAX_STEPS_K6 = 256    # series, 16-step tiles), in two launches
+NITER_OT_FFT = 4096   # steps a sample of the 4-sample pass through K6 and
+                      # through the scan's SYNTH='fft' route
+AMP_64 = (0.02, 0.01)  # per-mode state and noise scale of the 64^2 inputs
+ROUNDOFF_RATIO = 10.0  # kernel's error against float64 over the plain
+                       # version's: round-off keeps the two of one size
+NITER_WT = 2048       # steps of the wide link's temporal run (NCHUNKS=2)
 SI_SIGMAS = 5.0       # scintillation index of a short run: combined
                       # standard errors from 16 blocks, where that is wider
                       # than SI_REL
@@ -248,17 +299,18 @@ def k7_bound(N, P, nbatch):
     return _bound(flops, nbytes)
 
 
-def ar_bound(L, N, P, nsteps, boiling):
-    """K4's and K5's least time in ms for ``nsteps`` steps of L layers at
-    an (N, N) grid and a P px pupil: per step 8PN^2 FLOPs for G' and
-    4P^2 N for the real screen, plus 8LN^2 in the recurrence and layer sum
-    and 8LN^2 more with boiling (the noise's scale and its scaled add),
-    at the fp32 rate; or state, phasors and noise scale in, state and
+def ar_bound(L, N, P, nsteps, boiling, nseries=1):
+    """K4's, K5's and (for ``nseries`` series) K6's least time in ms for
+    ``nsteps`` steps of L layers at an (N, N) grid and a P px pupil: per
+    step and series 8PN^2 FLOPs for G' and 4P^2 N for the real screen,
+    plus 8LN^2 in the recurrence and layer sum and 8LN^2 more with boiling
+    (the noise's scale and its scaled add), at the fp32 rate; or states,
+    phasors, noise scales and pupil modes in (W once), states and
     couplings out at the memory rate."""
-    flops = nsteps * (8 * P * N * N + 4 * P * P * N
-                      + (16 if boiling else 8) * L * N * N)
-    nbytes = 4 * ((7 if boiling else 6) * L * N * N + 2 * P * N + P * P
-                  + 2 * nsteps)
+    flops = nseries * nsteps * (8 * P * N * N + 4 * P * P * N
+                                + (16 if boiling else 8) * L * N * N)
+    nbytes = 4 * (nseries * ((7 if boiling else 6) * L * N * N + P * P
+                             + 2 * nsteps) + 2 * P * N)
     return _bound(flops, nbytes)
 
 
@@ -314,8 +366,8 @@ def _describe(name, a):
         return f"P={16 * PJ if a[1] else 416}"
     if name == "ar_update" and a[0] == 4:
         return "4 layers " + ("frozen", "uniform", "gauss")[a[1]]
-    if name in ("ar_dft", "ar_detect") and a[0] == PJ:
-        return f"P={16 * PJ}"
+    if name in ("ar_dft", "ar_detect") and tuple(a) in ((PJ, 1), (PJ_W, 0)):
+        return f"P={16 * PJ if a[1] else 416}"
     return None
 
 
@@ -763,8 +815,9 @@ def phase_temporal(ctx):
             fail("TEMPORAL_ALPHA='auto' gave no boiling at this length")
     k4, k5 = phase_ar(sim_t, sim_t16)
 
+    K6 = af.ar_flow_fused_batch
     r_t, k4["launches"], tau = temporal_run(
-        sim_t, "K4", K4, (K1, K2, K5), "temporal slice 256^2")
+        sim_t, "K4", K4, (K1, K2, K5, K6), "temporal slice 256^2")
     r_iid = ctx["r_iid"]
     n_eff = r_t.size / tau
     se = np.hypot(r_t.std() / np.sqrt(n_eff),
@@ -782,7 +835,7 @@ def phase_temporal(ctx):
     if not pval > KS_PVALUE:
         fail("temporal slice: the marginal disagrees with the iid run (KS)")
     _, k5["launches"], _ = temporal_run(
-        sim_t16, "K5", K5, (K1, K2, K4), "temporal 512^2, 16 layers")
+        sim_t16, "K5", K5, (K1, K2, K4, K6), "temporal 512^2, 16 layers")
 
     # the kernel route against the exact route from one seed, with boiling
     kw = dict(NITER=512, NCHUNKS=2, TEMPORAL_ALPHA=0.98, SEED=9)
@@ -795,7 +848,7 @@ def phase_temporal(ctx):
         fail("the 'ar' kernel route disagrees with the SYNTH='fft' route")
     sim_s = Fast(temporal(TEMPORAL_SYNTH="screens", NPXLS="auto", NITER=1024,
                           NCHUNKS=4), device=DEVICE)
-    temporal_run(sim_s, "", K4, (K1, K2, K4, K5),
+    temporal_run(sim_s, "", K4, (K1, K2, K4, K5, K6),
                  f"'screens' run on the grown {sim_s.Npxls}^2 grid")
     sim_tf = Fast(temporal(SYNTH="fft", NITER=NITER_FFT, NCHUNKS=16),
                   device=DEVICE)
@@ -1035,6 +1088,460 @@ def phase_wide(card):
     return k2w, k3, k7, wide_rates
 
 
+def ar_random(N, lo, hi, L, B, boiling=True, seed=5, amp=None):
+    """AR inputs of B made-up series from a numpy seed, on the card:
+    white-spectrum states and noise scales per mode ``amp``, by default
+    sized to screens of about a radian (the sums' round-off grows with the
+    phase times sqrt(N)), random unit phasors times 0.99, W and per-series
+    pupil * mode (``tests/test_torch_scan.py``'s inputs past 128^2)."""
+    from fast_tpu_torch import synthesis
+    rng = np.random.default_rng(seed)
+    shape = (B, L, N, N)
+    a_amp, n_amp = amp or (0.5 / N, 0.07 / N)
+    a0 = a_amp * (rng.normal(size=shape) + 1j * rng.normal(size=shape))
+    ph = 0.99 * np.exp(1j * rng.uniform(-3, 3, shape))
+    ns = n_amp * rng.random(shape) if boiling else None
+    W = synthesis.pruned_ift2_matrix(N, lo, hi, dtype=np.complex64)
+    pms = rng.random((B, hi - lo, hi - lo))
+    return tuple(None if x is None else torch.from_numpy(
+        x.astype(np.complex64 if np.iscomplexobj(x) else np.float32)).to(
+            DEVICE) for x in (a0, ph, ns, W, pms))
+
+
+def k6_inputs(sims):
+    """K6's arguments for the series of ``sims`` (temporal sims sharing a
+    grid): initial states drawn with numpy from SEED and coloured by each
+    sim's sqrt(PSD) df, each sim's phasor, noise scale and pupil * mode,
+    and the shared W."""
+    Ts = [s.tables for s in sims]
+    spd = torch.stack([t["sqrt_psd_df"] for t in Ts])
+    rng = np.random.default_rng(SEED & 0xFFFFFFFF)
+    z = torch.from_numpy(rng.standard_normal((2,) + tuple(spd.shape),
+                                             dtype=np.float32)).to(DEVICE)
+    return (torch.complex(z[0], z[1]) * spd,
+            torch.stack([t["ph"] for t in Ts]),
+            torch.stack([t["ns"] for t in Ts]), Ts[0]["W"],
+            torch.stack([t["pm"] for t in Ts]))
+
+
+def check_k6(inputs, nsteps, kw, label):
+    """K6 against its plain version on the same inputs: the final states
+    bit for bit, the couplings within the limit. Returns (max |d| of the
+    couplings, the plain version's couplings)."""
+    from fast_tpu_torch.ops import ar_flow as af
+    fn = af.ar_flow_fused_batch
+    before = fn.LAUNCHES
+    ck, ak = fn(SEED, *inputs, nsteps, **kw)
+    kw = {k: v for k, v in kw.items() if k != "max_steps"}
+    cp, ap = af.ar_flow_batch_reference(SEED, *inputs, nsteps, **kw)
+    torch.cuda.synchronize()
+    launches = fn.LAUNCHES - before
+    fn.LAUNCHES = before  # the main path's count excludes these
+    if not bool(torch.isfinite(ck).all()):
+        fail(f"K6 ({label}) gave non-finite sums")
+    serr = float((ak - ap).abs().max())
+    err = float((ck - cp).abs().max())
+    limit = KERNEL_REL * float(cp.abs().max())
+    print(f"K6 {label}, {inputs[0].shape[0]} series x {nsteps} steps in "
+          f"{launches} launches: max |kernel - plain| = {err:.3e} in the "
+          f"couplings (limit {limit:.3e}; max |sum| "
+          f"{float(cp.abs().max()):.3e}), {serr:.3e} in the final states "
+          f"(limit 0)")
+    if serr != 0.0:
+        fail(f"K6 ({label}): the final states differ from the plain "
+             f"version's")
+    if not err <= limit:
+        fail(f"K6 ({label}) disagrees with its plain version")
+    return err, cp
+
+
+def phase_k6(osims):
+    """K6 against its plain version on the temporal orbit pass's inputs
+    (256^2, 4 layers, P=82, boiling), 'uniform' and 'gauss', each with the
+    TF32 control: at the pass's own shape (all 16 series, so 16-step
+    tiles, over two launches that carry the states) and on four of its
+    series for 1,024 steps in one launch (64-step tiles); K6 with one
+    series against K4; its time per 256 steps of all 16 series."""
+    from fast_tpu_torch.ops import ar_flow as af
+    k6 = {"max_abs_err": 0.0}
+    s0 = osims[0]
+    L, N, P = len(s0.h), s0.Npxls, s0.Npxls_pup
+    full = k6_inputs(osims)
+    for inputs, nsteps, kw in (
+            (full, NSTEPS_K6_MAIN, {"max_steps": MAX_STEPS_K6}),
+            (k6_inputs(osims[:4]), NSTEPS_K6, {})):
+        for noise in ("uniform", "gauss"):
+            label = f"{noise} {N}^2, {L} layers, P={P}"
+            err, cp = check_k6(inputs, nsteps, dict(kw, noise=noise), label)
+            k6["max_abs_err"] = max(k6["max_abs_err"], err)
+            n = min(512, nsteps)
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                ct = af.ar_flow_batch_reference(SEED, *inputs, n,
+                                                noise=noise)[0]
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            terr = float((ct - cp[:n]).abs().max())
+            limit = KERNEL_REL * float(cp[:n].abs().max())
+            print(f"control: plain K6 {label}, {inputs[0].shape[0]} series "
+                  f"with TF32 products vs fp32, {n} steps: max |d| = "
+                  f"{terr:.3e}, {terr / limit:.1f}x the limit")
+            if not terr > limit:
+                fail(f"the limit does not reject TF32 products (K6 {label})")
+    one = tuple(x[:1] if x.ndim > 2 else x for x in inputs)
+    c6, a6 = af.ar_flow_fused_batch(SEED, *one, NSTEPS_K6)
+    c4, a4 = af.ar_flow_fused(SEED, one[0][0], one[1][0], one[2][0], one[3],
+                              one[4][0], NSTEPS_K6)
+    torch.cuda.synchronize()
+    same = torch.equal(c6[:, 0], c4) and torch.equal(a6[0], a4)
+    print(f"K6 with one series against K4, {NSTEPS_K6} steps: "
+          f"{'equal' if same else 'different'} bit for bit (couplings and "
+          f"state)")
+    if not same:
+        fail("K6 with one series differs from K4")
+
+    inputs, B = full, len(osims)
+    k6["ms"], k6["plain_ms"] = (
+        cuda_ms(lambda: af.ar_flow_fused_batch(SEED, *inputs, 256), 5),
+        cuda_ms(lambda: af.ar_flow_batch_reference(SEED, *inputs, 256), 1))
+    k6["ms_4096"] = cuda_ms(lambda: af.ar_flow_fused_batch(
+        SEED, *inputs, NTIME), 2)
+    k6["bound_ms"], k6["bound_by"], flops = ar_bound(L, N, P, 256, True, B)
+    k4_ms = cuda_ms(lambda: af.ar_flow_fused(
+        SEED, inputs[0][0], inputs[1][0], inputs[2][0], inputs[3],
+        inputs[4][0], NTIME), 3)
+    print(f"K6 uniform: {k6['ms']:.3f} ms kernel per 256 steps of {B} "
+          f"series ({k6['ms_4096']:.3f} ms per {NTIME} steps; K4 "
+          f"{k4_ms:.3f} ms per {NTIME} steps of one, x{B} = "
+          f"{B * k4_ms:.3f}), {k6['plain_ms']:.3f} ms plain, bound "
+          f"{k6['bound_ms']:.3f} ms ({flops / 256 / B / 1e6:.1f} MFLOP per "
+          f"step and series; {k6['bound_ms'] / k6['ms']:.1%} of it) at "
+          f"{N}^2, {L} layers")
+    k6["ms_k4_4096"] = k4_ms
+    af.ar_flow_fused_batch.LAUNCHES = af.ar_flow_fused.LAUNCHES = 0
+    return k6
+
+
+def pass_geometry(h_orbit, offset_deg, t_max, n):
+    from fast_tpu_torch import orbit
+    provider = orbit.circular_orbit_provider(h_orbit,
+                                             offset_angle_deg=offset_deg)
+    return orbit.sample_pass_geometry(provider,
+                                      np.linspace(-t_max, t_max, n), 0.001)
+
+
+def iid_pass(synth, seed):
+    """The iid orbit pass of ``bench.py``'s ``measure_orbit_pass``: 16
+    samples of a 600 km pass (offset 10 degrees, -240..240 s) through
+    ``build_sweep`` and ``run_scan_sharded`` at 65,536 realizations a
+    sample; ``synth`` None leaves SYNTH to the sweep's default. Returns
+    (sims, results, wall seconds with the sweep inside)."""
+    from fast_tpu_torch import parallel, sweep
+    p = flagship(NITER=NITER_OI, NCHUNKS=4)
+    if synth is None:
+        p.pop("SYNTH", None)
+    else:
+        p["SYNTH"] = synth
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    geo = pass_geometry(600e3, 10.0, 240, NSAMP)
+    sims = sweep.build_sweep(p, {
+        "ZENITH_ANGLE": geo["zenith_angles"], "L_SAT": geo["distances"],
+        "DTHETA": geo["paa"], "ANISO_DL": geo["aniso_dl"],
+        "AZIMUT_SAT": geo["azimuts"]}, device=DEVICE)
+    res = parallel.run_scan_sharded(
+        sims, parallel.make_scan_mesh(1, 1, [DEVICE]), seed=seed)
+    torch.cuda.synchronize()
+    return sims, res, time.perf_counter() - t0
+
+
+def temporal_pass(nsamp, niter, seed, **overrides):
+    """The temporal orbit pass of ``examples/orbit_temporal_scan.py``'s
+    geometry (550 km, offset 5 degrees, -90..90 s) at the temporal
+    flagship: ``FAST_sat_orbit_from_geometry`` then ``run_orbit_sweep`` on
+    a (1, 1) mesh. Returns (sims, results, wall seconds with the sims'
+    construction inside)."""
+    from fast_tpu_torch import orbit, parallel
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d = orbit.FAST_sat_orbit_from_geometry(
+        temporal(NITER=niter, NCHUNKS=4, **overrides),
+        pass_geometry(550e3, 5.0, 90, nsamp), device=DEVICE)
+    res = orbit.run_orbit_sweep(d, parallel.make_scan_mesh(1, 1, [DEVICE]),
+                                seed=seed)
+    torch.cuda.synchronize()
+    keys = [f"simulation_{i}" for i in range(nsamp)]
+    return [d[k] for k in keys], [res[k] for k in keys], \
+        time.perf_counter() - t0
+
+
+def counts(counters):
+    return {k: c.LAUNCHES for k, c in counters.items()}
+
+
+def phase_orbit(card, counters):
+    """The two orbit passes, each through its entry points with every
+    kernel's count at 0 first: the iid pass through K2 against the same
+    pass on 'matmul', and the temporal pass through K6 against the scan's
+    SYNTH='fft' route; K6's checks; the 16 series as 16 serial runs
+    through K4; run(progress=True) against run()."""
+    from fast_tpu_torch import parallel
+
+    def zero():
+        for c in counters.values():
+            c.LAUNCHES = 0
+
+    # the iid pass: K2 (the sweep's default on the card) and 'matmul'
+    zero()
+    sims, res, wall = iid_pass(None, 12)
+    n_iid = counts(counters)
+    print(f"iid orbit pass: {NSAMP} samples x {NITER_OI} realizations in "
+          f"{wall:.3f} s (first; sweep_assemble "
+          f"{sims[0].timings['sweep_assemble']:.3f} s, sweep_clones "
+          f"{sims[0].timings['sweep_clones']:.3f} s), SYNTH "
+          f"{sims[0]._synth!r}, launches " + ", ".join(
+              f"{k} {v}" for k, v in n_iid.items()))
+    if sims[0]._synth != "pallas_fused" or n_iid["K2"] == 0 or any(
+            v for k, v in n_iid.items() if k != "K2"):
+        fail("the iid orbit pass did not run through K2 alone")
+    zero()
+    sims_m, res_m, wall_m = iid_pass("matmul", 12)
+    if any(counts(counters).values()):
+        fail("the 'matmul' orbit pass launched a kernel")
+    for i, (r, rm) in enumerate(zip(res, res_m)):
+        agree(series(r), series(rm), f"iid orbit sample {i} (zenith "
+              f"{sims[i].params['ZENITH_ANGLE']:.2f} deg)", "K2",
+              short=True)
+    walls = {"K2": [wall], "matmul": [wall_m]}
+    for name in ("K2", "matmul", "matmul", "K2"):
+        walls[name].append(iid_pass(None if name == "K2" else name, 13)[2])
+    iid_rates = {k: [NSAMP * NITER_OI / w for w in v]
+                 for k, v in walls.items()}
+    for k, v in iid_rates.items():
+        print(f"rate iid orbit pass: {k}: " + ", ".join(f"{r:.0f}" for r in v)
+              + f" realizations/s ({NSAMP} x {NITER_OI}, build_sweep "
+              f"inside the wall; the first is cold; {card})")
+
+    # run(progress=True) against run(), iid
+    s = sims[0]
+    ref = series(s.run())
+    got = series(s.run(progress=True))
+    # the temporal pass: K6
+    zero()
+    osims, ores, owall = temporal_pass(NSAMP, NITER_OT, 14)
+    n_t = counts(counters)
+    print(f"temporal orbit pass: {NSAMP} samples x {NITER_OT} steps in "
+          f"{owall:.3f} s (first, the {NSAMP} Fast() inside), launches "
+          + ", ".join(f"{k} {v}" for k, v in n_t.items()))
+    if n_t["K6"] == 0 or any(v for k, v in n_t.items() if k != "K6"):
+        fail("the temporal orbit pass did not run through K6 alone")
+    lags = []
+    for i, r in enumerate(ores):
+        x = series(r)
+        if x.shape != (NITER_OT,) or not np.isfinite(x).all():
+            fail(f"temporal orbit sample {i}: not finite of shape (NITER,)")
+        lags.append(acf_time(x)[1])
+    print(f"temporal orbit pass: lag-1 autocorrelation per sample "
+          + " ".join(f"{x:.5f}" for x in lags) + "; mean normalised power "
+          + " ".join(f"{series(r).mean():.4f}" for r in ores))
+    same = np.array_equal(ref, got)
+    s = osims[0]
+    ref_t = series(s.run())
+    same_t = np.array_equal(ref_t, series(s.run(progress=True)))
+    print(f"run(progress=True) against run(): iid {'equal' if same else 'DIFFERENT'}"
+          f", temporal {'equal' if same_t else 'DIFFERENT'} bit for bit")
+    if not (same and same_t):
+        fail("run(progress=True) differs from run()")
+
+    # the K6 route against the scan's SYNTH='fft' route on 4 samples of
+    # the same pass (its samples 0, 5, 10 and 15), and the lag-1
+    # autocorrelations of that exact route against the pass's
+    rk = temporal_pass(4, NITER_OT_FFT, 9)[1]
+    rf = temporal_pass(4, NITER_OT_FFT, 9, SYNTH="fft")[1]
+    d, d_all = (max(float(np.abs(series(a)[:n] / series(b)[:n] - 1).max())
+                    for a, b in zip(rk, rf)) for n in (1024, NITER_OT_FFT))
+    print(f"temporal orbit scan, K6 route against the SYNTH='fft' route, "
+          f"4 samples from one seed: max relative difference {d:.3e} over "
+          f"the first 1024 steps (limit {FFT_RTOL}), {d_all:.3e} over "
+          f"{NITER_OT_FFT}")
+    if not d <= FFT_RTOL:
+        fail("the K6 route disagrees with the scan's SYNTH='fft' route")
+    lag_f, lag_k = ([acf_time(series(r))[1] for r in x] for x in (rf, rk))
+    lag_p = [lags[i] for i in np.linspace(0, NSAMP - 1, 4).astype(int)]
+    floor = min(lag_f) - ACF_ORBIT_TOL
+    print(f"lag-1 autocorrelation on the pass's samples 0, 5, 10, 15: exact "
+          f"route " + " ".join(f"{x:.5f}" for x in lag_f) + ", K6 route "
+          + " ".join(f"{x:.5f}" for x in lag_k) + f" ({NITER_OT_FFT} steps)"
+          ", K6 pass " + " ".join(f"{x:.5f}" for x in lag_p)
+          + f" ({NITER_OT} steps; limit {ACF_ORBIT_TOL}); every sample of "
+          f"the pass over {floor:.5f} (least {min(lags):.5f})")
+    if any(abs(a - b) > ACF_ORBIT_TOL for a, b in zip(lag_p, lag_f)):
+        fail("the temporal orbit pass's lag-1 autocorrelations differ from "
+             "the exact route's")
+    if not min(lags) > floor:
+        fail(f"a temporal orbit series has lag-1 autocorrelation "
+             f"{min(lags):.4f}, not over {floor:.4f}")
+
+    k6 = phase_k6(osims)
+    k6["launches"] = n_t["K6"]
+    # one K6 scan against 16 serial runs through K4, warm
+    scan_s, serial_s = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parallel.run_scan_sharded(osims, seed=15)
+        torch.cuda.synchronize()
+        scan_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        serial = [s.run() for s in osims]
+        torch.cuda.synchronize()
+        serial_s.append(time.perf_counter() - t0)
+    lags_k4 = [acf_time(series(r))[1] for r in serial]
+    print(f"temporal orbit pass, warm: one K6 scan {min(scan_s):.3f} s "
+          f"({NSAMP * NITER_OT / min(scan_s):.0f} steps/s), {NSAMP} serial "
+          f"run() through K4 {min(serial_s):.3f} s "
+          f"({NSAMP * NITER_OT / min(serial_s):.0f} steps/s; lag-1 "
+          f"{min(lags_k4):.5f} to {max(lags_k4):.5f}); first pass with the "
+          f"Fast() inits {NSAMP * NITER_OT / owall:.0f} steps/s ({card})")
+    profile([(f"K6 temporal orbit scan, {NSAMP} x {NITER_OT} steps",
+              types.SimpleNamespace(run=lambda: parallel.run_scan_sharded(
+                  osims, seed=15)))])
+    t_rates = {"temporal orbit pass": [NSAMP * NITER_OT / owall],
+               "temporal orbit scan, warm": [NSAMP * NITER_OT / w
+                                             for w in scan_s],
+               f"{NSAMP} serial run() through K4, warm": [
+                   NSAMP * NITER_OT / w for w in serial_s]}
+    zero()
+    return k6, iid_rates, t_rates, n_iid["K2"]
+
+
+def definition_f64(a0, ph, ns, W, pm, z):
+    """One AR series from its definition in float64 numpy on the float32
+    inputs and noise ``z`` (nsteps, L, N, N) complex: the couplings
+    (nsteps, 2) and the rms phase of the last step's screen."""
+    a, W = a0.astype(np.complex128), W.astype(np.complex128)
+    ph, ns = ph.astype(np.complex128), ns.astype(np.float64)
+    pm = pm.astype(np.float64)
+    out = np.zeros((len(z), 2))
+    for t, zt in enumerate(z):
+        a = ph * a + zt * ns
+        phi = (W @ a.sum(0) @ W.T).real
+        out[t] = (pm * np.cos(phi)).sum(), (pm * np.sin(phi)).sum()
+    return out, float(np.sqrt((phi ** 2).mean()))
+
+
+def roundoff_witness():
+    """K6 and its plain version against a float64 numpy evaluation of the
+    same series, on inputs of the 64^2 amplitudes (screens of tens of
+    radians): at a 144 px pupil (two ragged tiles an axis) and at a 112 px
+    pupil (one tile) on a 192^2 grid, and at a 402 px pupil (four tiles) on
+    a 1024^2 grid. Round-off gives the two errors one size; a fault in the
+    tiled passes would put the kernel's far above the plain version's."""
+    from fast_tpu_torch.ops import ar_flow as af
+    fn = af.ar_flow_fused_batch
+    before = fn.LAUNCHES
+    for N, lo, hi, L, B, nsteps in ((192, 24, 168, 3, 2, 64),
+                                    (192, 40, 152, 3, 2, 64),
+                                    (1024, 311, 713, 2, 1, 8)):
+        inputs = ar_random(N, lo, hi, L, B, amp=AMP_64)
+        ck = fn(SEED, *inputs, nsteps)[0].cpu().numpy()
+        cp = af.ar_flow_batch_reference(SEED, *inputs,
+                                        nsteps)[0].cpu().numpy()
+        z1, z2 = af.ar_noise(SEED, 0, nsteps, B * L, N, device=DEVICE)
+        z = torch.complex(z1.double(), z2.double()).cpu().numpy().reshape(
+            nsteps, B, L, N, N)
+        a0, ph, ns, W, pms = (x.cpu().numpy() for x in inputs)
+        runs = [definition_f64(a0[s], ph[s], ns[s], W, pms[s], z[:, s])
+                for s in range(B)]
+        ref = np.stack([r[0] for r in runs], 1)
+        top = float(np.abs(ref).max())
+        ek, ep, ekp = (float(np.abs(x - y).max()) / top
+                       for x, y in ((ck, ref), (cp, ref), (ck, cp)))
+        print(f"round-off witness K6 {N}^2, P={hi - lo} "
+              f"({-(-(hi - lo) // 128)} tiles an axis), {B} series x "
+              f"{nsteps} steps, rms phase {max(r[1] for r in runs):.1f} rad:"
+              f" max |d| against float64 numpy, kernel {ek:.3e}, plain "
+              f"{ep:.3e} of the largest |sum| ({top:.3e}); kernel against "
+              f"plain {ekp:.3e}")
+        if not ek <= ROUNDOFF_RATIO * ep:
+            fail(f"K6 at {N}^2, P={hi - lo}: the kernel's error against "
+                 f"float64 is over {ROUNDOFF_RATIO}x the plain version's")
+    fn.LAUNCHES = before
+
+
+def phase_wide_ar(card, counters, k4, k5, k6):
+    """The AR kernels past a 128 px pupil: the round-off witness; K4, K5
+    and K6 against their
+    plain versions at a 144 px pupil on a 192^2 grid (made-up inputs) and
+    at the 1024^2 link's 402 px pupil (its own tables), times per 256
+    steps there, and the wide link's temporal run through K4."""
+    from fast_tpu_torch import Fast
+    from fast_tpu_torch.ops import ar_flow as af
+    K4, K5 = af.ar_flow_fused, af.ar_flow_streamed
+    roundoff_witness()
+    for noise in ("uniform", "gauss"):
+        label = f"{noise} 192^2, P=144 (tiles of 80 px)"
+        a0, ph, ns, W, pms = ar_random(192, 24, 168, 3, 3)
+        one = (a0[0], ph[0], ns[0], W, pms[0])
+        err = check_ar("K4", K4, one, 300, {"noise": noise, "max_steps": 256},
+                       label)[0]
+        k4["max_abs_err_wide"] = max(k4.get("max_abs_err_wide", 0.0), err)
+        a0, ph, ns, W, pms = ar_random(192, 24, 168, 10, 1)
+        err = check_ar("K5", K5, (a0[0], ph[0], ns[0], W, pms[0]), 60,
+                       {"noise": noise}, f"{noise} 192^2, 10 layers, P=144")[0]
+        k5["max_abs_err_wide"] = max(k5.get("max_abs_err_wide", 0.0), err)
+        err = check_k6(ar_random(192, 24, 168, 3, 3), 300,
+                       {"noise": noise, "max_steps": 256}, label)[0]
+        k6["max_abs_err_wide"] = max(k6.get("max_abs_err_wide", 0.0), err)
+
+    t0 = time.perf_counter()
+    sim = Fast(temporal(**WIDE, NITER=NITER_WT, NCHUNKS=2, SEED=3),
+               device=DEVICE)
+    init_s = time.perf_counter() - t0
+    L, N, P = len(sim.h), sim.Npxls, sim.Npxls_pup
+    if (N, P) != WIDE_SHAPE or sim._ar_route != "kernel":
+        fail(f"the wide temporal link is at {N}^2, P={P}, route "
+             f"{sim._ar_route!r}")
+    print(f"wide temporal link {N}^2, P={P}: Fast() {init_s:.2f} s; alpha "
+          "per layer " + " ".join(f"{a:.6f}" for a in sim._ar_alpha))
+    label = f"{N}^2, {L} layers, P={P}"
+    for noise in (None, "uniform"):
+        inputs = ar_inputs(sim, noise)
+        kw = {"noise": noise} if noise else {}
+        err = check_ar("K4", K4, inputs, 64, kw,
+                       f"{noise or 'frozen flow'} {label}")[0]
+        k4["max_abs_err_1024"] = max(k4.get("max_abs_err_1024", 0.0), err)
+        err = check_ar("K5", K5, inputs, 32, dict(kw, lb_layers=1),
+                       f"{noise or 'frozen flow'} {label}, blocks of 1")[0]
+        k5["max_abs_err_1024"] = max(k5.get("max_abs_err_1024", 0.0), err)
+    a0, ph, ns, W, pm = ar_inputs(sim, "uniform")
+    two = (torch.stack([a0, a0.conj()]), torch.stack([ph, ph]),
+           torch.stack([ns, ns]), W, torch.stack([pm, pm]))
+    k6["max_abs_err_1024"] = check_k6(two, 32, {"noise": "uniform"},
+                                      f"uniform {label}")[0]
+    inputs = ar_inputs(sim, "uniform")
+    for res, fn, kw in ((k4, K4, {}), (k5, K5, {"lb_layers": 1})):
+        res["ms_1024"] = cuda_ms(lambda: fn(SEED, *inputs, 256, **kw), 3)
+        res["plain_ms_1024"] = cuda_ms(lambda: af.ar_flow_reference(
+            SEED, *inputs, 256), 1)
+        res["bound_ms_1024"] = ar_bound(L, N, P, 256, True)[0]
+        print(f"{'K4' if fn is K4 else 'K5 (blocks of 1)'} uniform {label}: "
+              f"{res['ms_1024']:.3f} ms kernel, {res['plain_ms_1024']:.3f} "
+              f"ms plain, bound {res['bound_ms_1024']:.3f} ms "
+              f"({res['bound_ms_1024'] / res['ms_1024']:.1%} of it) per 256 "
+              f"steps")
+    for c in counters.values():
+        c.LAUNCHES = 0
+    r, k4["launches_1024"], tau = temporal_run(
+        sim, "K4", K4, [c for k, c in counters.items() if k != "K4"],
+        f"wide temporal run {N}^2, P={P}")
+    k4["rate_1024"] = NITER_WT / timed_run(sim)[1]
+    print(f"rate wide temporal run: {k4['rate_1024']:.0f} steps/s (warm "
+          f"run() of {NITER_WT}; {card})")
+    for c in counters.values():
+        c.LAUNCHES = 0
+
+
 def rates(runs, card, where, unit="realizations"):
     """Warm ``run()`` rates of the named sims, two each, in the given
     order; prints and returns {name: [per second, ...]}."""
@@ -1179,6 +1686,16 @@ def kernel_entry(name, source, replaces, res, shape, run_rates, timed):
             "run_rates": {k: max(v) for k, v in run_rates.items()}}
 
 
+def all_counters():
+    from fast_tpu_torch.ops import ar_flow as af
+    from fast_tpu_torch.ops import colfac_detect as cd
+    from fast_tpu_torch.ops import synth_detect as sd
+    return {"K1": cd.colfac_detect, "K2": sd.synth_detect,
+            "K3": cd.colfac_detect_split, "K4": af.ar_flow_fused,
+            "K5": af.ar_flow_streamed, "K6": af.ar_flow_fused_batch,
+            "K7": sd.synth_screens}
+
+
 def main():
     t_start = time.perf_counter()
     card = phase_env()
@@ -1192,11 +1709,19 @@ def main():
     ctx["k2"].update({f"{k}_1024": v for k, v in k2w.items()
                       if k != "launches_wide"},
                      launches_1024=k2w["launches_wide"])
+    torch.cuda.empty_cache()
+    counters = all_counters()
+    k6, rates_oi, rates_ot, ctx["k2"]["launches_orbit"] = phase_orbit(
+        card, counters)
+    phase_wide_ar(card, counters, k4, k5, k6)
     wide_shape = "1024^2, P=402"
     line = {"kernels": [
         kernel_entry("synth_detect", "fast_tpu_torch/csrc/synth_detect.cu",
                      "fast_tpu/ops/pallas_synth.py:289", ctx["k2"],
-                     "256^2, P=82, mixed", rates_256, {"timed_draws": NTIME}),
+                     "256^2, P=82, mixed", {**rates_256, **{
+                         f"iid orbit pass {k}": v
+                         for k, v in rates_oi.items()}},
+                     {"timed_draws": NTIME}),
         kernel_entry("colfac_detect", "fast_tpu_torch/csrc/colfac_detect.cu",
                      "fast_tpu/ops/pallas_synth.py:724", ctx["k1"],
                      "512^2, P=82, mixed", rates_512, {"timed_draws": NTIME}),
@@ -1212,6 +1737,10 @@ def main():
                      "fast_tpu/ops/pallas_synth.py:1736", k5,
                      "512^2, 16 layers, P=82, uniform", rates_t,
                      {"timed_steps": MAX_STEPS_K5}),
+        kernel_entry("ar_flow_fused_batch", "fast_tpu_torch/csrc/ar_flow.cu",
+                     "fast_tpu/ops/pallas_synth.py:1228", k6,
+                     f"{NSAMP} series x 256^2, 4 layers, P=82, uniform",
+                     rates_ot, {"timed_steps": 256}),
         kernel_entry("synth_screens", "fast_tpu_torch/csrc/synth_detect.cu",
                      "fast_tpu/ops/pallas_synth.py:175", k7,
                      wide_shape + ", Box-Muller", rates_w,

@@ -2,12 +2,13 @@
 
 The port of ``fast_tpu`` (JAX), which stays the reference: the same
 config keys, the same ``Fast`` / ``FastResult`` / ``run()`` / ``save`` /
-``load`` surface, for the iid Monte Carlo run of one link and its
-temporal (frozen-flow) mode. The PSD stage runs in float64 torch on the
-CPU; the Monte Carlo loop runs on the device given to ``Fast(params,
-device=...)`` (``"cuda"`` by default), through the hand-written kernels
-of ``csrc/`` (synth-detect, colfac-detect, AR flow) or the stock-op
-paths. This package never imports JAX.
+``load`` surface, for the iid Monte Carlo run of one link, its temporal
+(frozen-flow) mode, and orbit passes, sweeps and parameter scans on one
+device (:mod:`.orbit`, :mod:`.sweep`, :mod:`.parallel`). The PSD stage
+runs in float64 torch on the CPU; the Monte Carlo loop runs on the device
+given to ``Fast(params, device=...)`` (``"cuda"`` by default), through
+the hand-written kernels of ``csrc/`` (synth-detect, colfac-detect, AR
+flow) or the stock-op paths. This package never imports JAX.
 """
 
 __version__ = "0.1.0"

@@ -27,13 +27,16 @@ The iid Monte Carlo path and the temporal (frozen-flow) mode of
   grown to the series) and samples it along the wind; ``'ar'`` evolves the
   per-layer Fourier state on the fixed grid by an AR(1) recursion, through
   the hand-written AR kernels K4 and K5 (:mod:`fast_tpu_torch.ops.ar_flow`)
-  for float32 on CUDA (their plain torch version on the CPU), or through
-  the exact batched ``ift2`` for ``SYNTH='fft'`` or float64. Every AR route
-  draws the kernels' Philox noise keyed by the absolute step, so the
-  series does not depend on ``NCHUNKS``.
+  for float32 on CUDA (their plain torch version on the CPU), at any pupil
+  width, or through the exact batched ``ift2`` for ``SYNTH='fft'`` or
+  float64. Every AR route draws the kernels' Philox noise keyed by the
+  absolute step, so the series does not depend on ``NCHUNKS``.
 
-Not ported yet, and refused with ``NotImplementedError``:
-``run(progress=True)`` (ROADMAP.md, queue 1).
+``run(progress=True)`` walks the same chunks with a progress line on
+stderr (:func:`fast_tpu_torch.utils.log.progress`) and returns the same
+numbers. Orbit passes, sweeps and parameter scans build on this class:
+:mod:`fast_tpu_torch.orbit`, :mod:`fast_tpu_torch.sweep`,
+:mod:`fast_tpu_torch.parallel`.
 """
 
 import logging
@@ -58,7 +61,7 @@ from .ops.synth_detect import (pack_subharm, supports, synth_detect,
                                synth_screens)
 from . import synthesis
 from .utils import fits
-from .utils.log import init_logging
+from .utils.log import init_logging, progress as chunk_progress
 from .utils.profiling import StageTimer
 
 logger = logging.getLogger(__name__)
@@ -410,7 +413,8 @@ class Fast:
         frozen-flow screens, 'kernel' for the AR kernels (float32 and
         ``SYNTH != 'fft'``: K4 or K5 on a CUDA device, their plain version
         on the CPU) and 'fft' for the exact batched ``ift2``. On a CUDA
-        device a pupil the kernels do not take raises here."""
+        device a shape the kernels do not take (a grid over 32768 px or a
+        pupil over 32640 px) raises here."""
         p = self.params
         exact = p["SYNTH"] == "fft" or self.dtype == torch.float64
         self._synth = "fft" if exact else p["SYNTH"]
@@ -422,9 +426,9 @@ class Fast:
                 and not ar_flow.supports(self.Npxls, self.Npxls_pup)):
             raise ValueError(
                 f"the AR flow kernels (TEMPORAL_SYNTH='ar', float32) take a "
-                f"pupil of at most 128 px; got NPXLS={self.Npxls}, a "
-                f"{self.Npxls_pup} px pupil. SYNTH='fft' runs the exact "
-                f"stock-op route")
+                f"grid of at most 32768 px and a pupil of at most 32640 px; "
+                f"got NPXLS={self.Npxls}, a {self.Npxls_pup} px pupil. "
+                f"SYNTH='fft' runs the exact stock-op route")
 
     def init_pupil_mask(self):
         logger.info("Initialising pupil mask")
@@ -613,6 +617,14 @@ class Fast:
     def _prepare_device_constants(self):
         """Move the per-configuration tables to the run device, with the
         column factors of the colfac paths and the subharmonic tables."""
+        self.tables = tables_from_numpy(self._table_arrays(),
+                                        device=self.device, dtype=self.dtype,
+                                        noise=self.params["MC_NOISE"])
+
+    def _table_arrays(self, column_factors=True):
+        """The host arrays of :func:`tables_from_numpy` for this
+        configuration; ``column_factors=False`` leaves out the colfac
+        paths' factors (a sweep builds each sample's own)."""
         synth = self._synth
         if not self.temporal and not synth.startswith("pallas"):
             # the per-chunk noise tensor is the plain paths' peak allocation
@@ -633,7 +645,8 @@ class Fast:
             df=self.freq.main.df, dx=self.dx, norm=self._norm,
             logamp_var=self.logamp_var,
             diffraction_limit=self.diffraction_limit, pup_crop=self.pup_crop)
-        if synth in ("colfac", "pallas_colfac") and not self.temporal:
+        if (column_factors and synth in ("colfac", "pallas_colfac")
+                and not self.temporal):
             with self.profile.stage("column_factors"):
                 arrays["L_colfac"] = self._column_factors(W64)
         if self.subharmonics:
@@ -646,9 +659,7 @@ class Fast:
                                                            self.pup_crop))
         if self.temporal:
             arrays.update(self._temporal_arrays())
-        self.tables = tables_from_numpy(arrays, device=self.device,
-                                        dtype=self.dtype,
-                                        noise=self.params["MC_NOISE"])
+        return arrays
 
     def _temporal_arrays(self):
         """The temporal mode's host arrays for :func:`tables_from_numpy`,
@@ -707,18 +718,18 @@ class Fast:
         self.seed = seed
 
     def run(self, progress=False):
-        """Draw all Monte Carlo realizations; returns :class:`FastResult`."""
-        if progress:
-            raise NotImplementedError(
-                "run(progress=True) is not ported yet, for iid and for "
-                "TEMPORAL runs (ROADMAP.md queue 1, item 4)")
-        with self.profile.stage("mc_run"):
-            return self._run()
+        """Draw all Monte Carlo realizations; returns :class:`FastResult`.
 
-    def _run(self):
-        self._logamp_seed, seed_mc = self._run_seeds()
-        self._logamp_cache = None
-        chi = self._draw_logamp().to(self.device)
+        ``progress=True`` writes a progress line per chunk to stderr; the
+        numbers are those of ``run()``, bit for bit.
+        """
+        with self.profile.stage("mc_run"):
+            return self._run(progress=progress)
+
+    def _run(self, seeds=None, progress=False):
+        """The run from the seeds ``(log-amplitude, screens)`` (default:
+        :meth:`_run_seeds`)."""
+        logamp_seed, seed_mc = self._run_seeds() if seeds is None else seeds
         # the complex pupil couplings of every chunk, before the
         # log-amplitude factor
         if not self.temporal:
@@ -727,12 +738,27 @@ class Fast:
             chunks = self._temporal_screens_chunks(seed_mc)
         else:
             chunks = self._temporal_ar_chunks(seed_mc)
+        if progress:
+            chunks = chunk_progress(
+                chunks, self.Nchunks, per_item=self.Niter_per_chunk,
+                unit="steps" if self.temporal else "realizations")
+        return self._finish(logamp_seed, chunks)
+
+    def _finish(self, logamp_seed, chunks):
+        """The run's result from the couplings of its chunks (in series
+        order, of any lengths that add up to NITER) and the log-amplitude
+        series of ``logamp_seed``: the log-amplitude factor, ``|.|^2``
+        unless ``COHERENT``, the moments on the device; stores and returns
+        :attr:`result`."""
+        self._logamp_seed, self._logamp_cache = logamp_seed, None
+        chi = self._draw_logamp().to(self.device)
         coherent = bool(self.params["COHERENT"])
-        B = self.Niter_per_chunk
-        outs = []
-        for i, pc in enumerate(chunks):
-            out = torch.exp(chi[i * B:(i + 1) * B]).to(pc.real.dtype) * pc
+        outs, t0 = [], 0
+        for pc in chunks:
+            n = pc.shape[0]
+            out = torch.exp(chi[t0:t0 + n]).to(pc.real.dtype) * pc
             outs.append(out if coherent else out.abs() ** 2)
+            t0 += n
         out = torch.cat(outs)
         mean, si, nbad = _moments(out)
         if nbad:
@@ -812,9 +838,10 @@ class Fast:
                            dtype=cdtype) * T["sqrt_psd_df"]
         return a, draw_seed(gen)
 
-    def _ar_series_chunks(self, a, seed_noise):
+    def _ar_series_chunks(self, a, seed_noise, series=0):
         """The layer-summed Fourier coefficients (B, N, N) of every chunk
-        from the stock-op recursion, with the AR kernels' noise stream."""
+        from the stock-op recursion, with the AR kernels' noise stream (of
+        series ``series`` of a batch: :class:`ar_flow.NoiseStream`)."""
         T = self.tables
         B = self.Niter_per_chunk
         boiling = bool((T["alpha"] < 1).any())
@@ -823,7 +850,7 @@ class Fast:
         noise = ar_flow.NoiseStream(
             seed_noise, a.shape[0], self.Npxls, self.Niter,
             noise=self.params["TEMPORAL_NOISE"], device=self.device,
-            dtype=a.dtype)
+            dtype=a.dtype, series=series)
         for i in range(self.Nchunks):
             a, A = synthesis.ar_flow_series(
                 a, noise, T["step_phasor"], T["sqrt_psd_df"], alpha, sqrt1ma,
@@ -846,8 +873,16 @@ class Fast:
                               step0=i * B)
                 yield torch.complex(c[:, 0], c[:, 1]) * (dx ** 2 / norm)
             return
+        yield from self._ar_fft_chunks(a, seed_noise)
+
+    def _ar_fft_chunks(self, a, seed_noise, series=0):
+        """The exact AR route from the state ``a``: the stock-op recursion
+        with the noise of series ``series`` and the batched centred
+        ``ift2``, chunk by chunk."""
+        T = self.tables
+        dx, norm = float(T["dx"]), float(T["norm"])
         lo, hi = self.pup_crop
-        for A in self._ar_series_chunks(a, seed_noise):
+        for A in self._ar_series_chunks(a, seed_noise, series):
             phs = ift2(A, 1.0).real[:, lo:hi, lo:hi]
             yield synthesis.detector_coupling(phs, T["pm"], dx, norm)
 

@@ -3,9 +3,11 @@
 The JAX package and this one compute the same per-configuration tables on
 the host in numpy float64. :func:`tables_from_numpy` turns them into the
 tensors the Monte Carlo run reads, on the run device, once per
-configuration. ``Fast`` builds its own tables through it, and a test can
-hand it the JAX package's arrays so that both packages run the same
-inputs. This module imports nothing of the JAX package.
+configuration. ``Fast`` builds its own tables through it, a sweep builds
+each sample's through :func:`sample_tables`, and a test can hand either the
+JAX package's arrays (those of one simulation, or the per-sample arrays of
+a JAX sweep or scan) so that both packages run the same inputs. This
+module imports nothing of the JAX package.
 """
 
 import numpy as np
@@ -75,38 +77,74 @@ def tables_from_numpy(arrays, device="cpu", dtype=torch.float32,
         cast. Screens route: ``wind_px`` (nlayers, 2) = wind / dx in pixels
         per second and ``pup_coords`` (Npup,), float64, with ``dt``.
     """
+    _check(arrays)
+    temporal = arrays.get("powerspec_per_layer") is not None
+    return {**_grid_tables(arrays, temporal, device, dtype),
+            **_own_tables(arrays, device, dtype, noise)}
+
+
+#: The arrays a sample may not vary: the tables made from them are the
+#: grid's and the pupil's (:func:`_grid_tables` reads these alone), shared
+#: by the samples of a sweep.
+GRID_KEYS = ("W_pruned", "pupil_mode", "df", "dx", "norm", "pup_crop",
+             "subharm_df", "subharm_modes")
+
+
+def _check(arrays):
     missing = [k for k in KEYS if k not in arrays]
     if missing:
         raise KeyError(f"tables_from_numpy needs {missing}")
-    np_dt = np.float32 if dtype == torch.float32 else np.float64
-    np_cdt = np.complex64 if dtype == torch.float32 else np.complex128
+
+
+def _dtypes(dtype):
+    if dtype == torch.float32:
+        return np.float32, np.complex64
+    return np.float64, np.complex128
+
+
+def _dev(a, device):
+    return torch.from_numpy(np.array(a, order="C")).to(device)
+
+
+def _grid_tables(arrays, temporal, device, dtype):
+    """The tables of the grid and the pupil, from :data:`GRID_KEYS` only."""
+    g = {k: arrays.get(k) for k in GRID_KEYS}
+    np_dt, np_cdt = _dtypes(dtype)
+    pm = np.asarray(g["pupil_mode"], np.float64)
+    W = np.asarray(g["W_pruned"])
+    W32 = W.astype(np.complex64)
+    # float32 K2 tables exactly as the TPU kernel's wrapper builds them:
+    # cast first, then transpose / pad
+    wr, wi, pm_t = pad_pupil(_dev(W32.real, device), _dev(W32.imag, device),
+                             _dev(pm.astype(np.float32).T, device))
+    T = dict(pm=_dev(pm.astype(np_dt), device),
+             W=_dev(W.astype(np_cdt), device), wr=wr, wi=wi, pm_t=pm_t,
+             pup_crop=torch.as_tensor(np.asarray(g["pup_crop"], np.int64)))
+    if not temporal:
+        T["mix"] = _dev(mixing_matrix(W.shape[-1]), device)
+    for k in ("df", "dx", "norm"):
+        T[k] = torch.tensor(float(g[k]), dtype=torch.float64)
+    if g["subharm_modes"] is not None:
+        T["sh_df"] = _dev(np.asarray(g["subharm_df"]).astype(np_dt), device)
+        T["sh_modes"] = _dev(np.asarray(g["subharm_modes"]).astype(np_cdt),
+                             device)
+    return T
+
+
+def _own_tables(arrays, device, dtype, noise):
+    """The tables of one configuration's atmosphere and link: every table
+    but the grid's."""
+    np_dt, np_cdt = _dtypes(dtype)
 
     def dev(a):
-        return torch.from_numpy(np.array(a, order="C")).to(device)
+        return _dev(a, device)
 
-    powerspec = np.asarray(arrays["powerspec"], np.float64)
-    N = powerspec.shape[-1]
-    sqrt_psd = np.sqrt(powerspec)
-    pm = np.asarray(arrays["pupil_mode"], np.float64)
-    W = np.asarray(arrays["W_pruned"])
-    # float32 K2 tables exactly as the TPU kernel's wrapper builds them:
-    # cast first, then transpose / scale / pad
-    s32 = sqrt_psd.astype(np.float32)
-    W32 = W.astype(np.complex64)
-    wr, wi, pm_t = pad_pupil(dev(W32.real), dev(W32.imag),
-                             dev(pm.astype(np.float32).T))
-    T = dict(
-        sqrt_psd=dev(sqrt_psd.astype(np_dt)),
-        pm=dev(pm.astype(np_dt)),
-        W=dev(W.astype(np_cdt)),
-        s_t=dev(s32.T * np.float32(arrays["df"])),
-        wr=wr, wi=wi, pm_t=pm_t,
-        pup_crop=torch.as_tensor(np.asarray(arrays["pup_crop"], np.int64)),
-    )
-    temporal = arrays.get("powerspec_per_layer") is not None
-    if not temporal:
-        T["mix"] = dev(mixing_matrix(N))
-    for k in ("df", "dx", "norm", "logamp_var", "diffraction_limit"):
+    sqrt_psd = np.sqrt(np.asarray(arrays["powerspec"], np.float64))
+    # cast first, then transpose / scale, as the TPU kernel's wrapper does
+    T = dict(sqrt_psd=dev(sqrt_psd.astype(np_dt)),
+             s_t=dev(sqrt_psd.astype(np.float32).T
+                     * np.float32(arrays["df"])))
+    for k in ("logamp_var", "diffraction_limit"):
         T[k] = torch.tensor(float(arrays[k]), dtype=torch.float64)
     if arrays.get("L_colfac") is not None:
         L = dev(np.asarray(arrays["L_colfac"]).astype(np_cdt))
@@ -118,10 +156,7 @@ def tables_from_numpy(arrays, device="cpu", dtype=torch.float32,
     if arrays.get("powerspec_subharm") is not None:
         T["sqrt_psd_sh"] = dev(np.sqrt(arrays["powerspec_subharm"])
                                .astype(np_dt))
-        T["sh_df"] = dev(np.asarray(arrays["subharm_df"]).astype(np_dt))
-        T["sh_modes"] = dev(np.asarray(arrays["subharm_modes"])
-                            .astype(np_cdt))
-    if temporal:
+    if arrays.get("powerspec_per_layer") is not None:
         sqrt_layers = np.sqrt(np.asarray(arrays["powerspec_per_layer"],
                                          np.float64)).astype(np_dt)
         T["sqrt_psd_layers"] = dev(sqrt_layers)
@@ -135,6 +170,44 @@ def tables_from_numpy(arrays, device="cpu", dtype=torch.float32,
                                              np.float64))
             T["dt"] = torch.tensor(float(arrays["dt"]), dtype=torch.float64)
     return T
+
+
+def sample_tables(arrays, samples, device="cpu", dtype=torch.float32,
+                  noise="mixed"):
+    """Device tables of each sample of a sweep or a parameter scan.
+
+    Args:
+        arrays: the arrays of :func:`tables_from_numpy` that every sample
+            shares (the grid's, the pupil's).
+        samples: dict of per-sample arrays under the keys of
+            :func:`tables_from_numpy` they replace, each a sequence with
+            one entry per sample (a stacked array or a list): the keys an
+            orbit pass varies are ``powerspec``, ``logamp_var``,
+            ``diffraction_limit``, ``L_colfac`` and ``powerspec_subharm``.
+            None of :data:`GRID_KEYS`.
+        device, dtype, noise: as :func:`tables_from_numpy`.
+
+    Returns:
+        list of table dicts, one per sample; the tables of the grid and the
+        pupil (``W``, ``wr``, ``wi``, ``pm``, ``pm_t``, ``mix``, the
+        subharmonic modes) are built once and shared by every dict.
+    """
+    fixed = sorted(set(samples) & set(GRID_KEYS))
+    if fixed:
+        raise ValueError(f"the samples of a sweep share the grid and the "
+                         f"pupil; {fixed} may not vary")
+    counts = {len(v) for v in samples.values()}
+    if len(counts) != 1:
+        raise ValueError(f"every per-sample array needs one entry per "
+                         f"sample; got lengths {sorted(counts)}")
+    n = counts.pop()
+    _check(arrays)
+    grid = _grid_tables(arrays, arrays.get("powerspec_per_layer") is not None
+                        or "powerspec_per_layer" in samples, device, dtype)
+    return [{**grid, **_own_tables({**arrays,
+                                    **{k: v[i] for k, v in samples.items()}},
+                                   device, dtype, noise)}
+            for i in range(n)]
 
 
 def _ar_tables(T, arrays, sqrt_layers, np_dt, dev):

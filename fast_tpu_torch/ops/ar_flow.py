@@ -1,29 +1,35 @@
-"""K4 and K5: the AR(1)-in-Fourier frozen-flow coupling series.
+"""K4, K5 and K6: the AR(1)-in-Fourier frozen-flow coupling series.
 
 The port of ``fast_tpu.ops.pallas_synth.ar_flow_fused`` (K4,
-``_ar_flow_kernel``) and ``ar_flow_streamed`` (K5, ``_ar_stream_kernel``).
+``_ar_flow_kernel``), ``ar_flow_streamed`` (K5, ``_ar_stream_kernel``) and
+``ar_flow_fused_batch`` (K6, ``_ar_flow_kernel_batch``: B independent
+series sharing ``W``, one per orbit sample of a temporal scan).
 Per time step every layer's Fourier state is multiplied by its phasor
 ``alpha e^{i kappa . v dt}``, optionally gets boiling noise times
 ``sqrt(1 - alpha^2) sqrt(PSD) df``, the layers are summed, the pruned
 inverse DFT takes the sum to the pupil crop, and the real part of that
 screen is reduced to ``(sum pm cos phi, sum pm sin phi)``.
 
-* :func:`ar_flow_fused` and :func:`ar_flow_streamed` are the wrappers, with
-  the arguments and returns of the JAX functions of the same names. On CUDA
-  tensors they launch the hand-written kernel of ``csrc/ar_flow.cu`` (built
-  at first use) or raise; on CPU tensors they run
-  :func:`ar_flow_reference`. The fused one
+* :func:`ar_flow_fused`, :func:`ar_flow_streamed` and
+  :func:`ar_flow_fused_batch` are the wrappers, with the arguments and
+  returns of the JAX functions of the same names. On CUDA tensors they
+  launch the hand-written kernel of ``csrc/ar_flow.cu`` (built at first
+  use) or raise; on CPU tensors they run the plain version. The fused one
   keeps every layer of a mode in one thread's registers (at most
   :data:`FUSED_MAX_LAYERS` layers); the streamed one walks the layers in
   blocks that add into the layer sum in turn, for any number of layers.
-  :func:`select` is the rule that picks between them.
-* :func:`ar_flow_reference` is the same function in stock torch ops, step
-  by step, from the same Philox4x32-10 bits: counter ``(mode, layer,
-  absolute step, 2)``, key the 64-bit seed. Its update uses the kernel's
-  operations in the kernel's order (no fused multiply-add), so state and
-  layer sum agree with the kernel bit for bit and only the two matrix
-  products differ. ``bits`` replaces the Philox bits (``"zero"``: all
-  zero, what the Pallas interpreter's PRNG yields).
+  :func:`select` is the rule that picks between them, and the batched one
+  follows it for each of its series. Any pupil width: the kernels cut a
+  pupil over 128 px into the tiles of ``csrc/detect.cuh``.
+* :func:`ar_flow_reference` and :func:`ar_flow_batch_reference` are the
+  same functions in stock torch ops, step by step, from the same
+  Philox4x32-10 bits: counter ``(mode, series * L + layer, absolute step,
+  2)``, key the 64-bit seed (series 0 of a batch is the single series of
+  K4). Their update uses the kernel's operations in the kernel's order (no
+  fused multiply-add), so state and layer sum agree with the kernel bit
+  for bit and only the two matrix products differ. ``bits`` replaces the
+  Philox bits (``"zero"``: all zero, what the Pallas interpreter's PRNG
+  yields).
 
 Noise, as the TPU kernels: 'uniform' is ``i sqrt(3) 2^-23 - sqrt(3)`` on
 the top 24 bits of a word (unit variance), 'gauss' is Box-Muller with
@@ -37,8 +43,9 @@ import ctypes
 import torch
 
 from . import _build
-from .synth_detect import (_P_MAX, _REF_POINTS, _key, box_muller, pad_pupil,
-                           philox4x32_10, raise_on, sincos, uniforms)
+from .synth_detect import (_G_BYTES, _REF_POINTS, _key, box_muller,
+                           pad_pupil, padded_pupil, philox4x32_10,
+                           pupil_tiles, raise_on, sincos, uniforms)
 
 #: Most layers the fused kernel holds in one thread's registers.
 FUSED_MAX_LAYERS = 8
@@ -48,12 +55,16 @@ STREAM_LAYERS = 4
 MAX_STEPS = 4096
 _NOISE_CODE = {"uniform": 1, "gauss": 2}
 _N_MAX = 32768  # grid sides whose mode index fits the kernel's int
+_T_MAX = 255    # pupil tiles an axis (csrc/detect.cuh, pass2_takes)
+_B_MAX = 65535  # series of one launch (a grid axis of the update pass)
 
 
 def supports(N, P):
-    """Whether the kernel takes an (N, N) grid with a P-pixel pupil: a
-    pupil of at most 128 px."""
-    return 0 < P <= _P_MAX and 0 < N <= _N_MAX
+    """Whether the kernels take an (N, N) grid with a P-pixel pupil: any
+    grid side up to 32768 and any pupil the tiles of ``csrc/detect.cuh``
+    cover (up to 32640 px)."""
+    return 0 < N <= _N_MAX and 0 < P and pupil_tiles(padded_pupil(P)) \
+        <= _T_MAX
 
 
 def select(nlayers):
@@ -62,11 +73,15 @@ def select(nlayers):
     return ar_flow_fused if nlayers <= FUSED_MAX_LAYERS else ar_flow_streamed
 
 
-def tile_steps(N):
-    """Steps per tile of the layer sum A and of G' in device memory: 256
-    for grids up to 256^2, fewer for larger ones (at most 2^24 grid points
-    of A, 134 MB), never under 16."""
-    return max(16, min(256, (1 << 24) // (N * N)))
+def tile_steps(N, P=128, nseries=1):
+    """Steps per tile of the layer sum A and of G' in device memory, for
+    ``nseries`` series at an (N, N) grid and a padded pupil P: 256 (step,
+    series) pairs for grids up to 256^2, fewer for larger ones (at most
+    2^24 grid points of A, 134 MB, and 2 GiB of G'), never under 16
+    pairs; then divided among the series, at least one step."""
+    pairs = max(16, min(256, (1 << 24) // (N * N)))
+    pairs = min(pairs, max(1, _G_BYTES // (8 * N * P)))
+    return max(1, pairs // nseries)
 
 
 # ---------------------------------------------------------------------------
@@ -74,14 +89,17 @@ def tile_steps(N):
 # ---------------------------------------------------------------------------
 
 
-def ar_bits(seed, step0, nsteps, L, N, device="cpu"):
-    """The kernel's two random words per (step, layer, mode): ``(b1, b2)``,
+def ar_bits(seed, step0, nsteps, L, N, device="cpu", layer0=0):
+    """The kernel's two random words per (step, row, mode): ``(b1, b2)``,
     int64 tensors of 32-bit values, shape (nsteps, L, N, N), for the
-    absolute steps ``step0 .. step0 + nsteps - 1``; counter ``(row * N +
-    col, layer, step, 2)``, key the 64-bit ``seed``."""
+    absolute steps ``step0 .. step0 + nsteps - 1`` and the state rows
+    ``layer0 .. layer0 + L - 1`` (row ``s * nlayers + l`` is layer l of
+    series s); counter ``(row * N + col, state row, step, 2)``, key the
+    64-bit ``seed``."""
     k0, k1 = _key(seed)
     e = torch.arange(N * N, dtype=torch.int64, device=device)[None, None, :]
-    lay = torch.arange(L, dtype=torch.int64, device=device)[None, :, None]
+    lay = torch.arange(layer0, layer0 + L, dtype=torch.int64,
+                       device=device)[None, :, None]
     s = torch.arange(step0, step0 + nsteps, dtype=torch.int64,
                      device=device)[:, None, None]
     two = torch.full((), 2, dtype=torch.int64, device=device)
@@ -90,15 +108,15 @@ def ar_bits(seed, step0, nsteps, L, N, device="cpu"):
 
 
 def ar_noise(seed, step0, nsteps, L, N, noise="uniform", device="cpu",
-             bits=None):
+             bits=None, layer0=0):
     """The boiling noise ``(z1, z2)`` of ``nsteps`` steps: float32 (nsteps,
-    L, N, N), real and imaginary parts. ``bits``: None for the Philox bits
-    of :func:`ar_bits`, ``"zero"`` for zero bits, or ``(b1, b2)`` integer
-    tensors of that shape."""
+    L, N, N), real and imaginary parts, of the state rows ``layer0 ..``.
+    ``bits``: None for the Philox bits of :func:`ar_bits`, ``"zero"`` for
+    zero bits, or ``(b1, b2)`` integer tensors of that shape."""
     if noise not in _NOISE_CODE:
         raise ValueError("noise must be 'uniform'|'gauss'")
     if bits is None:
-        b1, b2 = ar_bits(seed, step0, nsteps, L, N, device)
+        b1, b2 = ar_bits(seed, step0, nsteps, L, N, device, layer0)
     elif isinstance(bits, str) and bits == "zero":
         b1 = b2 = torch.zeros((nsteps, L, N, N), dtype=torch.int64,
                               device=device)
@@ -110,15 +128,18 @@ def ar_noise(seed, step0, nsteps, L, N, noise="uniform", device="cpu",
 
 
 class NoiseStream:
-    """The kernel's boiling noise, step by step, for the stock-op routes:
-    ``stream(step)`` is the complex (L, N, N) noise of the absolute step
-    ``step`` in ``dtype``. Steps are drawn in blocks, up to the step
-    ``end``, and must be asked for in rising order."""
+    """The kernels' boiling noise of one series, step by step, for the
+    stock-op routes: ``stream(step)`` is the complex (L, N, N) noise of the
+    absolute step ``step`` in ``dtype``, of series ``series`` of a batch
+    (state rows ``series * L ..``; series 0 is the single series of K4).
+    Steps are drawn in blocks, up to the step ``end``, and must be asked
+    for in rising order."""
 
     def __init__(self, seed, L, N, end, noise="uniform", device="cpu",
-                 dtype=torch.complex64):
+                 dtype=torch.complex64, series=0):
         self.seed, self.L, self.N, self.noise = seed, L, N, noise
         self.end, self.device, self.dtype = int(end), device, dtype
+        self.layer0 = int(series) * L
         self._per = max(1, _REF_POINTS // (L * N * N))
         self._first, self._z = 0, None
 
@@ -128,7 +149,8 @@ class NoiseStream:
             self._first = step
             self._z = ar_noise(self.seed, step,
                                max(1, min(self._per, self.end - step)),
-                               self.L, self.N, self.noise, self.device)
+                               self.L, self.N, self.noise, self.device,
+                               layer0=self.layer0)
         i = step - self._first
         return torch.complex(self._z[0][i], self._z[1][i]).to(self.dtype)
 
@@ -138,43 +160,53 @@ class NoiseStream:
 # ---------------------------------------------------------------------------
 
 
-def _pack(a0, ph, ns, W, pm):
-    """The wrappers' arguments as the kernel takes them: the state and the
-    phasor as (2, L, N, N) float32 (a fresh copy of the state: the kernel
-    updates it in place), ``ns`` (L, N, N) float32 or None, and ``wr``,
-    ``wi`` (P, N), ``pm_t`` (P, P) transposed, zero padded to a multiple of
-    16 pupil pixels."""
-    if a0.ndim != 3 or a0.shape[1] != a0.shape[2] or not a0.is_complex():
-        raise ValueError(f"a0 must be complex (L, N, N), got "
+def _pack(a0, ph, ns, W, pm, batch=False):
+    """The wrappers' arguments as the kernel takes them, with a leading
+    series axis (of one series unless ``batch``): the states and the
+    phasors as (2, B, L, N, N) float32 (a fresh copy of the states: the
+    kernel updates them in place), ``ns`` (B, L, N, N) float32 or None, and
+    ``wr``, ``wi`` (P, N), ``pm_t`` (B, P, P) transposed, zero padded to a
+    multiple of 16 pupil pixels."""
+    lead = "(B, L, N, N)" if batch else "(L, N, N)"
+    if (a0.ndim != (4 if batch else 3) or a0.shape[-1] != a0.shape[-2]
+            or not a0.is_complex()):
+        raise ValueError(f"a0 must be complex {lead}, got "
                          f"{a0.dtype} {tuple(a0.shape)}")
-    L, N, _ = a0.shape
+    shape = tuple(a0.shape)
+    N = shape[-1]
     dev = a0.device
-    if tuple(ph.shape) != (L, N, N) or not ph.is_complex():
-        raise ValueError(f"step_phasor_scaled must be complex {(L, N, N)}")
-    if ns is not None and tuple(ns.shape) != (L, N, N):
-        raise ValueError(f"noise_scale must be {(L, N, N)}")
+    if tuple(ph.shape) != shape or not ph.is_complex():
+        raise ValueError(f"step_phasor_scaled must be complex {shape}")
+    if ns is not None and tuple(ns.shape) != shape:
+        raise ValueError(f"noise_scale must be {shape}")
     npup = W.shape[0]
-    if tuple(W.shape) != (npup, N) or tuple(pm.shape) != (npup, npup):
-        raise ValueError(f"W must be (npup, {N}) and pupil_mode (npup, npup)")
+    pm_shape = (shape[0], npup, npup) if batch else (npup, npup)
+    if tuple(W.shape) != (npup, N) or tuple(pm.shape) != pm_shape:
+        raise ValueError(f"W must be (npup, {N}) and pupil_mode "
+                         f"{'(B, npup, npup)' if batch else '(npup, npup)'}")
     for name, t in (("step_phasor_scaled", ph), ("noise_scale", ns),
                     ("W", W), ("pupil_mode", pm)):
         if t is not None and t.device != dev:
             raise ValueError(f"{name} is on {t.device}, a0 on {dev}")
+    if not batch:
+        a0, ph, pm = a0[None], ph[None], pm[None]
+        ns = None if ns is None else ns[None]
     f32 = torch.float32
     st = torch.stack([a0.real, a0.imag]).to(f32).contiguous()
     ph2 = torch.stack([ph.real, ph.imag]).to(f32).contiguous()
     ns32 = None if ns is None else ns.to(f32).contiguous()
     wr, wi, pm_t = pad_pupil(W.real.to(f32).contiguous(),
                              W.imag.to(f32).contiguous(),
-                             pm.to(f32).T.contiguous())
-    return st, ph2, ns32, wr, wi, pm_t
+                             pm.to(f32).transpose(-2, -1).contiguous())
+    return st, ph2, ns32, wr, wi, pm_t.contiguous()
 
 
 def detect_real_reference(ar, ai, wr, wi, pm_t):
     """The kernel's two products and its detect pass in stock torch ops:
-    from the layer sums ``ar + i ai`` (T, N, N), ``G' = A^T W^T`` (T, N,
-    P), the transposed screen ``Re(W G')`` (T, P, P) and ``(sum pm_t cos,
-    sum pm_t sin)``: (T, 2) float32."""
+    from the layer sums ``ar + i ai`` (..., N, N), ``G' = A^T W^T`` (...,
+    N, P), the transposed screen ``Re(W G')`` (..., P, P) and ``(sum pm_t
+    cos, sum pm_t sin)``: (..., 2) float32, with ``pm_t`` broadcast over
+    the leading axes ((B, P, P) for B series on the last one)."""
     art, ait = ar.transpose(-2, -1), ai.transpose(-2, -1)
     gr = art @ wr.T - ait @ wi.T
     gi = art @ wi.T + ait @ wr.T
@@ -184,22 +216,24 @@ def detect_real_reference(ar, ai, wr, wi, pm_t):
 
 
 def _reference(seed, st, ph2, ns, wr, wi, pm_t, nsteps, noise, step0, bits):
-    """The plain version on packed arguments; ``st`` is advanced in place.
-    Returns the (nsteps, 2) sums."""
-    _, L, N, _ = st.shape
+    """The plain version on packed arguments; ``st`` (2, B, L, N, N) is
+    advanced in place. Returns the (nsteps, B, 2) sums."""
+    _, B, L, N, _ = st.shape
     sr, si = st[0], st[1]
     pr, pi = ph2[0], ph2[1]
-    per = max(1, _REF_POINTS // (L * N * N))
+    per = max(1, _REF_POINTS // (B * L * N * N))
     parts = []
     for t0 in range(0, nsteps, per):
         nt = min(per, nsteps - t0)
         if ns is not None:
             blk = bits
             if not (bits is None or isinstance(bits, str)):
-                blk = (bits[0][t0:t0 + nt], bits[1][t0:t0 + nt])
-            z1, z2 = ar_noise(seed, step0 + t0, nt, L, N, noise, st.device,
-                              blk)
-        A = torch.empty((2, nt, N, N), dtype=torch.float32, device=st.device)
+                blk = tuple(b[t0:t0 + nt].reshape(nt, B * L, N, N)
+                            for b in bits)
+            z1, z2 = (z.view(nt, B, L, N, N) for z in ar_noise(
+                seed, step0 + t0, nt, B * L, N, noise, st.device, blk))
+        A = torch.empty((2, nt, B, N, N), dtype=torch.float32,
+                        device=st.device)
         for t in range(nt):
             # every product and sum rounded on its own, in the kernel's order
             nr = sr * pr - si * pi
@@ -208,10 +242,10 @@ def _reference(seed, st, ph2, ns, wr, wi, pm_t, nsteps, noise, step0, bits):
                 nr = nr + z1[t] * ns
                 ni = ni + z2[t] * ns
             sr, si = nr, ni
-            sum_r, sum_i = sr[0], si[0]
+            sum_r, sum_i = sr[:, 0], si[:, 0]
             for lay in range(1, L):
-                sum_r = sum_r + sr[lay]
-                sum_i = sum_i + si[lay]
+                sum_r = sum_r + sr[:, lay]
+                sum_i = sum_i + si[:, lay]
             A[0, t], A[1, t] = sum_r, sum_i
         parts.append(detect_real_reference(A[0], A[1], wr, wi, pm_t))
     st[0], st[1] = sr, si
@@ -245,6 +279,29 @@ def ar_flow_reference(seed, a0, step_phasor_scaled, noise_scale, W,
                                       pupil_mode)
     out = _reference(seed, st, ph2, ns, wr, wi, pm_t, int(nsteps), noise,
                      int(step0), bits)
+    return out[:, 0], torch.complex(st[0, 0], st[1, 0])
+
+
+def ar_flow_batch_reference(seed, a0, step_phasor_scaled, noise_scale, W,
+                            pupil_modes, nsteps, noise="uniform", step0=0,
+                            bits=None):
+    """K6 in stock torch ops: :func:`ar_flow_reference` for B series at
+    once, series s drawing the state rows ``s * L ..`` of the Philox
+    counter.
+
+    Args: as :func:`ar_flow_reference`, with a leading series axis on
+    ``a0``, ``step_phasor_scaled``, ``noise_scale`` (B, L, N, N) and
+    ``pupil_modes`` (B, npup, npup); ``W`` is shared; ``bits`` are (nsteps,
+    B, L, N, N).
+
+    Returns:
+        ``(couplings, a_final)``: (nsteps, B, 2) float32 and the (B, L, N,
+        N) complex64 states after the last step.
+    """
+    st, ph2, ns, wr, wi, pm_t = _pack(a0, step_phasor_scaled, noise_scale, W,
+                                      pupil_modes, batch=True)
+    out = _reference(seed, st, ph2, ns, wr, wi, pm_t, int(nsteps), noise,
+                     int(step0), bits)
     return out, torch.complex(st[0], st[1])
 
 
@@ -257,7 +314,7 @@ def _library():
     lib, info = _build.load_library("ar_flow")
     if not getattr(lib, "_fast_typed", False):
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-        lib.fast_ar_flow.argtypes = [u, u, u, i, i, i, i, i] + [p] * 13 \
+        lib.fast_ar_flow.argtypes = [u, u, u] + [i] * 6 + [p] * 14 \
             + [i, i, p]
         lib.fast_ar_flow.restype = i
         lib.fast_error_string.argtypes = [i]
@@ -267,7 +324,7 @@ def _library():
 
 
 def _ar_flow(wrapper, lb, seed, a0, ph, ns, W, pm, nsteps, noise, step0,
-             max_steps):
+             max_steps, batch=False):
     nsteps, step0 = int(nsteps), int(step0)
     if nsteps <= 0:
         raise ValueError("nsteps must be positive")
@@ -276,40 +333,49 @@ def _ar_flow(wrapper, lb, seed, a0, ph, ns, W, pm, nsteps, noise, step0,
     if not 0 <= step0 <= step0 + nsteps <= 2 ** 32:
         raise ValueError("step0 + nsteps must fit in 32 bits")
     k0, k1 = _key(seed)
-    st, ph2, ns, wr, wi, pm_t = _pack(a0, ph, ns, W, pm)
+    st, ph2, ns, wr, wi, pm_t = _pack(a0, ph, ns, W, pm, batch)
     dev = st.device
+    _, B, L, N, _ = st.shape
     if dev.type == "cpu":
         out = _reference(seed, st, ph2, ns, wr, wi, pm_t, nsteps, noise,
                          step0, None)
-        return out, torch.complex(st[0], st[1])
-    if dev.type != "cuda":
+    elif dev.type != "cuda":
         raise ValueError(f"the AR flow kernels run on CPU or CUDA, not {dev}")
-    _, L, N, _ = st.shape
-    if not supports(N, pm.shape[0]):
+    elif not supports(N, W.shape[0]) or B > _B_MAX:
         raise ValueError(
-            f"the AR flow kernels take a pupil of at most {_P_MAX} px; got "
-            f"N={N}, a {pm.shape[0]} px pupil")
-    lib, _ = _library()
-    P = wr.shape[0]
-    per = min(nsteps, int(max_steps))
-    tile = min(per, tile_steps(N))
-    a = torch.empty((2, tile, N, N), dtype=torch.float32, device=dev)
-    g = torch.empty((2, tile, N, P), dtype=torch.float32, device=dev)
-    out = torch.empty((nsteps, 2), dtype=torch.float32, device=dev)
-    code = 0 if ns is None else _NOISE_CODE[noise]
-    with torch.cuda.device(dev):
-        cs = torch.cuda.current_stream(dev).cuda_stream
-        for t0 in range(0, nsteps, per):
-            err = lib.fast_ar_flow(
-                k0, k1, step0 + t0, min(per, nsteps - t0), tile, L, lb, code,
-                st[0].data_ptr(), st[1].data_ptr(), ph2[0].data_ptr(),
-                ph2[1].data_ptr(), None if ns is None else ns.data_ptr(),
-                wr.data_ptr(), wi.data_ptr(), pm_t.data_ptr(),
-                a[0].data_ptr(), a[1].data_ptr(), g[0].data_ptr(),
-                g[1].data_ptr(), out[t0:].data_ptr(), N, P, cs)
-            raise_on(lib, err, f"{wrapper.__name__} launch")
-            wrapper.LAUNCHES += 1
-    return out, torch.complex(st[0], st[1])
+            f"the AR flow kernels take a grid of at most {_N_MAX} px, a "
+            f"pupil of at most {128 * _T_MAX} px and at most {_B_MAX} "
+            f"series; got N={N}, a {W.shape[0]} px pupil, {B} series")
+    else:
+        lib, _ = _library()
+        P = wr.shape[0]
+        T = pupil_tiles(P)
+        per = min(nsteps, int(max_steps))
+        tile = min(per, tile_steps(N, P, B))
+        a = torch.empty((2, tile * B, N, N), dtype=torch.float32, device=dev)
+        g = torch.empty((2, tile * B, N, P), dtype=torch.float32, device=dev)
+        part = (None if T == 1 else
+                torch.empty((tile * B, T * T, 2), dtype=torch.float32,
+                            device=dev))
+        out = torch.empty((nsteps, B, 2), dtype=torch.float32, device=dev)
+        code = 0 if ns is None else _NOISE_CODE[noise]
+        with torch.cuda.device(dev):
+            cs = torch.cuda.current_stream(dev).cuda_stream
+            for t0 in range(0, nsteps, per):
+                err = lib.fast_ar_flow(
+                    k0, k1, step0 + t0, min(per, nsteps - t0), tile, B, L,
+                    lb, code, st[0].data_ptr(), st[1].data_ptr(),
+                    ph2[0].data_ptr(), ph2[1].data_ptr(),
+                    None if ns is None else ns.data_ptr(), wr.data_ptr(),
+                    wi.data_ptr(), pm_t.data_ptr(), a[0].data_ptr(),
+                    a[1].data_ptr(), g[0].data_ptr(), g[1].data_ptr(),
+                    None if part is None else part.data_ptr(),
+                    out[t0:].data_ptr(), N, P, cs)
+                raise_on(lib, err, f"{wrapper.__name__} launch")
+                wrapper.LAUNCHES += 1
+    if batch:
+        return out, torch.complex(st[0], st[1])
+    return out[:, 0], torch.complex(st[0, 0], st[1, 0])
 
 
 def ar_flow_fused(seed, a0, step_phasor_scaled, noise_scale, W, pupil_mode,
@@ -319,11 +385,12 @@ def ar_flow_fused(seed, a0, step_phasor_scaled, noise_scale, W, pupil_mode,
     :func:`ar_flow_reference`.
 
     On CUDA tensors this launches the kernel (three passes per time tile,
-    one launch per ``max_steps`` steps, the n-th from the absolute step
-    ``step0 + max_steps * n``) on the current stream and counts each launch
-    in ``ar_flow_fused.LAUNCHES``, or raises for what it does not take
-    (:func:`supports`, more than :data:`FUSED_MAX_LAYERS` layers); on CPU
-    tensors it runs the plain version.
+    four for a pupil over 128 px, one launch per ``max_steps`` steps, the
+    n-th from the absolute step ``step0 + max_steps * n``) on the current
+    stream and counts each launch in ``ar_flow_fused.LAUNCHES``, or raises
+    for what it does not take (:func:`supports`, more than
+    :data:`FUSED_MAX_LAYERS` layers); on CPU tensors it runs the plain
+    version.
     """
     L = a0.shape[0]
     if L > FUSED_MAX_LAYERS:
@@ -351,5 +418,29 @@ def ar_flow_streamed(seed, a0, step_phasor_scaled, noise_scale, W,
                     max_steps)
 
 
+def ar_flow_fused_batch(seed, a0, step_phasor_scaled, noise_scale, W,
+                        pupil_modes, nsteps, noise="uniform", step0=0,
+                        max_steps=MAX_STEPS):
+    """K6: B independent series sharing ``W`` in one launch per
+    ``max_steps`` steps; arguments and returns as
+    :func:`ar_flow_batch_reference`.
+
+    Each series' layers are advanced as :func:`select` would for one
+    series: all in one thread's registers up to
+    :data:`FUSED_MAX_LAYERS` layers, else in blocks of
+    :data:`STREAM_LAYERS`; series s draws the state rows ``s * L ..`` of
+    the Philox counter, so series 0 is K4's series from the same seed. On
+    CUDA tensors this launches the kernel on the current stream and counts
+    each launch in ``ar_flow_fused_batch.LAUNCHES``, or raises; on CPU
+    tensors it runs the plain version.
+    """
+    L = a0.shape[1] if a0.ndim == 4 else 0
+    lb = L if L <= FUSED_MAX_LAYERS else STREAM_LAYERS
+    return _ar_flow(ar_flow_fused_batch, lb, seed, a0, step_phasor_scaled,
+                    noise_scale, W, pupil_modes, nsteps, noise, step0,
+                    max_steps, batch=True)
+
+
 ar_flow_fused.LAUNCHES = 0
 ar_flow_streamed.LAUNCHES = 0
+ar_flow_fused_batch.LAUNCHES = 0

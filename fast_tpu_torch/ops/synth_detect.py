@@ -61,7 +61,7 @@ _REF_POINTS = 1 << 25
 _SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block can use
 _P_ALIGN = 16         # the kernel pads the pupil axis to this multiple
 _P_MAX = 128          # widest tile of the pupil axis (csrc/detect.cuh);
-                      # the AR kernels and K1 take no wider pupil
+                      # K1 takes no wider pupil
 
 
 # ---------------------------------------------------------------------------

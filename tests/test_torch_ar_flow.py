@@ -14,7 +14,8 @@
 * A series cut into calls is the same series, bit for bit (the counter
   holds the absolute step).
 * On the card, the kernels against the plain version from identical bits:
-  state bit for bit, couplings within KERNEL_REL of the largest |sum|.
+  state bit for bit, couplings within KERNEL_REL of the largest |sum|, at
+  pupils of up to 128 px and at 144 and 402 px.
 
 The card-only cases run where JAX is not installed:
 
@@ -35,17 +36,20 @@ SEED = 0xABCDEF0123
 
 
 def ar_inputs(L=2, N=64, lo=20, hi=44, seed=6, boiling=False, alpha=0.9,
-              scale=0.02):
+              scale=0.02, ns_scale=None):
     """Numpy inputs of one series: state of about ``scale`` per mode (a
-    screen of a few radians), random unit phasors times ``alpha`` if
-    boiling, a noise scale, the pruned DFT matrix and a pupil * mode."""
+    screen of a few radians at 64^2), random unit phasors times ``alpha``
+    if boiling, a noise scale of up to ``ns_scale`` (default ``scale /
+    2``), the pruned DFT matrix and a pupil * mode."""
     npup = hi - lo
     rng = np.random.default_rng(seed)
     a0 = (scale * (rng.normal(size=(L, N, N))
                    + 1j * rng.normal(size=(L, N, N)))).astype(np.complex64)
     ph = np.exp(1j * rng.uniform(-3, 3, (L, N, N)))
     ph = ((alpha if boiling else 1.0) * ph).astype(np.complex64)
-    ns = (0.01 * rng.random((L, N, N))).astype(np.float32) if boiling else None
+    ns_scale = scale / 2 if ns_scale is None else ns_scale
+    ns = ((ns_scale * rng.random((L, N, N))).astype(np.float32)
+          if boiling else None)
     W = ts.pruned_ift2_matrix(N, lo, hi, dtype=np.complex64)
     pm = rng.random((npup, npup)).astype(np.float32)
     return a0, ph, ns, W, pm
@@ -183,8 +187,12 @@ def test_the_rule_and_what_the_wrappers_refuse():
     assert af.select(4) is af.ar_flow_fused
     assert af.select(af.FUSED_MAX_LAYERS) is af.ar_flow_fused
     assert af.select(16) is af.ar_flow_streamed
-    assert af.supports(256, 82) and not af.supports(1024, 402)
+    # any pupil the detect pass's tiles cover (a 402 px pupil since K6's
+    # slice; 128 px was the limit before)
+    assert af.supports(256, 82) and af.supports(1024, 402)
+    assert not af.supports(1024, 40000) and not af.supports(40000, 82)
     assert af.tile_steps(256) == 256 and af.tile_steps(512) == 64
+    assert af.tile_steps(256, 96, nseries=16) == 16
     t = tensors(ar_inputs(L=9, N=16, lo=4, hi=12))
     with pytest.raises(ValueError, match="ar_flow_streamed"):
         af.ar_flow_fused(1, *t, 2)
@@ -212,10 +220,15 @@ def cuda_device():
 
 # (entry, L, N, lo, hi, steps, max_steps): two launches with the state
 # carried; a grid side that is no multiple of 32 with its pupil as wide as
-# the grid; more layers than the fused kernel holds (streamed only)
+# the grid; more layers than the fused kernel holds (streamed only); a
+# 144 px pupil (two tiles of 80 px an axis, the second ragged) and the 4 m
+# link's 402 px pupil (four tiles of 112 px)
 KERNEL_CASES = [(d, *c) for d in ("fused", "streamed")
-                for c in [(3, 64, 20, 44, 300, 256), (2, 102, 0, 102, 40, 4096)]
-                ] + [("streamed", 10, 64, 20, 44, 40, 4096)]
+                for c in [(3, 64, 20, 44, 300, 256), (2, 102, 0, 102, 40, 4096),
+                          (3, 192, 24, 168, 40, 4096),
+                          (2, 1024, 311, 713, 6, 4096)]
+                ] + [("streamed", 10, 64, 20, 44, 40, 4096),
+                     ("streamed", 10, 192, 24, 168, 20, 4096)]
 
 
 @pytest.mark.cuda
@@ -225,9 +238,13 @@ KERNEL_CASES = [(d, *c) for d in ("fused", "streamed")
 def test_kernel_matches_plain_on_card(cuda_device, noise, case):
     entry, L, N, lo, hi, nsteps, max_steps = case
     fn = af.ar_flow_fused if entry == "fused" else af.ar_flow_streamed
+    # white-spectrum states and noise sized to screens of about a radian
+    # past 128^2 (the sums' round-off grows with the phase times sqrt(N),
+    # and the limit is set for the screens the engine makes)
+    scale, ns_scale = (0.02, 0.01) if N <= 128 else (0.5 / N, 0.07 / N)
     t = tensors(ar_inputs(L=L, N=N, lo=lo, hi=hi, seed=9,
-                          boiling=noise is not None, alpha=0.99),
-                cuda_device)
+                          boiling=noise is not None, alpha=0.99,
+                          scale=scale, ns_scale=ns_scale), cuda_device)
     kw = {"noise": noise or "uniform", "step0": 7}
     before = fn.LAUNCHES
     c, a = fn(SEED, *t, nsteps, max_steps=max_steps, **kw)

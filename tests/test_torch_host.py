@@ -44,7 +44,10 @@ def sims():
 
 
 def test_import_has_no_jax():
-    code = ("import sys, fast_tpu_torch, fast_tpu_torch.engine; "
+    code = ("import sys, fast_tpu_torch, fast_tpu_torch.engine, "
+            "fast_tpu_torch.orbit, fast_tpu_torch.sweep, "
+            "fast_tpu_torch.parallel, "
+            "fast_tpu_torch.complete_orbit_simulation; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m.startswith('fast_tpu.')"
             " or m == 'fast_tpu']; "
@@ -117,10 +120,10 @@ def test_default_device_needs_a_card():
     ({"TEMPORAL": True}, "TEMPORAL"),
     ({"SYNTH": "pallas"}, "K7"),
 ])
-def test_unported_options_raise(overrides, match):
-    """What is still to port raises: ``run(progress=True)``, here of a
-    TEMPORAL sim. SYNTH='pallas' (K7) used to raise at construction; it
-    now constructs on its own path and runs."""
+def test_unported_options_raise(overrides, match, capsys):
+    """What used to raise now runs: SYNTH='pallas' (K7) constructs on its
+    own path, and ``run(progress=True)`` of a TEMPORAL sim returns the
+    numbers of ``run()`` with a progress line on stderr."""
     if overrides.get("SYNTH") == "pallas":
         sim = fast_tpu_torch.Fast(small_params(NITER=64, NCHUNKS=2,
                                                **overrides), device="cpu")
@@ -128,15 +131,28 @@ def test_unported_options_raise(overrides, match):
         power = sim.run().power
         assert power.shape == (64,) and np.isfinite(power).all()
         return
-    with pytest.raises(NotImplementedError, match=match):
-        sim = fast_tpu_torch.Fast(small_params(**overrides), device="cpu")
-        assert sim.temporal
-        sim.run(progress=True)
+    sim = fast_tpu_torch.Fast(small_params(
+        NITER=64, NCHUNKS=2, TEMPORAL_SYNTH="ar", **overrides), device="cpu")
+    assert sim.temporal and match == "TEMPORAL"
+    ref = np.asarray(sim.run().power)
+    capsys.readouterr()
+    got = np.asarray(sim.run(progress=True).power)
+    np.testing.assert_array_equal(got, ref)
+    assert "chunk 2/2" in capsys.readouterr().err
 
 
-def test_progress_run_not_ported(sims):
-    with pytest.raises(NotImplementedError, match="progress"):
-        sims[1].run(progress=True)
+def test_progress_run_not_ported(sims, capsys):
+    """``run(progress=True)`` was refused before it was ported; it now
+    gives the iid run's numbers bit for bit, with one progress line per
+    chunk in realizations per second."""
+    sim = sims[1]
+    ref = np.asarray(sim.run().power)
+    capsys.readouterr()
+    got = np.asarray(sim.run(progress=True).power)
+    np.testing.assert_array_equal(got, ref)
+    err = capsys.readouterr().err
+    assert "chunk 1/2" in err and "chunk 2/2" in err
+    assert "realizations/s" in err and err.endswith("\n")
 
 
 def test_stage_timings_recorded(sims):

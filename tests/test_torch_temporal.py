@@ -159,11 +159,16 @@ def test_bad_temporal_keys_rejected(overrides, match):
         fast_tpu_torch.Fast(params(**overrides), device="cpu")
 
 
-def test_what_temporal_mode_still_refuses():
-    sim = fast_tpu_torch.Fast(params(**dict(AR, NITER=8, NCHUNKS=1)),
+def test_what_temporal_mode_still_refuses(capsys):
+    """``run(progress=True)`` used to be refused here; it now runs and
+    gives the numbers of ``run()``. An iid sim still refuses the temporal
+    reference API."""
+    sim = fast_tpu_torch.Fast(params(**dict(AR, NITER=8, NCHUNKS=2)),
                               device="cpu")
-    with pytest.raises(NotImplementedError, match="progress"):
-        sim.run(progress=True)
+    ref = np.asarray(sim.run().power)
+    np.testing.assert_array_equal(np.asarray(sim.run(progress=True).power),
+                                  ref)
+    assert "steps/s" in capsys.readouterr().err
     iid = fast_tpu_torch.Fast(params(TEMPORAL=False, NPXLS=64, DX=0.02),
                               device="cpu")
     with pytest.raises(ValueError, match="TEMPORAL=True"):
@@ -509,7 +514,15 @@ def test_ar_run_goes_through_the_kernel_on_card(cuda_device, nlayers, kernel):
 
 @pytest.mark.cuda
 def test_ar_kernel_refuses_a_wide_pupil_on_card(cuda_device):
-    with pytest.raises(ValueError, match="SYNTH='fft'"):
-        fast_tpu_torch.Fast(params(TEMPORAL_SYNTH="ar", NPXLS=512,
-                                   D_GROUND=2.0, NITER=8, NCHUNKS=1),
-                            device=cuda_device)
+    """A 202 px pupil used to be refused on the card; the AR kernels now
+    tile it, and the kernel route equals the SYNTH='fft' route."""
+    o = dict(TEMPORAL_SYNTH="ar", NPXLS=512, D_GROUND=2.0, NITER=64,
+             NCHUNKS=2, TEMPORAL_ALPHA=0.98)
+    af.ar_flow_fused.LAUNCHES = 0
+    sim = fast_tpu_torch.Fast(params(**o), device=cuda_device)
+    assert sim.Npxls_pup == 202 and sim._ar_route == "kernel"
+    r = np.asarray(sim.run().power)
+    assert af.ar_flow_fused.LAUNCHES == 2
+    r_ft = np.asarray(fast_tpu_torch.Fast(params(**o, SYNTH="fft"),
+                                          device=cuda_device).run().power)
+    np.testing.assert_allclose(r, r_ft, rtol=2e-3, atol=1e-9)
