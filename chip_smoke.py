@@ -18,9 +18,10 @@ Phases, in order; any failure exits non-zero before the result line:
    P=82) over 4100 draws, which takes two launches, the second from draw
    4096; and at the default config's (N=102, P=102). Then the same
    comparison with the plain version's products at TF32, a
-   lower-precision control that the limit must reject; K2 with
-   subharmonic screens over 4100 draws; and the device sincos against
-   float64;
+   lower-precision control that the limit must reject; pass 1 alone
+   (``fast_synth_pass1``, 3xTF32 on the tensor cores) timed with the
+   FLOP/s of its products; K2 with subharmonic screens over 4100 draws;
+   and the device sincos against float64;
 4. K1 against its plain version at the 512^2 flagship shapes (N=512,
    P=82), 'mixed' and 'gauss', over 4100 draws (two launches), with the
    TF32 control;
@@ -62,7 +63,8 @@ Phases, in order; any failure exits non-zero before the result line:
    pinned 'pallas_colfac' (K3, 8192) and 'pallas' (K7, 8192), each of
    which must launch its kernel and no other and agree with a 'matmul' run
    (4096); times per 630-draw launch beside bounds and plain versions,
-   warm rates and one profile per path;
+   pass 1 alone for K2 ('mixed') and K7 (Box-Muller), warm rates and one
+   profile per path;
 11. times: each kernel's ms per 4096 draws or steps beside its bound and
    its plain version's; the factor build at 512^2; warm ``run()`` rates at
    256^2 (K2, 'matmul', K2 'gauss', K1 pinned), at 512^2 (K1, 'colfac',
@@ -179,9 +181,11 @@ SI_SIGMAS = 5.0       # scintillation index of a short run: combined
                       # standard errors from 16 blocks, where that is wider
                       # than SI_REL
 # the H100 SXM's published rates (NVIDIA data sheet, at 700 W): float32
-# outside the tensor cores, and device memory
-PEAK_FP32 = 67e12     # FLOP/s
-PEAK_BYTES = 3.35e12  # B/s
+# outside the tensor cores; matrix products at fp32 accuracy on the tensor
+# cores, three TF32 passes (3xTF32) at 495 TFLOP/s; device memory
+PEAK_FP32 = 67e12          # FLOP/s
+PEAK_MMA = 495e12 / 3      # FLOP/s of fp32-accurate matrix products
+PEAK_BYTES = 3.35e12       # B/s
 
 
 def fail(msg):
@@ -258,8 +262,8 @@ def launches_of(fn, counter):
 def k2_bound(N, P, nbatch, mixed):
     """K2's least time in ms for ``nbatch`` draws at an (N, N) grid and a
     P px pupil: 4N^3 mixing FLOPs ('mixed'), 8N^2 P for G' and 8P^2 N for
-    H per draw at the fp32 rate, or its tables in and sums out at the
-    memory rate, whichever is longer."""
+    H per draw, matrix products at the fp32-accurate tensor-core rate, or
+    its tables in and sums out at the memory rate, whichever is longer."""
     flops = nbatch * ((4 * N ** 3 if mixed else 0) + 8 * N * N * P
                       + 8 * P * P * N)
     nbytes = 4 * (N * N * (2 if mixed else 1) + 2 * P * N + P * P
@@ -270,8 +274,9 @@ def k2_bound(N, P, nbatch, mixed):
 def k1_bound(N, P, nbatch, mixed):
     """K1's least time in ms: per draw and column a (1 x K) @ (K x 2P)
     factor product (K = 2 * 128 noise rows for 'mixed', 2P for 'gauss')
-    and 8P^2 N for the column contraction, at the fp32 rate; or its
-    factor table, W and pm in and sums out at the memory rate."""
+    and 8P^2 N for the column contraction, matrix products at the
+    fp32-accurate tensor-core rate; or its factor table, W and pm in and
+    sums out at the memory rate."""
     K = 2 * (128 if mixed else P)
     flops = nbatch * (N * 2 * K * 2 * P + 8 * P * P * N)
     nbytes = 4 * (N * K * 2 * P + 2 * P * N + P * P + 4 * nbatch)
@@ -282,8 +287,8 @@ def k3_bound(N, P, nbatch, mixed):
     """K3's least time in ms: per draw and column the complex (1 x Kq) @
     (Kq x P) factor product as four real ones (Kq = the pupil rounded up
     to 128 lanes for 'mixed', P for 'gauss') and 8P^2 N for the column
-    contraction, at the fp32 rate; or its factor table, W and pm in and
-    sums out at the memory rate."""
+    contraction, matrix products at the fp32-accurate tensor-core rate;
+    or its factor table, W and pm in and sums out at the memory rate."""
     Kq = -(-P // 128) * 128 if mixed else P
     flops = nbatch * (N * 2 * Kq * 2 * P * 2 + 8 * P * P * N)
     nbytes = 4 * (N * Kq * 2 * P + 2 * P * N + P * P + 4 * nbatch)
@@ -292,8 +297,9 @@ def k3_bound(N, P, nbatch, mixed):
 
 def k7_bound(N, P, nbatch):
     """K7's least time in ms: K2's count with Box-Muller noise, 8N^2 P for
-    G' and 8P^2 N for the screens per draw, at the fp32 rate; or sqrt(PSD)
-    and W in and two P x P screens out per draw at the memory rate."""
+    G' and 8P^2 N for the screens per draw, matrix products at the
+    fp32-accurate tensor-core rate; or sqrt(PSD) and W in and two P x P
+    screens out per draw at the memory rate."""
     flops = nbatch * (8 * N * N * P + 8 * P * P * N)
     nbytes = 4 * (N * N + 2 * P * N + 2 * P * P * nbatch)
     return _bound(flops, nbytes)
@@ -303,21 +309,27 @@ def ar_bound(L, N, P, nsteps, boiling, nseries=1):
     """K4's, K5's and (for ``nseries`` series) K6's least time in ms for
     ``nsteps`` steps of L layers at an (N, N) grid and a P px pupil: per
     step and series 8PN^2 FLOPs for G' and 4P^2 N for the real screen,
-    plus 8LN^2 in the recurrence and layer sum and 8LN^2 more with boiling
-    (the noise's scale and its scaled add), at the fp32 rate; or states,
+    matrix products at the fp32-accurate tensor-core rate, plus 8LN^2 in
+    the recurrence and layer sum and 8LN^2 more with boiling (the noise's
+    scale and its scaled add), elementwise at the fp32 rate; or states,
     phasors, noise scales and pupil modes in (W once), states and
     couplings out at the memory rate."""
-    flops = nseries * nsteps * (8 * P * N * N + 4 * P * P * N
-                                + (16 if boiling else 8) * L * N * N)
+    flops = nseries * nsteps * (8 * P * N * N + 4 * P * P * N)
+    elementwise = nseries * nsteps * (16 if boiling else 8) * L * N * N
     nbytes = 4 * (nseries * ((7 if boiling else 6) * L * N * N + P * P
                              + 2 * nsteps) + 2 * P * N)
-    return _bound(flops, nbytes)
+    return _bound(flops, nbytes, elementwise)
 
 
-def _bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+def _bound(flops, nbytes, elementwise=0):
+    """(ms, what bounds it, FLOPs): matrix-product FLOPs at PEAK_MMA and
+    elementwise ones at PEAK_FP32, one after the other, or the bytes at
+    PEAK_BYTES, whichever takes longer."""
+    t_ops = flops / PEAK_MMA + elementwise / PEAK_FP32
+    t_bytes = nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes", flops)
+            "operations" if t_ops >= t_bytes else "bytes",
+            flops + elementwise)
 
 
 # ---------------------------------------------------------------------------
@@ -447,6 +459,23 @@ def time_kernel(fn, ref_fn, args, kw, ntime=NTIME, reps=(10, 3)):
     return ms, plain_ms
 
 
+def time_pass1(T, nbatch, mixed, label, reps):
+    """Pass 1 of K2 and K7 alone (``fast_synth_pass1``): device ms per call
+    of ``nbatch`` draws, and the FLOP/s of its two products (4N^3 mixing
+    for 'mixed', 8N^2 P for G', P the padded pupil the kernel computes)."""
+    from fast_tpu_torch.ops import synth_detect as sd
+    N = T["s_t"].shape[0]
+    P = sd.padded_pupil(T["wr"].shape[0])
+    mix = T["mix"] if mixed else None
+    ms = cuda_ms(lambda: sd.synth_pass1(SEED, T["s_t"], T["wr"], T["wi"],
+                                        nbatch, mix=mix), reps)
+    tflops = nbatch * ((4 * N ** 3 if mixed else 0) + 8 * N * N * P) / (
+        ms * 1e9)
+    print(f"pass 1 {label}: {ms:.3f} ms per {nbatch} complex draws, "
+          f"{tflops:.1f} TFLOP/s of its products (3xTF32 mma.sync)")
+    return ms, tflops
+
+
 def phase_k2(sim, sim_default):
     from fast_tpu_torch.ops import synth_detect as sd
     T = sim.tables
@@ -474,8 +503,12 @@ def phase_k2(sim, sim_default):
               f"per draw; {bound_ms / ms:.1%} of it) per {NTIME} complex "
               f"draws at 256^2")
         sfx = "" if noise == "mixed" else "_gauss"
+        p1_ms, p1_tflops = time_pass1(T, NTIME, noise == "mixed",
+                                      f"K2 {noise} 256^2, P={P}", 10)
         res.update({"ms" + sfx: ms, "plain_ms" + sfx: plain_ms,
-                    "bound_ms" + sfx: bound_ms, "bound_by" + sfx: bound_by})
+                    "bound_ms" + sfx: bound_ms, "bound_by" + sfx: bound_by,
+                    "pass1_ms" + sfx: p1_ms,
+                    "pass1_tflops" + sfx: p1_tflops})
 
     # subharmonic screens of ~1 rad rms, two launches: the second takes
     # its screens from draw 4096
@@ -1037,6 +1070,8 @@ def phase_wide(card):
                   f"{res['bound_ms']:.3f} ms ({flops / per / 1e9:.2f} GFLOP "
                   f"per draw; {res['bound_ms'] / res['ms']:.1%} of it) per "
                   f"launch of {per} complex draws at {label}")
+        k2w["pass1_ms"], k2w["pass1_tflops"] = time_pass1(
+            T, per, True, f"K2 mixed {label}", 3)
     g = torch.Generator(device=DEVICE).manual_seed(11)
     sh = torch.complex(*torch.randn((2, NDRAWS_W, P, P), device=DEVICE,
                                     generator=g))
@@ -1051,6 +1086,8 @@ def phase_wide(card):
         sd.synth_screens, sd.synth_screens_reference, a7, {"npup": P}, per,
         (3, 1))
     k7["bound_ms"], k7["bound_by"], flops = k7_bound(N, P, per)
+    k7["pass1_ms"], k7["pass1_tflops"] = time_pass1(
+        T, per, False, f"K7 (Box-Muller) {label}", 3)
     k2w["ms_gauss"] = cuda_ms(lambda: sd.synth_detect(*base[:-1], per), 3)
     sd.synth_detect.LAUNCHES = 0
     print(f"K7: {k7['ms']:.3f} ms kernel ({k7['ms'] / per:.4f} ms a draw; "

@@ -87,9 +87,11 @@ TPU_DEFAULTS = {
                             # DFT in stock torch ops) | 'colfac'
                             # (column-factored noise in stock torch ops) |
                             # 'fft' (batched ifft2)
-    "PRECISION": "default", # accepted; every value means fp32 FMA on the
-                            # card in this package for now (the TF32/bf16
-                            # meaning of 'default' is still to come)
+    "PRECISION": "default", # accepted; every value means fp32-accurate
+                            # products on the card: 3xTF32 on the tensor
+                            # cores in K2's and K7's pass 1, fp32 FMA in
+                            # the other kernels (a TF32/bf16 meaning of
+                            # 'default' is still to come)
     "TEMPORAL_SYNTH": "auto",  # temporal mode: 'screens' (large per-layer
                             # screens sampled along the wind, the grid
                             # grown to the series) | 'ar' (AR(1) in Fourier

@@ -109,8 +109,8 @@ def resolve_synth(synth, dtype, device, N, P, noise):
     (:func:`~fast_tpu_torch.ops.colfac_detect.colfac_layout`). On a CUDA
     device 'pallas_fused' raises here, rather than at the first chunk,
     for the one shape K2 does not take ('mixed' noise on a grid over
-    2368 px); on the CPU it runs the kernel's plain version, which takes
-    every shape.
+    2304 px at a 128 px pupil); on the CPU it runs the kernel's plain
+    version, which takes every shape.
     """
     if synth == "auto":
         if dtype == torch.float64:
@@ -124,8 +124,8 @@ def resolve_synth(synth, dtype, device, N, P, noise):
         raise ValueError(
             f"the synth-detect kernel (SYNTH='pallas_fused', what 'auto' "
             f"picks for float32) takes, with MC_NOISE='mixed', a grid of at "
-            f"most 2368 px; got NPXLS={N}, a {P} px pupil. SYNTH='matmul' "
-            f"runs the stock-op path")
+            f"most 2304 px at a 128 px pupil; got NPXLS={N}, a {P} px "
+            f"pupil. SYNTH='matmul' runs the stock-op path")
     return synth
 
 

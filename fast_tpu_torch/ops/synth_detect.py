@@ -20,10 +20,13 @@ exactly K7's screens of the same seed.
   for K7.
 
 Any pupil width: the kernels tile the pupil axis (``csrc/detect.cuh``), so
-only 'mixed' noise on a grid over 2368 px is refused. The Philox counter's
-last word keeps the kernels' streams of one seed apart: 0 for K2 and K7, 1
-for K1 (:mod:`~fast_tpu_torch.ops.colfac_detect`), 2 for the AR kernels
-(:mod:`~fast_tpu_torch.ops.ar_flow`), 3 for K3.
+only 'mixed' noise on a grid over 2304 px (at a 128 px pupil) is refused.
+The Philox counter's last word keeps the kernels' streams of one seed
+apart: 0 for K2 and K7, 1 for K1
+(:mod:`~fast_tpu_torch.ops.colfac_detect`), 2 for the AR kernels
+(:mod:`~fast_tpu_torch.ops.ar_flow`), 3 for K3. Pass 1 of K2 and K7 runs
+its products on the tensor cores as three TF32 products (3xTF32);
+:func:`synth_pass1` runs it alone.
 
 Output layout, as the TPU kernel's: ``(2 * nbatch, 2)`` float32, rows
 ``0..nbatch-1`` the screens from the real parts and rows
@@ -355,15 +358,20 @@ def _pass1_geom(P):
 
 def _smem_bytes(N, P, mixed, rows):
     """Dynamic shared memory of pass 1 (``pass1_smem`` of the CUDA source):
-    x tile, two W tiles of one column group's width and, with 'mixed'
-    noise, a mixing-matrix tile and one component's uniforms of
-    ``16 * rows`` grid rows; the grid side is padded to a multiple of 64
-    and strides by one word against bank conflicts."""
+    two 32-deep slices of one column group's W tile (2 GW rows each) or,
+    with 'mixed' noise, a ring of three 64-row slices of the mixing matrix
+    in their place; the x tiles as TF32 hi and lo parts (one component's
+    with 'mixed' noise, both with 'gauss'); and with 'mixed' noise one
+    component's uniforms of ``16 * rows`` grid rows, the grid side padded
+    to a multiple of 64. Rows stride 4 words past a multiple of 32
+    against bank conflicts."""
     NC = -(-N // 64) * 64
     R = 16 * rows
     GW = 16 * _pass1_geom(padded_pupil(P))[0]
-    mixed_part = 32 * 64 + R * (NC + 1) if mixed else 0
-    return 4 * (R * 65 + 2 * 64 * (GW + 1) + mixed_part)
+    tile = max(2 * 2 * GW * 36, 3 * 64 * 68 if mixed else 0)
+    x = (2 if mixed else 4) * R * 68
+    u = R * (NC + 4) if mixed else 0
+    return 4 * (tile + x + u)
 
 
 def _rows_per_thread(N, P, mixed):
@@ -381,7 +389,7 @@ def _rows_per_thread(N, P, mixed):
 def supports(N, P, mixed=True):
     """Whether the kernel takes an (N, N) grid with a P-pixel pupil: any
     N and any pupil width, but with 'mixed' noise 16 grid rows of uniforms
-    within shared memory (N up to 2368 at a 128 px pupil)."""
+    within shared memory (N up to 2304 at a 128 px pupil)."""
     return _rows_per_thread(N, P, mixed) > 0
 
 
@@ -407,6 +415,9 @@ def _library():
         lib.fast_synth_screens.argtypes = [u, u, u, i, i, p, p, p, p, p, p, p,
                                            i, i, i, p]
         lib.fast_synth_screens.restype = i
+        lib.fast_synth_pass1.argtypes = [u, u, u, i, i, p, p, p, p, p, p, i,
+                                         i, i, p]
+        lib.fast_synth_pass1.restype = i
         lib.fast_sincos.argtypes = [p, p, p, i, p]
         lib.fast_sincos.restype = i
         lib.fast_error_string.argtypes = [i]
@@ -467,7 +478,7 @@ def _launch_args(s_t, wr, wi, nbatch, mix, stream, what):
         raise ValueError(
             f"the {what} kernel takes, with 'mixed' noise, 16 grid rows of "
             f"uniforms within {_SMEM_LIMIT} B of shared memory (a grid of at "
-            f"most 2368 px); got N={N}, P={wr.shape[0]}")
+            f"most 2304 px at a 128 px pupil); got N={N}, P={wr.shape[0]}")
     if not 0 <= int(stream) < 2 ** 32:
         raise ValueError("stream must fit in 32 bits")
     return N, rows
@@ -567,6 +578,61 @@ def synth_screens(seed, s_t, wr, wi, nbatch, npup=None, stream=0):
 
 
 synth_screens.LAUNCHES = 0
+
+
+def synth_pass1_reference(seed, s_t, wr, wi, nbatch, mix=None, stream=0,
+                          draw0=0):
+    """Pass 1 of K2 and K7 in stock torch ops: ``(gr, gi)``, the real and
+    imaginary parts of ``G' = X' W^T``, (nbatch, N, P) float32 for the P
+    rows of ``wr``; arguments as :func:`synth_detect_reference`."""
+    parts = list(_gprime_reference(seed, s_t, wr, wi, nbatch, mix, stream,
+                                   draw0, None))
+    return (torch.cat([gr for _, gr, _ in parts]),
+            torch.cat([gi for _, _, gi in parts]))
+
+
+def synth_pass1(seed, s_t, wr, wi, nbatch, mix=None, stream=0, draw0=0):
+    """Pass 1 of K2 ('mixed' noise with ``mix``) or of K7 and K2 'gauss'
+    (``mix=None``) alone: ``(gr, gi)``, (nbatch, N, P) float32 with the
+    pupil axis padded to :func:`padded_pupil` (padded columns are zero).
+    For timing pass 1 and holding it against
+    :func:`synth_pass1_reference` element by element.
+
+    On CUDA tensors this launches pass 1 of ``csrc/synth_detect.cu``
+    (launches of :func:`draws_per_launch` draws, counted in
+    ``synth_pass1.LAUNCHES``) on the current stream, or raises; on CPU
+    tensors it runs the plain version.
+    """
+    _check(s_t, wr, wi, None, nbatch, mix)
+    wr, wi, _ = pad_pupil(wr, wi, None)
+    dev = s_t.device
+    if dev.type == "cpu":
+        return synth_pass1_reference(seed, s_t, wr, wi, nbatch, mix=mix,
+                                     stream=stream, draw0=draw0)
+    if dev.type != "cuda":
+        raise ValueError(f"synth_pass1 runs on CPU or CUDA, not {dev}")
+    N, rows = _launch_args(s_t, wr, wi, nbatch, mix, stream, "synth pass-1")
+    k0, k1 = _key(seed)
+    Pp = wr.shape[0]
+    lib, _ = _library()
+    nbatch = int(nbatch)
+    g = torch.empty((2, nbatch, N, Pp), dtype=torch.float32, device=dev)
+    per = draws_per_launch(N, Pp, nbatch)
+    with torch.cuda.device(dev):
+        cs = torch.cuda.current_stream(dev).cuda_stream
+        for d0 in range(0, nbatch, per):
+            nb = min(per, nbatch - d0)
+            err = lib.fast_synth_pass1(
+                k0, k1, int(stream), int(draw0) + d0, nb, s_t.data_ptr(),
+                wr.data_ptr(), wi.data_ptr(),
+                None if mix is None else mix.data_ptr(), g[0, d0].data_ptr(),
+                g[1, d0].data_ptr(), N, Pp, rows, cs)
+            raise_on(lib, err, "synth_pass1 launch")
+            synth_pass1.LAUNCHES += 1
+    return g[0], g[1]
+
+
+synth_pass1.LAUNCHES = 0
 
 
 def device_sincos(phi):

@@ -28,6 +28,11 @@ from fast_tpu_torch.synthesis import pruned_ift2_matrix
 torch.set_num_threads(1)
 
 KERNEL_REL = 4e-6
+# pass 1 alone, G' against its plain version element by element, in units
+# of N 2^-24 max |G'|: the fp32 round-off of depth-N sums. The CPU
+# emulation of the kernel's 3xTF32 products reads 0.01-0.05 of it, one
+# TF32 pass 3.8-25 (tests/test_torch_tf32x3.py)
+GPRIME_REL = 1.0
 
 
 def k2_inputs(N=64, lo=20, hi=44, seed=5, phase_rms=None):
@@ -177,7 +182,7 @@ def test_wrapper_checks_inputs():
 def test_kernel_shape_rule():
     assert sd.supports(256, 82) and sd.supports(64, 42)
     assert sd.supports(102, 102) and sd.supports(96, 30)  # any grid side
-    assert sd.supports(512, 128) and sd.supports(2368, 128)
+    assert sd.supports(512, 128) and sd.supports(2304, 128)
     # any pupil width: the pupil axis is tiled past 128 px
     assert sd.supports(256, 129) and sd.supports(1024, 402)
     assert sd.supports(2368, 402) and not sd.supports(4096, 402)
@@ -189,7 +194,7 @@ def test_kernel_shape_rule():
     assert sd.draws_per_launch(1024, 416) == 630
     assert sd.draws_per_launch(1024, 416, 8) == 8
     # 16 rows of 'mixed' uniforms overflow shared memory; 'gauss' keeps none
-    assert not sd.supports(2369, 128) and sd.supports(4096, 128, mixed=False)
+    assert not sd.supports(2305, 128) and sd.supports(4096, 128, mixed=False)
     assert sd._rows_per_thread(256, 82, True) == 2
     assert sd._rows_per_thread(2048, 128, True) == 1
     assert sd._rows_per_thread(2048, 128, False) == 2
@@ -238,3 +243,37 @@ def test_kernel_matches_plain_on_card(cuda_device, noise, case):
     assert bool(torch.isfinite(got).all())
     err = float((got - ref).abs().max())
     assert err <= KERNEL_REL * float(ref.abs().max())
+
+
+# (N, lo, hi, draws) of pass 1 alone: 64^2, the default config's 102^2
+# (no multiple of 64), the 256^2 flagship's grid at 96 px (one group of
+# the whole pupil) and the 1024^2 link at 416 px (four column groups)
+PASS1_CASES = [(64, 20, 44, 37), (102, 0, 102, 16), (256, 80, 176, 8),
+               (1024, 304, 720, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PASS1_CASES,
+                         ids=lambda c: f"N{c[0]}P{c[2] - c[1]}")
+@pytest.mark.parametrize("noise", ["gauss", "mixed"])
+def test_pass1_matches_plain_on_card(cuda_device, noise, case):
+    """G' of pass 1 alone (fast_synth_pass1) against its plain version,
+    element by element, within GPRIME_REL N 2^-24 max |G'|."""
+    N, lo, hi, nbatch = case
+    _, t = k2_inputs(N, lo, hi, phase_rms=1.5)
+    t = {k: v.to(cuda_device) for k, v in t.items()}
+    mix = t["mix"] if noise == "mixed" else None
+    args = (0xABCDEF0123, t["s_t"], t["wr"], t["wi"], nbatch)
+    before = sd.synth_pass1.LAUNCHES
+    gr, gi = sd.synth_pass1(*args, mix=mix, stream=4, draw0=5)
+    wr, wi, _ = sd.pad_pupil(t["wr"], t["wi"], None)
+    rr, ri = sd.synth_pass1_reference(*((args[0], t["s_t"], wr, wi)
+                                        + args[4:]),
+                                      mix=mix, stream=4, draw0=5)
+    torch.cuda.synchronize()
+    assert sd.synth_pass1.LAUNCHES == before + 1
+    assert gr.shape == gi.shape == rr.shape == (nbatch, N, wr.shape[0])
+    assert bool(torch.isfinite(gr).all() and torch.isfinite(gi).all())
+    top = max(float(rr.abs().max()), float(ri.abs().max()))
+    err = max(float((gr - rr).abs().max()), float((gi - ri).abs().max()))
+    assert err <= GPRIME_REL * N * 2.0 ** -24 * top
