@@ -104,7 +104,14 @@ Phases, in order; any failure exits non-zero before the result line:
    at a 144 px pupil on a 192^2 grid and at the 1024^2 link's 402 px
    pupil, times per 256 steps there, and the wide link's temporal run
    (``Fast(temporal(NPXLS=1024, D_GROUND=4.0, DSUBAP=0.5))``, 2,048 steps)
-   through K4.
+   through K4;
+14. the AR kernels' first DFT product alone (``ar_dft``, 3xTF32 on the
+   tensor cores) at the (step, series) pairs of one tile at 256^2 (K4's
+   and K6's), 512^2 (K5's) and 1024^2 with the 402 px pupil: G' against
+   its plain version element by element within N 2^-24 max |G'|, with
+   the TF32 control; its time and FLOP/s beside its bound, the plain
+   version and one complex64 ``torch.matmul`` of the same G' (TF32 off),
+   the stage's library time.
 
 The last lines are the card, one JSON object of per-kernel numbers and
 one of the run's device. The flagship config is the AO-corrected 0.8 m
@@ -1579,6 +1586,93 @@ def phase_wide_ar(card, counters, k4, k5, k6):
         c.LAUNCHES = 0
 
 
+# (what, N, pupil rows lo..hi): the AR kernels' first product alone at the
+# (step, series) pairs of one of their tiles (ops/ar_flow.tile_steps)
+DFT_CASES = [("256^2, P=82: K4's tile of 256 steps, K6's of 16 steps x 16 "
+              "series", 256, 87, 169),
+             ("512^2, P=82: K5's tile of 64 steps", 512, 215, 297),
+             ("1024^2, P=402: K4's tile of 16 steps", 1024, 311, 713)]
+GPRIME_REL = 1.0  # G' element by element, times N 2^-24 max |G'|
+
+
+def phase_ar_dft(card):
+    """The first DFT product of K4, K5 and K6 alone (``fast_ar_dft``:
+    ``ar_dft`` on the tensor cores, W split first) against its plain
+    version element by element, with the TF32 control; its time and
+    FLOP/s beside its bound, its plain version and one complex64
+    ``torch.matmul`` of the same G' with TF32 off, the stage's library
+    time (a yardstick: the port never calls it)."""
+    from fast_tpu_torch import synthesis
+    from fast_tpu_torch.ops import ar_flow as af
+    from fast_tpu_torch.ops.synth_detect import pad_pupil
+    out = {}
+    for label, N, lo, hi in DFT_CASES:
+        rng = np.random.default_rng(SEED & 0xFFFFFFFF)
+        W = synthesis.pruned_ift2_matrix(N, lo, hi, dtype=np.complex64)
+        wr = torch.from_numpy(np.ascontiguousarray(W.real)).to(DEVICE)
+        wi = torch.from_numpy(np.ascontiguousarray(W.imag)).to(DEVICE)
+        wrp, wip, _ = pad_pupil(wr, wi, None)
+        P = wrp.shape[0]
+        nj = af.tile_steps(N, P)
+        # layer sums of screens of about a radian
+        a = torch.from_numpy(rng.standard_normal((2, nj, N, N),
+                                                 dtype=np.float32)
+                             * np.float32(0.5 / N)).to(DEVICE)
+        before = af.ar_dft.LAUNCHES
+        gr, gi = af.ar_dft(a[0], a[1], wr, wi)
+        rr, ri = af.ar_dft_reference(a[0], a[1], wrp, wip)
+        torch.cuda.synchronize()
+        if af.ar_dft.LAUNCHES != before + 1 or not bool(
+                torch.isfinite(gr).all() and torch.isfinite(gi).all()):
+            fail(f"ar_dft ({label}) did not launch once or gave non-finite "
+                 f"values")
+        top = max(float(rr.abs().max()), float(ri.abs().max()))
+        err = max(float((gr - rr).abs().max()), float((gi - ri).abs().max()))
+        limit = GPRIME_REL * N * 2.0 ** -24 * top
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tr, ti = af.ar_dft_reference(a[0], a[1], wrp, wip)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        terr = max(float((tr - rr).abs().max()), float((ti - ri).abs().max()))
+        print(f"ar_dft {label}, {nj} pairs: max |kernel - plain| = "
+              f"{err:.3e} in G' (limit {limit:.3e}, {err / limit:.3f} of it;"
+              f" max |G'| {top:.3e}); control: plain with TF32 products "
+              f"{terr / limit:.1f}x the limit")
+        if not err <= limit:
+            fail(f"ar_dft ({label}) disagrees with its plain version")
+        if not terr > limit:
+            fail(f"the G' limit does not reject TF32 products ({label})")
+        reps = 20 if N <= 512 else 5
+        ms = cuda_ms(lambda: af.ar_dft(a[0], a[1], wr, wi), reps)
+        plain_ms = cuda_ms(lambda: af.ar_dft_reference(a[0], a[1], wrp, wip),
+                           reps)
+        ac, wc = torch.complex(a[0], a[1]), torch.complex(wrp, wip)
+        library_ms = cuda_ms(lambda: torch.matmul(ac.transpose(-2, -1), wc.T),
+                             reps)
+        af.ar_dft.LAUNCHES = before
+        # the work counts the pupil's own hi - lo px, as ar_bound does: the
+        # padded rows of W are zeros and add nothing to G'
+        npup = hi - lo
+        flops = 8 * npup * N * N * nj
+        bound_ms, bound_by, _ = _bound(
+            flops, 4 * (2 * nj * N * N + 2 * npup * N + 2 * nj * N * npup))
+        res = {"pairs": nj, "max_abs_err": err, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "tflops": flops / ms / 1e9}
+        out[N] = res
+        print(f"ar_dft {label}: {ms:.3f} ms ({res['tflops']:.1f} TFLOP/s of "
+              f"fp32-accurate products over {npup} px, 3xTF32 mma.sync), "
+              f"plain {plain_ms:.3f} ms, library (complex64 torch.matmul, TF32 "
+              f"off) {library_ms:.3f} ms, bound {bound_ms:.3f} ms "
+              f"({bound_ms / ms:.1%} of it; {bound_by}) per {nj} pairs "
+              f"({card})")
+        del a, gr, gi, rr, ri, tr, ti, ac, wc
+    torch.cuda.empty_cache()
+    return out
+
+
 def rates(runs, card, where, unit="realizations"):
     """Warm ``run()`` rates of the named sims, two each, in the given
     order; prints and returns {name: [per second, ...]}."""
@@ -1751,6 +1845,10 @@ def main():
     k6, rates_oi, rates_ot, ctx["k2"]["launches_orbit"] = phase_orbit(
         card, counters)
     phase_wide_ar(card, counters, k4, k5, k6)
+    dft = phase_ar_dft(card)
+    k4.update(ar_dft=dft[256], ar_dft_1024=dft[1024])
+    k5.update(ar_dft=dft[512])
+    k6.update(ar_dft=dft[256])
     wide_shape = "1024^2, P=402"
     line = {"kernels": [
         kernel_entry("synth_detect", "fast_tpu_torch/csrc/synth_detect.cu",

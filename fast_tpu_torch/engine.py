@@ -46,15 +46,18 @@ import torch
 
 from . import conf
 from . import psd
-from .grids import SpatialFrequencies
+from .grids import SpatialFrequencies, SpatialFrequencyStruct  # noqa: F401
 from .interop import tables_from_numpy
 from .models import ao as ao_spectra
 from .models import atmosphere
-from .models.scintillation import (PupilFilterSampler,
+from .models.scintillation import (PupilFilterSampler,  # noqa: F401
+                                   logamp_powerspec,
                                    temporal_logamp_powerspec)
 from .ops import apertures
 from .ops import ar_flow
-from .ops.fourier import ift2
+from .ops.fourier import ft2, ift2
+from .ops.integrate import (integrate_path,  # noqa: F401
+                            integrate_powerspectrum)
 from .ops.rng import complex_normal, draw_seed, make_generator
 from .ops import colfac_detect as cd
 from .ops.synth_detect import (pack_subharm, supports, synth_detect,
@@ -65,6 +68,15 @@ from .utils.log import init_logging, progress as chunk_progress
 from .utils.profiling import StageTimer
 
 logger = logging.getLogger(__name__)
+
+# the reference's namespace (``fast/fast.py:5``, the names it takes from
+# aotools), as ``fast_tpu.engine`` keeps it
+from .models.atmosphere import (cn2_to_r0, coherence_time,  # noqa: E402,F401
+                                isoplanatic_angle, rytov_variance)
+from .ops.apertures import circle  # noqa: E402,F401
+
+isoplanaticAngle = isoplanatic_angle  # aotools camelCase names
+coherenceTime = coherence_time
 
 _PORTED = ("auto", "pallas", "pallas_fused", "pallas_colfac", "matmul",
            "colfac", "fft")
@@ -794,7 +806,7 @@ class Fast:
         T = self.tables
         B = self.Niter_per_chunk
         for i in range(self.Nchunks):
-            sh = (synthesis.synthesize_subharm_complex(
+            sh = (synthesis.subharm_screens(
                 dev_gen, T["sqrt_psd_sh"], T["sh_df"], T["sh_modes"], B // 2)
                 if self.subharmonics else None)
             yield chunk_couplings(T, self._synth, B // 2,
@@ -956,6 +968,72 @@ class Fast:
         chi = self.compute_logamp()[chunk * B:(chunk + 1) * B]
         out = np.exp(chi[:pc.shape[0]]) * pc
         return out if bool(self.params["COHERENT"]) else np.abs(out) ** 2
+
+    # ------------------------------------------------------------------
+    # reference-API methods of the iid mode (``fast/fast.py`` names, as
+    # ``fast_tpu.Fast`` has them); run() does not use them
+    # ------------------------------------------------------------------
+
+    def sample_screens(self, nscreens=2, generator=None):
+        """Draw pupil-cropped residual phase screens for inspection
+        (``fast/fast.py:589-605``) without touching the run's state:
+        ``nscreens`` real (Npup, Npup) screens, the real and imaginary
+        parts of complex FFT screens, with the subharmonic screens where
+        ``SUBHARM`` is on. ``generator``: a ``torch.Generator`` on the run
+        device (default: one seeded by ``SEED``). Stores and returns
+        ``self.phs``, numpy."""
+        if generator is None:
+            generator = make_generator(self.seed, device=self.device)
+        T = self.tables
+        n2 = max(1, nscreens // 2 + nscreens % 2)
+        scr = synthesis.synthesize_screens_complex(
+            generator, T["sqrt_psd"], float(T["df"]), n2, crop=self.pup_crop)
+        if self.subharmonics:
+            scr = scr + synthesis.subharm_screens(
+                generator, T["sqrt_psd_sh"], T["sh_df"], T["sh_modes"], n2)
+        self.phs = synthesis.double_screens(scr)[:nscreens].cpu().numpy()
+        return self.phs
+
+    compute_phs = sample_screens  # reference-name alias
+
+    def init_fftw(self):
+        """Reference-API no-op (``fast/fast.py:419-438``): ``torch.fft``
+        runs the FFTs; the FFTW and FFTW_THREADS keys are accepted and
+        ignored."""
+        logger.info("FFTW plans are not used; torch.fft runs the FFTs")
+
+    def init_phs_logamp(self):
+        """Reference-API no-op (``fast/fast.py:440-443``): torch manages
+        the phase and log-amplitude buffers."""
+        logger.info("phase/log-amplitude buffers are managed by torch")
+
+    def compute_mean_irradiance(self, onaxis=True):
+        """Mean PSF or coupled flux from the OTF of the residual PSD, the
+        analytic path, no Monte Carlo (``fast/fast.py:736-761``), float64
+        on the CPU: the on-axis value, or with ``onaxis=False`` the (N, N)
+        mean PSF, in the units of the diffraction limit."""
+        logger.info("Computing mean irradiance/coupled flux")
+        df = self.freq.main.df
+        pupil = np.zeros(self.powerspec.shape)
+        pm = self.pupil * self.pupil_mode
+        pupil[: pm.shape[0], : pm.shape[1]] = pm
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a))
+
+        phs_otf = ift2(t(self.powerspec), df).numpy()
+        mid = phs_otf.shape[0] // 2, phs_otf.shape[1] // 2
+        phs_sf = phs_otf[mid[0], mid[1]] - phs_otf
+        pupil_ft = ft2(t(pupil), self.dx).numpy()
+        pupil_otf = ift2(t(np.abs(pupil_ft) ** 2), df).numpy() \
+            / (2 * np.pi) ** 2
+        otf = np.exp(-phs_sf) * pupil_otf
+        if not onaxis:
+            psf = ft2(t(otf), self.dx).numpy().real
+        else:
+            psf = otf.sum().real * self.dx ** 2
+        normalisation = (pupil.sum() * self.dx ** 2) ** 2
+        return psf * self.diffraction_limit / normalisation
 
     # ------------------------------------------------------------------
     # persistence

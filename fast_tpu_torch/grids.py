@@ -21,12 +21,26 @@ def _axis_spacing(axis):
     return axis[..., 1] - axis[..., 0]
 
 
+def mesh_frequency_axes(fx_axis, fy_axis, rot=None):
+    """Broadcast centred mesh of (stacked) frequency axes: ``fx_axis``
+    (..., Nx) and ``fy_axis`` (..., Ny), any leading axes (subharmonic
+    levels, layers) broadcast through; ``rot`` (...,) rotates the meshed
+    coordinates in the plane (wind-aligned temporal grids). Returns ``(fx,
+    fy)``, numpy float64 of shape (..., Ny, Nx)."""
+    fx = np.asarray(fx_axis, dtype=float)[..., None, :]
+    fy = np.asarray(fy_axis, dtype=float)[..., :, None]
+    fx, fy = np.broadcast_arrays(fx, fy)
+    if rot is not None:
+        rot = np.asarray(rot, dtype=float)[..., None, None]
+        c, s = np.cos(rot), np.sin(rot)
+        fx, fy = fx * c - fy * s, fx * s + fy * c
+    return np.ascontiguousarray(fx), np.ascontiguousarray(fy)
+
+
 class SpatialFrequencyStruct:
     """A frequency grid: meshed ``fx/fy/fabs`` over ``fx_axis`` (..., Nx)
     and ``fy_axis`` (..., Ny; ``fx_axis`` again if None), of shape (...,
-    Ny, Nx). A leading axis of the axes (subharmonic levels, layers) runs
-    through every array; ``rot`` (...,) rotates the meshed coordinates in
-    the plane (wind-aligned temporal grids)."""
+    Ny, Nx), by :func:`mesh_frequency_axes`."""
 
     def __init__(self, fx_axis, fy_axis=None, rot=None, freq_per_layer=False):
         fx_axis = np.asarray(fx_axis, dtype=float)
@@ -43,14 +57,7 @@ class SpatialFrequencyStruct:
         self.df = self.dfx if shared else None
         if shared:
             self.f = fx_axis
-        fx, fy = np.broadcast_arrays(fx_axis[..., None, :],
-                                     fy_axis[..., :, None])
-        if rot is not None:
-            rot = np.asarray(rot, dtype=float)[..., None, None]
-            c, s = np.cos(rot), np.sin(rot)
-            fx, fy = fx * c - fy * s, fx * s + fy * c
-        self.fx = np.ascontiguousarray(fx)
-        self.fy = np.ascontiguousarray(fy)
+        self.fx, self.fy = mesh_frequency_axes(fx_axis, fy_axis, rot)
         self.fabs = np.hypot(self.fx, self.fy)
 
 

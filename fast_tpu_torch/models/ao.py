@@ -21,7 +21,8 @@ import torch
 
 from ..ops.bessel import besselj, quadrature_order
 from ..ops.zernike import noll_to_nm
-from .atmosphere import turb_powerspectrum_vonKarman
+# turb_powerspectrum_vonKarman is a name of the reference's module
+from .atmosphere import _vonkarman, turb_powerspectrum_vonKarman  # noqa
 
 _F64 = torch.float64
 
@@ -59,37 +60,61 @@ def _dc_fix(out, n_noll_start):
 
 
 def zernike_squared_filter(fabs, fx, fy, D, n_noll, n_noll_start=1,
-                           x_max=None):
+                           gamma=None, plusminus=False, x_max=None):
     """``sum_j |FT Z_j|^2`` over Noll indices: the modal correction filter
-    (reference ``fast/ao_power_spectra.py:54-95``)."""
+    (reference ``fast/ao_power_spectra.py:54-95``). With ``plusminus``
+    each term is ``Z_j(f) conj(Z_j(-f))``, ``(-1)^m`` times the plain
+    one; ``gamma`` scales the aperture per entry, adding a leading axis."""
     phi = torch.atan2(fy, fx)
     terms = []
     for j in range(n_noll_start, n_noll + 1):
         n, m = noll_to_nm(j)
         terms.append((j, n, m))
     uniq = sorted({n + 1 for _, n, _ in terms})
-    R = _radial_terms(fabs, D, uniq, x_max=x_max)
     idx = {o: i for i, o in enumerate(uniq)}
-    out = torch.zeros_like(fabs)
-    for j, n, m in terms:
-        R2 = R[..., idx[n + 1]] ** 2
-        if m == 0:
-            term = (n + 1) * R2
-        else:
-            az = (torch.cos(abs(m) * phi) if j % 2 == 0
-                  else torch.sin(abs(m) * phi))
-            term = 2 * (n + 1) * R2 * az ** 2
-        out = out + term
+
+    def accumulate(D_eff):
+        R = _radial_terms(fabs, D_eff, uniq, x_max=x_max)
+        out = torch.zeros_like(fabs)
+        for j, n, m in terms:
+            R2 = R[..., idx[n + 1]] ** 2
+            if m == 0:
+                term = (n + 1) * R2
+            else:
+                az = (torch.cos(abs(m) * phi) if j % 2 == 0
+                      else torch.sin(abs(m) * phi))
+                term = 2 * (n + 1) * R2 * az ** 2
+            if plusminus:
+                term = term * ((-1.0) ** m)
+            out = out + term
+        return out
+
+    if gamma is None:
+        out = accumulate(D)
+    else:
+        out = torch.stack([accumulate(g * D) for g in np.atleast_1d(gamma)])
     return _dc_fix(out, n_noll_start)
 
 
-def mask_lf(freq, d_WFS, modal=False, modal_mult=1, Zmax=None, D=None):
+def piston_gtilt_filter(fabs, fx, fy, D, x_max=None):
+    """Piston + gradient-tilt low-pass (reference
+    ``fast/ao_power_spectra.py:97-102``), at most 1."""
+    pist = zernike_squared_filter(fabs, fx, fy, D, 1, x_max=x_max)
+    if x_max is None:
+        x_max = float(fabs.abs().max()) * D / 2
+    G_tt = besselj([1], fabs * D / 2.0,
+                   M=quadrature_order(x_max, 1))[..., 0] ** 2
+    return torch.clamp(pist + G_tt, max=1.0)
+
+
+def mask_lf(freq, d_WFS, modal=False, modal_mult=1, Zmax=None, D=None,
+            Gtilt=False):
     """AO-corrected (low-frequency) region mask.
 
     Square WFS band ``|fx|,|fy| <= pi/d_WFS``, optionally intersected with
     the modal DM space: a radial cut (``Zmax is None``) or a Zernike
-    attenuation filter in [0, 1] (reference
-    ``fast/ao_power_spectra.py:119-141``).
+    attenuation filter in [0, 1], the piston + gradient-tilt one with
+    ``Gtilt`` (reference ``fast/ao_power_spectra.py:119-141``).
     """
     fx = _t(freq.fx)
     fy = _t(freq.fy)
@@ -100,6 +125,8 @@ def mask_lf(freq, d_WFS, modal=False, modal_mult=1, Zmax=None, D=None):
     fabs = torch.sqrt(fx ** 2 + fy ** 2)
     if Zmax is None:
         dm_space = (fabs <= fmax * modal_mult).to(_F64)
+    elif Gtilt:
+        dm_space = piston_gtilt_filter(fabs, fx, fy, D)
     else:
         dm_space = zernike_squared_filter(fabs, fx, fy, D, Zmax)
     return wfs_space * torch.clamp(dm_space, max=1.0)
@@ -121,22 +148,27 @@ def Jol_noise_openloop(freq, Dsubap, noise_variance, lf_mask):
     return lf_mask * ps
 
 
-def Jol_alias_openloop(freq, Dsubap, p, lf_mask, v, Delta_t, lmax=3, kmax=3,
-                       L0=np.inf, l0=1e-6):
+def Jol_alias_openloop(freq, Dsubap, p, lf_mask, v=None, Delta_t=None,
+                       wvl=None, lmax=3, kmax=3, L0=np.inf, l0=1e-6):
     """Open-loop WFS aliasing PSD (reference
     ``fast/ao_power_spectra.py:163-223``).
 
     Double sum over the ``(2*lmax+1) * (2*kmax+1) - 1`` folded frequency
     offsets ``(l, k)`` of shifted von Karman spectra with geometric
-    gradient terms, then the servo sinc. On the shared main grid every
+    gradient terms, then the servo sinc of the winds ``v`` (none without
+    them) over ``Delta_t`` (0 if None). On the shared main grid every
     term is linear in the layer's Cn2 with a layer-independent shape, so
     the loop accumulates one unit-Cn2 field and scales per layer at the
     end (the same order of sums as the JAX package's ``lax.scan``).
+    ``wvl`` is the reference's argument; the spectrum does not depend on
+    it (``fast_tpu`` reads it nowhere either).
     """
     fx, fy, fabs = _t(freq.fx), _t(freq.fy), _t(freq.fabs)
     fx_axis, fy_axis = _t(freq.fx_axis), _t(freq.fy_axis)
     p = _t(p).reshape(-1)
-    v = _t(v).reshape(-1, 2)
+    v = torch.zeros((p.shape[0], 2), dtype=_F64) if v is None \
+        else _t(v).reshape(-1, 2)
+    Delta_t = 0.0 if Delta_t is None else Delta_t
     mid2, mid1 = fx.shape[-2] // 2, fy.shape[-1] // 2
     # unrotated axis meshes (the reference shifts the axes)
     X = fx_axis[..., None, :] * torch.ones_like(fy_axis)[..., :, None]
@@ -163,8 +195,7 @@ def Jol_alias_openloop(freq, Dsubap, p, lf_mask, v, Delta_t, lmax=3, kmax=3,
                 continue
             Xs = X - 2 * np.pi * float(k) / Dsubap
             Ys = Y - 2 * np.pi * float(l) / Dsubap
-            term_2 = turb_powerspectrum_vonKarman(
-                torch.sqrt(Xs ** 2 + Ys ** 2), 1.0, L0=L0, l0=l0)
+            term_2 = _vonkarman(torch.sqrt(Xs ** 2 + Ys ** 2), L0, l0)
             Ys_safe = torch.where(Ys == 0, 1.0, Ys)
             Xs_safe = torch.where(Xs == 0, 1.0, Xs)
             term_1 = (fx / Ys_safe + fy / Xs_safe) ** 2
@@ -181,13 +212,18 @@ def Jol_alias_openloop(freq, Dsubap, p, lf_mask, v, Delta_t, lmax=3, kmax=3,
 
 
 def G_AO_PAOLA(freq, mask, mode="AO", h=None, v=None, dtheta=(0, 0), Tx=None,
-               tl=0, Delta_t=0, x_max=None):
+               wvl=None, Zmax=None, tl=0, Delta_t=0, Dsubap=None, modal=False,
+               modal_mult=1, x_max=None):
     """Open-loop AO residual transfer function (PAOLA model).
 
     ``1 - 2 cos(dr.kappa - tl v.kappa) sinc(Dt v.kappa / 2pi) + sinc^2``
-    per layer, applied inside the corrected mask and passed through
-    outside. LGSAO blends a tip-tilt-only variant through a Z<=4 Zernike
-    filter. Reference ``fast/ao_power_spectra.py:225-270``.
+    per layer (``v.kappa = 0`` without winds), applied inside the
+    corrected mask and passed through outside. LGSAO blends a
+    tip-tilt-only variant through a Z<=4 Zernike filter. Reference
+    ``fast/ao_power_spectra.py:225-270``. ``wvl``, ``Zmax``, ``Dsubap``,
+    ``modal`` and ``modal_mult`` are the reference's arguments; the
+    function does not depend on them (``fast_tpu`` reads them nowhere
+    either).
     """
     if mode not in ("NOAO", "AO", "TT", "LGSAO"):
         raise ValueError(
@@ -201,9 +237,12 @@ def G_AO_PAOLA(freq, mask, mode="AO", h=None, v=None, dtheta=(0, 0), Tx=None,
     dr = dtheta[None, :] / 206265.0 * h[:, None]  # (nlayers, 2)
     dr_dot_kappa = (fx[None] * _per_layer(dr[:, 0], fx.ndim)
                     + fy[None] * _per_layer(dr[:, 1], fy.ndim))
-    v = _t(v).reshape(-1, 2)
-    v_dot_kappa = (fx[None] * _per_layer(v[:, 0], fx.ndim)
-                   + fy[None] * _per_layer(v[:, 1], fy.ndim))
+    if v is None:
+        v_dot_kappa = torch.zeros((), dtype=_F64)
+    else:
+        v = _t(v).reshape(-1, 2)
+        v_dot_kappa = (fx[None] * _per_layer(v[:, 0], fx.ndim)
+                       + fy[None] * _per_layer(v[:, 1], fy.ndim))
 
     term_1 = 2 * torch.cos(dr_dot_kappa - tl * v_dot_kappa)
     term_2 = torch.sinc(Delta_t * v_dot_kappa / (2 * math.pi))

@@ -105,20 +105,32 @@ def rytov_variance(cn2, height, lamda=500e-9):
 # ---------------------------------------------------------------------------
 
 
-def turb_powerspectrum_vonKarman(fabs, cn2, L0=25, l0=0.01, C=2 * np.pi):
-    """Von Karman refractive-index power spectrum per layer.
-
-    ``0.033 * cn2 * exp(-f^2/km^2) / (f^2 + k0^2)**(11/6)`` with
-    ``km = 5.92/l0``, ``k0 = C/L0`` on the grid ``fabs``. Returns a stack
-    with a leading layer axis (a scalar ``cn2`` gives one layer). Infinite
-    values (the DC pixel when ``L0 = inf``) are zeroed.
-    """
+def _vonkarman(fabs, L0, l0, C=2 * np.pi):
+    """The von Karman spectrum of unit Cn2 on the grid ``fabs`` (numpy or
+    tensor), its infinite values (the DC pixel when ``L0 = inf``) zeroed."""
+    if not torch.is_tensor(fabs):
+        fabs = torch.as_tensor(np.asarray(fabs, dtype=np.float64))
     km = 5.92 / l0
     k0 = C / L0
     spec = 0.033 * torch.exp(-(fabs ** 2) / km ** 2) \
         / (fabs ** 2 + k0 ** 2) ** (11 / 6.0)
-    spec = torch.where(torch.isinf(spec), 0.0, spec)
+    return torch.where(torch.isinf(spec), 0.0, spec)
+
+
+def turb_powerspectrum_vonKarman(freq, cn2, L0=25, l0=0.01, C=2 * np.pi):
+    """Von Karman refractive-index power spectrum per layer.
+
+    ``0.033 * cn2 * exp(-f^2/km^2) / (f^2 + k0^2)**(11/6)`` with
+    ``km = 5.92/l0``, ``k0 = C/L0`` on the grid ``freq.fabs`` (numpy or
+    tensor) of a frequency struct. Returns a stack with a leading layer
+    axis (a scalar ``cn2`` gives one layer); a grid with
+    ``freq.freq_per_layer`` already carries that axis. Infinite values
+    (the DC pixel when ``L0 = inf``) are zeroed.
+    """
+    spec = _vonkarman(freq.fabs, L0, l0, C)
     if np.ndim(cn2) == 0:
         return spec[None] * cn2
     cn2 = torch.as_tensor(cn2, dtype=spec.dtype, device=spec.device)
+    if getattr(freq, "freq_per_layer", False):
+        return spec * cn2[(slice(None),) + (None,) * (spec.ndim - 1)]
     return spec[None] * cn2[(slice(None),) + (None,) * spec.ndim]

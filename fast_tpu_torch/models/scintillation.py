@@ -15,15 +15,43 @@ from ..ops.integrate import integrate_path
 from .atmosphere import turb_powerspectrum_vonKarman
 
 
-def logamp_powerspec(fabs, h, cn2, wvl, pupilfilter, L0=np.inf, l0=1e-6):
-    """Path-integrated log-amplitude PSD on the grid ``fabs`` (tensor),
-    filtered by the pupil filter tabulated on the same grid."""
+def logamp_powerspec(freq, h, cn2, wvl, pupilfilter=None, layer=True,
+                     L0=np.inf, l0=1e-6):
+    """Path-integrated log-amplitude PSD on the grid ``freq.fabs`` of a
+    frequency struct (a per-layer grid if ``freq.freq_per_layer``).
+
+    ``pupilfilter`` is None, an array or tensor tabulated on the grid
+    (broadcast over layers), or a :class:`PupilFilterSampler`, sampled on
+    each layer's axes ``freq.fx_axis``, ``freq.fy_axis``. ``layer``: the
+    discrete layered model (a sum over layers) or, if False, a Simpson
+    integral over the uniform heights ``h`` (:func:`integrate_path`).
+    """
+    fabs = freq.fabs
+    if not torch.is_tensor(fabs):
+        fabs = torch.as_tensor(np.asarray(fabs, dtype=np.float64))
     h = torch.as_tensor(np.asarray(h, dtype=float), dtype=fabs.dtype)
-    powerspec = turb_powerspectrum_vonKarman(fabs, cn2, L0=L0, l0=l0) \
+    if getattr(freq, "freq_per_layer", False):
+        fabs_3d = fabs
+    else:
+        fabs_3d = fabs.expand((h.shape[0],) + tuple(fabs.shape))
+    powerspec = turb_powerspectrum_vonKarman(freq, cn2, L0=L0, l0=l0) \
         * 2 * np.pi * (2 * np.pi / wvl) ** 2
+    exp = (slice(None),) + (None,) * (fabs_3d.ndim - 1)
     powerspec = powerspec * torch.sin(
-        wvl * h[:, None, None] * fabs[None] ** 2 / (4 * np.pi)) ** 2
-    return integrate_path(powerspec * pupilfilter)
+        wvl * h[exp] * fabs_3d ** 2 / (4 * np.pi)) ** 2
+    if isinstance(pupilfilter, PupilFilterSampler):
+        fx_axis = np.asarray(freq.fx_axis)
+        fy_axis = np.asarray(freq.fy_axis)
+        if getattr(freq, "freq_per_layer", False):
+            pf = torch.stack([pupilfilter(fy_axis[i], fx_axis[i])
+                              for i in range(fx_axis.shape[0])])
+        else:
+            pf = pupilfilter(fy_axis, fx_axis)
+        powerspec = powerspec * pf
+    elif pupilfilter is not None:
+        powerspec = powerspec * torch.as_tensor(pupilfilter,
+                                                dtype=powerspec.dtype)
+    return integrate_path(powerspec, h, layer=layer)
 
 
 class PupilFilterSampler:

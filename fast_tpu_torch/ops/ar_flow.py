@@ -20,7 +20,9 @@ screen is reduced to ``(sum pm cos phi, sum pm sin phi)``.
   blocks that add into the layer sum in turn, for any number of layers.
   :func:`select` is the rule that picks between them, and the batched one
   follows it for each of its series. Any pupil width: the kernels cut a
-  pupil over 128 px into the tiles of ``csrc/detect.cuh``.
+  pupil over 128 px into the tiles of ``csrc/detect.cuh``. Their first
+  DFT product runs on the tensor cores (3xTF32); :func:`ar_dft` runs it
+  alone.
 * :func:`ar_flow_reference` and :func:`ar_flow_batch_reference` are the
   same functions in stock torch ops, step by step, from the same
   Philox4x32-10 bits: counter ``(mode, series * L + layer, absolute step,
@@ -201,15 +203,22 @@ def _pack(a0, ph, ns, W, pm, batch=False):
     return st, ph2, ns32, wr, wi, pm_t.contiguous()
 
 
+def ar_dft_reference(ar, ai, wr, wi):
+    """The kernel's first product in stock torch ops: from the layer sums
+    ``ar + i ai`` (..., N, N), ``G' = A^T W^T``, ``(gr, gi)`` (..., N, P)
+    for the P rows of ``wr``, ``wi``."""
+    art, ait = ar.transpose(-2, -1), ai.transpose(-2, -1)
+    return art @ wr.T - ait @ wi.T, art @ wi.T + ait @ wr.T
+
+
 def detect_real_reference(ar, ai, wr, wi, pm_t):
     """The kernel's two products and its detect pass in stock torch ops:
     from the layer sums ``ar + i ai`` (..., N, N), ``G' = A^T W^T`` (...,
-    N, P), the transposed screen ``Re(W G')`` (..., P, P) and ``(sum pm_t
-    cos, sum pm_t sin)``: (..., 2) float32, with ``pm_t`` broadcast over
-    the leading axes ((B, P, P) for B series on the last one)."""
-    art, ait = ar.transpose(-2, -1), ai.transpose(-2, -1)
-    gr = art @ wr.T - ait @ wi.T
-    gi = art @ wi.T + ait @ wr.T
+    N, P) (:func:`ar_dft_reference`), the transposed screen ``Re(W G')``
+    (..., P, P) and ``(sum pm_t cos, sum pm_t sin)``: (..., 2) float32,
+    with ``pm_t`` broadcast over the leading axes ((B, P, P) for B series
+    on the last one)."""
+    gr, gi = ar_dft_reference(ar, ai, wr, wi)
     s, c = sincos(wr @ gr - wi @ gi)
     return torch.stack([(pm_t * c).sum((-2, -1)), (pm_t * s).sum((-2, -1))],
                        dim=-1)
@@ -314,13 +323,23 @@ def _library():
     lib, info = _build.load_library("ar_flow")
     if not getattr(lib, "_fast_typed", False):
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-        lib.fast_ar_flow.argtypes = [u, u, u] + [i] * 6 + [p] * 14 \
+        lib.fast_ar_flow.argtypes = [u, u, u] + [i] * 6 + [p] * 15 \
             + [i, i, p]
         lib.fast_ar_flow.restype = i
+        lib.fast_ar_dft.argtypes = [i] + [p] * 7 + [i, i, p]
+        lib.fast_ar_dft.restype = i
         lib.fast_error_string.argtypes = [i]
         lib.fast_error_string.restype = ctypes.c_char_p
         lib._fast_typed = True
     return lib, info
+
+
+def _split_scratch(N, P, dev):
+    """The scratch in which the kernels split W for the tensor cores:
+    (P, N rounded up to 32, 4) int32 words (``csrc/ar_flow.cu``,
+    ``ar_split_w``)."""
+    return torch.empty((P, -(-N // 32) * 32, 4), dtype=torch.int32,
+                       device=dev)
 
 
 def _ar_flow(wrapper, lb, seed, a0, ph, ns, W, pm, nsteps, noise, step0,
@@ -352,6 +371,7 @@ def _ar_flow(wrapper, lb, seed, a0, ph, ns, W, pm, nsteps, noise, step0,
         T = pupil_tiles(P)
         per = min(nsteps, int(max_steps))
         tile = min(per, tile_steps(N, P, B))
+        ws = _split_scratch(N, P, dev)
         a = torch.empty((2, tile * B, N, N), dtype=torch.float32, device=dev)
         g = torch.empty((2, tile * B, N, P), dtype=torch.float32, device=dev)
         part = (None if T == 1 else
@@ -367,7 +387,8 @@ def _ar_flow(wrapper, lb, seed, a0, ph, ns, W, pm, nsteps, noise, step0,
                     lb, code, st[0].data_ptr(), st[1].data_ptr(),
                     ph2[0].data_ptr(), ph2[1].data_ptr(),
                     None if ns is None else ns.data_ptr(), wr.data_ptr(),
-                    wi.data_ptr(), pm_t.data_ptr(), a[0].data_ptr(),
+                    wi.data_ptr(), pm_t.data_ptr(), ws.data_ptr(),
+                    a[0].data_ptr(),
                     a[1].data_ptr(), g[0].data_ptr(), g[1].data_ptr(),
                     None if part is None else part.data_ptr(),
                     out[t0:].data_ptr(), N, P, cs)
@@ -444,3 +465,54 @@ def ar_flow_fused_batch(seed, a0, step_phasor_scaled, noise_scale, W,
 ar_flow_fused.LAUNCHES = 0
 ar_flow_streamed.LAUNCHES = 0
 ar_flow_fused_batch.LAUNCHES = 0
+
+
+def ar_dft(a_re, a_im, wr, wi):
+    """The kernels' first product alone: ``G' = A^T W^T`` of nj layer sums
+    ``a_re + i a_im`` (nj, N, N) float32 for a pupil ``wr + i wi`` (npup,
+    N) float32; returns ``(gr, gi)``, (nj, N, P) float32 with the pupil
+    axis padded to a multiple of 16 (padded columns are zero). For timing
+    the stage and holding it against :func:`ar_dft_reference` element by
+    element.
+
+    On CUDA tensors this splits W and launches ``ar_dft`` of
+    ``csrc/ar_flow.cu`` (3xTF32 on the tensor cores; one launch, counted
+    in ``ar_dft.LAUNCHES``) on the current stream, or raises; on CPU
+    tensors it runs the plain version.
+    """
+    if (a_re.ndim != 3 or a_re.shape != a_im.shape
+            or a_re.shape[-1] != a_re.shape[-2]):
+        raise ValueError("a_re, a_im must be (nj, N, N)")
+    nj, N = a_re.shape[0], a_re.shape[-1]
+    if wr.ndim != 2 or wr.shape != wi.shape or wr.shape[1] != N:
+        raise ValueError(f"wr, wi must be (npup, {N})")
+    f32 = torch.float32
+    for name, t in (("a_re", a_re), ("a_im", a_im), ("wr", wr), ("wi", wi)):
+        if t.dtype != f32 or t.device != a_re.device:
+            raise ValueError(f"{name} must be float32 on {a_re.device}")
+    wr, wi, _ = pad_pupil(wr.contiguous(), wi.contiguous(), None)
+    dev = a_re.device
+    if dev.type == "cpu":
+        return ar_dft_reference(a_re, a_im, wr, wi)
+    if dev.type != "cuda":
+        raise ValueError(f"ar_dft runs on CPU or CUDA, not {dev}")
+    if not supports(N, wr.shape[0]):
+        raise ValueError(f"ar_dft takes a grid of at most {_N_MAX} px and "
+                         f"a pupil of at most {128 * _T_MAX} px")
+    P = wr.shape[0]
+    a_re, a_im = a_re.contiguous(), a_im.contiguous()
+    lib, _ = _library()
+    ws = _split_scratch(N, P, dev)
+    g = torch.empty((2, nj, N, P), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.fast_ar_dft(nj, wr.data_ptr(), wi.data_ptr(),
+                              a_re.data_ptr(), a_im.data_ptr(),
+                              ws.data_ptr(), g[0].data_ptr(),
+                              g[1].data_ptr(), N, P,
+                              torch.cuda.current_stream(dev).cuda_stream)
+    raise_on(lib, err, "ar_dft launch")
+    ar_dft.LAUNCHES += 1
+    return g[0], g[1]
+
+
+ar_dft.LAUNCHES = 0

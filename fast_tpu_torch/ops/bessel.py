@@ -31,13 +31,15 @@ def quadrature_order(x_max, n_max):
     return max(64, -(-m // 8) * 8)
 
 
-def besselj(orders, x, M=None):
+def besselj(orders, x, x_max=None, M=None):
     """``J_n(x)`` for one or more integer orders.
 
     Args:
         orders: int or 1-D sequence of non-negative integer orders.
         x: float64 tensor of evaluation points (any shape).
-        M: number of trapezoid intervals; read from ``max |x|`` if omitted.
+        x_max: bound on ``max |x|`` that sets the quadrature order if
+            ``M`` is omitted; read from ``x`` if both are omitted.
+        M: number of trapezoid intervals (overrides ``x_max``).
 
     Returns:
         Tensor of shape ``x.shape + (len(orders),)``, or ``x.shape`` if
@@ -47,7 +49,9 @@ def besselj(orders, x, M=None):
     orders_l = [int(o) for o in np.atleast_1d(orders)]
     x = torch.as_tensor(x, dtype=torch.float64)
     if M is None:
-        M = quadrature_order(float(x.abs().max()), max(orders_l))
+        if x_max is None:
+            x_max = float(x.abs().max())
+        M = quadrature_order(x_max, max(orders_l))
     dev = x.device
     theta = (math.pi / M) * torch.arange(M + 1, dtype=torch.float64,
                                          device=dev)

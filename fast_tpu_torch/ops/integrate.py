@@ -2,8 +2,8 @@
 
 Composite Simpson integration of 2-D power spectra, matching
 ``scipy.integrate.simpson`` for uniform samples (Cartwright's
-last-interval correction for an even sample count), and path (layer)
-integration as a sum over the layer axis.
+last-interval correction for an even sample count), and path
+integration: a sum over the layer axis, or Simpson over the heights.
 """
 
 import torch
@@ -41,7 +41,11 @@ def integrate_powerspectrum(power_spectrum, f):
     return simpson(simpson(power_spectrum, dx=df, axis=-1), dx=df, axis=-1)
 
 
-def integrate_path(integrands, axis=0):
-    """Integrate along the propagation path of the discrete layered model:
-    a sum over the layer axis (the only branch the engine uses)."""
-    return integrands.sum(axis)
+def integrate_path(integrands, h=None, layer=True, axis=0):
+    """Integrate along the propagation path: with the discrete layered
+    model (``layer``, the only branch the engine uses) a sum over the
+    layer axis; else Simpson over the uniform heights ``h``."""
+    if layer:
+        return integrands.sum(axis)
+    dh = float(h[1] - h[0])
+    return simpson(torch.movedim(integrands, axis, -1), dx=dh, axis=-1)

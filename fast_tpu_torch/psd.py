@@ -34,14 +34,15 @@ def _residual_stack(fr, lf_mask, cn2, h, wind_vector, dtheta, noise, Dsubap,
     k = 2 * np.pi / wvl
     nlayers = len(np.atleast_1d(h))
 
-    turb = atmosphere.turb_powerspectrum_vonKarman(fr.fabs, cn2, L0, l0)
+    turb = atmosphere.turb_powerspectrum_vonKarman(fr, cn2, L0, l0)
     G_ao = ao_spectra.G_AO_PAOLA(
-        fr, lf_mask, mode, h, wind_vector, dtheta, D_ground, tloop, texp,
-        x_max=x_max)
+        fr, lf_mask, mode, h, wind_vector, dtheta, D_ground, tl=tloop,
+        Delta_t=texp, x_max=x_max)
     ao_on = mode != "NOAO"
     if alias_on and ao_on:
         alias_ps = ao_spectra.Jol_alias_openloop(
-            fr, Dsubap, cn2, lf_mask, wind_vector, texp, lmax, kmax, L0, l0)
+            fr, Dsubap, cn2, lf_mask, wind_vector, texp, lmax=lmax,
+            kmax=kmax, L0=L0, l0=l0)
     else:
         alias_ps = torch.zeros_like(turb)
     if noise_on and ao_on:
@@ -56,7 +57,8 @@ def _residual_stack(fr, lf_mask, cn2, h, wind_vector, dtheta, noise, Dsubap,
 
 def _grid(fx, fy, fabs, fx_axis, fy_axis):
     return types.SimpleNamespace(fx=_t(fx), fy=_t(fy), fabs=_t(fabs),
-                                 fx_axis=_t(fx_axis), fy_axis=_t(fy_axis))
+                                 fx_axis=_t(fx_axis), fy_axis=_t(fy_axis),
+                                 freq_per_layer=False)
 
 
 def assemble_main(fx, fy, fabs, fx_axis, fy_axis, f_grid, lf_mask, hf_mask,
@@ -93,7 +95,7 @@ def assemble_main(fx, fy, fabs, fx_axis, fy_axis, f_grid, lf_mask, hf_mask,
     phs_var = integrate_powerspectrum(powerspec, f_grid)
     phs_var_weights = integrate_powerspectrum(ps_per_layer, f_grid) / phs_var
 
-    logamp_ps = logamp_powerspec(fr.fabs, h, cn2, wvl, pupil_filter,
+    logamp_ps = logamp_powerspec(fr, h, cn2, wvl, pupil_filter,
                                  L0=L0, l0=l0)
     logamp_var = integrate_powerspectrum(logamp_ps, f_grid)
 

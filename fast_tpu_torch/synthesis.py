@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from .ops.fourier import ft, ift2
-from .ops.interp import bilinear_periodic
+from .ops.interp import bilinear_periodic, sample_grid_periodic  # noqa: F401
 from .ops.rng import complex_normal
 
 
@@ -133,20 +133,25 @@ def synthesize_screens_colfac(generator, L, W, nbatch):
     return torch.einsum("bpm,cm->bpc", G, W.to(L.dtype))
 
 
-def make_subharm_modes(subharm_fx, subharm_fy, N, dx):
+def make_subharm_modes(subharm_fx, subharm_fy, N, dx, dtype=np.float64):
     """Complex exponential modes ``exp(i(x fx + y fy))`` of the subharmonic
     grids on the real-space grid of the main screen: (levels, 3, 3, N, N)
-    complex128 host numpy (``fast_tpu.synthesis.make_subharm_modes``)."""
+    host numpy, complex64 for a float32 ``dtype`` (numpy or torch), else
+    complex128 (``fast_tpu.synthesis.make_subharm_modes``)."""
+    if isinstance(dtype, torch.dtype):
+        dtype = torch.empty((), dtype=dtype).numpy().dtype
+    dtype = np.dtype(dtype)
     D = dx * N
     coords = np.arange(-D / 2, D / 2, dx)
     if len(coords) == N + 1:
         coords = coords[:-1]
     x, y = np.meshgrid(coords, coords)
-    fx = np.asarray(subharm_fx, dtype=np.float64)
-    fy = np.asarray(subharm_fy, dtype=np.float64)
+    fx = np.asarray(subharm_fx, dtype=dtype)
+    fy = np.asarray(subharm_fy, dtype=dtype)
     phase = (x[None, None, None] * fx[..., None, None]
              + y[None, None, None] * fy[..., None, None])
-    return np.exp(1j * phase)
+    cdtype = np.complex64 if dtype == np.float32 else np.complex128
+    return np.exp(1j * phase).astype(cdtype)
 
 
 def subharm_mode_table(modes, crop):
@@ -162,17 +167,31 @@ def subharm_mode_table(modes, crop):
             - modes.mean(axis=(-2, -1), keepdims=True))
 
 
-def synthesize_subharm_complex(generator, sqrt_powerspec_sh, df_sh,
-                               mode_table, nbatch):
-    """Low-order subharmonic screens: ``nbatch`` complex (P, P) screens as
-    sums of the 27 modes of :func:`subharm_mode_table` with complex normal
-    weights of variance ``PSD df^2`` per level."""
+def synthesize_subharm_complex(generator, sqrt_powerspec_sh, df_sh, modes,
+                               nbatch, crop=None):
+    """Low-order subharmonic screens as a sum of the 27 modes of
+    :func:`make_subharm_modes` (levels, 3, 3, N, N) with complex normal
+    weights of variance ``PSD df^2`` per level: ``nbatch`` complex screens,
+    mean-subtracted over the full grid (``fast/funcs.py:253``), then cut
+    to ``crop = (lo, hi)`` on both axes if given."""
+    N = modes.shape[-1]
+    table = subharm_mode_table(torch.as_tensor(modes),
+                               (0, N) if crop is None else crop)
+    return subharm_screens(generator, sqrt_powerspec_sh, df_sh, table,
+                           nbatch)
+
+
+def subharm_screens(generator, sqrt_powerspec_sh, df_sh, mode_table, nbatch):
+    """:func:`synthesize_subharm_complex` from the modes of
+    :func:`subharm_mode_table`: ``nbatch`` complex (P, P) screens, the
+    run's route, which never forms a full-grid screen."""
     cdtype = (torch.complex64 if sqrt_powerspec_sh.dtype == torch.float32
               else torch.complex128)
     rand = complex_normal((nbatch,) + tuple(sqrt_powerspec_sh.shape),
                           generator, dtype=cdtype)
     weights = rand * (sqrt_powerspec_sh * df_sh[:, None, None])
-    return torch.einsum("bimn,imnxy->bxy", weights, mode_table.to(cdtype))
+    return torch.einsum("bimn,imnxy->bxy", weights,
+                        mode_table.to(device=weights.device, dtype=cdtype))
 
 
 def double_screens(scr):

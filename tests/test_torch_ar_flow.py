@@ -15,7 +15,9 @@
   holds the absolute step).
 * On the card, the kernels against the plain version from identical bits:
   state bit for bit, couplings within KERNEL_REL of the largest |sum|, at
-  pupils of up to 128 px and at 144 and 402 px.
+  pupils of up to 128 px and at 144 and 402 px; their first DFT product
+  alone (``ar_dft``, on the tensor cores) against the plain G' element by
+  element, within N 2^-24 max |G'|, at a 96 px and a 144 px pupil.
 
 The card-only cases run where JAX is not installed:
 
@@ -206,6 +208,26 @@ def test_the_rule_and_what_the_wrappers_refuse():
         af.ar_flow_streamed(1, t[0].real, *t[1:], 2)
 
 
+def test_first_product_alone_on_cpu_is_the_plain_version():
+    """ar_dft on CPU tensors: the plain G' = A^T W^T with the pupil axis
+    padded to 16 (zero columns), no launch counted; shapes checked."""
+    rng = np.random.default_rng(13)
+    a = torch.from_numpy(rng.normal(size=(2, 3, 32, 32)).astype(np.float32))
+    W = ts.pruned_ift2_matrix(32, 4, 26, dtype=np.complex64)
+    wr, wi = torch.from_numpy(W.real.copy()), torch.from_numpy(W.imag.copy())
+    before = af.ar_dft.LAUNCHES
+    gr, gi = af.ar_dft(a[0], a[1], wr, wi)
+    assert af.ar_dft.LAUNCHES == before
+    assert gr.shape == gi.shape == (3, 32, 32)
+    rr, ri = af.ar_dft_reference(a[0], a[1], wr, wi)
+    assert torch.equal(gr[..., :22], rr) and torch.equal(gi[..., :22], ri)
+    assert not gr[..., 22:].any() and not gi[..., 22:].any()
+    with pytest.raises(ValueError, match="nj, N, N"):
+        af.ar_dft(a[0, 0], a[1, 0], wr, wi)
+    with pytest.raises(ValueError, match="npup"):
+        af.ar_dft(a[0], a[1], wr[:, :16], wi[:, :16])
+
+
 # --------------------------------------------------------------------------
 # (f) on the card
 # --------------------------------------------------------------------------
@@ -267,3 +289,38 @@ def test_streamed_equals_fused_on_card(cuda_device, noise):
     for lb in (1, 3):
         cs, as_ = af.ar_flow_streamed(SEED, *t, 70, lb_layers=lb, **kw)
         assert torch.equal(cs, cf) and torch.equal(as_, af_)
+
+
+GPRIME_REL = 1.0  # G' element by element, times N 2^-24 max |G'|
+
+
+# (N, lo, hi, pairs): the flagships' 82 px pupil (padded to 96, one column
+# group) at 256^2 over one tile; a 144 px pupil at 192^2 (two groups of 80
+# px, the second ragged); a grid side that is no multiple of 4 or of 128
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(256, 87, 169, 256), (192, 24, 168, 40),
+                                  (102, 0, 102, 9)],
+                         ids=lambda c: f"N{c[0]}P{c[2] - c[1]}")
+def test_first_product_matches_plain_on_card(cuda_device, case):
+    """ar_dft alone (fast_ar_dft: W split, then 3xTF32 on the tensor
+    cores) against the plain G' = A^T W^T element by element, within
+    GPRIME_REL N 2^-24 max |G'|."""
+    N, lo, hi, nj = case
+    rng = np.random.default_rng(14)
+    a = torch.from_numpy((rng.normal(size=(2, nj, N, N)) * 0.5 / N)
+                         .astype(np.float32)).to(cuda_device)
+    W = ts.pruned_ift2_matrix(N, lo, hi, dtype=np.complex64)
+    wr = torch.from_numpy(W.real.copy()).to(cuda_device)
+    wi = torch.from_numpy(W.imag.copy()).to(cuda_device)
+    before = af.ar_dft.LAUNCHES
+    gr, gi = af.ar_dft(a[0], a[1], wr, wi)
+    from fast_tpu_torch.ops.synth_detect import pad_pupil
+    wrp, wip, _ = pad_pupil(wr, wi, None)
+    rr, ri = af.ar_dft_reference(a[0], a[1], wrp, wip)
+    torch.cuda.synchronize()
+    assert af.ar_dft.LAUNCHES == before + 1
+    assert gr.shape == gi.shape == rr.shape == (nj, N, wrp.shape[0])
+    assert bool(torch.isfinite(gr).all() and torch.isfinite(gi).all())
+    top = max(float(rr.abs().max()), float(ri.abs().max()))
+    err = max(float((gr - rr).abs().max()), float((gi - ri).abs().max()))
+    assert err <= GPRIME_REL * N * 2.0 ** -24 * top

@@ -105,7 +105,7 @@ def test_mode_table_screens_equal_full_grid_screens():
     sqrt_ps = rng.random((3, 3, 3))
     df = np.asarray(g.subharm.df)
     gen = torch.Generator().manual_seed(5)
-    got = ts.synthesize_subharm_complex(
+    got = ts.subharm_screens(
         gen, torch.from_numpy(sqrt_ps), torch.from_numpy(df),
         torch.from_numpy(ts.subharm_mode_table(modes, (20, 44))), 6).numpy()
     gen = torch.Generator().manual_seed(5)
