@@ -24,7 +24,11 @@ Phases, in order; any failure exits non-zero before the result line:
    and the device sincos against float64;
 4. K1 against its plain version at the 512^2 flagship shapes (N=512,
    P=82), 'mixed' and 'gauss', over 4100 draws (two launches), with the
-   TF32 control;
+   TF32 control; its two passes alone ('mixed': pass 1, ``colfac_pass1``,
+   and the detect pass, ``detect_pass``, both 3xTF32 on the tensor cores)
+   timed with their FLOP/s over the pupil's px and their bounds, beside
+   their yardsticks: one batched ``torch.bmm`` of pass 1's (draws x K) @ (K
+   x 2P) per column and one complex64 ``torch.matmul`` of W @ G' (TF32 off);
 5. the 256^2 slice: ``Fast(flagship(), device="cuda").run()`` at
    NITER=262144, NCHUNKS=16, which must go through K2 (launch count) and
    agree in distribution with the plain SYNTH='matmul' path on the same
@@ -63,8 +67,9 @@ Phases, in order; any failure exits non-zero before the result line:
    pinned 'pallas_colfac' (K3, 8192) and 'pallas' (K7, 8192), each of
    which must launch its kernel and no other and agree with a 'matmul' run
    (4096); times per 630-draw launch beside bounds and plain versions,
-   pass 1 alone for K2 ('mixed') and K7 (Box-Muller), warm rates and one
-   profile per path;
+   pass 1 alone for K2 ('mixed') and K7 (Box-Muller), K3's two passes
+   alone with their yardsticks (as K1's in 4), warm rates and one profile
+   per path;
 11. times: each kernel's ms per 4096 draws or steps beside its bound and
    its plain version's; the factor build at 512^2; warm ``run()`` rates at
    256^2 (K2, 'matmul', K2 'gauss', K1 pinned), at 512^2 (K1, 'colfac',
@@ -483,6 +488,57 @@ def time_pass1(T, nbatch, mixed, label, reps):
     return ms, tflops
 
 
+def colfac_passes(kernel, pass1, table, K, npup, T, nbatch, kw, reps):
+    """The two passes of K1 or K3 alone, 'mixed' noise: pass 1 (``pass1``
+    on ``table``, ``colfac_pass1`` or ``split_pass1``; 3xTF32 on the tensor
+    cores) and the detect pass (``colfac_detect.detect_pass``, H = W G' in
+    3xTF32, then sincos and the sums) on its G'. Their ms per ``nbatch``
+    draws, FLOP/s and bounds count the pupil's own ``npup`` px, as the
+    kernels' bounds do, with pass 1 as the real (draws x K) @ (K x 2 npup)
+    product per column it is. Beside each, its yardstick (a PyTorch call
+    of the same shapes, TF32 off, which the port never calls): one batched
+    ``torch.bmm`` of (draws x K) @ (K x 2P) per column, and one complex64
+    ``torch.matmul`` of W @ G'. The launches here do not count."""
+    from fast_tpu_torch.ops import colfac_detect as cd
+    N, P = table.shape[0], table.shape[2]
+    b1, b2 = pass1.LAUNCHES, cd.detect_pass.LAUNCHES
+    p1_ms = cuda_ms(lambda: pass1(SEED, table, nbatch, **kw), reps)
+    gr, gi = pass1(SEED, table, nbatch, **kw)
+    det_ms = cuda_ms(lambda: cd.detect_pass(gr, gi, T["wr"], T["wi"],
+                                            T["pm_t"]), reps)
+    pass1.LAUNCHES, cd.detect_pass.LAUNCHES = b1, b2
+    g = torch.Generator(device=DEVICE).manual_seed(13)
+    z = torch.randn((N, nbatch, K), device=DEVICE, generator=g)
+    b = torch.randn((N, K, 2 * P), device=DEVICE, generator=g)
+    lib1_ms = cuda_ms(lambda: torch.bmm(z, b), reps)
+    del z, b
+    wc = torch.complex(T["wr"], T["wi"])
+    gc = torch.complex(gr, gi)
+    del gr, gi
+    lib2_ms = cuda_ms(lambda: torch.matmul(wc, gc), reps)
+    del gc
+    torch.cuda.empty_cache()
+    f1 = nbatch * N * 2 * K * 2 * npup
+    f2 = nbatch * 8 * npup * npup * N
+    bound1 = _bound(f1, 4 * (N * K * 2 * P + 2 * nbatch * N * P))
+    bound2 = _bound(f2, 4 * (2 * nbatch * N * P + 2 * P * N + P * P
+                             + 4 * nbatch))
+    out = {"pass1_ms": p1_ms, "pass1_tflops": f1 / p1_ms / 1e9,
+           "pass1_bound_ms": bound1[0], "pass1_library_ms": lib1_ms,
+           "detect_ms": det_ms, "detect_tflops": f2 / det_ms / 1e9,
+           "detect_bound_ms": bound2[0], "detect_library_ms": lib2_ms}
+    for name, ms, lib, bound in (("pass 1", p1_ms, lib1_ms, bound1),
+                                 ("detect pass", det_ms, lib2_ms, bound2)):
+        flops = f1 if name == "pass 1" else f2
+        print(f"{kernel} {name} alone: {ms:.3f} ms per {nbatch} draws "
+              f"({flops / ms / 1e9:.1f} TFLOP/s over {npup} px, 3xTF32 "
+              f"mma.sync), bound {bound[0]:.3f} ms ({bound[1]}; "
+              f"{bound[0] / ms:.1%} of it), yardstick "
+              f"{'torch.bmm' if name == 'pass 1' else 'complex64 torch.matmul'}"
+              f" (TF32 off) {lib:.3f} ms")
+    return out
+
+
 def phase_k2(sim, sim_default):
     from fast_tpu_torch.ops import synth_detect as sd
     T = sim.tables
@@ -570,6 +626,9 @@ def phase_k1(sim):
         sfx = "" if mixed else "_gauss"
         res.update({"ms" + sfx: ms, "plain_ms" + sfx: plain_ms,
                     "bound_ms" + sfx: bound_ms, "bound_by" + sfx: bound_by})
+        if mixed:
+            res.update(colfac_passes("K1", cd.colfac_pass1, S, S.shape[1],
+                                     P, T, NTIME, {"mixed": True}, 10))
     return res
 
 
@@ -1079,6 +1138,8 @@ def phase_wide(card):
                   f"launch of {per} complex draws at {label}")
         k2w["pass1_ms"], k2w["pass1_tflops"] = time_pass1(
             T, per, True, f"K2 mixed {label}", 3)
+        k3.update(colfac_passes("K3", cd.split_pass1, tab, 2 * tab.shape[1],
+                                P, T, per, {"mixed": True}, 3))
     g = torch.Generator(device=DEVICE).manual_seed(11)
     sh = torch.complex(*torch.randn((2, NDRAWS_W, P, P), device=DEVICE,
                                     generator=g))

@@ -1,6 +1,6 @@
 // Device code shared by the kernels: Philox4x32-10, the Cody-Waite sincos
 // and the noise transforms. The detect pass that the iid kernels end with
-// is in detect.cuh.
+// is in detect.cuh, the tensor-core helpers in tf32x3.cuh.
 
 #pragma once
 
@@ -10,7 +10,7 @@
 namespace fast {
 
 constexpr int kThreads = 256;
-constexpr int kK2 = 16;  // depth tile of the detect pass
+constexpr int kK2 = 16;  // depth tile of the fp32 FMA tile products
 
 constexpr float kS3 = 1.7320508075688772f;             // sqrt(3)
 constexpr float kS3Scale = 1.7320508075688772f * 1.1920928955078125e-07f;

@@ -24,8 +24,9 @@
 // costs 4N^3 = 67 MFLOP of mixing product and 8N^2 P = 50 MFLOP for G',
 // against 8 P^2 N = 19 MFLOP for H in pass 2; at N=1024 with a 402 px
 // pupil (padded to 416) 4.3 and 3.4 GFLOP against 1.3. Pass 2 is
-// detect_pass of detect.cuh (shared with K1 and K3) or K7's screens_pass,
-// fp32 FMA on the CUDA cores.
+// detect_pass of detect.cuh (shared with K1 and K3, on the tensor cores
+// since K1's and K3's redesign) or K7's screens_pass, fp32 FMA on the CUDA
+// cores.
 //
 // Pass 1 on the tensor cores. Both of its products run as warp-level
 // mma.sync.m16n8k8 TF32 products, each in three passes (3xTF32): every
@@ -509,10 +510,10 @@ cudaError_t pass1(const Pass1Args& a, int rows) {
   return rows == 2 ? dispatch_pass1<true, 2>(a) : dispatch_pass1<true, 1>(a);
 }
 
-// The screens pass: the tiles of the detect pass, written out. scr_re and
-// scr_im: (nbatch, npup, npup) un-padded, un-transposed screens,
-// scr[j][p2][p1] = H[p1][p2]; the tile is formed transposed (kSwap), so
-// neighbouring threads write neighbouring addresses.
+// The screens pass: the tiles of the detect pass in fp32 FMA
+// (tile_product), written out. scr_re and scr_im: (nbatch, npup, npup)
+// un-padded, un-transposed screens, scr[j][p2][p1] = H[p1][p2]; the tile is
+// formed transposed, so neighbouring threads write neighbouring addresses.
 template <int PJ, bool kOne>
 __global__ void __launch_bounds__(kThreads)
     screens_pass(const float* __restrict__ wr, const float* __restrict__ wi,
@@ -528,9 +529,9 @@ __global__ void __launch_bounds__(kThreads)
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
   float hr[PJ][PJ], hi[PJ][PJ];
-  tile_product<PJ, true, kOne>(wr, wi, g_re + static_cast<size_t>(j) * N * P,
-                               g_im + static_cast<size_t>(j) * N * P, N, P,
-                               r0, c0, hr, hi);
+  tile_product<PJ, kOne>(wr, wi, g_re + static_cast<size_t>(j) * N * P,
+                         g_im + static_cast<size_t>(j) * N * P, N, P, r0, c0,
+                         hr, hi);
 #pragma unroll
   for (int a = 0; a < PJ; ++a)
 #pragma unroll

@@ -2,8 +2,10 @@
 // rounding and the hi/lo split of an fp32 operand, warp-level
 // mma.sync.m16n8k8 TF32 products, and the asynchronous copies that stage
 // their operands into shared memory. K2's and K7's pass 1
-// (synth_detect.cu) and the AR kernels' first DFT product (ar_flow.cu)
-// use them; each source says how it sums the three products of a step.
+// (synth_detect.cu), the AR kernels' first DFT product (ar_flow.cu), K1's
+// and K3's pass 1 (colfac_detect.cu, colfac_split.cu) and the iid kernels'
+// detect pass (detect.cuh) use them; each says how it sums the three
+// products of a step.
 
 #pragma once
 
@@ -48,6 +50,43 @@ __device__ __forceinline__ void mma_tf32_new(float (&d)[4],
       : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
         "f"(0.0f));
+}
+
+// An A fragment from shared memory already split: p points at word 2t of
+// row g of a row-major tile with row stride S words; rows g and g + 8,
+// words 2t (slots t) and 2t + 1 (slots t + 4).
+__device__ __forceinline__ void load_a(const uint32_t* p, int S,
+                                       uint32_t (&f)[4]) {
+  const uint2 v0 = *reinterpret_cast<const uint2*>(p);
+  const uint2 v1 = *reinterpret_cast<const uint2*>(p + 8 * S);
+  f[0] = v0.x;
+  f[1] = v1.x;
+  f[2] = v0.y;
+  f[3] = v1.y;
+}
+
+// Split a staged slice of (re, im) pairs into the B fragments' order:
+// slice rows 8 ks + 2t and + 1 (fragment slots t and t + 4) of pair column
+// 8 nt + g for lane (g, t), NT column blocks of 8 pairs, KS 8-deep steps;
+// src has row stride TS floats (pair p at 2 p, 2 p + 1). Unit u = (ks NT +
+// nt) 32 + lane of dst holds (re hi, re hi, re lo, re lo) of the two slots,
+// unit u + KS NT 32 the same of im: a 16-byte shared load a lane each.
+template <int KS, int NT, int TS>
+__device__ __forceinline__ void split_pairs(uint4* dst, const float* src) {
+  for (int u = threadIdx.x; u < KS * NT * 32; u += kThreads) {
+    const int lane = u & 31, kt = u >> 5;
+    const float* p = src + (8 * (kt / NT) + 2 * (lane & 3)) * TS +
+                     2 * (8 * (kt % NT) + (lane >> 2));
+    const float2 b0 = *reinterpret_cast<const float2*>(p);
+    const float2 b1 = *reinterpret_cast<const float2*>(p + TS);
+    uint4 r, i;
+    split(b0.x, r.x, r.z);
+    split(b1.x, r.y, r.w);
+    split(b0.y, i.x, i.z);
+    split(b1.y, i.y, i.w);
+    dst[u] = r;
+    dst[KS * NT * 32 + u] = i;
+  }
 }
 
 // ---- asynchronous copies into shared memory -------------------------------

@@ -29,6 +29,15 @@ output layout.
   ``(m * LW + q, draw, stream, 3)`` with ``LW`` the pupil rounded up to
   128 (``csrc/colfac_split.cu``).
 
+* The passes alone, for timing them and holding each against its plain
+  version: :func:`colfac_pass1` and :func:`split_pass1` (pass 1 of K1 and
+  of K3: ``G'``, with :func:`colfac_pass1_reference` and
+  :func:`split_pass1_reference`), and :func:`detect_pass` (the detect pass
+  that K1, K2 and K3 share, ``csrc/detect.cuh``, against
+  :func:`~fast_tpu_torch.ops.synth_detect.detect_reference`). Each counts
+  its launches in its own ``LAUNCHES``. Both kernels run both products on
+  the tensor cores (3xTF32 ``mma.sync``).
+
 Mixing width: 'mixed' noise mixes 128 uniforms per component per column
 in K1, as the TPU kernel does over its 128-lane tile, and ``LW`` in K3,
 the TPU kernel's lane width there; 'gauss' draws only the lanes that meet
@@ -118,6 +127,28 @@ def colfac_bits(seed, nbatch, N, lanes, stream=0, device="cpu", draw0=0,
     return x0.reshape(nbatch, N, lanes), x1.reshape(nbatch, N, lanes)
 
 
+def _colfac_gprime(seed, S, nbatch, mixed, stream, draw0, bits):
+    """K1's pass 1 in stock torch ops, in pieces of bounded size: yields
+    ``(d0, gr, gi)``, the ``G'`` (nb, N, P) of draws ``d0 ..``."""
+    N, K, P, _ = S.shape
+    lanes = K // 2
+    St = S.reshape(N, K, 2 * P)
+    per = max(1, _REF_POINTS // (N * lanes))
+    for d0 in range(0, int(nbatch), per):
+        nb = min(per, int(nbatch) - d0)
+        if bits is None:
+            b = colfac_bits(seed, nb, N, lanes, stream, device=S.device,
+                            draw0=draw0 + d0)
+        else:
+            b = (bits[0][d0:d0 + nb], bits[1][d0:d0 + nb])
+        z = (torch.stack([uniforms(b[0]), uniforms(b[1])], dim=-1) if mixed
+             else torch.stack(box_muller(*b), dim=-1))
+        # (m, nb, K) @ (m, K, 2P): every column's noise times its factor
+        g = (z.reshape(nb, N, K).transpose(0, 1) @ St).transpose(0, 1)
+        g = g.reshape(nb, N, P, 2)
+        yield d0, g[..., 0], g[..., 1]
+
+
 def colfac_detect_reference(seed, S, wr, wi, pm_t, nbatch, mixed=True,
                             stream=0, draw0=0, bits=None, sh_t=None):
     """K1 in stock torch ops (see the module docstring).
@@ -138,27 +169,12 @@ def colfac_detect_reference(seed, S, wr, wi, pm_t, nbatch, mixed=True,
     Returns:
         (2 * nbatch, 2) float32 tensor, the layout of K2's.
     """
-    N, K, P, _ = S.shape
-    lanes = K // 2
-    St = S.reshape(N, K, 2 * P)
-    per = max(1, _REF_POINTS // (N * lanes))
-    parts = []
-    for d0 in range(0, int(nbatch), per):
-        nb = min(per, int(nbatch) - d0)
-        if bits is None:
-            b = colfac_bits(seed, nb, N, lanes, stream, device=S.device,
-                            draw0=draw0 + d0)
-        else:
-            b = (bits[0][d0:d0 + nb], bits[1][d0:d0 + nb])
-        z = (torch.stack([uniforms(b[0]), uniforms(b[1])], dim=-1) if mixed
-             else torch.stack(box_muller(*b), dim=-1))
-        # (m, nb, K) @ (m, K, 2P): every column's noise times its factor
-        g = (z.reshape(nb, N, K).transpose(0, 1) @ St).transpose(0, 1)
-        g = g.reshape(nb, N, P, 2)
-        parts.append(detect_reference(
-            g[..., 0], g[..., 1], wr, wi, pm_t,
-            None if sh_t is None else sh_t[d0:d0 + nb]))
-    return _pack(torch.cat(parts))
+    return _pack(torch.cat([
+        detect_reference(gr, gi, wr, wi, pm_t,
+                         None if sh_t is None
+                         else sh_t[d0:d0 + gr.shape[0]])
+        for d0, gr, gi in _colfac_gprime(seed, S, nbatch, mixed, stream,
+                                         draw0, bits)]))
 
 
 def _library():
@@ -168,13 +184,18 @@ def _library():
         lib.fast_colfac_detect.argtypes = [u, u, u, i, i, p, p, p, p, p, p, p,
                                            p, i, i, i, i, p]
         lib.fast_colfac_detect.restype = i
+        lib.fast_colfac_pass1.argtypes = [u, u, u, i, i, p, p, p, i, i, i, i,
+                                          p]
+        lib.fast_colfac_pass1.restype = i
+        lib.fast_detect_pass.argtypes = [i, p, p, p, p, p, p, p, p, i, i, p]
+        lib.fast_detect_pass.restype = i
         lib.fast_error_string.argtypes = [i]
         lib.fast_error_string.restype = ctypes.c_char_p
         lib._fast_typed = True
     return lib, info
 
 
-def _check(S, wr, wi, pm_t, nbatch, mixed):
+def _check_table(S, mixed):
     if S.ndim != 4 or S.shape[-1] != 2:
         raise ValueError(f"S must be (N, K, P, 2), got {tuple(S.shape)}")
     N, K, P, _ = S.shape
@@ -184,9 +205,29 @@ def _check(S, wr, wi, pm_t, nbatch, mixed):
     if K % 32 or not 0 < K <= 2 * LANES:
         raise ValueError(f"S must have a multiple of 32 rows, at most "
                          f"{2 * LANES}; got {K}")
+    return N, K, P
+
+
+def _check(S, wr, wi, pm_t, nbatch, mixed):
+    N, K, P = _check_table(S, mixed)
     check_tables({"S": (S, None), "wr": (wr, (P, N)), "wi": (wi, (P, N)),
                   "pm_t": (pm_t, (P, P))}, nbatch)
     return N, K, P
+
+
+def _check_launch(N, P, stream):
+    """Raise unless K1's kernel takes the shape and the stream word."""
+    if not supports(N, P) or P % 16:
+        raise ValueError(
+            f"the colfac-detect kernel takes a pupil padded to a multiple of "
+            f"16 px up to {_P_MAX} px and at most 65535 columns; got N={N}, "
+            f"P={P}")
+    _check_stream(stream)
+
+
+def _check_stream(stream):
+    if not 0 <= int(stream) < 2 ** 32:
+        raise ValueError("stream must fit in 32 bits")
 
 
 def colfac_detect(seed, S, wr, wi, pm_t, nbatch, mixed=True, stream=0,
@@ -209,13 +250,7 @@ def colfac_detect(seed, S, wr, wi, pm_t, nbatch, mixed=True, stream=0,
                                        mixed=mixed, stream=stream, sh_t=sh_t)
     if dev.type != "cuda":
         raise ValueError(f"colfac_detect runs on CPU or CUDA, not {dev}")
-    if not supports(N, P) or P % 16:
-        raise ValueError(
-            f"the colfac-detect kernel takes a pupil padded to a multiple of "
-            f"16 px up to {_P_MAX} px and at most 65535 columns; got N={N}, "
-            f"P={P}")
-    if not 0 <= int(stream) < 2 ** 32:
-        raise ValueError("stream must fit in 32 bits")
+    _check_launch(N, P, stream)
     k0, k1 = _key(seed)
     lib, _ = _library()
     nbatch = int(nbatch)
@@ -238,6 +273,100 @@ def colfac_detect(seed, S, wr, wi, pm_t, nbatch, mixed=True, stream=0,
 
 
 colfac_detect.LAUNCHES = 0
+
+
+def colfac_pass1_reference(seed, S, nbatch, mixed=True, stream=0, draw0=0):
+    """Pass 1 of K1 in stock torch ops: ``(gr, gi)``, the real and
+    imaginary parts of ``G'``, (nbatch, N, P) float32; arguments as
+    :func:`colfac_detect_reference`."""
+    parts = list(_colfac_gprime(seed, S, nbatch, mixed, stream, draw0, None))
+    return (torch.cat([gr for _, gr, _ in parts]),
+            torch.cat([gi for _, _, gi in parts]))
+
+
+def colfac_pass1(seed, S, nbatch, mixed=True, stream=0, draw0=0):
+    """Pass 1 of K1 alone: ``(gr, gi)``, (nbatch, N, P) float32, the
+    ``G'`` that :func:`colfac_detect` detects. For timing the pass and
+    holding it against :func:`colfac_pass1_reference` element by element.
+
+    On CUDA tensors this launches pass 1 of ``csrc/colfac_detect.cu``
+    (launches of :func:`~fast_tpu_torch.ops.synth_detect.draws_per_launch`
+    draws, counted in ``colfac_pass1.LAUNCHES``) on the current stream, or
+    raises; on CPU tensors it runs the plain version.
+    """
+    N, K, P = _check_table(S, mixed)
+    check_tables({"S": (S, None)}, nbatch)
+    dev = S.device
+    if dev.type == "cpu":
+        return colfac_pass1_reference(seed, S, nbatch, mixed=mixed,
+                                      stream=stream, draw0=draw0)
+    if dev.type != "cuda":
+        raise ValueError(f"colfac_pass1 runs on CPU or CUDA, not {dev}")
+    _check_launch(N, P, stream)
+    k0, k1 = _key(seed)
+    lib, _ = _library()
+    nbatch = int(nbatch)
+    g = torch.empty((2, nbatch, N, P), dtype=torch.float32, device=dev)
+    per = draws_per_launch(N, P, nbatch)
+    with torch.cuda.device(dev):
+        cs = torch.cuda.current_stream(dev).cuda_stream
+        for d0 in range(0, nbatch, per):
+            nb = min(per, nbatch - d0)
+            err = lib.fast_colfac_pass1(
+                k0, k1, int(stream), int(draw0) + d0, nb, S.data_ptr(),
+                g[0, d0].data_ptr(), g[1, d0].data_ptr(), N, P, K,
+                int(bool(mixed)), cs)
+            raise_on(lib, err, "colfac_pass1 launch")
+            colfac_pass1.LAUNCHES += 1
+    return g[0], g[1]
+
+
+colfac_pass1.LAUNCHES = 0
+
+
+def detect_pass(gr, gi, wr, wi, pm_t, sh_t=None):
+    """The detect pass of K1, K2 and K3 alone: the sums (nbatch, 4) of
+    :func:`~fast_tpu_torch.ops.synth_detect.detect_reference` from each
+    draw's ``G'`` (``gr``, ``gi``: (nbatch, N, P), P a multiple of 16, as
+    the pass-1 wrappers return it). For timing the pass and holding it
+    against that plain version.
+
+    On CUDA tensors this launches ``detect_pass`` of ``csrc/detect.cuh``
+    (one launch of the given draws, counted in ``detect_pass.LAUNCHES``) on
+    the current stream, or raises; on CPU tensors it runs the plain
+    version.
+    """
+    if gr.ndim != 3:
+        raise ValueError(f"gr must be (nbatch, N, P), got {tuple(gr.shape)}")
+    nbatch, N, P = gr.shape
+    check_tables({"gr": (gr, None), "gi": (gi, (nbatch, N, P)),
+                  "wr": (wr, (P, N)), "wi": (wi, (P, N)),
+                  "pm_t": (pm_t, (P, P))}, nbatch)
+    dev = gr.device
+    check_subharm(sh_t, nbatch, P, dev)
+    if dev.type == "cpu":
+        return detect_reference(gr, gi, wr, wi, pm_t, sh_t)
+    if dev.type != "cuda":
+        raise ValueError(f"detect_pass runs on CPU or CUDA, not {dev}")
+    if P % 16 or pupil_tiles(P) > 255:
+        raise ValueError(f"the detect pass takes a pupil padded to a "
+                         f"multiple of 16 px; got P={P}")
+    lib, _ = _library()
+    out = torch.empty((nbatch, 4), dtype=torch.float32, device=dev)
+    part = torch.empty((nbatch, pupil_tiles(P) ** 2, 4), dtype=torch.float32,
+                       device=dev)
+    with torch.cuda.device(dev):
+        err = lib.fast_detect_pass(
+            nbatch, wr.data_ptr(), wi.data_ptr(), gr.data_ptr(),
+            gi.data_ptr(), pm_t.data_ptr(),
+            None if sh_t is None else sh_t.data_ptr(), part.data_ptr(),
+            out.data_ptr(), N, P, torch.cuda.current_stream(dev).cuda_stream)
+    raise_on(lib, err, "detect_pass launch")
+    detect_pass.LAUNCHES += 1
+    return out
+
+
+detect_pass.LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -275,6 +404,27 @@ def pack_tables_split(L, mixed=True):
     return T
 
 
+def _split_gprime(seed, T, nbatch, mixed, stream, draw0, bits, LW):
+    """K3's pass 1 in stock torch ops, in pieces of bounded size: yields
+    ``(d0, gr, gi)``, the ``G'`` (nb, N, P) of draws ``d0 ..``."""
+    N, Kq, P, _ = T.shape
+    tr, ti = T[..., 0].contiguous(), T[..., 1].contiguous()
+    per = max(1, _REF_POINTS // (N * Kq))
+    for d0 in range(0, int(nbatch), per):
+        nb = min(per, int(nbatch) - d0)
+        if bits is None:
+            b = colfac_bits(seed, nb, N, Kq, stream, device=T.device,
+                            draw0=draw0 + d0, lane_stride=LW, word=3)
+        else:
+            b = (bits[0][d0:d0 + nb], bits[1][d0:d0 + nb])
+        zr, zi = ((uniforms(b[0]), uniforms(b[1])) if mixed
+                  else box_muller(*b))
+        # (m, nb, Kq) @ (m, Kq, P): every column's noise times its factor
+        zr, zi = zr.transpose(0, 1), zi.transpose(0, 1)
+        yield (d0, (zr @ tr - zi @ ti).transpose(0, 1),
+               (zr @ ti + zi @ tr).transpose(0, 1))
+
+
 def colfac_split_reference(seed, T, wr, wi, pm_t, nbatch, mixed=True,
                            stream=0, draw0=0, bits=None, sh_t=None, LW=None):
     """K3 in stock torch ops (see the module docstring).
@@ -287,28 +437,13 @@ def colfac_split_reference(seed, T, wr, wi, pm_t, nbatch, mixed=True,
     Returns:
         (2 * nbatch, 2) float32 tensor, the layout of K2's.
     """
-    N, Kq, P, _ = T.shape
-    LW = lane_width(Kq) if LW is None else int(LW)
-    tr, ti = T[..., 0].contiguous(), T[..., 1].contiguous()
-    per = max(1, _REF_POINTS // (N * Kq))
-    parts = []
-    for d0 in range(0, int(nbatch), per):
-        nb = min(per, int(nbatch) - d0)
-        if bits is None:
-            b = colfac_bits(seed, nb, N, Kq, stream, device=T.device,
-                            draw0=draw0 + d0, lane_stride=LW, word=3)
-        else:
-            b = (bits[0][d0:d0 + nb], bits[1][d0:d0 + nb])
-        zr, zi = ((uniforms(b[0]), uniforms(b[1])) if mixed
-                  else box_muller(*b))
-        # (m, nb, Kq) @ (m, Kq, P): every column's noise times its factor
-        zr, zi = zr.transpose(0, 1), zi.transpose(0, 1)
-        gr = (zr @ tr - zi @ ti).transpose(0, 1)
-        gi = (zr @ ti + zi @ tr).transpose(0, 1)
-        parts.append(detect_reference(
-            gr, gi, wr, wi, pm_t,
-            None if sh_t is None else sh_t[d0:d0 + nb]))
-    return _pack(torch.cat(parts))
+    LW = lane_width(T.shape[1]) if LW is None else int(LW)
+    return _pack(torch.cat([
+        detect_reference(gr, gi, wr, wi, pm_t,
+                         None if sh_t is None
+                         else sh_t[d0:d0 + gr.shape[0]])
+        for d0, gr, gi in _split_gprime(seed, T, nbatch, mixed, stream,
+                                        draw0, bits, LW)]))
 
 
 def _library_split():
@@ -318,13 +453,16 @@ def _library_split():
         lib.fast_colfac_split.argtypes = [u, u, u, i, i, p, p, p, p, p, p, p,
                                           p, p, i, i, i, i, i, p]
         lib.fast_colfac_split.restype = i
+        lib.fast_split_pass1.argtypes = [u, u, u, i, i, p, p, p, i, i, i, i,
+                                         i, p]
+        lib.fast_split_pass1.restype = i
         lib.fast_error_string.argtypes = [i]
         lib.fast_error_string.restype = ctypes.c_char_p
         lib._fast_typed = True
     return lib, info
 
 
-def _check_split(T, wr, wi, pm_t, nbatch, LW):
+def _check_split_table(T, LW):
     if T.ndim != 4 or T.shape[-1] != 2:
         raise ValueError(f"T must be (N, Kq, P, 2), got {tuple(T.shape)}")
     N, Kq, P, _ = T.shape
@@ -336,6 +474,11 @@ def _check_split(T, wr, wi, pm_t, nbatch, LW):
         raise ValueError(
             f"the split colfac-detect kernel takes a pupil padded to a "
             f"multiple of 16 px and at most 65535 columns; got N={N}, P={P}")
+    return N, Kq, P, LW
+
+
+def _check_split(T, wr, wi, pm_t, nbatch, LW):
+    N, Kq, P, LW = _check_split_table(T, LW)
     check_tables({"T": (T, None), "wr": (wr, (P, N)), "wi": (wi, (P, N)),
                   "pm_t": (pm_t, (P, P))}, nbatch)
     return N, Kq, P, LW
@@ -360,8 +503,7 @@ def colfac_detect_split(seed, T, wr, wi, pm_t, nbatch, mixed=True, stream=0,
                                       LW=LW)
     if dev.type != "cuda":
         raise ValueError(f"colfac_detect_split runs on CPU or CUDA, not {dev}")
-    if not 0 <= int(stream) < 2 ** 32:
-        raise ValueError("stream must fit in 32 bits")
+    _check_stream(stream)
     k0, k1 = _key(seed)
     lib, _ = _library_split()
     nbatch = int(nbatch)
@@ -387,3 +529,54 @@ def colfac_detect_split(seed, T, wr, wi, pm_t, nbatch, mixed=True, stream=0,
 
 
 colfac_detect_split.LAUNCHES = 0
+
+
+def split_pass1_reference(seed, T, nbatch, mixed=True, stream=0, draw0=0,
+                          LW=None):
+    """Pass 1 of K3 in stock torch ops: ``(gr, gi)``, (nbatch, N, P)
+    float32; arguments as :func:`colfac_split_reference`."""
+    LW = lane_width(T.shape[1]) if LW is None else int(LW)
+    parts = list(_split_gprime(seed, T, nbatch, mixed, stream, draw0, None,
+                               LW))
+    return (torch.cat([gr for _, gr, _ in parts]),
+            torch.cat([gi for _, _, gi in parts]))
+
+
+def split_pass1(seed, T, nbatch, mixed=True, stream=0, draw0=0, LW=None):
+    """Pass 1 of K3 alone: ``(gr, gi)``, (nbatch, N, P) float32, the
+    ``G'`` that :func:`colfac_detect_split` detects. For timing the pass and
+    holding it against :func:`split_pass1_reference` element by element.
+
+    On CUDA tensors this launches pass 1 of ``csrc/colfac_split.cu``
+    (launches of :func:`~fast_tpu_torch.ops.synth_detect.draws_per_launch`
+    draws, counted in ``split_pass1.LAUNCHES``) on the current stream, or
+    raises; on CPU tensors it runs the plain version.
+    """
+    N, Kq, P, LW = _check_split_table(T, LW)
+    check_tables({"T": (T, None)}, nbatch)
+    dev = T.device
+    if dev.type == "cpu":
+        return split_pass1_reference(seed, T, nbatch, mixed=mixed,
+                                     stream=stream, draw0=draw0, LW=LW)
+    if dev.type != "cuda":
+        raise ValueError(f"split_pass1 runs on CPU or CUDA, not {dev}")
+    _check_stream(stream)
+    k0, k1 = _key(seed)
+    lib, _ = _library_split()
+    nbatch = int(nbatch)
+    g = torch.empty((2, nbatch, N, P), dtype=torch.float32, device=dev)
+    per = draws_per_launch(N, P, nbatch)
+    with torch.cuda.device(dev):
+        cs = torch.cuda.current_stream(dev).cuda_stream
+        for d0 in range(0, nbatch, per):
+            nb = min(per, nbatch - d0)
+            err = lib.fast_split_pass1(
+                k0, k1, int(stream), int(draw0) + d0, nb, T.data_ptr(),
+                g[0, d0].data_ptr(), g[1, d0].data_ptr(), N, P, Kq, LW,
+                int(bool(mixed)), cs)
+            raise_on(lib, err, "split_pass1 launch")
+            split_pass1.LAUNCHES += 1
+    return g[0], g[1]
+
+
+split_pass1.LAUNCHES = 0

@@ -7,7 +7,10 @@ with CUDA events. A replacement that no longer finds the code it replaces
 stops the script with the variant's name, so an edit to a kernel never
 times a copy that was not changed.
 
-A module of helpers; run the two scripts above.
+A module of helpers; run the two scripts above. scripts/torch_colfac_ab.py
+times with its ``cuda_ms`` and reads the card with ``card``; importing it
+puts this checkout's root first on the path but imports nothing of the
+package, so a caller may put another checkout before it.
 """
 
 import ctypes
@@ -17,11 +20,9 @@ import subprocess
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))))
-from fast_tpu_torch.ops import _build  # noqa: E402
-
-CSRC = os.path.join(os.path.dirname(_build.__file__), "..", "csrc")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+CSRC = os.path.join(ROOT, "fast_tpu_torch", "csrc")
 HEADERS = ("common.cuh", "detect.cuh")
 
 
@@ -58,9 +59,10 @@ def replace_body(src, name, new, what):
 
 
 def build(out, todo, flags, entry, argtypes):
-    """Build {name: (kernel source, tf32x3.cuh source)} into out/<name>/,
-    one nvcc each, all at once; returns {name: (the C function ``entry``
-    with ``argtypes``, nvcc's log)}."""
+    """Build {name: (kernel source, tf32x3.cuh source[, detect.cuh
+    source])} into out/<name>/, one nvcc each, all at once; returns {name:
+    (the C function ``entry`` with ``argtypes``, nvcc's log)}."""
+    from fast_tpu_torch.ops import _build
     t0 = time.perf_counter()
     procs = {}
     for name, srcs in todo.items():
@@ -70,7 +72,7 @@ def build(out, todo, flags, entry, argtypes):
             with open(os.path.join(CSRC, h)) as f, \
                     open(os.path.join(d, h), "w") as g:
                 g.write(f.read())
-        for fname, text in zip(("k.cu", "tf32x3.cuh"), srcs):
+        for fname, text in zip(("k.cu", "tf32x3.cuh", "detect.cuh"), srcs):
             with open(os.path.join(d, fname), "w") as f:
                 f.write(text)
         procs[name] = subprocess.Popen(

@@ -16,7 +16,9 @@ plain version where a card is present.
 * Monte Carlo runs agree with the JAX package's in distribution: mean
   within 5 combined standard errors, scintillation index within 20%.
 * On the card the kernel and the plain version draw identical Philox bits
-  and agree to KERNEL_REL times the largest |sum|.
+  and agree to KERNEL_REL times the largest |sum|; its two passes alone
+  (pass 1's G' within GPRIME_REL N 2^-24 max |G'|, the detect pass's sums
+  within KERNEL_REL) against their plain versions.
 
 The card-only cases run where JAX is not installed:
 
@@ -35,6 +37,10 @@ torch.set_num_threads(1)
 
 NITER = 4096
 KERNEL_REL = 4e-6
+# pass 1 alone, G' against its plain version element by element, in units
+# of N 2^-24 max |G'|, as K2's pass 1 is held
+# (test_torch_synth_detect.GPRIME_REL)
+GPRIME_REL = 1.0
 
 
 def small_params(**overrides):
@@ -431,3 +437,59 @@ def test_kernel_matches_plain_on_card(cuda_device, noise, case):
     assert bool(torch.isfinite(got).all())
     err = float((got - ref).abs().max())
     assert err <= KERNEL_REL * float(ref.abs().max())
+
+
+# (N, lo, hi, draws) of the passes alone: 64^2; the default config's 102^2
+# with its pupil as wide as the grid; the 512^2 flagship's shapes
+PASS_CASES = [(64, 20, 44, 37), (102, 0, 102, 16), (512, 215, 297, 70)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PASS_CASES, ids=lambda c: f"N{c[0]}x{c[3]}")
+@pytest.mark.parametrize("noise", ["gauss", "mixed"])
+def test_pass1_matches_plain_on_card(cuda_device, noise, case):
+    """G' of K1's pass 1 alone (fast_colfac_pass1, 3xTF32 on the tensor
+    cores) against its plain version, element by element, within
+    GPRIME_REL N 2^-24 max |G'|."""
+    N, lo, hi, nbatch = case
+    mixed = noise == "mixed"
+    S = k1_inputs(N, lo, hi, phase_rms=1.5, mixed=mixed)[1]["S"]
+    S = S.to(cuda_device)
+    before = cd.colfac_pass1.LAUNCHES
+    gr, gi = cd.colfac_pass1(0xABCDEF0123, S, nbatch, mixed=mixed, stream=4,
+                             draw0=5)
+    rr, ri = cd.colfac_pass1_reference(0xABCDEF0123, S, nbatch, mixed=mixed,
+                                       stream=4, draw0=5)
+    torch.cuda.synchronize()
+    assert cd.colfac_pass1.LAUNCHES == before + 1
+    assert gr.shape == gi.shape == rr.shape == (nbatch, N, S.shape[2])
+    assert bool(torch.isfinite(gr).all() and torch.isfinite(gi).all())
+    top = max(float(rr.abs().max()), float(ri.abs().max()))
+    err = max(float((gr - rr).abs().max()), float((gi - ri).abs().max()))
+    assert err <= GPRIME_REL * N * 2.0 ** -24 * top
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PASS_CASES, ids=lambda c: f"N{c[0]}x{c[3]}")
+def test_detect_pass_matches_plain_on_card(cuda_device, case):
+    """The detect pass alone (fast_detect_pass, H = W G' in 3xTF32 on the
+    tensor cores) on the plain pass 1's G', with and without subharmonic
+    screens, against its plain version within KERNEL_REL."""
+    N, lo, hi, nbatch = case
+    t = {k: v.to(cuda_device)
+         for k, v in k1_inputs(N, lo, hi, phase_rms=1.5)[1].items()}
+    gr, gi = cd.colfac_pass1_reference(0xABCDEF0123, t["S"], nbatch)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    sh = torch.complex(*torch.randn((2, nbatch, hi - lo, hi - lo),
+                                    device=cuda_device, generator=g))
+    sh_t = sd.pack_subharm(sh, t["wr"].shape[0])
+    for shk in (None, sh_t):
+        before = cd.detect_pass.LAUNCHES
+        got = cd.detect_pass(gr, gi, t["wr"], t["wi"], t["pm_t"], shk)
+        ref = sd.detect_reference(gr, gi, t["wr"], t["wi"], t["pm_t"], shk)
+        torch.cuda.synchronize()
+        assert cd.detect_pass.LAUNCHES == before + 1
+        assert got.shape == ref.shape == (nbatch, 4)
+        assert bool(torch.isfinite(got).all())
+        err = float((got - ref).abs().max())
+        assert err <= KERNEL_REL * float(ref.abs().max())

@@ -18,7 +18,9 @@ plain versions, and on the card against them.
   distribution: mean within 5 combined standard errors, scintillation
   index within 20%.
 * On the card each kernel and its plain version draw identical Philox bits
-  and agree to KERNEL_REL times the largest |sum|.
+  and agree to KERNEL_REL times the largest |sum|; K3's pass 1 alone (G'
+  within GPRIME_REL N 2^-24 max |G'|) and the tiled detect pass alone
+  (sums within KERNEL_REL) against their plain versions.
 
 The card-only cases run where JAX is not installed:
 
@@ -37,6 +39,10 @@ torch.set_num_threads(1)
 
 NITER = 1024
 KERNEL_REL = 4e-6
+# K3's pass 1 alone, G' against its plain version element by element, in
+# units of N 2^-24 max |G'|, as K2's pass 1 is held
+# (test_torch_synth_detect.GPRIME_REL)
+GPRIME_REL = 1.0
 
 
 def wide_params(**overrides):
@@ -501,6 +507,79 @@ def test_k2_kernel_matches_plain_at_wide_pupils_on_card(cuda_device, noise,
         got = sd.synth_detect(*args, mix=mix, stream=4, **kw)
         ref = sd.synth_detect_reference(*args, mix=mix, stream=4, **kw)
         torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        err = float((got - ref).abs().max())
+        assert err <= KERNEL_REL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", KERNEL_CASES[:3],
+                         ids=lambda c: f"N{c[0]}x{c[3]}")
+@pytest.mark.parametrize("noise", ["gauss", "mixed"])
+def test_split_pass1_matches_plain_on_card(cuda_device, noise, case):
+    """G' of K3's pass 1 alone (fast_split_pass1, 3xTF32 on the tensor
+    cores) against its plain version, element by element, within
+    GPRIME_REL N 2^-24 max |G'|."""
+    N, lo, hi, nbatch = case
+    mixed = noise == "mixed"
+    T = k3_inputs(N, lo, hi, phase_rms=1.5, mixed=mixed,
+                  device=cuda_device)[1]["T"]
+    nbatch = min(nbatch, 70)
+    before = cd.split_pass1.LAUNCHES
+    gr, gi = cd.split_pass1(0xABCDEF0123, T, nbatch, mixed=mixed, stream=4,
+                            draw0=5)
+    rr, ri = cd.split_pass1_reference(0xABCDEF0123, T, nbatch, mixed=mixed,
+                                      stream=4, draw0=5)
+    torch.cuda.synchronize()
+    assert cd.split_pass1.LAUNCHES == before + 1
+    assert gr.shape == gi.shape == rr.shape == (nbatch, N, T.shape[2])
+    assert bool(torch.isfinite(gr).all() and torch.isfinite(gi).all())
+    top = max(float(rr.abs().max()), float(ri.abs().max()))
+    err = max(float((gr - rr).abs().max()), float((gi - ri).abs().max()))
+    assert err <= GPRIME_REL * N * 2.0 ** -24 * top
+
+
+def detect_inputs(N, lo, hi, nbatch, seed=5, phase_rms=1.5, device="cpu"):
+    """Inputs of the detect pass alone: W and pm padded to the kernel's
+    width, and random G' (nbatch, N, P) whose screens have about
+    ``phase_rms`` rad rms."""
+    rng = np.random.default_rng(seed)
+    W = ts.pruned_ift2_matrix(N, lo, hi, dtype=np.complex64)
+    pm = rng.random((hi - lo, hi - lo)).astype(np.float32)
+    wr, wi, pm_t = sd.pad_pupil(
+        torch.from_numpy(np.ascontiguousarray(W.real)),
+        torch.from_numpy(np.ascontiguousarray(W.imag)),
+        torch.from_numpy(np.ascontiguousarray(pm.T)))
+    P = wr.shape[0]
+    scale = phase_rms / np.sqrt((np.abs(W) ** 2).sum(1).mean())
+    g = (rng.standard_normal((2, nbatch, N, P)) * scale).astype(np.float32)
+    return [x.to(device) for x in (torch.from_numpy(g[0]),
+                                   torch.from_numpy(g[1]), wr, wi, pm_t)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", KERNEL_CASES[1:],
+                         ids=lambda c: f"N{c[0]}x{c[3]}")
+def test_detect_pass_matches_plain_at_wide_pupils_on_card(cuda_device, case):
+    """The tiled detect pass alone (fast_detect_pass: tiles of H = W G' in
+    3xTF32 on the tensor cores, partial sums added in tile order) with and
+    without subharmonic screens, against its plain version within
+    KERNEL_REL."""
+    N, lo, hi, nbatch = case
+    nbatch = min(nbatch, 37)
+    gr, gi, wr, wi, pm_t = detect_inputs(N, lo, hi, nbatch,
+                                         device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    sh = torch.complex(*torch.randn((2, nbatch, hi - lo, hi - lo),
+                                    device=cuda_device, generator=g))
+    sh_t = sd.pack_subharm(sh, wr.shape[0])
+    for shk in (None, sh_t):
+        before = cd.detect_pass.LAUNCHES
+        got = cd.detect_pass(gr, gi, wr, wi, pm_t, shk)
+        ref = sd.detect_reference(gr, gi, wr, wi, pm_t, shk)
+        torch.cuda.synchronize()
+        assert cd.detect_pass.LAUNCHES == before + 1
+        assert got.shape == ref.shape == (nbatch, 4)
         assert bool(torch.isfinite(got).all())
         err = float((got - ref).abs().max())
         assert err <= KERNEL_REL * float(ref.abs().max())
