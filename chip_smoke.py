@@ -20,8 +20,11 @@ Phases, in order; any failure exits non-zero before the result line:
    comparison with the plain version's products at TF32, a
    lower-precision control that the limit must reject; pass 1 alone
    (``fast_synth_pass1``, 3xTF32 on the tensor cores) timed with the
-   FLOP/s of its products; K2 with subharmonic screens over 4100 draws;
-   and the device sincos against float64;
+   FLOP/s of its products beside its yardsticks (one ``torch.matmul`` of
+   the mixing product and one complex64 ``torch.matmul`` of G' = X' W^T,
+   TF32 off), and K2's detect pass alone (``detect_pass``) beside one
+   complex64 ``torch.matmul`` of W @ G'; K2 with subharmonic screens over
+   4100 draws; and the device sincos against float64;
 4. K1 against its plain version at the 512^2 flagship shapes (N=512,
    P=82), 'mixed' and 'gauss', over 4100 draws (two launches), with the
    TF32 control; its two passes alone ('mixed': pass 1, ``colfac_pass1``,
@@ -116,7 +119,20 @@ Phases, in order; any failure exits non-zero before the result line:
    its plain version element by element within N 2^-24 max |G'|, with
    the TF32 control; its time and FLOP/s beside its bound, the plain
    version and one complex64 ``torch.matmul`` of the same G' (TF32 off),
-   the stage's library time.
+   the stage's library time;
+15. the FSO comms layer: ``FastFSOC(flagship(COHERENT=True,
+   MODULATION='16-QAM', EsN0=14))`` at NITER=262144 with 1000 symbols an
+   iteration, which must launch K2 and no other kernel, its modem on the
+   card, and give an SEP within 5 standard errors (over iterations) of the
+   fading-averaged ``sep_qam`` on the same normalised power; its r/s
+   (first and warm run), the modem's symbols/s and the peak memory; the
+   I-Q PDFs of its field
+   (M=16, 64^2 bins: 'individual', 'full', 'full' with shot noise) and
+   GMI and MI on the card (float32) against the CPU port (float64), GMI and
+   MI within 1e-3 bit/symbol; then ``fade_prob``, ``fade_dur`` and the
+   1e-3 and 1e-4 quantiles of I/<I> on the temporal flagship's 65,536-step
+   K4 series (the last warm run of 9 and 11) at 0.5 and 0.2 of the mean,
+   on the card and on a CPU copy, whose fade counts must be equal.
 
 The last lines are the card, one JSON object of per-kernel numbers and
 one of the run's device. The flagship config is the AO-corrected 0.8 m
@@ -192,6 +208,15 @@ NITER_WT = 2048       # steps of the wide link's temporal run (NCHUNKS=2)
 SI_SIGMAS = 5.0       # scintillation index of a short run: combined
                       # standard errors from 16 blocks, where that is wider
                       # than SI_REL
+COMMS = dict(MODULATION="16-QAM", EsN0=14)  # the FSO comms run's modem
+COMMS_M, COMMS_ESN0 = 16, 14
+COMMS_NPXLS = 64      # I-Q bins a side of the PDFs
+SEP_SIGMAS = 5.0      # modem SEP against the fading-averaged closed form,
+                      # standard errors over iterations
+MI_TOL = 1e-3         # GMI and MI, card (float32) against CPU (float64),
+                      # bit/symbol
+FADE_THRESHOLDS = (0.5, 0.2)   # of the mean power
+FADE_QUANTILES = (1e-3, 1e-4)  # of I / <I>
 # the H100 SXM's published rates (NVIDIA data sheet, at 700 W): float32
 # outside the tensor cores; matrix products at fp32 accuracy on the tensor
 # cores, three TF32 passes (3xTF32) at 495 TFLOP/s; device memory
@@ -254,12 +279,17 @@ def cuda_ms(fn, reps, warm=True):
     return t0.elapsed_time(t1) / reps
 
 
-def timed_run(sim):
+def timed(fn):
+    """(fn(), host seconds), the clock closed by a synchronize."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = sim.run()
+    out = fn()
     torch.cuda.synchronize()
-    return res, time.perf_counter() - t0
+    return out, time.perf_counter() - t0
+
+
+def timed_run(sim):
+    return timed(sim.run)
 
 
 def launches_of(fn, counter):
@@ -474,18 +504,77 @@ def time_kernel(fn, ref_fn, args, kw, ntime=NTIME, reps=(10, 3)):
 def time_pass1(T, nbatch, mixed, label, reps):
     """Pass 1 of K2 and K7 alone (``fast_synth_pass1``): device ms per call
     of ``nbatch`` draws, and the FLOP/s of its two products (4N^3 mixing
-    for 'mixed', 8N^2 P for G', P the padded pupil the kernel computes)."""
+    for 'mixed', 8N^2 P for G', P the padded pupil the kernel computes).
+    Beside it its yardsticks (PyTorch calls of the same shapes, TF32 off,
+    which the port never calls): one ``torch.matmul`` of the mixing
+    product, (2 draws N x N) @ (N x N) for both parts of the noise
+    ('mixed'), and one complex64 ``torch.matmul`` of G' = X' W^T, (draws N
+    x N) @ (N x P). Returns (ms, TFLOP/s, {yardstick: ms}); the launches
+    here do not count."""
     from fast_tpu_torch.ops import synth_detect as sd
     N = T["s_t"].shape[0]
     P = sd.padded_pupil(T["wr"].shape[0])
     mix = T["mix"] if mixed else None
+    before = sd.synth_pass1.LAUNCHES
     ms = cuda_ms(lambda: sd.synth_pass1(SEED, T["s_t"], T["wr"], T["wi"],
                                         nbatch, mix=mix), reps)
+    sd.synth_pass1.LAUNCHES = before
     tflops = nbatch * ((4 * N ** 3 if mixed else 0) + 8 * N * N * P) / (
         ms * 1e9)
+    g = torch.Generator(device=DEVICE).manual_seed(13)
+    lib = {}
+    if mixed:
+        u = torch.rand((2 * nbatch * N, N), device=DEVICE, generator=g)
+        lib["pass1_library_mix_ms"] = cuda_ms(
+            lambda: torch.matmul(u, T["mix"]), reps)
+        del u
+    x = torch.complex(*torch.randn((2, nbatch * N, N), device=DEVICE,
+                                   generator=g))
+    wt = torch.complex(T["wr"], T["wi"]).T
+    lib["pass1_library_gprime_ms"] = cuda_ms(lambda: torch.matmul(x, wt),
+                                             reps)
+    del x
+    torch.cuda.empty_cache()
     print(f"pass 1 {label}: {ms:.3f} ms per {nbatch} complex draws, "
-          f"{tflops:.1f} TFLOP/s of its products (3xTF32 mma.sync)")
-    return ms, tflops
+          f"{tflops:.1f} TFLOP/s of its products (3xTF32 mma.sync); "
+          f"yardsticks (TF32 off): "
+          + ("" if not mixed else
+             f"mixing torch.matmul {lib['pass1_library_mix_ms']:.3f} ms, ")
+          + f"G' complex64 torch.matmul {lib['pass1_library_gprime_ms']:.3f}"
+          f" ms")
+    return ms, tflops, lib
+
+
+def k2_detect_alone(T, nbatch, npup, reps):
+    """K2's detect pass alone (``colfac_detect.detect_pass`` on the G' of
+    K2's pass 1, 3xTF32 on the tensor cores), with its FLOP/s over the
+    pupil's ``npup`` px and its bound, beside its yardstick: one complex64
+    ``torch.matmul`` of W @ G' (TF32 off). The launches do not count."""
+    from fast_tpu_torch.ops import colfac_detect as cd
+    from fast_tpu_torch.ops import synth_detect as sd
+    N, P = T["s_t"].shape[0], T["wr"].shape[0]
+    b1, b2 = sd.synth_pass1.LAUNCHES, cd.detect_pass.LAUNCHES
+    gr, gi = sd.synth_pass1(SEED, T["s_t"], T["wr"], T["wi"], nbatch,
+                            mix=T["mix"])
+    ms = cuda_ms(lambda: cd.detect_pass(gr, gi, T["wr"], T["wi"],
+                                        T["pm_t"]), reps)
+    sd.synth_pass1.LAUNCHES, cd.detect_pass.LAUNCHES = b1, b2
+    wc = torch.complex(T["wr"], T["wi"])
+    gc = torch.complex(gr, gi)
+    del gr, gi
+    lib_ms = cuda_ms(lambda: torch.matmul(wc, gc), reps)
+    del gc
+    torch.cuda.empty_cache()
+    flops = nbatch * 8 * npup * npup * N
+    bound = _bound(flops, 4 * (2 * nbatch * N * P + 2 * P * N + P * P
+                               + 4 * nbatch))
+    print(f"K2 detect pass alone: {ms:.3f} ms per {nbatch} draws "
+          f"({flops / ms / 1e9:.1f} TFLOP/s over {npup} px, 3xTF32 "
+          f"mma.sync), bound {bound[0]:.3f} ms ({bound[1]}; "
+          f"{bound[0] / ms:.1%} of it), yardstick complex64 torch.matmul "
+          f"(TF32 off) {lib_ms:.3f} ms")
+    return {"detect_ms": ms, "detect_tflops": flops / ms / 1e9,
+            "detect_bound_ms": bound[0], "detect_library_ms": lib_ms}
 
 
 def colfac_passes(kernel, pass1, table, K, npup, T, nbatch, kw, reps):
@@ -566,12 +655,15 @@ def phase_k2(sim, sim_default):
               f"per draw; {bound_ms / ms:.1%} of it) per {NTIME} complex "
               f"draws at 256^2")
         sfx = "" if noise == "mixed" else "_gauss"
-        p1_ms, p1_tflops = time_pass1(T, NTIME, noise == "mixed",
-                                      f"K2 {noise} 256^2, P={P}", 10)
+        p1_ms, p1_tflops, p1_lib = time_pass1(T, NTIME, noise == "mixed",
+                                              f"K2 {noise} 256^2, P={P}", 10)
         res.update({"ms" + sfx: ms, "plain_ms" + sfx: plain_ms,
                     "bound_ms" + sfx: bound_ms, "bound_by" + sfx: bound_by,
                     "pass1_ms" + sfx: p1_ms,
-                    "pass1_tflops" + sfx: p1_tflops})
+                    "pass1_tflops" + sfx: p1_tflops,
+                    **{k + sfx: v for k, v in p1_lib.items()}})
+        if noise == "mixed":
+            res.update(k2_detect_alone(T, NTIME, P, 10))
 
     # subharmonic screens of ~1 rad rms, two launches: the second takes
     # its screens from draw 4096
@@ -1136,8 +1228,9 @@ def phase_wide(card):
                   f"{res['bound_ms']:.3f} ms ({flops / per / 1e9:.2f} GFLOP "
                   f"per draw; {res['bound_ms'] / res['ms']:.1%} of it) per "
                   f"launch of {per} complex draws at {label}")
-        k2w["pass1_ms"], k2w["pass1_tflops"] = time_pass1(
+        k2w["pass1_ms"], k2w["pass1_tflops"], lib = time_pass1(
             T, per, True, f"K2 mixed {label}", 3)
+        k2w.update(lib)
         k3.update(colfac_passes("K3", cd.split_pass1, tab, 2 * tab.shape[1],
                                 P, T, per, {"mixed": True}, 3))
     g = torch.Generator(device=DEVICE).manual_seed(11)
@@ -1154,8 +1247,9 @@ def phase_wide(card):
         sd.synth_screens, sd.synth_screens_reference, a7, {"npup": P}, per,
         (3, 1))
     k7["bound_ms"], k7["bound_by"], flops = k7_bound(N, P, per)
-    k7["pass1_ms"], k7["pass1_tflops"] = time_pass1(
+    k7["pass1_ms"], k7["pass1_tflops"], lib = time_pass1(
         T, per, False, f"K7 (Box-Muller) {label}", 3)
+    k7.update(lib)
     k2w["ms_gauss"] = cuda_ms(lambda: sd.synth_detect(*base[:-1], per), 3)
     sd.synth_detect.LAUNCHES = 0
     print(f"K7: {k7['ms']:.3f} ms kernel ({k7['ms'] / per:.4f} ms a draw; "
@@ -1734,6 +1828,167 @@ def phase_ar_dft(card):
     return out
 
 
+def _sep_theory(power, M, esn0, S):
+    """The fading-averaged SEP of square M-QAM on the normalised ``power``
+    (numpy) and its standard error over iterations of ``S`` symbols, each
+    iteration at its own power: sqrt(var(p_b) + mean(p_b (1 - p_b)) / S)
+    / sqrt(B), p_b the closed form of iteration b."""
+    from fast_tpu_torch import comms
+    pre = (np.sqrt(M) - 1) / np.sqrt(M)
+    q = comms.Q(np.sqrt(3 / (M - 1) * 10 ** (esn0 / 10) * power ** 2))
+    pb = 4 * (pre * q - pre ** 2 * q ** 2)
+    theory = comms.sep_qam(M, esn0, power)
+    if not abs(pb.mean() - theory) <= 1e-12 * theory:
+        fail("per-iteration SEP does not average to sep_qam")
+    se = np.sqrt(pb.var() + (pb * (1 - pb)).mean() / S) / np.sqrt(pb.size)
+    return theory, se
+
+
+def phase_comms(card, fade_series, dt):
+    """The FSO comms layer on the card: ``FastFSOC`` at the 256^2 flagship
+    through K2 with a 16-QAM modem at EsN0 = 14 dB (its SEP against the
+    fading-averaged closed form), the I-Q PDFs, GMI and MI of its field
+    against the CPU port, and the fade statistics of the temporal
+    flagship's K4 series ``fade_series`` (steps of ``dt`` s) on the card
+    and on a CPU copy."""
+    from fast_tpu_torch import FastFSOC, comms
+    counters = all_counters()
+    sim = FastFSOC(flagship(COHERENT=True, **COMMS), device=DEVICE)
+    if sim._synth != "pallas_fused":
+        fail(f"the comms run resolved to {sim._synth!r}, not pallas_fused")
+    for c in counters.values():
+        c.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    res, secs = timed_run(sim)
+    launches = {k: c.LAUNCHES for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    m = sim.modulator
+    field = comms._result_series(res)
+    S = m.symbols_per_iter
+    print(f"FSO comms run (FastFSOC, 256^2, COHERENT, 16-QAM, EsN0 "
+          f"{COMMS_ESN0} dB, {S} symbols an iteration): {sim.Niter} "
+          f"realizations in {secs:.3f} s (first run; {sim.Niter / secs:.0f} "
+          f"r/s with the modem), launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items())
+          + f"; peak device memory {peak:.2f} GB")
+    if launches["K2"] == 0:
+        fail("FastFSOC.run() did not launch K2")
+    if any(v for k, v in launches.items() if k != "K2"):
+        fail("FastFSOC.run() launched another kernel")
+    if not (torch.is_tensor(field) and field.is_cuda and field.is_complex()
+            and field.shape == (sim.Niter,)
+            and bool(torch.isfinite(torch.view_as_real(field)).all())):
+        fail("the comms run's field is not a finite complex (NITER,) "
+             "series on the card")
+    if not (m.device.type == "cuda" and m.power.is_cuda):
+        fail("the modem did not run on the card")
+    secs_warm = timed_run(sim)[1]  # its launches do not count
+    print(f"FSO comms run, warm: {sim.Niter / secs_warm:.0f} r/s with the "
+          f"modem ({card})")
+    (_, modem_s) = timed(m.run)
+    rate_modem = S * sim.Niter / modem_s
+    theory, se = _sep_theory(m.power.cpu().numpy(), COMMS_M, COMMS_ESN0, S)
+    print(f"modem: SEP {m.sep:.6f} against the fading-averaged sep_qam "
+          f"{theory:.6f} ({abs(m.sep - theory) / se:.2f} SE of {se:.2e} over "
+          f"iterations; limit {SEP_SIGMAS:.0f}), EVM {m.evm:.5f}; warm "
+          f"modem run {modem_s * 1e3:.1f} ms, {rate_modem:.4g} symbols/s "
+          f"({card})")
+    if not (np.isfinite(m.sep) and np.isfinite(m.evm)):
+        fail("the modem's SEP or EVM is not finite")
+    if not abs(m.sep - theory) <= SEP_SIGMAS * se:
+        fail("the modem's SEP disagrees with the closed form")
+    out = {"fsoc_rate": sim.Niter / secs_warm,
+           "fsoc_rate_first": sim.Niter / secs,
+           "modem_symbols_per_s": rate_modem,
+           "modem_ms": modem_s * 1e3, "sep": m.sep,
+           "sep_theory": float(theory), "sep_se": float(se), "evm": m.evm,
+           "peak_gb": peak,
+           "launches": launches["K2"]}
+
+    # PDFs, GMI and MI of the run's field: the card in float32 against
+    # the CPU port in float64 on the same samples
+    host = field.cpu()
+    pdfs = {}
+    for label, kw in (("individual", {"region_size": "individual"}),
+                      ("full", {"region_size": "full"}),
+                      ("full, shot", {"region_size": "full", "shot": True})):
+        def call(x, kw=kw):
+            return comms.convolve_awgn_qam(x, COMMS_M, COMMS_NPXLS,
+                                           COMMS_ESN0, **kw)
+        call(field)
+        got, t_card = timed(lambda: call(field))
+        ref, t_cpu = timed(lambda: call(host))
+        shape = (COMMS_M, COMMS_NPXLS, COMMS_NPXLS)
+        if not (got.is_cuda and got.dtype == torch.float32
+                and got.shape == shape and ref.dtype == torch.float64
+                and bool(torch.isfinite(got).all())):
+            fail(f"PDFs ({label}): not finite float32 {shape} on the card")
+        d = float((got.cpu().double() - ref).abs().max())
+        top = float(ref.abs().max())
+        pdfs[label] = {"card_ms": t_card * 1e3, "cpu_ms": t_cpu * 1e3,
+                       "max_abs_diff": d, "max_pdf": top}
+        print(f"PDFs {label}, M={COMMS_M}, {COMMS_NPXLS}^2 bins, "
+              f"{sim.Niter} samples: card {t_card * 1e3:.1f} ms (float32), "
+              f"CPU {t_cpu * 1e3:.1f} ms (float64); largest |card - CPU| "
+              f"{d:.3e} ({d / top:.2e} of the largest value)")
+    out["pdfs"] = pdfs
+    for name, fn in (("GMI", comms.generalised_mutual_information_qam),
+                     ("MI", comms.mutual_information_qam)):
+        fn(field, COMMS_M, COMMS_NPXLS, COMMS_ESN0)
+        v_card, t_card = timed(lambda: fn(field, COMMS_M, COMMS_NPXLS,
+                                          COMMS_ESN0))
+        v_cpu, t_cpu = timed(lambda: fn(host, COMMS_M, COMMS_NPXLS,
+                                        COMMS_ESN0))
+        print(f"{name}: card {v_card:.6f} bit/symbol in {t_card * 1e3:.1f} "
+              f"ms, CPU {v_cpu:.6f} in {t_cpu * 1e3:.1f} ms (|d| "
+              f"{abs(v_card - v_cpu):.2e}; limit {MI_TOL})")
+        if not (np.isfinite(v_card) and abs(v_card - v_cpu) <= MI_TOL):
+            fail(f"{name} on the card disagrees with the CPU port")
+        out[name] = {"card": v_card, "cpu": v_cpu, "card_ms": t_card * 1e3,
+                     "cpu_ms": t_cpu * 1e3}
+
+    # fade statistics of the temporal flagship's K4 series
+    I = fade_series / fade_series.mean()
+    I_host = I.cpu()
+    n = I.numel()
+    fades = {}
+    for th in FADE_THRESHOLDS:
+        below = I < th
+        counts = (int(below.sum()),) + comms._fade_run_stats(below)
+        below_h = I_host < th
+        counts_h = (int(below_h.sum()),) + comms._fade_run_stats(below_h)
+        if counts != counts_h:
+            fail(f"fade counts below {th} differ: card {counts}, CPU "
+                 f"{counts_h}")
+        prob, dur = comms.fade_prob(I, th), comms.fade_dur(I, th, dt=dt)
+        if not (np.array_equal(prob, comms.fade_prob(I_host, th),
+                               equal_nan=True)
+                and np.array_equal(dur, comms.fade_dur(I_host, th, dt=dt),
+                                   equal_nan=True)):
+            fail(f"fade_prob or fade_dur below {th} differ card / CPU")
+        # NaN (fewer than 30 fades) as null: the result line is strict JSON
+        fades[str(th)] = {"samples": counts[0], "fades": counts[2],
+                          "fade_samples": counts[1],
+                          "prob": None if np.isnan(prob) else prob,
+                          "dur_s": None if np.isnan(dur) else dur}
+        print(f"fades below {th} of the mean, {n} steps of {dt * 1e3:g} ms "
+              f"(K4): {counts[0]} samples below (fade_prob {prob:.4e}), "
+              f"{counts[2]} complete fades of {counts[1]} steps (fade_dur "
+              f"{dur:.4g} s; NaN under 30 fades); equal on the card and the "
+              f"CPU")
+    q = torch.tensor(FADE_QUANTILES, dtype=I.dtype, device=I.device)
+    qs = torch.quantile(I, q).cpu().numpy()
+    qs_h = torch.quantile(I_host, q.cpu()).numpy()
+    print(f"quantiles of I/<I> over the {n} steps: "
+          + ", ".join(f"{a:g}: {b:.5f} (CPU {c:.5f})"
+                      for a, b, c in zip(FADE_QUANTILES, qs, qs_h)))
+    out["fades"] = fades
+    out["quantiles"] = {str(a): float(b) for a, b in zip(FADE_QUANTILES, qs)}
+    for c in counters.values():
+        c.LAUNCHES = 0
+    return out
+
+
 def rates(runs, card, where, unit="realizations"):
     """Warm ``run()`` rates of the named sims, two each, in the given
     order; prints and returns {name: [per second, ...]}."""
@@ -1895,6 +2150,11 @@ def main():
     ctx = phase_slices()
     k4, k5, tsims = phase_temporal(ctx)
     rates_256, rates_512, rates_t = phase_times(card, ctx, tsims)
+    # the temporal flagship's K4 series of its last warm run, for the fades
+    from fast_tpu_torch import comms
+    fade_series = torch.as_tensor(comms._result_series(tsims[0].result),
+                                  device=DEVICE)
+    fade_dt = tsims[0].dt
     del ctx["sim_k"], ctx["sim_p"], ctx["sim_c"], ctx["sim_cm"], tsims
     torch.cuda.empty_cache()
     k2w, k3, k7, rates_w = phase_wide(card)
@@ -1910,6 +2170,9 @@ def main():
     k4.update(ar_dft=dft[256], ar_dft_1024=dft[1024])
     k5.update(ar_dft=dft[512])
     k6.update(ar_dft=dft[256])
+    comms_res = phase_comms(card, fade_series, fade_dt)
+    rates_256["FastFSOC 16-QAM (K2 + modem)"] = [comms_res["fsoc_rate"]]
+    ctx["k2"]["launches_comms"] = comms_res.pop("launches")
     wide_shape = "1024^2, P=402"
     line = {"kernels": [
         kernel_entry("synth_detect", "fast_tpu_torch/csrc/synth_detect.cu",
@@ -1941,7 +2204,7 @@ def main():
                      "fast_tpu/ops/pallas_synth.py:175", k7,
                      wide_shape + ", Box-Muller", rates_w,
                      {"timed_draws": 630}),
-    ], "seconds": time.perf_counter() - t_start}
+    ], "comms": comms_res, "seconds": time.perf_counter() - t_start}
     print(card)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

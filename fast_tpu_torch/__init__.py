@@ -4,11 +4,14 @@ The port of ``fast_tpu`` (JAX), which stays the reference: the same
 config keys, the same ``Fast`` / ``FastResult`` / ``run()`` / ``save`` /
 ``load`` surface, for the iid Monte Carlo run of one link, its temporal
 (frozen-flow) mode, and orbit passes, sweeps and parameter scans on one
-device (:mod:`.orbit`, :mod:`.sweep`, :mod:`.parallel`). The PSD stage
-runs in float64 torch on the CPU; the Monte Carlo loop runs on the device
-given to ``Fast(params, device=...)`` (``"cuda"`` by default), through
-the hand-written kernels of ``csrc/`` (synth-detect, colfac-detect, AR
-flow) or the stock-op paths. This package never imports JAX.
+device (:mod:`.orbit`, :mod:`.sweep`, :mod:`.parallel`), with the comms
+layer on top (:mod:`.comms`: ``FastFSOC``, the modem, I-Q PDFs, GMI/MI,
+fade statistics) and the reference's function modules (:mod:`.funcs`,
+:mod:`.ao_power_spectra`). The PSD stage runs in float64 torch on the
+CPU; the Monte Carlo loop runs on the device given to ``Fast(params,
+device=...)`` (``"cuda"`` by default), through the hand-written kernels
+of ``csrc/`` (synth-detect, colfac-detect, AR flow) or the stock-op
+paths. This package never imports JAX.
 """
 
 __version__ = "0.1.0"
@@ -17,7 +20,12 @@ from . import conf
 from . import grids
 from . import interop
 from . import turbulence_models
+from . import funcs
+from . import ao_power_spectra
 from .engine import Fast, FastResult, load
+from . import comms
+from .comms import FastFSOC
 
-__all__ = ["Fast", "FastResult", "load", "conf", "grids", "interop",
-           "turbulence_models"]
+__all__ = ["Fast", "FastResult", "FastFSOC", "load", "conf", "grids",
+           "interop", "funcs", "ao_power_spectra", "turbulence_models",
+           "comms"]

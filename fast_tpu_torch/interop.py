@@ -96,6 +96,14 @@ def _check(arrays):
         raise KeyError(f"tables_from_numpy needs {missing}")
 
 
+def as_torch_dtype(dtype):
+    """A numpy dtype or scalar type (``np.float32``, ``"complex128"``) as
+    the torch dtype of the same name; a torch dtype is returned as is."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.zeros(0, dtype=dtype)).dtype
+
+
 def _dtypes(dtype):
     if dtype == torch.float32:
         return np.float32, np.complex64

@@ -1,9 +1,11 @@
 """AO residual power spectra in torch float64.
 
 The port of ``fast_tpu.models.ao`` for the main and the subharmonic
-frequency grids: the Zernike Fourier filters, the WFS-corrected mask, the
-open-loop WFS noise and aliasing PSDs and the PAOLA anisoplanatism/servo-lag
-transfer function. Each function takes a grid object with ``fx``, ``fy``,
+frequency grids: the Zernike Fourier filters and the piston and tip/tilt
+high-pass filters, the WFS-corrected mask and its complement, the
+open-loop WFS noise and aliasing PSDs, the PAOLA anisoplanatism/servo-lag
+transfer function and its closed-loop variant with the DM transfer
+function. Each function takes a grid object with ``fx``, ``fy``,
 ``fabs``, ``fx_axis`` and ``fy_axis`` (numpy arrays or tensors) and returns
 float64 tensors on the grid's device. A grid may carry leading axes (the
 subharmonic levels: (levels, 3, 3) meshes over (levels, 3) axes), which
@@ -52,11 +54,48 @@ def _radial_terms(fabs, D, orders, x_max=None):
     return 2 * J / xsafe[..., None]
 
 
-def _dc_fix(out, n_noll_start):
+def _dc_fix(out, n_noll_start, value_piston=1.0, value_else=0.0):
+    """``out`` with its DC pixel set: ``value_piston`` if the Noll range
+    starts at piston, else ``value_else``."""
     out = out.clone()
     out[..., out.shape[-2] // 2, out.shape[-1] // 2] = (
-        1.0 if n_noll_start == 1 else 0.0)
+        value_piston if n_noll_start == 1 else value_else)
     return out
+
+
+def zernike_ft(fabs, phi, D, n_noll, x_max=None):
+    """Fourier transform of the Noll-indexed Zernike polynomial ``n_noll``:
+    complex128 (Noll 1976 eq. 25-26; reference
+    ``fast/ao_power_spectra.py:10-21``)."""
+    fabs, phi = _t(fabs), _t(phi)
+    n, m = noll_to_nm(n_noll)
+    R = _radial_terms(fabs, D, [n + 1], x_max=x_max)[..., 0]
+    if m == 0:
+        return (np.sqrt(n + 1) * (-1.0) ** (n / 2.0) * R).to(torch.complex128)
+    prefac = np.sqrt(2 * (n + 1)) * (-1.0) ** ((n - m) / 2.0) * (1j) ** m
+    az = torch.cos(m * phi) if n_noll % 2 == 0 else torch.sin(m * phi)
+    return prefac * R.to(torch.complex128) * az
+
+
+def zernike_filter(fabs, fx, fy, D, n_noll, n_noll_start=1, gamma=None):
+    """Sum of the Zernike FTs of Noll indices ``n_noll_start..n_noll``,
+    complex128, its DC pixel 1 if piston is included, else 0 (reference
+    ``fast/ao_power_spectra.py:23-52``). ``gamma`` scales the aperture per
+    entry, adding a leading axis."""
+    fabs = _t(fabs)
+    phi = torch.atan2(_t(fy), _t(fx))
+
+    def accumulate(D_eff):
+        out = torch.zeros(fabs.shape, dtype=torch.complex128)
+        for j in range(n_noll_start, n_noll + 1):
+            out = out + zernike_ft(fabs, phi, D_eff, j)
+        return out
+
+    if gamma is None:
+        out = accumulate(D)
+    else:
+        out = torch.stack([accumulate(g * D) for g in np.atleast_1d(gamma)])
+    return _dc_fix(out, n_noll_start)
 
 
 def zernike_squared_filter(fabs, fx, fy, D, n_noll, n_noll_start=1,
@@ -96,6 +135,39 @@ def zernike_squared_filter(fabs, fx, fy, D, n_noll, n_noll_start=1,
     return _dc_fix(out, n_noll_start)
 
 
+def _bessel_highpass(fabs, D, orders, weights, dc, x_max):
+    """``1 - sum_k (w_k J_{o_k}(x) / x)^2`` at ``x = fabs D / 2``, its DC
+    pixel set to ``dc``: the piston and tip/tilt high-pass filters."""
+    fabs = _t(fabs)
+    x = fabs * D / 2
+    if x_max is None:
+        x_max = float(fabs.abs().max()) * D / 2
+    J = besselj(list(orders), x, M=quadrature_order(x_max, max(orders)))
+    xsafe = torch.where(x == 0, 1.0, x)
+    filt = 1 - (weights[0] * J[..., 0] / xsafe) ** 2
+    for k in range(1, len(orders)):
+        filt = filt - (weights[k] * J[..., k] / xsafe) ** 2
+    filt[..., filt.shape[-2] // 2, filt.shape[-1] // 2] = dc
+    return filt
+
+
+def piston_filter(fabs, D, x_max=None):
+    """High-pass filter removing piston (reference
+    ``fast/ao_power_spectra.py:104-107``), 0 at DC."""
+    return _bessel_highpass(fabs, D, [1], [2], 0.0, x_max)
+
+
+def tiptilt_filter(fabs, D, x_max=None):
+    """High-pass filter removing tip/tilt (reference
+    ``fast/ao_power_spectra.py:109-112``), 1 at DC."""
+    return _bessel_highpass(fabs, D, [2], [4], 1.0, x_max)
+
+
+def piston_tiptilt_filter(fabs, D, x_max=None):
+    """High-pass filter removing piston and tip/tilt, 0 at DC."""
+    return _bessel_highpass(fabs, D, [1, 2], [2, 4], 0.0, x_max)
+
+
 def piston_gtilt_filter(fabs, fx, fy, D, x_max=None):
     """Piston + gradient-tilt low-pass (reference
     ``fast/ao_power_spectra.py:97-102``), at most 1."""
@@ -130,6 +202,15 @@ def mask_lf(freq, d_WFS, modal=False, modal_mult=1, Zmax=None, D=None,
     else:
         dm_space = zernike_squared_filter(fabs, fx, fy, D, Zmax)
     return wfs_space * torch.clamp(dm_space, max=1.0)
+
+
+def mask_hf(freq, d_WFS, modal=False, modal_mult=1, Zmax=None, D=None,
+            Gtilt=False):
+    """High-frequency (uncorrected) mask: the complement of
+    :func:`mask_lf` (the reference's ``fast/ao_power_spectra.py:143-146``
+    would crash; ``fast_tpu`` fixed it the same way)."""
+    return 1 - mask_lf(freq, d_WFS, modal=modal, modal_mult=modal_mult,
+                       Zmax=Zmax, D=D, Gtilt=Gtilt)
 
 
 def Jol_noise_openloop(freq, Dsubap, noise_variance, lf_mask):
@@ -254,3 +335,59 @@ def G_AO_PAOLA(freq, mask, mode="AO", h=None, v=None, dtheta=(0, 0), Tx=None,
     Z = zernike_squared_filter(fabs, fx, fy, Tx, 4, n_noll_start=1,
                                x_max=x_max)
     return mask * (Z * aniso + (1 - Z) * aniso_lgs) + (1 - mask)
+
+
+def DM_transfer_function(fx, fy, fabs, mode, Zmax=None, D=None, dsubap=None):
+    """DM spatial transfer function: 1 for ``'perfect'``, the Zernike
+    filter up to ``Zmax`` for ``'zernike'``. ``dsubap`` is the reference's
+    argument; neither mode reads it."""
+    if mode == "perfect":
+        return 1.0
+    if mode == "zernike":
+        return zernike_filter(fabs, fx, fy, D, Zmax)
+    raise NotImplementedError("Choose DM that is implemented")
+
+
+def G_AO_PAOLA_closedloop(fx, fy, fabs, h, dtheta=(0, 0), Delta_t=0.0, tl=0.0,
+                          gloop=1.0, v=None, dsubap=None, DM="perfect",
+                          Zmax=None, D=None, nu=1, modal=False, modal_mult=1):
+    """Closed-loop integrator variant of the PAOLA transfer function
+    (reference ``fast/ao_power_spectra.py:314-357``, which the engine never
+    calls), per layer; frequencies are converted to linear units as there.
+    Complex with a ``'zernike'`` DM. ``modal`` and ``modal_mult`` are the
+    reference's arguments; the function does not read them."""
+    Gamma_DM = DM_transfer_function(fx, fy, fabs, mode=DM, Zmax=Zmax, D=D,
+                                    dsubap=dsubap)
+    fx = _t(fx) / (2 * np.pi)
+    fy = _t(fy) / (2 * np.pi)
+    h = _t(h).reshape(-1)
+    dtheta = _t(dtheta)
+    dr = dtheta[None, :] / 206265.0 * h[:, None]  # (nlayers, 2)
+    dr_dot_f = (fx[None] * _per_layer(dr[:, 0], fx.ndim)
+                + fy[None] * _per_layer(dr[:, 1], fy.ndim))
+    if v is None:
+        v_dot_f = torch.zeros((), dtype=_F64)
+    else:
+        v = _t(v).reshape(-1, 2)
+        v_dot_f = (fx[None] * _per_layer(v[:, 0], fx.ndim)
+                   + fy[None] * _per_layer(v[:, 1], fy.ndim))
+
+    two_pi = 2 * np.pi
+    sinc = torch.sinc(Delta_t * v_dot_f)
+    lead = torch.cos(two_pi * (Delta_t / 2 + tl) * v_dot_f)
+    lag = torch.cos(two_pi * (Delta_t / 2.0 - tl) * v_dot_f)
+    top = (1 + gloop ** 2 * Gamma_DM ** 2 * sinc ** 2
+           * (1 + nu ** 2 * Gamma_DM ** 2) / 2.0
+           - torch.cos(two_pi * Delta_t * v_dot_f)
+           + gloop * Gamma_DM ** 2 * sinc * nu
+           * (torch.cos(two_pi * dr_dot_f
+                        + two_pi * (Delta_t / 2 - tl) * v_dot_f)
+              - torch.cos(two_pi * dr_dot_f
+                          - two_pi * (Delta_t / 2 + tl) * v_dot_f))
+           + gloop * Gamma_DM * sinc * (lead - lag)
+           - gloop ** 2 * Gamma_DM ** 3 * sinc ** 2 * nu
+           * torch.cos(two_pi * dr_dot_f))
+    bottom = (1 + gloop ** 2 * Gamma_DM ** 2 * sinc ** 2 / 2.0
+              + gloop * Gamma_DM * sinc * (lead - lag)
+              - torch.cos(two_pi * Delta_t * v_dot_f))
+    return top / bottom

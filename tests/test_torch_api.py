@@ -1,8 +1,10 @@
 """The public surface of fast_tpu_torch against fast_tpu's, on the CPU.
 
 * Signatures: every function below has ``fast_tpu``'s parameter list,
-  names, kinds, order and defaults; the only difference allowed is a
-  ``torch.Generator`` (``generator``) where JAX takes a PRNG key (``key``).
+  names, kinds, order and defaults. Two differences are kept: a
+  ``torch.Generator`` (``generator``) where JAX takes a PRNG key (``key``),
+  and a last keyword ``device=None``, the run device, on the comms
+  functions that ``fast_tpu`` runs as jitted programs (``DEVICE_ARG``).
 * Values: each of them agrees with ``fast_tpu``'s to 1e-10 relative in
   float64 on inputs made with numpy from a seed, for every argument the
   port gained (``freq`` with a per-layer grid, ``pupilfilter`` as array,
@@ -52,21 +54,41 @@ FUNCTIONS = [
     ("synthesis", "synthesize_subharm_complex"),
     ("synthesis", "make_subharm_modes"),
     ("grids", "mesh_frequency_axes"),
-]
+    ("models.ao", "zernike_ft"),
+    ("models.ao", "zernike_filter"),
+    ("models.ao", "piston_filter"),
+    ("models.ao", "tiptilt_filter"),
+    ("models.ao", "piston_tiptilt_filter"),
+    ("models.ao", "mask_hf"),
+    ("models.ao", "DM_transfer_function"),
+    ("models.ao", "G_AO_PAOLA_closedloop"),
+] + [("funcs", n) for n in (
+    "f_grid_linear", "f_grid_dx", "f_grid_log",
+    "calc_gaussian_beam_parameters", "pdf_lognorm", "pdf_gammagamma",
+    "gammagamma_parameters", "pupil_filter", "generate_random_coefficients",
+    "generate_random_coefficients_logamp", "make_phase_fft",
+    "make_phase_subharm", "temporal_autocorrelation")] + [
+    ("comms", n) for n in (
+        "define_constellation", "gray_labels_qam", "fade_prob", "fade_dur",
+        "Q", "ber_ook", "sep_qam", "ber_qam", "convolve_awgn_qam",
+        "generalised_mutual_information_qam", "mutual_information_qam",
+        "pack_payload", "unpack_payload", "flip_bits", "Modulator")]
+
+# the comms functions that fast_tpu runs as jitted programs on its default
+# backend: the port's take the run device as a last keyword, device=None
+# (a tensor input's device, else "cuda")
+DEVICE_ARG = {("comms", n) for n in (
+    "Modulator", "fade_dur", "convolve_awgn_qam",
+    "generalised_mutual_information_qam", "mutual_information_qam")}
 
 # public names of fast_tpu modules that the port leaves out, with the reason
-_REF_NAMES = ("needed only by funcs.py and ao_power_spectra.py, the "
-              "reference-name modules of a later slice")
 LEFT_OUT = {
-    "": {"FastFSOC": "comms, a later slice"},
     "engine": {"make_key": "a JAX PRNG key: the port takes a "
                            "torch.Generator"},
     "ops.rng": {"make_key": "a JAX PRNG key: the port takes a "
                             "torch.Generator"},
-    "models.ao": {n: _REF_NAMES for n in (
-        "zernike_ft", "zernike_filter", "piston_filter", "tiptilt_filter",
-        "piston_tiptilt_filter", "mask_hf", "DM_transfer_function",
-        "G_AO_PAOLA_closedloop")},
+    "funcs": {"make_key": "a JAX PRNG key: the port takes a "
+                          "torch.Generator"},
     "parallel": {n: "multi-device, a later slice"
                  for n in ("make_mesh", "run_sharded", "sharded_moments")},
     "parallel.scan": {"make_key": "a JAX PRNG key: the port takes a "
@@ -82,7 +104,7 @@ MODULES = ["", "engine", "grids", "synthesis", "psd", "conf", "orbit",
            "ops.integrate", "ops.bessel", "ops.fourier", "ops.apertures",
            "ops.zernike", "ops.interp", "ops.rng", "parallel",
            "parallel.scan", "utils", "utils.fits", "utils.log",
-           "utils.profiling"]
+           "utils.profiling", "funcs", "ao_power_spectra", "comms"]
 
 
 def _mod(pkg, name):
@@ -106,7 +128,11 @@ def test_signature_is_fast_tpus(mod, name):
         return [("generator" if p.name == "key" else p.name, p.kind,
                  _default(p.default)) for p in sig.parameters.values()]
 
-    assert params(got) == params(ref)
+    got = params(got)
+    if (mod, name) in DEVICE_ARG:
+        assert got.pop() == ("device", inspect.Parameter.POSITIONAL_OR_KEYWORD,
+                             None)
+    assert got == params(ref)
 
 
 @pytest.mark.parametrize("mod", MODULES, ids=lambda m: m or "fast_tpu")
@@ -125,6 +151,16 @@ def test_fast_has_every_method_of_fast_tpus():
     got = {n for n in dir(fast_tpu_torch.Fast) if not n.startswith("_")}
     assert ref - got == set()
     assert fast_tpu_torch.Fast.compute_phs is fast_tpu_torch.Fast.sample_screens
+
+
+def test_fastfsoc_and_modulator_have_every_method_of_fast_tpus():
+    for cls in ("FastFSOC", "Modulator"):
+        ref = {n for n in dir(getattr(fast_tpu.comms, cls))
+               if not n.startswith("_")}
+        got = {n for n in dir(getattr(fast_tpu_torch.comms, cls))
+               if not n.startswith("_")}
+        assert ref - got == set()
+    assert issubclass(fast_tpu_torch.FastFSOC, fast_tpu_torch.Fast)
 
 
 # ---------------------------------------------------------------------------
