@@ -132,10 +132,30 @@ Phases, in order; any failure exits non-zero before the result line:
    MI within 1e-3 bit/symbol; then ``fade_prob``, ``fade_dur`` and the
    1e-3 and 1e-4 quantiles of I/<I> on the temporal flagship's 65,536-step
    K4 series (the last warm run of 9 and 11) at 0.5 and 0.2 of the mean,
-   on the card and on a CPU copy, whose fade counts must be equal.
+   on the card and on a CPU copy, whose fade counts must be equal;
+16. the multi-device layer (``parallel``), each path with every count at
+   0 first: (a) ``make_mesh()``, an NCCL world of one rank on the card in
+   this process: ``run_sharded`` of the 256^2 flagship (K2, 32 launches)
+   and of the 512^2 flagship (K1) bit for bit ``run()``, warm r/s beside
+   the serial run's, ``sharded_moments`` of the series against numpy
+   float64 (1e-12), the temporal flagship with TEMPORAL_ALPHA=1 (65,536
+   steps, K4) and a 16-layer one (4,096 steps, K5) bit for bit ``run()``,
+   the boiling temporal flagship (8,192
+   steps) layer-sharded against the serial SYNTH='fft' route (2e-3); then
+   (b) two gloo ranks sharing the card, spawned by the dryrun twin
+   (``parallel.dryrun``), each reporting its own launches: the flagship at
+   NCHUNKS 8 bit for bit the serial run at 16 (K2), the alpha = 1 windows
+   (K4) within 2 x offset x 2^-24 x phi_rms of the mean power of the
+   serial series, the layer-sharded boiling series against 'fft' (2e-3),
+   a (2, 1) AR scan of the temporal orbit pass's 16 samples at 4,096 steps
+   (K6, 8 series a rank) and a (1, 2) iid scan of 4 of the iid pass's
+   samples (K2) bit for bit their (1, 1) scans; every rank holds the same
+   series; the ranks' warm flagship rate against the serial run's.
 
-The last lines are the card, one JSON object of per-kernel numbers and
-one of the run's device. The flagship config is the AO-corrected 0.8 m
+The last lines are the card, one JSON object of per-kernel numbers (each
+with its launches on the mesh phase, ``launches_mesh``: (a)'s and each of
+(b)'s ranks') and one of the run's device. The flagship config is the
+AO-corrected 0.8 m
 uplink at 1550 nm through a 4-layer HV57/Bufton profile, at DX=0.01 m:
 a 256^2 grid (``__graft_entry__.py``) and the same link at 512^2; the
 temporal mode runs it at DT = 1 ms, and through a 16-layer profile at
@@ -217,6 +237,18 @@ MI_TOL = 1e-3         # GMI and MI, card (float32) against CPU (float64),
                       # bit/symbol
 FADE_THRESHOLDS = (0.5, 0.2)   # of the mean power
 FADE_QUANTILES = (1e-3, 1e-4)  # of I / <I>
+MESH_RANKS = 2        # gloo ranks sharing the card in the mesh phase's (b)
+NITER_BOIL = 8192     # steps of the layer-sharded boiling series (NCHUNKS=16)
+NITER_SCAN_T = 4096   # steps a sample of the (2, 1) AR scan (NCHUNKS=4)
+NSAMP_IID_SCAN = 4    # samples of the (1, 2) iid scan (0, 5, 10, 15)
+MOMENTS_REL = 1e-12   # sharded_moments against numpy float64, relative
+# a window of an alpha = 1 series starts from the exact phasor power; the
+# serial route multiplies the float32 phasor, off by up to ~2^-24 a step,
+# `offset` times: |d state| / |state| ~ offset 2^-24 per mode, so |d phi|
+# ~ offset 2^-24 phi_rms and |d I| / <I> ~ 2 offset 2^-24 phi_rms (the
+# plain version on the CPU reads 0.12-0.20 of offset 2^-24 phi_rms in |c|
+# at 64^2 and 256^2, offsets 1024-8192)
+AR_JUMP_FACTOR = 2.0
 # the H100 SXM's published rates (NVIDIA data sheet, at 700 W): float32
 # outside the tensor cores; matrix products at fp32 accuracy on the tensor
 # cores, three TF32 passes (3xTF32) at 495 TFLOP/s; device memory
@@ -1429,12 +1461,13 @@ def pass_geometry(h_orbit, offset_deg, t_max, n):
                                       np.linspace(-t_max, t_max, n), 0.001)
 
 
-def iid_pass(synth, seed):
+def iid_pass(synth, seed, mesh):
     """The iid orbit pass of ``bench.py``'s ``measure_orbit_pass``: 16
     samples of a 600 km pass (offset 10 degrees, -240..240 s) through
-    ``build_sweep`` and ``run_scan_sharded`` at 65,536 realizations a
-    sample; ``synth`` None leaves SYNTH to the sweep's default. Returns
-    (sims, results, wall seconds with the sweep inside)."""
+    ``build_sweep`` and ``run_scan_sharded`` on ``mesh`` at 65,536
+    realizations a sample; ``synth`` None leaves SYNTH to the sweep's
+    default. Returns (sims, results, wall seconds with the sweep
+    inside)."""
     from fast_tpu_torch import parallel, sweep
     p = flagship(NITER=NITER_OI, NCHUNKS=4)
     if synth is None:
@@ -1448,26 +1481,24 @@ def iid_pass(synth, seed):
         "ZENITH_ANGLE": geo["zenith_angles"], "L_SAT": geo["distances"],
         "DTHETA": geo["paa"], "ANISO_DL": geo["aniso_dl"],
         "AZIMUT_SAT": geo["azimuts"]}, device=DEVICE)
-    res = parallel.run_scan_sharded(
-        sims, parallel.make_scan_mesh(1, 1, [DEVICE]), seed=seed)
+    res = parallel.run_scan_sharded(sims, mesh, seed=seed)
     torch.cuda.synchronize()
     return sims, res, time.perf_counter() - t0
 
 
-def temporal_pass(nsamp, niter, seed, **overrides):
+def temporal_pass(nsamp, niter, seed, mesh, **overrides):
     """The temporal orbit pass of ``examples/orbit_temporal_scan.py``'s
     geometry (550 km, offset 5 degrees, -90..90 s) at the temporal
     flagship: ``FAST_sat_orbit_from_geometry`` then ``run_orbit_sweep`` on
-    a (1, 1) mesh. Returns (sims, results, wall seconds with the sims'
+    ``mesh``. Returns (sims, results, wall seconds with the sims'
     construction inside)."""
-    from fast_tpu_torch import orbit, parallel
+    from fast_tpu_torch import orbit
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     d = orbit.FAST_sat_orbit_from_geometry(
         temporal(NITER=niter, NCHUNKS=4, **overrides),
         pass_geometry(550e3, 5.0, 90, nsamp), device=DEVICE)
-    res = orbit.run_orbit_sweep(d, parallel.make_scan_mesh(1, 1, [DEVICE]),
-                                seed=seed)
+    res = orbit.run_orbit_sweep(d, mesh, seed=seed)
     torch.cuda.synchronize()
     keys = [f"simulation_{i}" for i in range(nsamp)]
     return [d[k] for k in keys], [res[k] for k in keys], \
@@ -1480,10 +1511,17 @@ def counts(counters):
 
 def phase_orbit(card, counters):
     """The two orbit passes, each through its entry points with every
-    kernel's count at 0 first: the iid pass through K2 against the same
-    pass on 'matmul', and the temporal pass through K6 against the scan's
-    SYNTH='fft' route; K6's checks; the 16 series as 16 serial runs
-    through K4; run(progress=True) against run()."""
+    kernel's count at 0 first, on a (1, 1) scan mesh (an NCCL world of one
+    rank): the iid pass through K2 against the same pass on 'matmul', and
+    the temporal pass through K6 against the scan's SYNTH='fft' route;
+    K6's checks; the 16 series as 16 serial runs through K4;
+    run(progress=True) against run()."""
+    from fast_tpu_torch import parallel
+    with parallel.make_scan_mesh(1, 1, [DEVICE]) as mesh:
+        return _phase_orbit(card, counters, mesh)
+
+
+def _phase_orbit(card, counters, mesh):
     from fast_tpu_torch import parallel
 
     def zero():
@@ -1492,7 +1530,7 @@ def phase_orbit(card, counters):
 
     # the iid pass: K2 (the sweep's default on the card) and 'matmul'
     zero()
-    sims, res, wall = iid_pass(None, 12)
+    sims, res, wall = iid_pass(None, 12, mesh)
     n_iid = counts(counters)
     print(f"iid orbit pass: {NSAMP} samples x {NITER_OI} realizations in "
           f"{wall:.3f} s (first; sweep_assemble "
@@ -1504,7 +1542,7 @@ def phase_orbit(card, counters):
             v for k, v in n_iid.items() if k != "K2"):
         fail("the iid orbit pass did not run through K2 alone")
     zero()
-    sims_m, res_m, wall_m = iid_pass("matmul", 12)
+    sims_m, res_m, wall_m = iid_pass("matmul", 12, mesh)
     if any(counts(counters).values()):
         fail("the 'matmul' orbit pass launched a kernel")
     for i, (r, rm) in enumerate(zip(res, res_m)):
@@ -1513,7 +1551,8 @@ def phase_orbit(card, counters):
               short=True)
     walls = {"K2": [wall], "matmul": [wall_m]}
     for name in ("K2", "matmul", "matmul", "K2"):
-        walls[name].append(iid_pass(None if name == "K2" else name, 13)[2])
+        walls[name].append(iid_pass(None if name == "K2" else name, 13,
+                                    mesh)[2])
     iid_rates = {k: [NSAMP * NITER_OI / w for w in v]
                  for k, v in walls.items()}
     for k, v in iid_rates.items():
@@ -1527,7 +1566,7 @@ def phase_orbit(card, counters):
     got = series(s.run(progress=True))
     # the temporal pass: K6
     zero()
-    osims, ores, owall = temporal_pass(NSAMP, NITER_OT, 14)
+    osims, ores, owall = temporal_pass(NSAMP, NITER_OT, 14, mesh)
     n_t = counts(counters)
     print(f"temporal orbit pass: {NSAMP} samples x {NITER_OT} steps in "
           f"{owall:.3f} s (first, the {NSAMP} Fast() inside), launches "
@@ -1555,8 +1594,8 @@ def phase_orbit(card, counters):
     # the K6 route against the scan's SYNTH='fft' route on 4 samples of
     # the same pass (its samples 0, 5, 10 and 15), and the lag-1
     # autocorrelations of that exact route against the pass's
-    rk = temporal_pass(4, NITER_OT_FFT, 9)[1]
-    rf = temporal_pass(4, NITER_OT_FFT, 9, SYNTH="fft")[1]
+    rk = temporal_pass(4, NITER_OT_FFT, 9, mesh)[1]
+    rf = temporal_pass(4, NITER_OT_FFT, 9, mesh, SYNTH="fft")[1]
     d, d_all = (max(float(np.abs(series(a)[:n] / series(b)[:n] - 1).max())
                     for a, b in zip(rk, rf)) for n in (1024, NITER_OT_FFT))
     print(f"temporal orbit scan, K6 route against the SYNTH='fft' route, "
@@ -1588,7 +1627,7 @@ def phase_orbit(card, counters):
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        parallel.run_scan_sharded(osims, seed=15)
+        parallel.run_scan_sharded(osims, mesh, seed=15)
         torch.cuda.synchronize()
         scan_s.append(time.perf_counter() - t0)
         t0 = time.perf_counter()
@@ -1604,7 +1643,7 @@ def phase_orbit(card, counters):
           f"Fast() inits {NSAMP * NITER_OT / owall:.0f} steps/s ({card})")
     profile([(f"K6 temporal orbit scan, {NSAMP} x {NITER_OT} steps",
               types.SimpleNamespace(run=lambda: parallel.run_scan_sharded(
-                  osims, seed=15)))])
+                  osims, mesh, seed=15)))])
     t_rates = {"temporal orbit pass": [NSAMP * NITER_OT / owall],
                "temporal orbit scan, warm": [NSAMP * NITER_OT / w
                                              for w in scan_s],
@@ -1989,6 +2028,247 @@ def phase_comms(card, fade_series, dt):
     return out
 
 
+def phi_rms(sim):
+    """The rms of an AR sim's screens, sqrt(sum (sqrt(PSD) df)^2)."""
+    return float(torch.sqrt((sim.tables["sqrt_psd_df"].double() ** 2).sum()))
+
+
+def power(res):
+    return np.asarray(res.power, np.float64)
+
+
+def orbit_ar_spec():
+    """The (2, 1) AR scan's sims: the temporal orbit pass's 16 samples at
+    NITER_SCAN_T steps."""
+    return {"params": temporal(NITER=NITER_SCAN_T, NCHUNKS=4),
+            "geometry": pass_geometry(550e3, 5.0, 90, NSAMP)}
+
+
+def orbit_iid_spec(nchunks):
+    """The (1, 2) iid scan's sweep: samples 0, 5, 10, 15 of the iid orbit
+    pass, NCHUNKS ``nchunks``."""
+    geo = pass_geometry(600e3, 10.0, 240, NSAMP)
+    pick = np.linspace(0, NSAMP - 1, NSAMP_IID_SCAN).astype(int)
+    return {"params": flagship(NITER=NITER_OI, NCHUNKS=nchunks,
+                               SYNTH="pallas_fused"), "sweep": {
+        "ZENITH_ANGLE": geo["zenith_angles"][pick],
+        "L_SAT": geo["distances"][pick], "DTHETA": geo["paa"][pick],
+        "ANISO_DL": geo["aniso_dl"][pick],
+        "AZIMUT_SAT": geo["azimuts"][pick]}}
+
+
+def mesh_world_of_one(card, counters):
+    """(a) of the mesh phase: ``make_mesh()`` with no arguments, an NCCL
+    world of one rank on the card, in this process, each path with every
+    count at 0 first. Returns (the serial references (b) is held against,
+    {path: launches}, rates)."""
+    from fast_tpu_torch import Fast, parallel
+    from fast_tpu_torch.parallel import dryrun
+
+    def sharded(sim, mesh, kernel, label):
+        for c in counters.values():
+            c.LAUNCHES = 0
+        res, secs = timed(lambda: parallel.run_sharded(sim, mesh))
+        n = counts(counters)
+        print(f"mesh (a) {label}: run_sharded in {secs:.3f} s (first), "
+              f"launches " + ", ".join(f"{k} {v}" for k, v in n.items()))
+        if any(v for k, v in n.items() if k != kernel) or (
+                kernel and not n[kernel]):
+            fail(f"mesh (a) {label}: run_sharded did not run through "
+                 f"{kernel or 'no kernel'} alone")
+        return res, n
+
+    ref, launches = {}, {}
+    with parallel.make_mesh() as mesh:
+        print(f"mesh (a): {mesh!r}")
+        if mesh.backend != "nccl" or mesh.devices.shape != (1,) or \
+                mesh.devices[0].type != "cuda":
+            fail("make_mesh() is not an NCCL world of one rank on the card")
+        # the 256^2 flagship through K2, bit for bit the serial run
+        sim = Fast(flagship(), device=DEVICE)
+        ref["flagship"] = power(timed_run(sim)[0])
+        res, launches["K2 flagship"] = sharded(sim, mesh, "K2",
+                                               "256^2 flagship")
+        if not np.array_equal(power(res), ref["flagship"]):
+            fail("mesh (a): run_sharded differs from run() at 256^2")
+        walls = {"serial run()": [], "run_sharded": []}
+        for name in ("serial run()", "run_sharded", "run_sharded",
+                     "serial run()"):
+            fn = sim.run if name == "serial run()" else \
+                (lambda: parallel.run_sharded(sim, mesh))
+            walls[name].append(timed(fn)[1])
+        rates = {k: [sim.Niter / w for w in v] for k, v in walls.items()}
+        ref["serial_s"] = min(walls["serial run()"])
+        for k, v in rates.items():
+            print(f"rate mesh (a) 256^2 flagship: {k}: " + ", ".join(
+                f"{x:.0f}" for x in v) + f" realizations/s (warm; {card})")
+        raw = np.asarray(res._r)
+        m = parallel.sharded_moments(raw, mesh)
+        m_ref = np.array([np.mean(raw.astype(np.float64) ** k)
+                          for k in (1, 2, 3, 4)])
+        d = float(np.abs(m / m_ref - 1).max())
+        print(f"mesh (a) sharded_moments of the series: {m.tolist()} against "
+              f"numpy float64, max relative difference {d:.3e} (limit "
+              f"{MOMENTS_REL})")
+        if not d <= MOMENTS_REL:
+            fail("mesh (a): sharded_moments disagrees with numpy")
+        # the 512^2 flagship through K1
+        sim = Fast(flagship(NPXLS=512, NITER=NITER_SMALL), device=DEVICE)
+        r_ref = power(sim.run())
+        res, launches["K1 512^2"] = sharded(sim, mesh, "K1",
+                                            "512^2 flagship")
+        if not np.array_equal(power(res), r_ref):
+            fail("mesh (a): run_sharded differs from run() at 512^2")
+        # the temporal flagship with alpha = 1 through K4
+        sim = Fast(temporal(TEMPORAL_ALPHA=1), device=DEVICE)
+        ref["ar1"], ref["ar1_phi_rms"] = power(sim.run()), phi_rms(sim)
+        res, launches["K4 alpha=1"] = sharded(
+            sim, mesh, "K4", f"temporal alpha=1, {sim.Niter} steps")
+        if not np.array_equal(power(res), ref["ar1"]):
+            fail("mesh (a): the alpha=1 window differs from run()")
+        # a 16-layer alpha = 1 series through K5
+        sim = Fast(temporal(16, TEMPORAL_ALPHA=1, NITER=NITER_SCAN_T,
+                            NCHUNKS=2), device=DEVICE)
+        r_ref = power(sim.run())
+        res, launches["K5 alpha=1, 16 layers"] = sharded(
+            sim, mesh, "K5", f"temporal alpha=1, 16 layers, {sim.Niter} "
+            f"steps")
+        if not np.array_equal(power(res), r_ref):
+            fail("mesh (a): the 16-layer alpha=1 window differs from run()")
+        # the boiling temporal flagship, layer-sharded, against 'fft'
+        kw = dict(NITER=NITER_BOIL, NCHUNKS=16)
+        sim = Fast(temporal(**kw), device=DEVICE)
+        if not (sim._ar_alpha < 1).any():
+            fail("mesh (a): the temporal flagship does not boil")
+        ref["layers"] = power(Fast(temporal(SYNTH="fft", **kw),
+                                   device=DEVICE).run())
+        res, launches["none: boiling, layers"] = sharded(
+            sim, mesh, None, f"boiling temporal, {sim.Niter} steps, "
+            f"{len(sim.h)} layers")
+        d = float(np.abs(power(res) / ref["layers"] - 1).max())
+        print(f"mesh (a) layer-sharded boiling series against the serial "
+              f"SYNTH='fft' route: max relative difference {d:.3e} (limit "
+              f"{FFT_RTOL})")
+        if not d <= FFT_RTOL:
+            fail("mesh (a): the layer-sharded series disagrees with 'fft'")
+        del sim, res
+        # (b)'s scan references, on a (1, 1) scan mesh in this world
+        with parallel.make_scan_mesh(1, 1, [DEVICE]) as smesh:
+            for name, spec, seed in (
+                    ("orbit_ar", orbit_ar_spec(), 14),
+                    ("orbit_iid", orbit_iid_spec(4), 12)):
+                sims = dryrun.build_sims(spec, torch.device(DEVICE))
+                ref[name] = [power(x) for x in parallel.run_scan_sharded(
+                    sims, smesh, seed=seed)]
+                del sims
+    if torch.distributed.is_initialized():
+        fail("mesh (a): the world of one outlived its mesh")
+    torch.cuda.empty_cache()
+    return ref, launches, rates
+
+
+def mesh_ranks_sharing_the_card(card, ref):
+    """(b) of the mesh phase: MESH_RANKS gloo ranks sharing the card,
+    spawned through the dryrun twin, held against (a)'s serial references.
+    Returns ({path: [launches of each rank]}, numbers)."""
+    import tempfile
+    from fast_tpu_torch.parallel import dryrun
+    d = MESH_RANKS
+    cases = [
+        {"name": "flagship", "kind": "run", "repeat": 2,
+         "params": flagship(NCHUNKS=NCHUNKS // d)},
+        {"name": "ar1", "kind": "run", "params": temporal(TEMPORAL_ALPHA=1)},
+        {"name": "layers", "kind": "run",
+         "params": temporal(NITER=NITER_BOIL, NCHUNKS=16)},
+        {"name": "orbit_ar", "kind": "scan", "shape": (d, 1), "seed": 14,
+         "sims": orbit_ar_spec()},
+        {"name": "orbit_iid", "kind": "scan", "shape": (1, d), "seed": 12,
+         "sims": orbit_iid_spec(4 // d)},
+    ]
+    kernel = {"flagship": "K2", "ar1": "K4", "layers": None,
+              "orbit_ar": "K6", "orbit_iid": "K2"}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as outdir:
+        reports = dryrun.spawn(dryrun.run_cases, d, cases, outdir,
+                               devices=[DEVICE + ":0"] * d, timeout=600)
+        arrays = dryrun.load_arrays(outdir, d)
+    print(f"mesh (b): {d} gloo ranks on {DEVICE}:0, "
+          f"{time.perf_counter() - t0:.1f} s with the spawn, imports and "
+          f"Fast() inits")
+    launches = {}
+    for name, k in kernel.items():
+        n = [r["launches"][name] for r in reports]
+        print(f"mesh (b) {name}: launches by rank: " + "; ".join(
+            f"rank {i} ({reports[i]['device']}) " + (", ".join(
+                f"{c} {v}" for c, v in x.items() if v) or "none")
+            for i, x in enumerate(n)) + "; host s by rank " + ", ".join(
+            f"{r['seconds'][name]:.3f}" for r in reports))
+        if any(any(v for c, v in x.items() if c != k) or (k and not x[k])
+               for x in n):
+            fail(f"mesh (b) {name}: a rank did not run through "
+                 f"{k or 'no kernel'} alone")
+        launches[f"{k or 'none'} {name}"] = [x[k] if k else 0 for x in n]
+    for i, a in enumerate(arrays[1:], 1):
+        if a.keys() != arrays[0].keys() or any(
+                not np.array_equal(v, arrays[0][k]) for k, v in a.items()):
+            fail(f"mesh (b): rank {i} holds other series than rank 0")
+    a = arrays[0]
+    for i in range(2):
+        if not np.array_equal(a[f"flagship.{i}"], ref["flagship"]):
+            fail(f"mesh (b): the flagship over {d} ranks at NCHUNKS "
+                 f"{NCHUNKS // d} differs from the serial run at {NCHUNKS}")
+    print(f"mesh (b) flagship: {d} ranks x NCHUNKS {NCHUNKS // d} equal the "
+          f"serial run at NCHUNKS {NCHUNKS}, bit for bit")
+    off = NITER_T // d * (d - 1)
+    limit = AR_JUMP_FACTOR * off * 2.0 ** -24 * ref["ar1_phi_rms"]
+    dev = float(np.abs(a["ar1.0"] - ref["ar1"]).max() / ref["ar1"].mean())
+    print(f"mesh (b) alpha=1 windows against the serial K4 series: max |dI| "
+          f"/ <I> {dev:.3e} (limit {AR_JUMP_FACTOR} x offset {off} x 2^-24 "
+          f"x phi_rms {ref['ar1_phi_rms']:.4f} rad = {limit:.3e})")
+    if not dev <= limit:
+        fail("mesh (b): the alpha=1 windows disagree with the serial run")
+    dl = float(np.abs(a["layers.0"] / ref["layers"] - 1).max())
+    print(f"mesh (b) layer-sharded boiling series against the serial "
+          f"SYNTH='fft' route: max relative difference {dl:.3e} (limit "
+          f"{FFT_RTOL})")
+    if not dl <= FFT_RTOL:
+        fail("mesh (b): the layer-sharded series disagrees with 'fft'")
+    for name, shape in (("orbit_ar", (d, 1)), ("orbit_iid", (1, d))):
+        for i, r in enumerate(ref[name]):
+            if not np.array_equal(a[f"{name}.{i}"], r):
+                fail(f"mesh (b): the {shape} scan's sample {i} differs from "
+                     f"the (1, 1) scan")
+        print(f"mesh (b) {shape} scan of {len(ref[name])} samples equals the "
+              f"(1, 1) scan bit for bit")
+    warm = max(r["seconds"]["flagship"] for r in reports)
+    rate = NITER / warm
+    print(f"rate mesh (b) 256^2 flagship over {d} ranks sharing the card: "
+          f"{rate:.0f} realizations/s (warm; the slower rank's host clock), "
+          f"{warm / ref['serial_s']:.2f}x the serial run's "
+          f"{ref['serial_s']:.3f} s ({card})")
+    return launches, {"ar1_jump_max_rel": dev, "ar1_jump_limit": limit,
+                      "layers_fft_rel": dl, "rate_b": rate,
+                      "cost_b_over_serial": warm / ref["serial_s"]}
+
+
+def phase_mesh(card, counters):
+    """The multi-device layer: (a) an NCCL world of one rank on the card
+    in this process, (b) MESH_RANKS gloo ranks sharing the card. Returns
+    ({kernel: {"a": launches, "b": [launches of each rank]}}, numbers)."""
+    ref, launches_a, rates = mesh_world_of_one(card, counters)
+    launches_b, numbers = mesh_ranks_sharing_the_card(card, ref)
+    out = {k: {"a": 0, "b": [0] * MESH_RANKS} for k in counters}
+    for path, n in launches_a.items():
+        for k, v in n.items():
+            out[k]["a"] += v
+    for path, n in launches_b.items():
+        k = path.split()[0]
+        if k in out:
+            out[k]["b"] = [x + y for x, y in zip(out[k]["b"], n)]
+    numbers["rates_a"] = {k: max(v) for k, v in rates.items()}
+    return out, numbers
+
+
 def rates(runs, card, where, unit="realizations"):
     """Warm ``run()`` rates of the named sims, two each, in the given
     order; prints and returns {name: [per second, ...]}."""
@@ -2173,6 +2453,7 @@ def main():
     comms_res = phase_comms(card, fade_series, fade_dt)
     rates_256["FastFSOC 16-QAM (K2 + modem)"] = [comms_res["fsoc_rate"]]
     ctx["k2"]["launches_comms"] = comms_res.pop("launches")
+    mesh_launches, mesh_res = phase_mesh(card, counters)
     wide_shape = "1024^2, P=402"
     line = {"kernels": [
         kernel_entry("synth_detect", "fast_tpu_torch/csrc/synth_detect.cu",
@@ -2204,7 +2485,14 @@ def main():
                      "fast_tpu/ops/pallas_synth.py:175", k7,
                      wide_shape + ", Box-Muller", rates_w,
                      {"timed_draws": 630}),
-    ], "comms": comms_res, "seconds": time.perf_counter() - t_start}
+    ], "comms": comms_res, "mesh": mesh_res}
+    names = {"synth_detect": "K2", "colfac_detect": "K1",
+             "colfac_detect_split": "K3", "ar_flow_fused": "K4",
+             "ar_flow_streamed": "K5", "ar_flow_fused_batch": "K6",
+             "synth_screens": "K7"}
+    for entry in line["kernels"]:
+        entry["launches_mesh"] = mesh_launches[names[entry["name"]]]
+    line["seconds"] = time.perf_counter() - t_start
     print(card)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

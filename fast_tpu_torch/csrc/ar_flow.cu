@@ -111,9 +111,13 @@
 // Random bits. Philox4x32-10 keyed by the 64-bit seed (k0 = low word,
 // k1 = high word). Counter of mode e = row * N + col of layer l of series
 // s at the absolute step t of the series:
-//   ctr = (e, s * L + l, t, 2);  bits1 = out[0] (real part), bits2 = out[1].
-// The series-major row s * L + l is the TPU kernel's row order, and makes
-// series 0 of a batch the single series of K4 from the same seed. The
+//   ctr = (e, (s0 + s) * L + l, t, 2);  bits1 = out[0] (real part),
+//   bits2 = out[1],
+// with s0 the call's series offset (0 unless the caller says). The
+// series-major row is the TPU kernel's row order, and makes series 0 of a
+// batch the single series of K4 from the same seed; the offset lets a
+// rank that holds series s0 .. s0 + B - 1 of a scan draw the noise those
+// series draw in one call over the whole scan (state rows stay local). The
 // absolute step makes a series cut into several calls the same series;
 // the last word 2 keeps these streams apart from K2's (0), K1's (1) and
 // K3's (3).
@@ -139,11 +143,12 @@ constexpr int kNone = 0, kUniform = 1, kGauss = 2;
 // Advance LB layers of every mode of series s = blockIdx.y (of B =
 // gridDim.y) by nsteps steps and add them into A. st_*, ph_*, ns: (B, L,
 // N, N); a_*: (nsteps, B, N, N). accumulate: A already holds the sum of
-// the layers below layer0.
+// the layers below layer0. series0: the series offset of the Philox row.
 template <int LB, int kNoise>
 __global__ void __launch_bounds__(kThreads)
     ar_update(uint32_t k0, uint32_t k1, uint32_t step0, int nsteps, int L,
-              int layer0, int accumulate, float* __restrict__ st_re,
+              int layer0, int series0, int accumulate,
+              float* __restrict__ st_re,
               float* __restrict__ st_im, const float* __restrict__ ph_re,
               const float* __restrict__ ph_im, const float* __restrict__ ns,
               float* __restrict__ a_re, float* __restrict__ a_im, int NN) {
@@ -152,6 +157,7 @@ __global__ void __launch_bounds__(kThreads)
   const int s = blockIdx.y, B = gridDim.y;
   // the state row of the block's first layer, and its Philox counter word
   const int row0 = s * L + layer0;
+  const int prow0 = (series0 + s) * L + layer0;
   float sr[LB], si[LB], pr[LB], pi[LB], nz[LB];
 #pragma unroll
   for (int l = 0; l < LB; ++l) {
@@ -175,7 +181,7 @@ __global__ void __launch_bounds__(kThreads)
       float ni = __fadd_rn(__fmul_rn(sr[l], pi[l]), __fmul_rn(si[l], pr[l]));
       if (kNoise != kNone) {
         const U4 v = philox4x32_10(static_cast<uint32_t>(e),
-                                   static_cast<uint32_t>(row0 + l),
+                                   static_cast<uint32_t>(prow0 + l),
                                    step0 + static_cast<uint32_t>(t), 2u, k0,
                                    k1);
         float z1, z2;
@@ -494,7 +500,7 @@ __global__ void ar_sum_tiles(const float* __restrict__ part,
 
 struct UpdateArgs {
   uint32_t k0, k1, step0;
-  int nsteps, L, layer0, accumulate;
+  int nsteps, L, layer0, series0, accumulate;
   float *st_re, *st_im;
   const float *ph_re, *ph_im, *ns;
   float *a_re, *a_im;
@@ -506,8 +512,8 @@ template <int LB, int kNoise>
 cudaError_t launch_update(const UpdateArgs& u) {
   const dim3 grid((u.NN + kThreads - 1) / kThreads, u.B);
   ar_update<LB, kNoise><<<grid, kThreads, 0, u.stream>>>(
-      u.k0, u.k1, u.step0, u.nsteps, u.L, u.layer0, u.accumulate, u.st_re,
-      u.st_im, u.ph_re, u.ph_im, u.ns, u.a_re, u.a_im, u.NN);
+      u.k0, u.k1, u.step0, u.nsteps, u.L, u.layer0, u.series0, u.accumulate,
+      u.st_re, u.st_im, u.ph_re, u.ph_im, u.ns, u.a_re, u.a_im, u.NN);
   return cudaGetLastError();
 }
 
@@ -607,7 +613,8 @@ cudaError_t products(int P, int nj, int B, const float* wr, const float* wi,
 }  // namespace
 
 // One call advances B series by nsteps steps from the absolute step
-// step0. Shapes: st_re, st_im (B, L, N, N), the states, updated in place;
+// step0; series s draws the Philox rows of series series0 + s. Shapes:
+// st_re, st_im (B, L, N, N), the states, updated in place;
 // ph_re, ph_im (B, L, N, N); ns (B, L, N, N), read only with noise != 0;
 // wr, wi (P, N), shared; pm_t (B, P, P), each series' transposed pupil *
 // mode; scratch ws (P x (N rounded up to 32) x 4 words, W split for the
@@ -620,8 +627,9 @@ cudaError_t products(int P, int nj, int B, const float* wr, const float* wi,
 // noise: 0 none, 1 'uniform', 2 'gauss'. P must be a multiple of 16.
 // Returns the cudaError_t of the launches (0 on success).
 extern "C" int fast_ar_flow(uint32_t k0, uint32_t k1, uint32_t step0,
-                            int nsteps, int tile, int B, int L, int lb,
-                            int noise, float* st_re, float* st_im,
+                            int nsteps, int tile, int B, int series0,
+                            int L, int lb, int noise, float* st_re,
+                            float* st_im,
                             const float* ph_re, const float* ph_im,
                             const float* ns, const float* wr,
                             const float* wi, const float* pm_t,
@@ -629,9 +637,9 @@ extern "C" int fast_ar_flow(uint32_t k0, uint32_t k1, uint32_t step0,
                             float* g_re, float* g_im, float* part,
                             float* out, int N, int P, void* stream) {
   if (N <= 0 || N > 32768 || !pass2_takes(P) || nsteps <= 0 || tile <= 0 ||
-      B <= 0 || B > 65535 || L <= 0 ||
-      static_cast<long long>(B) * L > 0x7fffffffLL || lb < 1 || lb > 8 ||
-      noise < 0 || noise > 2 || (noise != 0 && ns == nullptr) ||
+      B <= 0 || B > 65535 || series0 < 0 || L <= 0 ||
+      (static_cast<long long>(series0) + B) * L > 0x7fffffffLL || lb < 1 ||
+      lb > 8 || noise < 0 || noise > 2 || (noise != 0 && ns == nullptr) ||
       (pupil_tiles(P).T > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -640,12 +648,12 @@ extern "C" int fast_ar_flow(uint32_t k0, uint32_t k1, uint32_t step0,
   for (int t0 = 0; t0 < nsteps; t0 += tile) {
     const int nt = nsteps - t0 < tile ? nsteps - t0 : tile;
     for (int l0 = 0; l0 < L; l0 += lb) {
-      const UpdateArgs u = {k0,    k1,    step0 + static_cast<uint32_t>(t0),
-                            nt,    L,     l0,
-                            l0 > 0, st_re, st_im,
-                            ph_re, ph_im, ns,
-                            a_re,  a_im,  N * N,
-                            B,     st};
+      const UpdateArgs u = {k0,      k1,     step0 + static_cast<uint32_t>(t0),
+                            nt,      L,      l0,
+                            series0, l0 > 0, st_re,
+                            st_im,   ph_re,  ph_im,
+                            ns,      a_re,   a_im,
+                            N * N,   B,      st};
       err = update_layers(L - l0 < lb ? L - l0 : lb, noise, u);
       if (err != cudaSuccess) return static_cast<int>(err);
     }

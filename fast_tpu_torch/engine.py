@@ -738,10 +738,9 @@ class Fast:
         with self.profile.stage("mc_run"):
             return self._run(progress=progress)
 
-    def _run(self, seeds=None, progress=False):
-        """The run from the seeds ``(log-amplitude, screens)`` (default:
-        :meth:`_run_seeds`)."""
-        logamp_seed, seed_mc = self._run_seeds() if seeds is None else seeds
+    def _run(self, progress=False):
+        """The run from the seeds of :meth:`_run_seeds`."""
+        logamp_seed, seed_mc = self._run_seeds()
         # the complex pupil couplings of every chunk, before the
         # log-amplitude factor
         if not self.temporal:
@@ -749,29 +748,33 @@ class Fast:
         elif self._ar_route is None:
             chunks = self._temporal_screens_chunks(seed_mc)
         else:
-            chunks = self._temporal_ar_chunks(seed_mc)
+            chunks = self._ar_chunks(*self._ar_start(seed_mc))
         if progress:
             chunks = chunk_progress(
                 chunks, self.Nchunks, per_item=self.Niter_per_chunk,
                 unit="steps" if self.temporal else "realizations")
-        return self._finish(logamp_seed, chunks)
+        return self._store(self._series(logamp_seed, chunks))
 
-    def _finish(self, logamp_seed, chunks):
-        """The run's result from the couplings of its chunks (in series
-        order, of any lengths that add up to NITER) and the log-amplitude
-        series of ``logamp_seed``: the log-amplitude factor, ``|.|^2``
-        unless ``COHERENT``, the moments on the device; stores and returns
-        :attr:`result`."""
+    def _series(self, logamp_seed, chunks, t0=0):
+        """The iterates of the chunks' couplings (in series order, of any
+        lengths), from the iterate ``t0`` on (0, or a rank's window of a
+        sharded run): the log-amplitude factor of ``logamp_seed``'s series,
+        then ``|.|^2`` unless ``COHERENT``."""
         self._logamp_seed, self._logamp_cache = logamp_seed, None
         chi = self._draw_logamp().to(self.device)
         coherent = bool(self.params["COHERENT"])
-        outs, t0 = [], 0
+        outs = []
         for pc in chunks:
             n = pc.shape[0]
             out = torch.exp(chi[t0:t0 + n]).to(pc.real.dtype) * pc
             outs.append(out if coherent else out.abs() ** 2)
             t0 += n
-        out = torch.cat(outs)
+        return torch.cat(outs)
+
+    def _store(self, out):
+        """The result of the whole series ``out``: its moments on the
+        device and the non-finite guard; stores and returns
+        :attr:`result`."""
         mean, si, nbad = _moments(out)
         if nbad:
             raise FloatingPointError(
@@ -782,11 +785,11 @@ class Fast:
         logger.info(self.result)
         return self.result
 
-    def _run_seeds(self):
-        """The seeds of a run, from the sim's seed: that of the
-        log-amplitude series and that of the screens (the Monte Carlo
-        draws of an iid run)."""
-        gen = make_generator(self.seed)
+    def _run_seeds(self, seed=None):
+        """The seeds of a run, from ``seed`` (default: the sim's seed): that
+        of the log-amplitude series and that of the screens (the Monte
+        Carlo draws of an iid run)."""
+        gen = make_generator(self.seed if seed is None else seed)
         return draw_seed(gen), draw_seed(gen)
 
     def _draw_logamp(self):
@@ -798,14 +801,19 @@ class Fast:
                                 if self.temporal else None),
             dtype=self.dtype)
 
-    def _iid_chunks(self, seed_mc):
-        """The couplings of every chunk of an iid run."""
+    def _iid_chunks(self, seed_mc, first=0, count=None, nbatch=None,
+                    generator=None):
+        """The couplings of every chunk of an iid run, or of the ``count``
+        chunks of ``nbatch`` draws from chunk ``first`` (a rank's share of
+        a sharded run) with the plain paths drawing from ``generator``."""
         # plain paths draw on the run device from one generator; the
         # kernel keys its Philox by seed_mc and counts chunks in `stream`
-        dev_gen = make_generator(seed_mc, device=self.device)
+        dev_gen = (make_generator(seed_mc, device=self.device)
+                   if generator is None else generator)
         T = self.tables
-        B = self.Niter_per_chunk
-        for i in range(self.Nchunks):
+        B = self.Niter_per_chunk if nbatch is None else nbatch
+        count = self.Nchunks if count is None else count
+        for i in range(first, first + count):
             sh = (synthesis.subharm_screens(
                 dev_gen, T["sqrt_psd_sh"], T["sh_df"], T["sh_modes"], B // 2)
                 if self.subharmonics else None)
@@ -813,29 +821,38 @@ class Fast:
                                   noise=self.params["MC_NOISE"], seed=seed_mc,
                                   stream=i, generator=dev_gen, sh=sh)
 
-    def _frozen_flow_coords(self, chunk):
-        """Fractional (rows, cols) pixel coordinates of the pupil along the
-        wind for the steps of one chunk: (nlayers, B, Npup) each, in the
-        working type. Made in float64 from the absolute step, so a step's
-        coordinates do not depend on how the series is cut into chunks."""
-        T = self.tables
+    def _pieces(self, step0=0, nsteps=None):
+        """``(first step, steps)`` of each chunk of the steps ``step0 ..
+        step0 + nsteps - 1`` (default: the whole series), at most
+        ``Niter_per_chunk`` steps each."""
         B = self.Niter_per_chunk
-        steps = torch.arange(chunk * B + 1, (chunk + 1) * B + 1,
+        end = step0 + (self.Niter if nsteps is None else nsteps)
+        return [(s, min(B, end - s)) for s in range(step0, end, B)]
+
+    def _frozen_flow_coords(self, step0, nsteps):
+        """Fractional (rows, cols) pixel coordinates of the pupil along the
+        wind for the steps ``step0 .. step0 + nsteps - 1``: (nlayers,
+        nsteps, Npup) each, in the working type. Made in float64 from the
+        absolute step, so a step's coordinates do not depend on how the
+        series is cut into chunks."""
+        T = self.tables
+        steps = torch.arange(step0 + 1, step0 + nsteps + 1,
                              dtype=torch.float64, device=self.device)
         shifts = (steps * float(T["dt"])) * T["wind_px"][..., None]
         coords = T["pup_coords"][None, None, None, :] + shifts[..., None]
         return coords[:, 0].to(self.dtype), coords[:, 1].to(self.dtype)
 
-    def _temporal_screens_chunks(self, seed_scr):
+    def _temporal_screens_chunks(self, seed_scr, step0=0, nsteps=None):
         """The frozen-flow ('screens') route: one large screen per layer,
-        sampled along the wind chunk by chunk."""
+        sampled along the wind chunk by chunk, over the whole series or the
+        steps ``step0 ..`` of a rank's window."""
         T = self.tables
         screens = synthesis.synthesize_layer_screens(
             make_generator(seed_scr, device=self.device),
             T["sqrt_psd_layers"], float(T["df"]))
-        for i in range(self.Nchunks):
+        for s, n in self._pieces(step0, nsteps):
             phs = synthesis.sample_frozen_flow(
-                screens, *self._frozen_flow_coords(i))
+                screens, *self._frozen_flow_coords(s, n))
             yield synthesis.detector_coupling(phs, T["pm"], float(T["dx"]),
                                               float(T["norm"]))
 
@@ -850,12 +867,13 @@ class Fast:
                            dtype=cdtype) * T["sqrt_psd_df"]
         return a, draw_seed(gen)
 
-    def _ar_series_chunks(self, a, seed_noise, series=0):
+    def _ar_series_chunks(self, a, seed_noise, series=0, step0=0,
+                          nsteps=None):
         """The layer-summed Fourier coefficients (B, N, N) of every chunk
-        from the stock-op recursion, with the AR kernels' noise stream (of
-        series ``series`` of a batch: :class:`ar_flow.NoiseStream`)."""
+        from the stock-op recursion from the state ``a`` at the absolute
+        step ``step0``, with the AR kernels' noise stream (of series
+        ``series`` of a batch: :class:`ar_flow.NoiseStream`)."""
         T = self.tables
-        B = self.Niter_per_chunk
         boiling = bool((T["alpha"] < 1).any())
         alpha = T["alpha"][:, None, None]
         sqrt1ma = torch.sqrt(torch.clamp(1.0 - alpha ** 2, min=0.0))
@@ -863,38 +881,40 @@ class Fast:
             seed_noise, a.shape[0], self.Npxls, self.Niter,
             noise=self.params["TEMPORAL_NOISE"], device=self.device,
             dtype=a.dtype, series=series)
-        for i in range(self.Nchunks):
+        for s, n in self._pieces(step0, nsteps):
             a, A = synthesis.ar_flow_series(
                 a, noise, T["step_phasor"], T["sqrt_psd_df"], alpha, sqrt1ma,
-                B, boiling, step0=i * B)
+                n, boiling, step0=s)
             yield A
 
-    def _temporal_ar_chunks(self, seed_scr):
-        """The AR routes: through the AR kernel (its plain version on the
-        CPU), one call per chunk from the chunk's absolute step, or
-        through the exact batched ``ift2`` of the stock-op recursion."""
-        T = self.tables
-        B = self.Niter_per_chunk
-        dx, norm = float(T["dx"]), float(T["norm"])
-        a, seed_noise = self._ar_start(seed_scr)
-        if self._ar_route == "kernel":
-            kernel = ar_flow.select(a.shape[0])
-            for i in range(self.Nchunks):
-                c, a = kernel(seed_noise, a, T["ph"], T.get("ns"), T["W"],
-                              T["pm"], B, noise=self.params["TEMPORAL_NOISE"],
-                              step0=i * B)
-                yield torch.complex(c[:, 0], c[:, 1]) * (dx ** 2 / norm)
+    def _ar_chunks(self, a, seed_noise, step0=0, nsteps=None):
+        """The AR routes from the state ``a`` at the absolute step
+        ``step0``, for the whole series or ``nsteps`` steps (a rank's
+        window of a pure frozen-flow series): through the AR kernel (its
+        plain version on the CPU), one call per chunk from the chunk's
+        absolute step, or through the exact batched ``ift2`` of the
+        stock-op recursion."""
+        if self._ar_route != "kernel":
+            yield from self._ar_fft_chunks(a, seed_noise, step0=step0,
+                                           nsteps=nsteps)
             return
-        yield from self._ar_fft_chunks(a, seed_noise)
+        T = self.tables
+        dx, norm = float(T["dx"]), float(T["norm"])
+        kernel = ar_flow.select(a.shape[0])
+        for s, n in self._pieces(step0, nsteps):
+            c, a = kernel(seed_noise, a, T["ph"], T.get("ns"), T["W"],
+                          T["pm"], n, noise=self.params["TEMPORAL_NOISE"],
+                          step0=s)
+            yield torch.complex(c[:, 0], c[:, 1]) * (dx ** 2 / norm)
 
-    def _ar_fft_chunks(self, a, seed_noise, series=0):
+    def _ar_fft_chunks(self, a, seed_noise, series=0, step0=0, nsteps=None):
         """The exact AR route from the state ``a``: the stock-op recursion
         with the noise of series ``series`` and the batched centred
-        ``ift2``, chunk by chunk."""
+        ``ift2``, chunk by chunk, from the absolute step ``step0``."""
         T = self.tables
         dx, norm = float(T["dx"]), float(T["norm"])
         lo, hi = self.pup_crop
-        for A in self._ar_series_chunks(a, seed_noise, series):
+        for A in self._ar_series_chunks(a, seed_noise, series, step0, nsteps):
             phs = ift2(A, 1.0).real[:, lo:hi, lo:hi]
             yield synthesis.detector_coupling(phs, T["pm"], dx, norm)
 
@@ -928,23 +948,26 @@ class Fast:
             self._logamp_cache = None
         return self.logamp
 
-    def compute_phs_temporal(self, chunk=0, seed=None):
+    def compute_phs_temporal(self, chunk=0, generator=None):
         """Sample one chunk of the frozen-flow phase series
         (``fast/fast.py:607-637``): stores and returns ``self.phs``,
-        (Niter_per_chunk, Npup, Npup). ``seed`` defaults to the screen seed
-        of :meth:`run`, so ``chunk=k`` is the k-th window of the run's own
-        trajectory; in AR mode the state is evolved from the series start
-        through the stock-op recursion and the exact centred ``ift2``."""
+        (Niter_per_chunk, Npup, Npup). The screen seed is drawn from
+        ``generator`` (a ``torch.Generator``, as :meth:`sample_screens`
+        takes one) when given, else it is the screen seed of :meth:`run`,
+        so ``chunk=k`` is the k-th window of the run's own trajectory; in
+        AR mode the state is evolved from the series start through the
+        stock-op recursion and the exact centred ``ift2``."""
         if not self.temporal:
             raise ValueError("compute_phs_temporal requires TEMPORAL=True")
-        if seed is None:
-            seed = self._run_seeds()[1]
+        seed = (self._run_seeds()[1] if generator is None
+                else draw_seed(generator))
+        B = self.Niter_per_chunk
         if self._ar_route is None:
             screens = synthesis.synthesize_layer_screens(
                 make_generator(seed, device=self.device),
                 self.tables["sqrt_psd_layers"], float(self.tables["df"]))
             phs = synthesis.sample_frozen_flow(
-                screens, *self._frozen_flow_coords(chunk))
+                screens, *self._frozen_flow_coords(chunk * B, B))
         else:
             lo, hi = self.pup_crop
             series = self._ar_series_chunks(*self._ar_start(seed))

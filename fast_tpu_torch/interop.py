@@ -236,6 +236,8 @@ def _ar_tables(T, arrays, sqrt_layers, np_dt, dev):
         ph = np.exp(1j * phase) * alpha[:, None, None]
         T["ph"] = dev(ph.astype(np.complex64))
         if np.any(alpha < 1.0):
-            sqrt1ma = np.sqrt(np.maximum(0.0, 1.0 - np.float64(alpha) ** 2))
+            # asarray: np.float64 of a one-layer array is a scalar
+            sqrt1ma = np.sqrt(np.maximum(
+                0.0, 1.0 - np.asarray(alpha, np.float64) ** 2))
             T["ns"] = dev((sqrt1ma[:, None, None]
                            * np.float64(sqrt_psd_df)).astype(np.float32))

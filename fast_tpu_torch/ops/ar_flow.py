@@ -25,11 +25,13 @@ screen is reduced to ``(sum pm cos phi, sum pm sin phi)``.
   alone.
 * :func:`ar_flow_reference` and :func:`ar_flow_batch_reference` are the
   same functions in stock torch ops, step by step, from the same
-  Philox4x32-10 bits: counter ``(mode, series * L + layer, absolute step,
-  2)``, key the 64-bit seed (series 0 of a batch is the single series of
-  K4). Their update uses the kernel's operations in the kernel's order (no
-  fused multiply-add), so state and layer sum agree with the kernel bit
-  for bit and only the two matrix products differ. ``bits`` replaces the
+  Philox4x32-10 bits: counter ``(mode, (series0 + series) * L + layer,
+  absolute step, 2)``, key the 64-bit seed (series 0 of a batch is the
+  single series of K4; ``series0``, 0 unless the caller says, lets a rank
+  draw the noise of series ``series0 ..`` of a larger batch). Their
+  update uses the kernel's operations in the kernel's order (no fused
+  multiply-add), so state and layer sum agree with the kernel bit for bit
+  and only the two matrix products differ. ``bits`` replaces the
   Philox bits (``"zero"``: all zero, what the Pallas interpreter's PRNG
   yields).
 
@@ -133,15 +135,17 @@ class NoiseStream:
     """The kernels' boiling noise of one series, step by step, for the
     stock-op routes: ``stream(step)`` is the complex (L, N, N) noise of the
     absolute step ``step`` in ``dtype``, of series ``series`` of a batch
-    (state rows ``series * L ..``; series 0 is the single series of K4).
+    (state rows ``series * L ..``; series 0 is the single series of K4),
+    from its layer ``layer0`` on (a rank's layers of a layer-sharded
+    series draw the rows ``layer0 .. layer0 + L - 1``).
     Steps are drawn in blocks, up to the step ``end``, and must be asked
     for in rising order."""
 
     def __init__(self, seed, L, N, end, noise="uniform", device="cpu",
-                 dtype=torch.complex64, series=0):
+                 dtype=torch.complex64, series=0, layer0=0):
         self.seed, self.L, self.N, self.noise = seed, L, N, noise
         self.end, self.device, self.dtype = int(end), device, dtype
-        self.layer0 = int(series) * L
+        self.layer0 = int(series) * L + int(layer0)
         self._per = max(1, _REF_POINTS // (L * N * N))
         self._first, self._z = 0, None
 
@@ -224,9 +228,11 @@ def detect_real_reference(ar, ai, wr, wi, pm_t):
                        dim=-1)
 
 
-def _reference(seed, st, ph2, ns, wr, wi, pm_t, nsteps, noise, step0, bits):
+def _reference(seed, st, ph2, ns, wr, wi, pm_t, nsteps, noise, step0, bits,
+               series0=0):
     """The plain version on packed arguments; ``st`` (2, B, L, N, N) is
-    advanced in place. Returns the (nsteps, B, 2) sums."""
+    advanced in place, series s drawing the Philox rows of series
+    ``series0 + s``. Returns the (nsteps, B, 2) sums."""
     _, B, L, N, _ = st.shape
     sr, si = st[0], st[1]
     pr, pi = ph2[0], ph2[1]
@@ -240,7 +246,8 @@ def _reference(seed, st, ph2, ns, wr, wi, pm_t, nsteps, noise, step0, bits):
                 blk = tuple(b[t0:t0 + nt].reshape(nt, B * L, N, N)
                             for b in bits)
             z1, z2 = (z.view(nt, B, L, N, N) for z in ar_noise(
-                seed, step0 + t0, nt, B * L, N, noise, st.device, blk))
+                seed, step0 + t0, nt, B * L, N, noise, st.device, blk,
+                layer0=series0 * L))
         A = torch.empty((2, nt, B, N, N), dtype=torch.float32,
                         device=st.device)
         for t in range(nt):
@@ -293,15 +300,16 @@ def ar_flow_reference(seed, a0, step_phasor_scaled, noise_scale, W,
 
 def ar_flow_batch_reference(seed, a0, step_phasor_scaled, noise_scale, W,
                             pupil_modes, nsteps, noise="uniform", step0=0,
-                            bits=None):
+                            bits=None, series0=0):
     """K6 in stock torch ops: :func:`ar_flow_reference` for B series at
-    once, series s drawing the state rows ``s * L ..`` of the Philox
+    once, series s drawing the rows ``(series0 + s) * L ..`` of the Philox
     counter.
 
     Args: as :func:`ar_flow_reference`, with a leading series axis on
     ``a0``, ``step_phasor_scaled``, ``noise_scale`` (B, L, N, N) and
     ``pupil_modes`` (B, npup, npup); ``W`` is shared; ``bits`` are (nsteps,
-    B, L, N, N).
+    B, L, N, N); ``series0`` is the index of the first series in the
+    Philox counter (series ``series0 ..`` of a larger batch).
 
     Returns:
         ``(couplings, a_final)``: (nsteps, B, 2) float32 and the (B, L, N,
@@ -310,7 +318,7 @@ def ar_flow_batch_reference(seed, a0, step_phasor_scaled, noise_scale, W,
     st, ph2, ns, wr, wi, pm_t = _pack(a0, step_phasor_scaled, noise_scale, W,
                                       pupil_modes, batch=True)
     out = _reference(seed, st, ph2, ns, wr, wi, pm_t, int(nsteps), noise,
-                     int(step0), bits)
+                     int(step0), bits, int(series0))
     return out, torch.complex(st[0], st[1])
 
 
@@ -323,7 +331,7 @@ def _library():
     lib, info = _build.load_library("ar_flow")
     if not getattr(lib, "_fast_typed", False):
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-        lib.fast_ar_flow.argtypes = [u, u, u] + [i] * 6 + [p] * 15 \
+        lib.fast_ar_flow.argtypes = [u, u, u] + [i] * 7 + [p] * 15 \
             + [i, i, p]
         lib.fast_ar_flow.restype = i
         lib.fast_ar_dft.argtypes = [i] + [p] * 7 + [i, i, p]
@@ -343,10 +351,12 @@ def _split_scratch(N, P, dev):
 
 
 def _ar_flow(wrapper, lb, seed, a0, ph, ns, W, pm, nsteps, noise, step0,
-             max_steps, batch=False):
-    nsteps, step0 = int(nsteps), int(step0)
+             max_steps, batch=False, series0=0):
+    nsteps, step0, series0 = int(nsteps), int(step0), int(series0)
     if nsteps <= 0:
         raise ValueError("nsteps must be positive")
+    if series0 < 0:
+        raise ValueError("series0 must not be negative")
     if noise not in _NOISE_CODE:
         raise ValueError("noise must be 'uniform'|'gauss'")
     if not 0 <= step0 <= step0 + nsteps <= 2 ** 32:
@@ -357,14 +367,16 @@ def _ar_flow(wrapper, lb, seed, a0, ph, ns, W, pm, nsteps, noise, step0,
     _, B, L, N, _ = st.shape
     if dev.type == "cpu":
         out = _reference(seed, st, ph2, ns, wr, wi, pm_t, nsteps, noise,
-                         step0, None)
+                         step0, None, series0)
     elif dev.type != "cuda":
         raise ValueError(f"the AR flow kernels run on CPU or CUDA, not {dev}")
-    elif not supports(N, W.shape[0]) or B > _B_MAX:
+    elif (not supports(N, W.shape[0]) or B > _B_MAX
+          or (series0 + B) * L > 0x7FFFFFFF):
         raise ValueError(
             f"the AR flow kernels take a grid of at most {_N_MAX} px, a "
-            f"pupil of at most {128 * _T_MAX} px and at most {_B_MAX} "
-            f"series; got N={N}, a {W.shape[0]} px pupil, {B} series")
+            f"pupil of at most {128 * _T_MAX} px, at most {_B_MAX} series "
+            f"and Philox rows below 2^31; got N={N}, a {W.shape[0]} px "
+            f"pupil, {B} series from series {series0} of {L} layers")
     else:
         lib, _ = _library()
         P = wr.shape[0]
@@ -383,8 +395,8 @@ def _ar_flow(wrapper, lb, seed, a0, ph, ns, W, pm, nsteps, noise, step0,
             cs = torch.cuda.current_stream(dev).cuda_stream
             for t0 in range(0, nsteps, per):
                 err = lib.fast_ar_flow(
-                    k0, k1, step0 + t0, min(per, nsteps - t0), tile, B, L,
-                    lb, code, st[0].data_ptr(), st[1].data_ptr(),
+                    k0, k1, step0 + t0, min(per, nsteps - t0), tile, B,
+                    series0, L, lb, code, st[0].data_ptr(), st[1].data_ptr(),
                     ph2[0].data_ptr(), ph2[1].data_ptr(),
                     None if ns is None else ns.data_ptr(), wr.data_ptr(),
                     wi.data_ptr(), pm_t.data_ptr(), ws.data_ptr(),
@@ -441,7 +453,7 @@ def ar_flow_streamed(seed, a0, step_phasor_scaled, noise_scale, W,
 
 def ar_flow_fused_batch(seed, a0, step_phasor_scaled, noise_scale, W,
                         pupil_modes, nsteps, noise="uniform", step0=0,
-                        max_steps=MAX_STEPS):
+                        max_steps=MAX_STEPS, series0=0):
     """K6: B independent series sharing ``W`` in one launch per
     ``max_steps`` steps; arguments and returns as
     :func:`ar_flow_batch_reference`.
@@ -449,8 +461,10 @@ def ar_flow_fused_batch(seed, a0, step_phasor_scaled, noise_scale, W,
     Each series' layers are advanced as :func:`select` would for one
     series: all in one thread's registers up to
     :data:`FUSED_MAX_LAYERS` layers, else in blocks of
-    :data:`STREAM_LAYERS`; series s draws the state rows ``s * L ..`` of
-    the Philox counter, so series 0 is K4's series from the same seed. On
+    :data:`STREAM_LAYERS`; series s draws the rows ``(series0 + s) * L
+    ..`` of the Philox counter, so series 0 is K4's series from the same
+    seed, and a call on series ``series0 ..`` of a batch draws what the
+    call on the whole batch draws for them. On
     CUDA tensors this launches the kernel on the current stream and counts
     each launch in ``ar_flow_fused_batch.LAUNCHES``, or raises; on CPU
     tensors it runs the plain version.
@@ -459,7 +473,7 @@ def ar_flow_fused_batch(seed, a0, step_phasor_scaled, noise_scale, W,
     lb = L if L <= FUSED_MAX_LAYERS else STREAM_LAYERS
     return _ar_flow(ar_flow_fused_batch, lb, seed, a0, step_phasor_scaled,
                     noise_scale, W, pupil_modes, nsteps, noise, step0,
-                    max_steps, batch=True)
+                    max_steps, batch=True, series0=series0)
 
 
 ar_flow_fused.LAUNCHES = 0

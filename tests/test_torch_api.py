@@ -1,7 +1,8 @@
 """The public surface of fast_tpu_torch against fast_tpu's, on the CPU.
 
 * Signatures: every function below has ``fast_tpu``'s parameter list,
-  names, kinds, order and defaults. Two differences are kept: a
+  names, kinds, order and defaults (the five ``parallel`` functions and
+  ``Fast.compute_phs_temporal`` among them). Two differences are kept: a
   ``torch.Generator`` (``generator``) where JAX takes a PRNG key (``key``),
   and a last keyword ``device=None``, the run device, on the comms
   functions that ``fast_tpu`` runs as jitted programs (``DEVICE_ARG``).
@@ -14,7 +15,10 @@
   so both packages' normal draws are replaced by the same numpy values.
 * Names: every public name of a ``fast_tpu`` module that the port has is
   in the port's module too, but for the names in ``LEFT_OUT``, each with
-  its reason; ``Fast`` has every method of ``fast_tpu.Fast``.
+  its reason; ``Fast`` has every method of ``fast_tpu.Fast``;
+  ``fast_tpu_torch.__all__`` is ``fast_tpu.__all__`` with ``interop``, its
+  modules attributes after ``import fast_tpu_torch``; no message of the
+  port names a ROADMAP item.
 * ``Fast.compute_mean_irradiance`` (both ``onaxis`` values) equals
   ``fast_tpu.Fast``'s to 1e-10 relative on a small link and on
   ``conf.DEFAULTS``; ``sample_screens`` gives ``fast_tpu``'s shapes and a
@@ -22,8 +26,10 @@
   variance of a pixel of an FFT screen.
 """
 
+import functools
 import importlib
 import inspect
+import pathlib
 import types
 
 import jax.numpy as jnp
@@ -72,7 +78,10 @@ FUNCTIONS = [
         "define_constellation", "gray_labels_qam", "fade_prob", "fade_dur",
         "Q", "ber_ook", "sep_qam", "ber_qam", "convolve_awgn_qam",
         "generalised_mutual_information_qam", "mutual_information_qam",
-        "pack_payload", "unpack_payload", "flip_bits", "Modulator")]
+        "pack_payload", "unpack_payload", "flip_bits", "Modulator")] + [
+    ("parallel", n) for n in (
+        "make_mesh", "run_sharded", "sharded_moments", "make_scan_mesh",
+        "run_scan_sharded")] + [("engine", "Fast.compute_phs_temporal")]
 
 # the comms functions that fast_tpu runs as jitted programs on its default
 # backend: the port's take the run device as a last keyword, device=None
@@ -89,8 +98,8 @@ LEFT_OUT = {
                             "torch.Generator"},
     "funcs": {"make_key": "a JAX PRNG key: the port takes a "
                           "torch.Generator"},
-    "parallel": {n: "multi-device, a later slice"
-                 for n in ("make_mesh", "run_sharded", "sharded_moments")},
+    "parallel.mesh": {"FastResult": "an import of the JAX module, not its "
+                                    "surface (fast_tpu_torch.FastResult)"},
     "parallel.scan": {"make_key": "a JAX PRNG key: the port takes a "
                                   "torch.Generator",
                       "FastResult": "an import of the JAX module, not its "
@@ -103,8 +112,9 @@ MODULES = ["", "engine", "grids", "synthesis", "psd", "conf", "orbit",
            "models", "models.ao", "models.atmosphere", "models.scintillation",
            "ops.integrate", "ops.bessel", "ops.fourier", "ops.apertures",
            "ops.zernike", "ops.interp", "ops.rng", "parallel",
-           "parallel.scan", "utils", "utils.fits", "utils.log",
-           "utils.profiling", "funcs", "ao_power_spectra", "comms"]
+           "parallel.mesh", "parallel.scan", "utils", "utils.fits",
+           "utils.log", "utils.profiling", "funcs", "ao_power_spectra",
+           "comms"]
 
 
 def _mod(pkg, name):
@@ -121,8 +131,11 @@ def _default(v):
 
 @pytest.mark.parametrize("mod,name", FUNCTIONS, ids=lambda x: str(x))
 def test_signature_is_fast_tpus(mod, name):
-    ref = inspect.signature(getattr(_mod("fast_tpu", mod), name))
-    got = inspect.signature(getattr(_mod("fast_tpu_torch", mod), name))
+    def find(pkg):
+        return functools.reduce(getattr, name.split("."), _mod(pkg, mod))
+
+    ref, got = inspect.signature(find("fast_tpu")), inspect.signature(
+        find("fast_tpu_torch"))
 
     def params(sig):
         return [("generator" if p.name == "key" else p.name, p.kind,
@@ -144,6 +157,46 @@ def test_public_names_are_present(mod):
     missing = {n for n in names if not hasattr(got, n)
                and not inspect.ismodule(getattr(ref, n))}
     assert missing == set(LEFT_OUT.get(mod, {}))
+
+
+def test_package_namespace_is_fast_tpus():
+    """``fast_tpu_torch.__all__`` is ``fast_tpu.__all__`` with ``interop``,
+    and every module of it is an attribute after ``import
+    fast_tpu_torch``."""
+    assert sorted(fast_tpu_torch.__all__) == sorted(fast_tpu.__all__
+                                                    + ["interop"])
+    for name in fast_tpu_torch.__all__:
+        assert getattr(fast_tpu_torch, name) is not None
+        if inspect.ismodule(getattr(fast_tpu, name, None)):
+            assert getattr(fast_tpu_torch, name) is importlib.import_module(
+                f"fast_tpu_torch.{name}")
+
+
+def test_no_message_names_a_roadmap_item():
+    """The port's messages say what they refuse, not where a plan files
+    it."""
+    root = pathlib.Path(fast_tpu_torch.__file__).parent
+    for path in root.rglob("*.py"):
+        text = path.read_text()
+        assert "ROADMAP" not in text and "queue 1" not in text, path
+
+
+def test_compute_phs_temporal_takes_a_generator():
+    """``generator`` draws the screen seed, as ``sample_screens`` takes
+    one; the default is the run's own trajectory."""
+    p = dict(fast_tpu_torch.conf.DEFAULTS, NPXLS=32, DX=0.04, NITER=8,
+             NCHUNKS=2, TEMPORAL=True, TEMPORAL_SYNTH="screens",
+             LOGLEVEL="WARNING")
+    sim = fast_tpu_torch.Fast(p, device="cpu")
+    own = sim.compute_phs_temporal(1)
+    seed = fast_tpu_torch.ops.rng.draw_seed(
+        fast_tpu_torch.ops.rng.make_generator(5))
+    got = sim.compute_phs_temporal(1, generator=(
+        fast_tpu_torch.ops.rng.make_generator(5)))
+    assert got.shape == own.shape == (4, sim.Npxls_pup, sim.Npxls_pup)
+    assert not np.array_equal(got, own)
+    sim._run_seeds = lambda: (0, seed)
+    np.testing.assert_array_equal(sim.compute_phs_temporal(1), got)
 
 
 def test_fast_has_every_method_of_fast_tpus():

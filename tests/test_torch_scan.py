@@ -2,8 +2,10 @@
 (1, 1) mesh) and K6 (``ops/ar_flow.ar_flow_fused_batch``) against
 fast_tpu, on the CPU at 64^2 with 2 samples.
 
-* The scan's argument checks raise with the JAX package's messages; a mesh
-  over more than one device raises and names the multi-device slice.
+* The scan's argument checks raise with the JAX package's messages; a
+  (1, 1) mesh is this process's CPU, and (2, 1) and (1, 4) meshes are
+  taken by worlds of 2 and 4 spawned ranks (``tests/test_torch_mesh.py``
+  runs the scans past one device).
 * iid scans ('matmul', 'colfac', 'pallas_fused' through K2's plain
   version, and 'matmul' with SUBHARM) against ``fast_tpu.parallel.
   run_scan_sharded`` on a (1, 1) CPU mesh: per-sample tables equal the JAX
@@ -21,14 +23,17 @@ fast_tpu, on the CPU at 64^2 with 2 samples.
   tolerances of K4's test (couplings 2e-4 of the largest |sum|, state
   2e-6); series 0 of the plain K6 equals the plain K4 from one seed, bit
   for bit in the state; K4's and K6's plain versions at a 144 px pupil
-  against a float64 numpy evaluation (1e-3 of the largest |sum|).
+  against a float64 numpy evaluation (1e-3 of the largest |sum|); the
+  plain K6 from the series offset k (``series0``) gives series k .. of a
+  larger batch bit for bit.
 * The engine's AR route at a 130 px pupil agrees with ``fast_tpu.Fast``.
 * ``run(progress=True)`` gives ``run()``'s numbers bit for bit.
 * On the card: K6 against its plain version from identical Philox bits
   (state bit for bit, couplings within KERNEL_REL of the largest |sum|) at
   64^2, at a 144 px pupil on a 192^2 grid and at a 402 px pupil on a
-  1024^2 grid; K6 with one series equals K4; a scan launches K6 and no K4
-  or K5.
+  1024^2 grid; K6 with one series equals K4; K6 from a series offset
+  equals those series of the whole batch; a scan launches K6 and no K4 or
+  K5; a scan mesh on the card refuses sims on the CPU.
 
 The card-only cases run where JAX is not installed:
 
@@ -43,6 +48,7 @@ import fast_tpu_torch
 from fast_tpu_torch import orbit, parallel, sweep
 from fast_tpu_torch import synthesis as ts
 from fast_tpu_torch.ops import ar_flow as af
+from fast_tpu_torch.parallel import dryrun
 
 torch.set_num_threads(1)
 
@@ -132,13 +138,20 @@ def means_agree(runs, refs):
 
 
 def test_mesh_is_one_device():
-    mesh = parallel.make_scan_mesh(1, 1, CPU)
-    assert mesh.devices.shape == (1, 1)
-    assert mesh.devices[0, 0] == torch.device("cpu")
-    assert parallel.make_scan_mesh(1, 1).devices[0, 0].type == "cuda"
+    """A (1, 1) mesh is this process's device; a (2, 1) and a (1, 4) mesh
+    are taken by worlds of 2 and 4 ranks, rank r at ``divmod(r, n_mc)``."""
+    with parallel.make_scan_mesh(1, 1, CPU) as mesh:
+        assert mesh.devices.shape == (1, 1)
+        assert mesh.devices[0, 0] == torch.device("cpu")
     for shape in ((2, 1), (1, 4)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            parallel.make_scan_mesh(*shape)
+        n = shape[0] * shape[1]
+        views = dryrun.spawn(dryrun.mesh_summary, n, shape, timeout=120)
+        for r, v in enumerate(views):
+            assert v["axis_names"] == ("scan", "mc")
+            assert v["shape"] == shape and v["devices"] == ["cpu"] * n
+            assert v["backend"] == "gloo"
+            assert v["index"] == dict(zip(("scan", "mc"),
+                                          divmod(r, shape[1])))
 
 
 @pytest.mark.parametrize("case,match", [
@@ -148,11 +161,12 @@ def test_mesh_is_one_device():
     ("ar_boiling", r"sims must agree on boiling \(alpha < 1\)"),
     ("ar_mixed", "sims must all use TEMPORAL_SYNTH='ar'"),
     ("screens_chunks", "sims must share grid geometry, NITER and NCHUNKS"),
-    ("device", "the mesh's device is cuda"),
+    ("device", "the mesh's device is cpu, a sim runs on cuda"),
 ])
 def test_argument_checks(case, match):
     """The JAX scan's checks and messages (``fast_tpu/parallel/scan.py``),
-    and the mesh's device."""
+    and the mesh's device (a sim made on the card, against a mesh on the
+    CPU: a mesh on a card needs one)."""
     def sim(**o):
         return fast_tpu_torch.Fast(params(**{"NITER": 8, **o}),
                                    device="cpu")
@@ -172,10 +186,11 @@ def test_argument_checks(case, match):
             sim(**dict(SCREENS, NPXLS=64, NITER=8, NCHUNKS=1))],
         "device": lambda: [sim()],
     }[case]()
-    mesh = parallel.make_scan_mesh(1, 1, ["cuda" if case == "device"
-                                          else "cpu"])
-    with pytest.raises(exc, match=match):
-        parallel.run_scan_sharded(sims, mesh)
+    if case == "device":
+        sims[0].device = torch.device("cuda")
+    with parallel.make_scan_mesh(1, 1, CPU) as mesh:
+        with pytest.raises(exc, match=match):
+            parallel.run_scan_sharded(sims, mesh)
 
 
 # --------------------------------------------------------------------------
@@ -235,7 +250,8 @@ def test_scan_of_one_sim_is_its_run():
               dict(SCREENS, NITER=40)):
         s = fast_tpu_torch.Fast(params(**o), device="cpu")
         ref = np.asarray(s.run().power)
-        got = parallel.run_scan_sharded([s])[0]
+        with parallel.make_scan_mesh(1, 1, CPU) as mesh:
+            got = parallel.run_scan_sharded([s], mesh)[0]
         np.testing.assert_array_equal(np.asarray(got.power), ref)
 
 
@@ -294,10 +310,11 @@ def test_scan_kernel_route_equals_fft_route():
     recursion and exact ift2, series by series, from one seed: the same
     noise stream, series 1 on the state rows 4 .. 7."""
     before = af.ar_flow_fused_batch.LAUNCHES
-    k = [r.power for r in parallel.run_scan_sharded(port_orbit(**AR),
-                                                    seed=9)]
-    f = [r.power for r in parallel.run_scan_sharded(
-        port_orbit(**AR, SYNTH="fft"), seed=9)]
+    with parallel.make_scan_mesh(1, 1, CPU) as mesh:
+        k = [r.power for r in parallel.run_scan_sharded(port_orbit(**AR),
+                                                        mesh, seed=9)]
+        f = [r.power for r in parallel.run_scan_sharded(
+            port_orbit(**AR, SYNTH="fft"), mesh, seed=9)]
     assert af.ar_flow_fused_batch.LAUNCHES == before
     for rk, rf in zip(k, f):
         np.testing.assert_allclose(np.asarray(rk), np.asarray(rf), rtol=2e-3,
@@ -376,6 +393,20 @@ def test_plain_k6_series0_is_k4(noise):
     b = af.ar_bits(SEED, 3, 2, 6, 64)
     b1 = af.ar_bits(SEED, 3, 2, 3, 64, layer0=3)
     assert torch.equal(b[0][:, 3:], b1[0]) and torch.equal(b[1][:, 3:], b1[1])
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_plain_k6_series_offset_is_series_k_of_a_batch(k):
+    """The plain K6 on series k .. of a batch with ``series0=k`` draws their
+    rows of the Philox counter: states and sums equal the whole batch's
+    for those series, bit for bit (what a scan rank holding them runs)."""
+    t = tensors(k6_inputs(B=4, L=3, boiling=True))
+    c, a = af.ar_flow_fused_batch(SEED, *t, 7, step0=3)
+    part = [x if x is None or x.ndim == 2 else x[k:] for x in t]
+    ck, ak = af.ar_flow_fused_batch(SEED, *part, 7, step0=3, series0=k)
+    assert torch.equal(ak, a[k:]) and torch.equal(ck, c[:, k:])
+    c0, _ = af.ar_flow_fused_batch(SEED, *part, 7, step0=3)
+    assert not torch.equal(c0, c[:, k:])
 
 
 def definition_numpy(a0, ph, ns, W, pm, nsteps, z):
@@ -482,6 +513,25 @@ def test_k6_with_one_series_is_k4_on_card(cuda_device, N, lo, hi):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3])
+def test_k6_series_offset_on_card(cuda_device, k):
+    """K6 from the series offset k equals series k .. of the batch's one
+    call, states bit for bit, sums too (the same passes on the same
+    data), and its plain version from the same offset."""
+    t = tensors(k6_inputs(B=4, L=3, N=64, seed=9, boiling=True,
+                          alpha=0.99), cuda_device)
+    c, a = af.ar_flow_fused_batch(SEED, *t, 70, step0=5)
+    part = [x if x is None or x.ndim == 2 else x[k:] for x in t]
+    ck, ak = af.ar_flow_fused_batch(SEED, *part, 70, step0=5, series0=k)
+    cr, ar = af.ar_flow_batch_reference(SEED, *part, 70, step0=5, series0=k)
+    torch.cuda.synchronize()
+    assert torch.equal(ak, a[k:]) and torch.equal(ck, c[:, k:])
+    assert torch.equal(ak, ar)
+    assert float((ck - cr).abs().max()) <= KERNEL_REL * float(
+        cr.abs().max())
+
+
+@pytest.mark.cuda
 def test_scan_launches_k6_on_card(cuda_device):
     """A temporal orbit scan on the card: one K6 launch, no K4 or K5, and
     the SYNTH='fft' route's series from one seed; an iid sweep scan
@@ -489,18 +539,22 @@ def test_scan_launches_k6_on_card(cuda_device):
     from fast_tpu_torch.ops import synth_detect as sd
     K4, K5, K6 = af.ar_flow_fused, af.ar_flow_streamed, af.ar_flow_fused_batch
     K4.LAUNCHES = K5.LAUNCHES = K6.LAUNCHES = 0
-    k = parallel.run_scan_sharded(port_orbit(cuda_device, **AR), seed=9)
-    assert (K6.LAUNCHES, K4.LAUNCHES, K5.LAUNCHES) == (1, 0, 0)
-    f = parallel.run_scan_sharded(port_orbit(cuda_device, **AR,
-                                             SYNTH="fft"), seed=9)
-    for rk, rf in zip(k, f):
-        np.testing.assert_allclose(np.asarray(rk.power),
-                                   np.asarray(rf.power), rtol=2e-3,
-                                   atol=1e-9)
-    sd.synth_detect.LAUNCHES = 0
-    sims = sweep.build_sweep(params(), {"ZENITH_ANGLE": ZENITHS},
-                             device=cuda_device)
-    assert sims[0]._synth == "pallas_fused"
-    res = parallel.run_scan_sharded(sims)
-    assert sd.synth_detect.LAUNCHES == 2 * sims[0].Nchunks
-    assert all(np.isfinite(np.asarray(r.power)).all() for r in res)
+    with parallel.make_scan_mesh(1, 1, [cuda_device]) as mesh:
+        k = parallel.run_scan_sharded(port_orbit(cuda_device, **AR), mesh,
+                                      seed=9)
+        assert (K6.LAUNCHES, K4.LAUNCHES, K5.LAUNCHES) == (1, 0, 0)
+        f = parallel.run_scan_sharded(port_orbit(cuda_device, **AR,
+                                                 SYNTH="fft"), mesh, seed=9)
+        for rk, rf in zip(k, f):
+            np.testing.assert_allclose(np.asarray(rk.power),
+                                       np.asarray(rf.power), rtol=2e-3,
+                                       atol=1e-9)
+        sd.synth_detect.LAUNCHES = 0
+        sims = sweep.build_sweep(params(), {"ZENITH_ANGLE": ZENITHS},
+                                 device=cuda_device)
+        assert sims[0]._synth == "pallas_fused"
+        res = parallel.run_scan_sharded(sims, mesh)
+        assert sd.synth_detect.LAUNCHES == 2 * sims[0].Nchunks
+        assert all(np.isfinite(np.asarray(r.power)).all() for r in res)
+        with pytest.raises(ValueError, match="the mesh's device is cuda"):
+            parallel.run_scan_sharded(port_orbit(**AR), mesh)
