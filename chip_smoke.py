@@ -150,11 +150,26 @@ Phases, in order; any failure exits non-zero before the result line:
    a (2, 1) AR scan of the temporal orbit pass's 16 samples at 4,096 steps
    (K6, 8 series a rank) and a (1, 2) iid scan of 4 of the iid pass's
    samples (K2) bit for bit their (1, 1) scans; every rank holds the same
-   series; the ranks' warm flagship rate against the serial run's.
+   series; the ranks' warm flagship rate against the serial run's;
+17. the tooling (``phase_tools``): (a) the dossier twin
+   (``scripts/torch_validate_hw.py``) in this process at its --quick sizes,
+   every section but the 1024^2 fade panel, which must pass every row and
+   launch each of the seven kernels; (b) ``utils.profiling.trace`` around
+   one warm 256^2 K2 run inside an ``annotate`` region, whose trace file
+   must name the region and K2's two passes; (c) the factor tables' disk
+   cache at 1024^2 with the 4 m pupil in a temporary directory: the card's
+   float32 init, which must build its factors and cache nothing, with the
+   save and load of its stack timed alone; the host's float64 build of a
+   float64 ``'colfac'`` run: an init that saves, one that loads, the
+   loaded L and its ``run()`` bit for bit the saving init's; (d) the seven
+   example twins (``examples/torch_*.py``) at their written sizes, started
+   together, each of which must exit 0 and print its JAX example's column
+   headers. Every other phase runs with ``FAST_TPU_TABLE_CACHE=0``.
 
 The last lines are the card, one JSON object of per-kernel numbers (each
 with its launches on the mesh phase, ``launches_mesh``: (a)'s and each of
-(b)'s ranks') and one of the run's device. The flagship config is the
+(b)'s ranks; then the comms, mesh and tools phases' numbers) and one of
+the run's device. The flagship config is the
 AO-corrected 0.8 m
 uplink at 1550 nm through a 4-layer HV57/Bufton profile, at DX=0.01 m:
 a 256^2 grid (``__graft_entry__.py``) and the same link at 512^2; the
@@ -164,10 +179,14 @@ temporal mode runs it at DT = 1 ms, and through a 16-layer profile at
 configuration).
 """
 
+import glob
+import importlib.util
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -242,6 +261,27 @@ NITER_BOIL = 8192     # steps of the layer-sharded boiling series (NCHUNKS=16)
 NITER_SCAN_T = 4096   # steps a sample of the (2, 1) AR scan (NCHUNKS=4)
 NSAMP_IID_SCAN = 4    # samples of the (1, 2) iid scan (0, 5, 10, 15)
 MOMENTS_REL = 1e-12   # sharded_moments against numpy float64, relative
+NITER_CACHE = 1260    # realizations of the disk-cache phase's float32 init at
+                      # 1024^2 (K3: two launches of 630)
+NITER_CACHE_64 = 64   # realizations of each of its float64 runs
+EXAMPLE_TIMEOUT = 300  # seconds for the seven example twins, run together
+# each example twin and the column headers of its JAX example it must print
+EXAMPLES = {
+    "link_budget_study": ["zenith", "mean dBm", "scint idx", "1% fade dB",
+                          "r0_los cm"],
+    "long_temporal_ar": ["AR mode-survival alpha per layer", "steps/s",
+                         "fade probability below 0.5*mean",
+                         "mean fade duration"],
+    "modem_gmi_study": ["SEP(meas)", "BER(analytic)", "GMI [bit/sym]",
+                        "16-QAM"],
+    "orbit_sweep": ["t [s]", "elev", "range km", 'PAA "', "mean dBm",
+                    "scint"],
+    "orbit_temporal_scan": ["P(fade<-3dB)", "mean fade dur[ms]"],
+    "temporal_series": ["fade probability (<80% mean)",
+                        "intensity correlation time (1/e)"],
+    "example_config": ["FAST result statistics"],
+}
+REPO = os.path.dirname(os.path.abspath(__file__))
 # a window of an alpha = 1 series starts from the exact phasor power; the
 # serial route multiplies the float32 phasor, off by up to ~2^-24 a step,
 # `offset` times: |d state| / |state| ~ offset 2^-24 per mode, so |d phi|
@@ -1891,7 +1931,8 @@ def phase_comms(card, fade_series, dt):
     flagship's K4 series ``fade_series`` (steps of ``dt`` s) on the card
     and on a CPU copy."""
     from fast_tpu_torch import FastFSOC, comms
-    counters = all_counters()
+    from fast_tpu_torch.ops import kernel_wrappers
+    counters = kernel_wrappers()
     sim = FastFSOC(flagship(COHERENT=True, **COMMS), device=DEVICE)
     if sim._synth != "pallas_fused":
         fail(f"the comms run resolved to {sim._synth!r}, not pallas_fused")
@@ -2269,6 +2310,222 @@ def phase_mesh(card, counters):
     return out, numbers
 
 
+def load_dossier():
+    """``scripts/torch_validate_hw.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_validate_hw", os.path.join(REPO, "scripts",
+                                          "torch_validate_hw.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def tools_dossier():
+    """(a) The dossier twin's sections at its --quick sizes, the 1024^2
+    fade panel left to the full run; fails on a FAIL row or a kernel it did
+    not launch. Returns its numbers."""
+    dossier = load_dossier()
+    d = dossier.Dossier(DEVICE)
+    secs = d.run_sections(**dossier.sizes(quick=True), fade_big=False)
+    rc = d.summary(secs)
+    npass, total = d.checks()
+    idle = [k for k, v in d.launches.items() if v == 0]
+    print(f"dossier --quick: {npass}/{total} rows passed in {secs:.1f} s; "
+          "kernel launches " + ", ".join(f"{k} {v}"
+                                         for k, v in d.launches.items()))
+    if rc:
+        fail(f"the dossier failed {total - npass} of its {total} rows")
+    if idle:
+        fail(f"the dossier launched no {', '.join(idle)}")
+    return {"rows_passed": npass, "rows": total, "seconds": secs,
+            "launches": d.launches}
+
+
+def tools_trace():
+    """(b) ``utils.profiling.trace`` around one warm 256^2 K2 run inside an
+    ``annotate`` region: the trace file names the region and K2's two
+    passes. Returns (seconds of the traced run, trace bytes)."""
+    from fast_tpu_torch import Fast
+    from fast_tpu_torch.utils.profiling import annotate, trace
+    region = "chip_smoke.k2_run"
+    sim = Fast(flagship(), device=DEVICE)
+    sim.run()
+    with tempfile.TemporaryDirectory() as logdir:
+        with trace(logdir):
+            with annotate(region):
+                _, secs = timed_run(sim)
+        files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+        if len(files) != 1:
+            fail(f"trace() wrote {files}, not one trace file")
+        with open(files[0]) as f:
+            text = f.read()
+    names = {e.get("name", "") for e in json.loads(text)["traceEvents"]}
+    missing = [w for w in (region, "synth_pass1", "detect_pass")
+               if not any(w in n for n in names)]
+    print(f"trace of one warm 256^2 K2 run ({secs:.3f} s, {sim.Niter} "
+          f"realizations): {len(text)} bytes, {len(names)} event names; "
+          f"region and K2's passes named: {not missing}")
+    if missing:
+        fail(f"the trace does not name {missing}")
+    return secs, len(text)
+
+
+def tools_cache():
+    """(c) The factor tables' disk cache at 1024^2 with the 4 m pupil, in
+    a temporary directory with the cache on. The card's float32 init
+    builds its factors and leaves the directory empty (the card's build
+    is not cached); the save and load of its stack, timed alone, give
+    what a cached card build would cost. The host's float64 build (a
+    float64 run of ``'colfac'``): an init that builds and saves, one that
+    loads; the loaded L and its ``run()`` bit for bit the saving init's.
+    Returns the seconds."""
+    from fast_tpu_torch import Fast
+    from fast_tpu_torch.utils import diskcache
+    seconds = {"save": [], "load": []}
+
+    def timed_call(fn, what):
+        def call(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            seconds[what].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def init(p):
+        t0 = time.perf_counter()
+        sim = Fast(p, device=DEVICE)
+        return sim, time.perf_counter() - t0
+
+    save, load = diskcache.save, diskcache.load
+    env = {k: os.environ.get(k) for k in ("FAST_TPU_TABLE_CACHE",
+                                          "FAST_TPU_CACHE_DIR")}
+    p32 = flagship(SYNTH="pallas_colfac", NITER=NITER_CACHE, NCHUNKS=1,
+                   **WIDE)
+    p64 = flagship(SYNTH="colfac", DTYPE="float64", NITER=NITER_CACHE_64,
+                   NCHUNKS=1, **WIDE)
+    with tempfile.TemporaryDirectory() as cdir:
+        os.environ.update(FAST_TPU_TABLE_CACHE="1", FAST_TPU_CACHE_DIR=cdir)
+        diskcache.save = timed_call(save, "save")
+        diskcache.load = timed_call(load, "load")
+        try:
+            card, t_card = init(p32)
+            card_files = os.listdir(cdir)
+            card_calls = len(seconds["save"]) + len(seconds["load"])
+            t_card_build = card.timings["column_factors"]
+            L32 = card.tables["L"].cpu().numpy()
+            del card
+            key = diskcache.table_key("torch-colfac-f32-timing", (L32,))
+            diskcache.save(key, L32)
+            same_32 = np.array_equal(diskcache.load(key), L32)
+            t_save32, t_load32 = seconds["save"].pop(), seconds["load"].pop()
+            os.remove(os.path.join(cdir, key + ".npy"))
+            del L32
+            built, t_built = init(p64)
+            loaded, t_loaded = init(p64)
+            nbytes = sum(os.path.getsize(f) for f in
+                         glob.glob(os.path.join(cdir, "*.npy")))
+        finally:
+            diskcache.save, diskcache.load = save, load
+            for k, v in env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    same_L = torch.equal(built.tables["L"], loaded.tables["L"])
+    r_b, r_l = series(built.run()), series(loaded.run())
+    same_run = np.array_equal(r_b, r_l)
+    out = {"card_f32_init": t_card,
+           "card_f32_build": t_card_build,
+           "card_f32_save": t_save32, "card_f32_load": t_load32,
+           "host_f64_init_build_and_save": t_built,
+           "host_f64_build_and_save": built.timings["column_factors"],
+           "host_f64_save": seconds["save"][0] if seconds["save"] else None,
+           "host_f64_init_with_load": t_loaded,
+           "host_f64_load": seconds["load"][-1] if seconds["load"] else None,
+           "host_f64_bytes": nbytes}
+    del built, loaded
+    print(f"disk cache at 1024^2 with the 4 m pupil: the "
+          f"card's float32 init {t_card:.3f} s, its factor build "
+          f"{out['card_f32_build']:.3f} s, nothing cached ({card_files}); "
+          f"its stack saved alone in {t_save32:.3f} s, loaded in "
+          f"{t_load32:.3f} s (bit for bit: {same_32}); the host's float64 "
+          f"build: init {t_built:.3f} s (factor stage "
+          f"{out['host_f64_build_and_save']:.3f} s, of which the save "
+          f"{out['host_f64_save'] or 0:.3f} s for {nbytes / 1e9:.2f} GB), "
+          f"init with the load {t_loaded:.3f} s (load "
+          f"{out['host_f64_load'] or 0:.3f} s); loaded L bit for bit: "
+          f"{same_L}; run() bit for bit: {same_run}")
+    if card_files or card_calls:
+        fail(f"the card's float32 init used the disk cache ({card_calls} "
+             f"calls, {card_files})")
+    if len(seconds["save"]) != 1 or len(seconds["load"]) != 2 or not nbytes:
+        fail(f"the float64 inits saved {len(seconds['save'])} and loaded "
+             f"{len(seconds['load'])} times ({nbytes} bytes on disk)")
+    if not (same_32 and same_L and same_run):
+        fail("a loaded factor stack or its run differs from the built one")
+    return out
+
+
+def tools_examples():
+    """(d) The seven example twins at their written sizes on the card,
+    started together: each must exit 0 and print its JAX example's column
+    headers. Returns the seconds."""
+    t0 = time.perf_counter()
+    procs = {}
+    try:
+        for name in EXAMPLES:
+            procs[name] = subprocess.Popen(
+                [sys.executable, os.path.join(REPO, "examples",
+                                              f"torch_{name}.py")],
+                cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)
+        outs = {name: p.communicate(timeout=EXAMPLE_TIMEOUT)
+                for name, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    for name, (out, err) in outs.items():
+        print(f"--- examples/torch_{name}.py (exit {procs[name].returncode})")
+        print(out.rstrip())
+        if procs[name].returncode:
+            print(err[-4000:], file=sys.stderr)
+            fail(f"examples/torch_{name}.py exited "
+                 f"{procs[name].returncode}")
+        missing = [h for h in EXAMPLES[name] if h not in out]
+        if missing:
+            fail(f"examples/torch_{name}.py did not print {missing}")
+    print(f"the seven example twins ran in {secs:.1f} s together")
+    return secs
+
+
+def phase_tools(card):
+    """The tooling slice: (a) the dossier twin at --quick sizes, (b) a
+    profiler trace, (c) the disk cache at 1024^2, (d) the example twins.
+    Returns the result line's "tools" object."""
+    t = {}
+    t0 = time.perf_counter()
+    dossier = tools_dossier()
+    t["dossier"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trace_run, trace_bytes = tools_trace()
+    t["trace"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cache = tools_cache()
+    t["cache"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t["examples"] = tools_examples()
+    print(f"tools phase: " + ", ".join(f"{k} {v:.1f} s" for k, v in t.items())
+          + f" ({card})")
+    return {"rows_passed": dossier["rows_passed"], "rows": dossier["rows"],
+            "dossier_launches": dossier["launches"],
+            "trace_run_s": trace_run, "trace_bytes": trace_bytes,
+            "cache_s": cache, "seconds": t}
+
+
 def rates(runs, card, where, unit="realizations"):
     """Warm ``run()`` rates of the named sims, two each, in the given
     order; prints and returns {name: [per second, ...]}."""
@@ -2413,18 +2670,10 @@ def kernel_entry(name, source, replaces, res, shape, run_rates, timed):
             "run_rates": {k: max(v) for k, v in run_rates.items()}}
 
 
-def all_counters():
-    from fast_tpu_torch.ops import ar_flow as af
-    from fast_tpu_torch.ops import colfac_detect as cd
-    from fast_tpu_torch.ops import synth_detect as sd
-    return {"K1": cd.colfac_detect, "K2": sd.synth_detect,
-            "K3": cd.colfac_detect_split, "K4": af.ar_flow_fused,
-            "K5": af.ar_flow_streamed, "K6": af.ar_flow_fused_batch,
-            "K7": sd.synth_screens}
-
-
 def main():
     t_start = time.perf_counter()
+    # every phase but the disk cache's builds its tables cold
+    os.environ["FAST_TPU_TABLE_CACHE"] = "0"
     card = phase_env()
     phase_build()
     ctx = phase_slices()
@@ -2442,7 +2691,8 @@ def main():
                       if k != "launches_wide"},
                      launches_1024=k2w["launches_wide"])
     torch.cuda.empty_cache()
-    counters = all_counters()
+    from fast_tpu_torch.ops import kernel_wrappers
+    counters = kernel_wrappers()
     k6, rates_oi, rates_ot, ctx["k2"]["launches_orbit"] = phase_orbit(
         card, counters)
     phase_wide_ar(card, counters, k4, k5, k6)
@@ -2454,6 +2704,7 @@ def main():
     rates_256["FastFSOC 16-QAM (K2 + modem)"] = [comms_res["fsoc_rate"]]
     ctx["k2"]["launches_comms"] = comms_res.pop("launches")
     mesh_launches, mesh_res = phase_mesh(card, counters)
+    tools = phase_tools(card)
     wide_shape = "1024^2, P=402"
     line = {"kernels": [
         kernel_entry("synth_detect", "fast_tpu_torch/csrc/synth_detect.cu",
@@ -2485,7 +2736,7 @@ def main():
                      "fast_tpu/ops/pallas_synth.py:175", k7,
                      wide_shape + ", Box-Muller", rates_w,
                      {"timed_draws": 630}),
-    ], "comms": comms_res, "mesh": mesh_res}
+    ], "comms": comms_res, "mesh": mesh_res, "tools": tools}
     names = {"synth_detect": "K2", "colfac_detect": "K1",
              "colfac_detect_split": "K3", "ar_flow_fused": "K4",
              "ar_flow_streamed": "K5", "ar_flow_fused_batch": "K6",

@@ -63,7 +63,7 @@ from .ops import colfac_detect as cd
 from .ops.synth_detect import (pack_subharm, supports, synth_detect,
                                synth_screens)
 from . import synthesis
-from .utils import fits
+from .utils import diskcache, fits
 from .utils.log import init_logging, progress as chunk_progress
 from .utils.profiling import StageTimer
 
@@ -712,19 +712,32 @@ class Fast:
         A float32 run on the card builds them in float32 there; if a column
         fails to factor in float32 it falls back, as the JAX package does,
         to the float64 build on the CPU, cast to complex64. Other runs use
-        the float64 build directly.
+        the float64 build directly. Only the float64 build goes through the
+        disk cache (:mod:`.utils.diskcache`), keyed as the JAX package keys
+        its own: by the PSD, ``W`` in complex128, the working type and the
+        jitter. The card's build is not cached: it takes less time than
+        writing its stack to disk (``PERF.md``).
         """
         sqrt_psd = np.sqrt(self.powerspec)
         df = float(self.freq.main.df)
         if self.device.type == "cuda" and self.dtype == torch.float32:
-            L = synthesis.column_factors_device(sqrt_psd, df, W64,
-                                                self.device)
+            L = synthesis.column_factors_device(
+                sqrt_psd, df, W64, self.device, jitter=synthesis.JITTER_F32)
             if bool(torch.isfinite(torch.view_as_real(L)).all()):
                 return L.cpu().numpy()
             logger.info("f32 device factorisation hit an ill-conditioned "
                         "column; using the host float64 path")
         cdt = np.complex64 if self.dtype == torch.float32 else np.complex128
-        return synthesis.column_factors(sqrt_psd, df, W64).numpy().astype(cdt)
+        key = diskcache.table_key(
+            "torch-colfac-f64", (self.powerspec, W64),
+            (df, str(cdt), synthesis.JITTER_F64))
+        L = diskcache.load(key)
+        if L is None:
+            L = synthesis.column_factors(
+                sqrt_psd, df, W64,
+                jitter=synthesis.JITTER_F64).numpy().astype(cdt)
+            diskcache.save(key, L)
+        return L
 
     def set_seed(self, seed):
         self.seed = seed

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..ops import kernel_wrappers
 from .mesh import TIMEOUT
 
 #: Seconds a spawned world may take before it is stopped and the call
@@ -129,16 +130,6 @@ def spawn(fn, n, *args, devices=None, timeout=WORLD_TIMEOUT):
 # ---------------------------------------------------------------------------
 
 
-def _counters():
-    from ..ops import ar_flow as af
-    from ..ops import colfac_detect as cd
-    from ..ops import synth_detect as sd
-    return {"K1": cd.colfac_detect, "K2": sd.synth_detect,
-            "K3": cd.colfac_detect_split, "K4": af.ar_flow_fused,
-            "K5": af.ar_flow_streamed, "K6": af.ar_flow_fused_batch,
-            "K7": sd.synth_screens}
-
-
 def _sync(device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
@@ -212,7 +203,7 @@ def run_cases(devices, cases, outdir):
     """
     rank = dist.get_rank()
     device = torch.device(devices[rank])
-    counters = _counters()
+    counters = kernel_wrappers()
     arrays, launches, seconds, raised = {}, {}, {}, {}
 
     def timed(name):

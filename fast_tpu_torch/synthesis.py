@@ -24,6 +24,11 @@ from .ops.fourier import ft, ift2
 from .ops.interp import bilinear_periodic, sample_grid_periodic  # noqa: F401
 from .ops.rng import complex_normal
 
+# the factor builds' diagonal jitters, relative to each column's mean
+# diagonal (the disk cache keys the float64 build on its jitter)
+JITTER_F64 = 1e-10
+JITTER_F32 = 3e-6
+
 
 def pruned_ift2_matrix(N, lo, hi, dtype=np.complex64):
     """Rows ``[lo, hi)`` of the centred inverse-DFT matrix (host numpy).
@@ -73,7 +78,7 @@ def _factor(C, jitter, floor):
     return L
 
 
-def column_factors(sqrt_powerspec, df, W, jitter=1e-10):
+def column_factors(sqrt_powerspec, df, W, jitter=JITTER_F64):
     """Per-column Cholesky factors of the pupil-row covariance, float64 on
     the CPU.
 
@@ -100,7 +105,8 @@ def _full_fp32():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def column_factors_device(sqrt_powerspec, df, W, device, jitter=3e-6):
+def column_factors_device(sqrt_powerspec, df, W, device,
+                          jitter=JITTER_F32):
     """The column factors in float32 on ``device``: batched products, 128
     columns at a time, and one batched Cholesky
     (``fast_tpu.synthesis.column_factors_device``).

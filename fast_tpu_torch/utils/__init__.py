@@ -1,4 +1,6 @@
-"""Runtime utilities: FITS persistence, logging setup, stage timing."""
+"""Runtime utilities: FITS persistence, logging setup, stage timing and
+profiler traces; ``utils.stats`` (calibrated KS for correlated series) and
+``utils.diskcache`` (the factor tables' disk cache) import on their own."""
 
 from . import fits
 from . import log

@@ -1,8 +1,11 @@
-"""Stage timing.
+"""Stage timing and profiler traces.
 
 Every engine stage records wall time into ``sim.timings``. A stage that
 ran work on a CUDA device synchronises it at the stage end, so the time
-covers the device work and not only its enqueueing.
+covers the device work and not only its enqueueing. :func:`trace` records
+a ``torch.profiler`` trace of any region (Chrome/TensorBoard format, which
+Perfetto opens), :func:`annotate` names a region in it, and
+:func:`device_breakdown` sums one call's device time by kernel.
 """
 
 import contextlib
@@ -32,6 +35,29 @@ class StageTimer:
     def __repr__(self):
         lines = [f"  {k}: {v * 1e3:.1f} ms" for k, v in self.timings.items()]
         return "StageTimer(\n" + "\n".join(lines) + "\n)"
+
+
+@contextlib.contextmanager
+def trace(logdir):
+    """``torch.profiler`` trace of the block, written into ``logdir`` as
+    ``<worker>.<time>.pt.trace.json`` (``tensorboard_trace_handler``; open
+    in TensorBoard or Perfetto): CPU activity, and CUDA activity where a
+    card is present."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(str(logdir))):
+        yield
+
+
+@contextlib.contextmanager
+def annotate(name):
+    """Named region visible in profiler traces."""
+    with torch.profiler.record_function(name):
+        yield
 
 
 def device_breakdown(fn):

@@ -1,8 +1,10 @@
 """The public surface of fast_tpu_torch against fast_tpu's, on the CPU.
 
 * Signatures: every function below has ``fast_tpu``'s parameter list,
-  names, kinds, order and defaults (the five ``parallel`` functions and
-  ``Fast.compute_phs_temporal`` among them). Two differences are kept: a
+  names, kinds, order and defaults (the five ``parallel`` functions,
+  ``Fast.compute_phs_temporal`` and the tooling's ``trace``, ``annotate``,
+  ``integrated_autocorr_time``, ``ks_2samp_correlated`` and ``table_key``
+  among them). Two differences are kept: a
   ``torch.Generator`` (``generator``) where JAX takes a PRNG key (``key``),
   and a last keyword ``device=None``, the run device, on the comms
   functions that ``fast_tpu`` runs as jitted programs (``DEVICE_ARG``).
@@ -81,7 +83,10 @@ FUNCTIONS = [
         "pack_payload", "unpack_payload", "flip_bits", "Modulator")] + [
     ("parallel", n) for n in (
         "make_mesh", "run_sharded", "sharded_moments", "make_scan_mesh",
-        "run_scan_sharded")] + [("engine", "Fast.compute_phs_temporal")]
+        "run_scan_sharded")] + [("engine", "Fast.compute_phs_temporal")] + [
+    ("utils.profiling", "trace"), ("utils.profiling", "annotate"),
+    ("utils.stats", "integrated_autocorr_time"),
+    ("utils.stats", "ks_2samp_correlated"), ("utils.diskcache", "table_key")]
 
 # the comms functions that fast_tpu runs as jitted programs on its default
 # backend: the port's take the run device as a last keyword, device=None
@@ -104,8 +109,6 @@ LEFT_OUT = {
                                   "torch.Generator",
                       "FastResult": "an import of the JAX module, not its "
                                     "surface (fast_tpu_torch.FastResult)"},
-    "utils.profiling": {n: "tooling (torch.profiler hooks), a later slice"
-                        for n in ("trace", "annotate")},
 }
 MODULES = ["", "engine", "grids", "synthesis", "psd", "conf", "orbit",
            "sweep", "turbulence_models", "complete_orbit_simulation", "ops",
@@ -113,8 +116,8 @@ MODULES = ["", "engine", "grids", "synthesis", "psd", "conf", "orbit",
            "ops.integrate", "ops.bessel", "ops.fourier", "ops.apertures",
            "ops.zernike", "ops.interp", "ops.rng", "parallel",
            "parallel.mesh", "parallel.scan", "utils", "utils.fits",
-           "utils.log", "utils.profiling", "funcs", "ao_power_spectra",
-           "comms"]
+           "utils.log", "utils.profiling", "utils.stats", "utils.diskcache",
+           "funcs", "ao_power_spectra", "comms"]
 
 
 def _mod(pkg, name):

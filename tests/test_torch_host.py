@@ -47,7 +47,8 @@ def test_import_has_no_jax():
     code = ("import sys, fast_tpu_torch, fast_tpu_torch.engine, "
             "fast_tpu_torch.orbit, fast_tpu_torch.sweep, "
             "fast_tpu_torch.parallel, "
-            "fast_tpu_torch.complete_orbit_simulation; "
+            "fast_tpu_torch.complete_orbit_simulation, "
+            "fast_tpu_torch.utils.stats, fast_tpu_torch.utils.diskcache; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m.startswith('fast_tpu.')"
             " or m == 'fast_tpu']; "
