@@ -12,14 +12,14 @@ Phases, in order; any failure exits non-zero before the result line:
    flow kernels K4, K5 and K6 (``csrc/ar_flow.cu``), one ``nvcc`` each, started
    together; print ptxas registers, spills and shared memory of each pass
    at the flagships' padded pupil (P=96) and at the 4 m link's (P=416, in
-   tiles and column groups of 112 px);
+   tiles of 112 px; K2's and K7's pass 1 in two slices of 208 px);
 3. K2 against its plain torch version on the card, 'mixed' and 'gauss'
    noise, from the same Philox bits: at the 256^2 flagship shapes (N=256,
    P=82) over 4100 draws, which takes two launches, the second from draw
    4096; and at the default config's (N=102, P=102). Then the same
    comparison with the plain version's products at TF32, a
    lower-precision control that the limit must reject; pass 1 alone
-   (``fast_synth_pass1``, 3xTF32 on the tensor cores) timed with the
+   (``fast_synth_pass1``, 3xTF32 ``wgmma`` on the tensor cores) timed with the
    FLOP/s of its products beside its yardsticks (one ``torch.matmul`` of
    the mixing product and one complex64 ``torch.matmul`` of G' = X' W^T,
    TF32 off), and K2's detect pass alone (``detect_pass``) beside one
@@ -477,12 +477,13 @@ _ENTRY = re.compile(r"(synth_pass1|colfac_pass1|split_pass1|detect_pass|"
 def _describe(name, a):
     """What one compiled pass is, or None for those not printed: the
     passes at the flagships' padded pupil (P=96, one tile) and at the 4 m
-    link's (P=416 in tiles and groups of 112 px), and the AR passes at 4
-    layers a thread."""
+    link's (P=416 in tiles of 112 px; pass 1 of K2 and K7 in slices of 208
+    px), and the AR passes at 4 layers a thread."""
     noise = ("gauss", "mixed")
-    if name == "synth_pass1" and (a[1], a[3]) in ((PJ, 1), (PJ_W, 4)):
-        return (f"P={16 * PJ if a[3] == 1 else 416} {noise[a[0]]} "
-                f"rows={a[2]} groups={a[3]}")
+    if name == "synth_pass1" and 64 * a[2] + a[3] in (16 * PJ, 208):
+        pb = 64 * a[2] + a[3]
+        return (f"P={16 * PJ if pb == 16 * PJ else 416} {noise[a[0]]} "
+                f"slices of {pb} px" + (" in pairs" if a[1] else ""))
     if name == "colfac_pass1" and a[1] == PJ:
         return f"P={16 * PJ} {noise[a[0]]}"
     if name == "split_pass1" and a[1] == PJ_W:
@@ -608,7 +609,7 @@ def time_pass1(T, nbatch, mixed, label, reps):
     del x
     torch.cuda.empty_cache()
     print(f"pass 1 {label}: {ms:.3f} ms per {nbatch} complex draws, "
-          f"{tflops:.1f} TFLOP/s of its products (3xTF32 mma.sync); "
+          f"{tflops:.1f} TFLOP/s of its products (3xTF32 wgmma); "
           f"yardsticks (TF32 off): "
           + ("" if not mixed else
              f"mixing torch.matmul {lib['pass1_library_mix_ms']:.3f} ms, ")

@@ -28,76 +28,92 @@
 // since K1's and K3's redesign) or K7's screens_pass, fp32 FMA on the CUDA
 // cores.
 //
-// Pass 1 on the tensor cores. Both of its products run as warp-level
-// mma.sync.m16n8k8 TF32 products, each in three passes (3xTF32): every
-// operand element x is split once into hi = tf32(x) and lo = tf32(x - hi),
-// rounded as cvt.rna.tf32.f32 rounds (nearest, ties away), and each 8-deep
-// step computes a_lo b_hi + a_hi b_lo (the small terms) and a_hi b_hi.
-// hi + lo carries 22 of fp32's 24 bits and the dropped lo lo term is below
-// fp32's rounding. The tensor cores round their sums toward zero, so a sum
-// kept in their accumulators shrinks by about half an ulp a step, the same
-// way for every element of a screen: kept over a 64-deep tile (24 steps)
-// that drifted the 256^2 flagship's sums past the kernel-vs-plain limit.
-// So each step's a_hi b_hi is a sum of its own, added in fp32 (round to
-// nearest), and only the small terms, 2^-11 of it, stay in the tensor
-// cores' accumulators; the card then reads 0.03-0.23 of the limit, fp32
-// FMA 0.03-0.08 (tests/test_torch_tf32x3.py emulates the operand rounding
-// on the CPU: 0.02-0.05; one TF32 pass reads 2-7x the limit). Every
-// PRECISION value means this arithmetic.
+// Pass 1 on the tensor cores. Both of its products run as Hopper's
+// warpgroup products, wgmma.mma_async m64nNk8 TF32 (wgmma.cuh), each in
+// three passes (3xTF32): every operand element x is split once into hi =
+// tf32(x) and lo = tf32(x - hi), rounded as cvt.rna.tf32.f32 rounds
+// (nearest, ties away), and each 8-deep step computes a_lo b_hi + a_hi b_lo
+// (the small terms) and a_hi b_hi. hi + lo carries 22 of fp32's 24 bits
+// and the dropped lo lo term is below fp32's rounding. Every PRECISION
+// value means this arithmetic.
 //
-// What bounds pass 1 now (H100, scripts/torch_pass1_variants.py: the
-// kernel beside copies of itself with one part taken out): not the tensor
-// cores. At 256^2 'mixed' it takes 16.6 ms a 4096 draws (29 TFLOP/s of
-// fp32-accurate products), 11.9 ms with the three mma of each step
-// replaced by four FFMA, 15.0 without the split, 15.0 with Philox replaced
-// by a hash: the time is the issue and latency of the fragment loads,
-// splits, address arithmetic and barriers around the mma, with 16 warps a
-// SM. At 1024^2 with the 402 px pupil (one block of 8 warps a SM: the
-// uniforms of 32 rows and 4 column groups of accumulators fill it) the
-// mma are 15% of its 256 ms.
+// Sums. The tensor cores round their sums toward zero, so a sum kept in
+// their accumulators shrinks by about half an ulp a step, the same way for
+// every element of a screen (kept over 64-deep tiles, 24 products, that
+// drifted the 256^2 flagship's sums past the kernel-vs-plain limit, H100).
+// So a fold group of two 8-deep steps is a fresh accumulator that takes
+// the small terms of both steps first and then their a_hi b_hi, and is
+// added to an fp32 sum (round to nearest) when it lands; two groups are in
+// flight, so the fold of one overlaps the other's products
+// (wgmma.wait_group 1): the two groups of a chunk of the mixing product,
+// the column chunks of a G' step pair. Not across chunks: ptxas cannot
+// follow a group in flight around the loop and then serializes every
+// wgmma of the kernel (its warning C7514; 256^2 'mixed' 8.97 ms against
+// 7.23 in scripts/torch_pass1_variants.py). The A fragments and
+// accumulators are fenced (fence_regs) before each group's wgmma.fence,
+// else ptxas injects fences of its own. tests/test_torch_tf32x3.py models
+// this order of sums (pass1_sums): K2's sums at 0.05-0.09 of the limit at
+// 64^2 and 128^2, G' at 0.05-0.10 of its own; the hi products kept over
+// the whole depth read over the limit where the fold groups read 0.26 of
+// it. On the card K2 reads 0.05-0.29 of the limit (chip_smoke.py).
 //
-// Why mma.sync and not wgmma + TMA: the operands are formed in the block
-// (random bits, mixed and coloured), not read from device memory, and the
-// G' tile of one block is narrow (at most 32 rows by 2 x 128 columns), so
-// warp-level fragments from padded shared rows need no descriptors,
-// swizzled layouts or asynchronous warpgroup pipeline. That is the next
-// redesign's lever, with fewer instructions around each product.
-//
-// The design, a block of 8 warps per (draw, R = 16 RR rows of X', NG
-// column groups of the padded pupil):
-// * The (N, N) noise never reaches device memory. With 'mixed' noise the
-//   block keeps R rows of one component's uniforms (R x NC, NC = N rounded
-//   up to 64) in shared memory; for each 64-column tile of X' it runs the
-//   mixing product z = u @ M[:, c0:c0+64] over the whole depth, M staged
-//   in 64-row slices with cp.async, a ring of three, then writes the tile
-//   x = z * s_t, split into hi and lo. With 'gauss' noise one Philox call
-//   and one Box-Muller give both components of a grid point, so both x
-//   tiles are formed at once and share the W slices.
-// * G' += x W^T per 64-column tile, for each column group of the pupil,
-//   over two 32-deep W slices (the group's rows of wr, then of wi) in two
-//   buffers: the next slice is copied (cp.async) while one is used, the
-//   first while the x tile is formed. A warp owns one 16-row slice of the
-//   block and one of Re G' or Im G' (the G' tile of a group read as 2 GW
-//   columns, real and imaginary 8-column blocks interleaved), FW m16n8
-//   fragments of it: RR = 2 gives FW = PJ, 4 PJ accumulators a thread (32
-//   at a 128 px pupil). The imaginary component adds -xi wi^T to Re G':
-//   the warps of Re G' flip the sign bits of their A fragments, exactly.
-// * Strides: the x, W-slice, mixing-slice and uniform rows are 4 words
-//   past a multiple of 32 (68, 36, 68, NC + 4), so the 64-bit fragment
-//   loads hit every bank once. The mixing slices and the W slices are
-//   never live at once and share their shared memory; 'mixed' grids up to
-//   2304 px at a 128 px pupil fit (RR = 1 past about 1200 px).
-// * A pupil over 128 px (a 4 m telescope: 402 px at 1024^2). The x tile is
-//   the expensive operand, so a block makes it once and contracts it with
-//   NG = 4 column groups of 16 PJ <= 128 px in turn, each with its own
-//   accumulators (one block per SM, up to 255 registers); up to 512 px
-//   that is the whole pupil, wider pupils go to further blocks
-//   (blockIdx.z) that make the x tile again. P <= 128 is NG = 1, with two
-//   blocks per SM.
+// The design, a block per (draw, 64 rows of X', slice of PB <= 208 pupil
+// columns): two consumer warpgroups and a producer warpgroup (setmaxnreg:
+// 240 registers a consumer thread, 24 a producer thread).
+// * B operands pre-split and pre-laid. The wrapper splits the constant
+//   tables once a call (ops/synth_detect.py, pass1_tables): the mixing
+//   matrix in 64-column tiles of 32-deep slices and wr^T, wi^T in 8-deep
+//   steps of the block's pupil slice, each as hi and lo in wgmma's
+//   core-matrix layout, so a stage of the ring is one contiguous block.
+//   The kernel splits no B operand.
+// * Asynchronous copies. One producer thread streams the stages into a
+//   ring of 4 slots with cp.async.bulk; each completes on its slot's full
+//   mbarrier, and the 8 consumer warps release the slot on its empty one
+//   once their products that read it have landed.
+// * A from registers. The noise is formed per 64 x 64 tile of X' (column
+//   tile c): with 'mixed' noise, warpgroup w makes component w's z = u @
+//   M[:, 64c:64c + 64] over the whole depth, u read from chunks of both
+//   components' uniforms that all 256 consumer threads make in shared
+//   memory, one Philox call per grid point; then x = z * s_t goes to the
+//   x tile. With 'gauss' noise the consumers make the next x tile
+//   (Box-Muller * s_t) while the products of this one run. Then G' += x
+//   W^T over the tile's 64-deep slice: warpgroup 0 Re G' (xr wr^T and
+//   -xi wi^T, the sign flipped in the A fragment, exactly), warpgroup 1
+//   Im G' (xr wi^T + xi wr^T), in column chunks of 64 and a tail. A
+//   fragments come from shared tiles whose float pairs are swizzled by row
+//   (conflict-free 64-bit loads) and are split in registers.
+// * Depth slots. Lane t of a quad holds depths 2t and 2t + 1 of a step in
+//   A slots t and t + 4, one 64-bit load; the tables put the same depths
+//   in B's slots (the same relabelling of depth in both operands leaves
+//   the sum as it is).
+// * Uniforms. The flagship's grid (N <= 256 at a 96 px pupil) keeps all
+//   chunks of its 64 rows' uniforms in shared memory, made once during
+//   the first column tile; wider grids keep two and remake them for every
+//   column tile (Philox is counter-based: the same bits).
+// * A pupil over 208 px is cut into nz slices, each its own block. With
+//   'mixed' noise and two slices (the 4 m link: 416 px in two of 208) the
+//   two blocks of a draw's rows are a cluster: each makes every other
+//   column tile's x and writes it into both blocks' shared memory
+//   (st.shared::cluster), with an mbarrier pair per x slot, so the noise
+//   and the mixing product are made once for the pupil.
 // * Pass 2 is a block per (draw, tile of H of at most 128 x 128): H = W G',
 //   then sincos and a fixed-order reduction, so the result is the same
 //   from run to run (no atomics); K7 ends in screens_pass, the same tiles
 //   written out.
+//
+// What bounds pass 1 (H100 80GB HBM3, 700 W; scripts/torch_pass1_variants
+// .py: the kernel beside copies of itself with one part taken out): the
+// work around the products, not the tensor cores nor the copies. At 256^2
+// 'mixed' it takes 7.27 ms a 4096 draws (65 TFLOP/s of fp32-accurate
+// products), 5.03 with one TF32 product a step, 4.34 with no products at
+// all, 6.92 without the split, 5.92 with Philox replaced by a hash and
+// 7.04 with half the bytes copied: the tensor cores' time (about 1.1 ms a
+// TF32 pass, ~87% of their peak while they run) and the rest (noise,
+// fragment loads and splits, folds, barriers, with two consumer
+// warpgroups a SM) add up rather than overlap. At 1024^2 with the 402 px
+// pupil, 139.0 ms a 630 draws, the uniforms remade for every column tile
+// cost most: 81.5 with a hash for Philox, 80.7 with no products, 99.5
+// with one product.
 //
 // Random bits. Philox4x32-10 (Salmon et al., SC'11) keyed by the 64-bit
 // seed (k0 = low word, k1 = high word). Counter layout, one call per grid
@@ -118,396 +134,634 @@
 
 #include "detect.cuh"
 #include "tf32x3.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 using namespace fast;
 
-constexpr int kC = 64;         // column tile of X', the depth of G' += x W^T
-constexpr int kKT = 64;        // depth of one staged slice of the mixing matrix
-constexpr int kStages = 3;     // mixing slices in the ring (2 in flight)
-constexpr int kWD = 32;        // depth of one staged slice of the W tile
-constexpr int kXS = kC + 4;    // shared row stride of the x tile
-constexpr int kWS = kWD + 4;   // ... of the W slices
-constexpr int kMS = kC + 4;    // ... of the mixing slices
+constexpr int kRows = 64;       // rows of X' a block: a warpgroup's wgmma M
+constexpr int kZC = 64;         // column tile of X' (and of z), the depth of
+                                // G' += x W^T per tile
+constexpr int kKU = 32;         // depth of a chunk of uniforms and of a staged
+                                // slice of the mixing matrix
+constexpr int kStages = 4;      // B stages in the ring
+constexpr int kPBMax = 208;     // widest slice of the pupil a block covers
+constexpr int kConsumers = 256;                  // two warpgroups
+constexpr int kPass1Threads = kConsumers + 128;  // and the producer's
+constexpr int kConsumerRegs = 240;  // registers a thread: 2 x 128 x 240 +
+constexpr int kProducerRegs = 24;   // 128 x 24 <= 65536
+constexpr int kMStage = 4 * 2 * kZC * 8;  // words of a mixing slice: 4 steps
+                                          // x {hi, lo} x 64 columns x 8
+constexpr int kUChunk = 2 * kRows * kKU;  // words of a chunk of uniforms
+constexpr int kXTile = 2 * kRows * kZC;   // words of an x tile (Re and Im)
+constexpr int kSmemLimit = 232448;        // bytes of shared memory a block
 
-// How pass 1 covers the padded pupil P: NG column groups of width 16 PJ per
-// block and nz blocks along the pupil. P <= 128 is one group of the whole
-// width; wider pupils take 4 groups a block, up to 512 px, split evenly
-// over the nz blocks. _pass1_geom of fast_tpu_torch/ops/synth_detect.py
-// is the same rule.
+// How pass 1 covers the padded pupil P: nz blocks along it, each a slice
+// of PB <= 208 columns (a multiple of 16). _pass1_geom of
+// fast_tpu_torch/ops/synth_detect.py is the same rule.
 struct Pass1Geom {
-  int PJ, NG, nz;
+  int PB, nz;
 };
 
 Pass1Geom pass1_geom(int P) {
-  if (P <= 128) return {P / 16, 1, 1};
-  const int nz = (P + 511) / 512;
-  const int per = (P / 16 + nz - 1) / nz;
-  return {(per + 3) / 4, 4, nz};
+  const int nz = (P + kPBMax - 1) / kPBMax;
+  return {(P / 16 + nz - 1) / nz * 16, nz};
 }
 
-// Words of pass 1's shared memory: two W slices (a column group's rows of
-// wr and wi, 32 deep), or the ring of mixing slices in the same place;
-// the x tiles (one component's for 'mixed', both for 'gauss'), each as hi
-// and lo; and one component's uniforms ('mixed').
-__host__ __device__ constexpr int pass1_tile_words(bool mixed, int GW) {
-  return (2 * 2 * GW * kWS > (mixed ? kStages * kKT * kMS : 0))
-             ? 2 * 2 * GW * kWS : kStages * kKT * kMS;
+// Words of one ring slot: a W stage (one 8-deep step of wr and wi, hi and
+// lo, PB columns) or, with 'mixed' noise, a slice of the mixing matrix.
+__host__ __device__ constexpr int pass1_slot_words(bool mixed, int PB) {
+  return (mixed && kMStage > 32 * PB) ? kMStage : 32 * PB;
 }
 
-__host__ __device__ constexpr int pass1_x_words(bool mixed, int R) {
-  return (mixed ? 2 : 4) * R * kXS;
+// x tiles a block holds: one with 'mixed' noise, two with 'gauss' (the
+// next tile is made while one is used) or for a pair of blocks (each makes
+// every other tile, for both).
+__host__ __device__ constexpr int pass1_x_tiles(bool mixed, bool pair) {
+  return mixed && !pair ? 1 : 2;
 }
 
-// ---- tensor-core arithmetic (tf32x3.cuh): K2's sums of a step -----------
+constexpr int kBars = 2 * kStages + 4;  // the ring's and the x slots'
 
-// One 8-deep step of a 3xTF32 product, a 16 x 8 and b 8 x 8 as hi and lo
-// fragments: small += a_lo b_hi + a_hi b_lo on the tensor cores, and
-// big += a_hi b_hi, the step's 8 products summed on the tensor cores and
-// added to big in fp32. The tensor cores round their sums toward zero:
-// a long sum kept in their accumulators shrinks by about half an ulp a
-// step (the 256^2 flagship's sums drifted past KERNEL_REL, H100), while
-// the small terms' sum, 2^-11 of the large one's, may stay there.
-// Depth slots: in A and B alike, lane t of a quad holds depths 2t and
-// 2t + 1 of the step (fragment slots t and t + 4), so that its part of a
-// row is one 64-bit load; the same relabelling of depth in both operands
-// leaves the sum as it is.
-__device__ __forceinline__ void mma3(float (&big)[4], float (&small)[4],
-                                     const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4],
-                                     const uint32_t (&bh)[2],
-                                     const uint32_t (&bl)[2]) {
-  mma_tf32(small, al, bh);
-  mma_tf32(small, ah, bl);
-  float d[4];
-  mma_tf32_new(d, ah, bh);
+// Bytes of pass 1's shared memory: the ring, the x tiles, nbuf chunks of
+// uniforms ('mixed') and the mbarriers. _smem_bytes of
+// fast_tpu_torch/ops/synth_detect.py mirrors it.
+__host__ __device__ constexpr int pass1_smem(bool mixed, int PB, int nbuf,
+                                             bool pair) {
+  return 4 * (kStages * pass1_slot_words(mixed, PB) +
+              pass1_x_tiles(mixed, pair) * kXTile +
+              (mixed ? nbuf * kUChunk : 0)) +
+         8 * kBars;
+}
+
+// Chunks of uniforms a block keeps: all of them (made once, in its first
+// column tile) where they fit, else two, remade for every column tile.
+int pass1_u_chunks(int N, int PB, bool pair) {
+  const int nkc = (N + kKU - 1) / kKU;
+  return pass1_smem(true, PB, nkc, pair) <= kSmemLimit ? nkc : 2;
+}
+
+// Word of float pair f of row r in a shared tile whose rows hold `words`
+// words: the pair index XOR 4 (r % 4), so that a warp's 64-bit fragment
+// loads (rows g, pairs 4 s + t) hit every bank once.
+__device__ __forceinline__ int swz(int r, int f, int words) {
+  return r * words + 2 * (f ^ ((r & 3) << 2));
+}
+
+// ---- the products of a fold group ----------------------------------------
+
+// One A operand of an 8-deep step, split: hi and lo fragments.
+struct Frag {
+  uint32_t h[4], l[4];
+};
+
+// The A fragment of a warp's rows g and g + 8 at float pair f of a
+// shared tile (rows of `words` words), split into hi and lo, negated
+// (exactly: the sign bits) if neg. Depth slots t and t + 4 hold the pair's
+// two values, depths 2t and 2t + 1 of the step: the tables' slot order.
+__device__ __forceinline__ Frag load_frag(const float* tile, int r, int f,
+                                          int words, bool neg) {
+  const float2 v0 = *reinterpret_cast<const float2*>(tile + swz(r, f, words));
+  const float2 v1 =
+      *reinterpret_cast<const float2*>(tile + swz(r + 8, f, words));
+  const uint32_t s = neg ? 0x80000000u : 0u;
+  Frag a;
+  const float x[4] = {v0.x, v1.x, v0.y, v1.y};
 #pragma unroll
-  for (int v = 0; v < 4; ++v) big[v] += d[v];
+  for (int v = 0; v < 4; ++v) {
+    split(x[v], a.h[v], a.l[v]);
+    a.h[v] ^= s;
+    a.l[v] ^= s;
+  }
+  return a;
 }
 
-// Pass 1: one block per (draw, R = 16 RR rows of X', NG column groups of
-// the pupil). Writes G' rows. NG = 1: two blocks per SM.
-template <bool kMixed, int PJ, int RR, int NG>
-__global__ void __launch_bounds__(kThreads, NG == 1 ? 2 : 1)
+// d = the sum over a fold group's two 8-deep steps and NT terms of a b, in
+// a fresh accumulator: the small terms a_lo b_hi + a_hi b_lo of every step
+// first, then the a_hi b_hi, each wgmma adding 8 products to the tensor
+// cores' sum; then commit. bh, bl: descriptors of the B steps' hi and lo.
+template <int N, int NT>
+__device__ __forceinline__ void mma3_group(float (&d)[N / 2],
+                                           Frag (&a)[NT][2],
+                                           const uint64_t (&bh)[NT][2],
+                                           const uint64_t (&bl)[NT][2]) {
+#pragma unroll
+  for (int q = 0; q < NT; ++q)
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      fence_regs(a[q][s].h);
+      fence_regs(a[q][s].l);
+    }
+  fence_regs(d);
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int q = 0; q < NT; ++q) {
+      wgmma_tf32<N>(d, a[q][s].l, bh[q][s], s + q);
+      wgmma_tf32<N>(d, a[q][s].h, bl[q][s], 1);
+    }
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int q = 0; q < NT; ++q) wgmma_tf32<N>(d, a[q][s].h, bh[q][s], 1);
+  wgmma_commit();
+}
+
+// Wait until at most kPending groups are in flight, then add the sum d of
+// one that has landed to the fp32 sum acc: round to nearest.
+template <int kPending = 0, int R>
+__device__ __forceinline__ void fold(float (&acc)[R], float (&d)[R]) {
+  wgmma_wait<kPending>();
+  fence_regs(d);
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] += d[i];
+}
+
+// ---- the noise -------------------------------------------------------------
+
+// Pairs i0 and i0 + 256 of a 'mixed' chunk of uniforms: rows row0.., grid
+// columns col0.. (32 a chunk, 16 pairs a row), both components from one
+// Philox call per grid point, into chunk buffer u (component 0, then 1).
+__device__ __forceinline__ void make_uniforms(float* u, int i0, int row0,
+                                              int col0, int N, uint32_t draw,
+                                              uint32_t stream, uint32_t k0,
+                                              uint32_t k1) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int e = i0 + h * kConsumers;
+    const int r = e >> 4, f = e & 15;
+    const int row = row0 + r;
+    float a[2] = {0.0f, 0.0f}, b[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int col = col0 + 2 * f + v;
+      if (row < N && col < N) {
+        const U4 w = philox4x32_10(static_cast<uint32_t>(row * N + col),
+                                   draw, stream, 0u, k0, k1);
+        a[v] = mixed_uniform(w.x);
+        b[v] = mixed_uniform(w.y);
+      }
+    }
+    *reinterpret_cast<float2*>(u + swz(r, f, kKU)) = make_float2(a[0], a[1]);
+    *reinterpret_cast<float2*>(u + kRows * kKU + swz(r, f, kKU)) =
+        make_float2(b[0], b[1]);
+  }
+}
+
+// Pairs i0 and i0 + 256 of a 'gauss' x tile: x = Box-Muller noise * s_t,
+// both components from one Philox call per grid point, into x (Re, then
+// Im; 32 pairs a row).
+__device__ __forceinline__ void make_gauss(float* x, int i0, int row0,
+                                           int col0, int N, uint32_t draw,
+                                           uint32_t stream, uint32_t k0,
+                                           uint32_t k1,
+                                           const float* __restrict__ s_t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int e = i0 + h * kConsumers;
+    const int r = e >> 5, f = e & 31;
+    const int row = row0 + r;
+    float a[2] = {0.0f, 0.0f}, b[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int col = col0 + 2 * f + v;
+      if (row < N && col < N) {
+        const U4 w = philox4x32_10(static_cast<uint32_t>(row * N + col),
+                                   draw, stream, 0u, k0, k1);
+        float zc, zs;
+        box_muller(w.x, w.y, &zc, &zs);
+        const float s = s_t[static_cast<size_t>(row) * N + col];
+        a[v] = zc * s;
+        b[v] = zs * s;
+      }
+    }
+    *reinterpret_cast<float2*>(x + swz(r, f, kZC)) = make_float2(a[0], a[1]);
+    *reinterpret_cast<float2*>(x + kRows * kZC + swz(r, f, kZC)) =
+        make_float2(b[0], b[1]);
+  }
+}
+
+// ---- pass 1 ----------------------------------------------------------------
+
+// The ring of B stages: stage `it` of the schedule lands in slot it % 4;
+// full[slot] completes when its bytes have landed, empty[slot] when the 8
+// consumer warps are done with it.
+struct Ring {
+  float* slots;
+  uint64_t* full;
+  uint64_t* empty;
+  int words;
+
+  __device__ __forceinline__ const float* take(uint32_t it) const {
+    const int s = it % kStages;
+    mbar_wait(&full[s], (it / kStages) & 1);
+    return slots + s * words;
+  }
+  __device__ __forceinline__ void release(uint32_t it) const {
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[it % kStages]);
+  }
+  __device__ __forceinline__ void load(uint32_t it, const float* src,
+                                       uint32_t bytes) const {
+    const int s = it % kStages;
+    mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+    mbar_expect(&full[s], bytes);
+    bulk_copy(slots + s * words, src, bytes, &full[s]);
+  }
+};
+
+// Pass 1: one block per (draw, 64 rows of X', slice of PB = 64 NCH + TAIL
+// pupil columns). Consumer warpgroup w makes component w of the noise's
+// mixing product and then part w of G' (0 Re, 1 Im) for the slice; one
+// thread of the producer warpgroup streams the B stages in the consumers'
+// order. kPair: the block and the other slice's block of the same rows
+// are a cluster and make every other column tile's x for both. Writes G'.
+template <bool kMixed, bool kPair, int NCH, int TAIL>
+__global__ void __launch_bounds__(kPass1Threads, 1)
     synth_pass1(uint32_t k0, uint32_t k1, uint32_t stream, int draw0,
-                const float* __restrict__ s_t, const float* __restrict__ wr,
-                const float* __restrict__ wi, const float* __restrict__ mix,
-                float* __restrict__ g_re, float* __restrict__ g_im, int N,
-                int P_rt) {
-  constexpr int GW = 16 * PJ;            // width of a column group
-  constexpr int R = 16 * RR;             // rows of X' per block
-  constexpr int NX = kMixed ? 1 : 2;     // x tiles (components) at once
-  constexpr int FW = (RR * PJ + 1) / 2;  // G' fragments a warp, per group
-  constexpr int CBS = 4 / RR;            // between a warp's column blocks
-  const int P = NG == 1 ? GW : P_rt;     // padded pupil, G's row stride
-  const int NC = (N + kC - 1) / kC * kC; // grid side padded to the tiles
-  const int US = NC + 4;                 // shared row stride of uniforms
-  // rows of M and W 16-byte aligned: copy them in 16-byte pieces
-  const bool vec = (N & 3) == 0 &&
-                   ((reinterpret_cast<uintptr_t>(wr) |
-                     reinterpret_cast<uintptr_t>(wi) |
-                     reinterpret_cast<uintptr_t>(mix)) & 15) == 0;
-  extern __shared__ __align__(16) float smem[];
-  float* wt = smem;                      // W slices | mixing slices
-  uint32_t* xs = reinterpret_cast<uint32_t*>(
-      smem + pass1_tile_words(kMixed, GW));  // NX x {hi, lo} x R x kXS
-  float* us = smem + pass1_tile_words(kMixed, GW) +
-              pass1_x_words(kMixed, R);      // R x US ('mixed')
+                const float* __restrict__ s_t,
+                const float* __restrict__ wpack,
+                const float* __restrict__ mpack, float* __restrict__ g_re,
+                float* __restrict__ g_im, int N, int P, int nbuf) {
+  constexpr int PB = 64 * NCH + TAIL;
+  constexpr int TW = TAIL > 0 ? TAIL : 16;  // the tail's wgmma width
+  extern __shared__ __align__(128) float smem[];
+  const int slot_words = pass1_slot_words(kMixed, PB);
+  float* xs = smem + kStages * slot_words;          // x tiles
+  float* us = xs + pass1_x_tiles(kMixed, kPair) * kXTile;  // uniforms
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      us + (kMixed ? nbuf * kUChunk : 0));
+  const Ring ring{smem, bars, bars + kStages, slot_words};
+  // a pair: x tile c in slot c % 2, made by the pair's block of rank
+  // c % 2; xfull[s] completes when its maker has written it into both
+  // blocks, xempty[s] when the 16 consumer warps of both have read it
+  uint64_t* xfull = bars + 2 * kStages;
+  uint64_t* xempty = xfull + 2;
+  const int rank = kPair ? cluster_rank() : 0;
+  const int cstep = kPair ? 2 : 1;  // column tiles a round
 
   const int j = blockIdx.x;
   const uint32_t draw = static_cast<uint32_t>(draw0 + j);
-  const int row0 = blockIdx.y * R;
-  const int pz = NG == 1 ? 0 : blockIdx.z * NG * GW;  // first pupil column
-  const int ngroups = NG == 1 ? 1 : min(NG, (P - pz + GW - 1) / GW);
+  const int row0 = blockIdx.y * kRows;
+  const int zb = blockIdx.z;
+  const int NC = (N + kZC - 1) / kZC;               // column tiles
+  const int nkc = (N + kKU - 1) / kKU;              // chunks of the depth
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, g = (tid >> 2) & 7, t = tid & 3;
-  const int mf = warp % RR;              // the warp's 16-row slice
-  const int out = (warp / RR) & 1;       // its part of G': 0 Re, 1 Im
-  const int cb0 = warp / RR / 2;         // its first 8-column block
 
-  float acc[NG][FW][4];
-#pragma unroll
-  for (int q = 0; q < NG; ++q)
-#pragma unroll
-    for (int f = 0; f < FW; ++f)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[q][f][v] = 0.0f;
-
-  for (int comp = 0; comp < (kMixed ? 2 : 1); ++comp) {
-    if (kMixed) {
-      // the previous component's last tile ended in __syncthreads()
-      for (int r = 0; r < R; ++r)
-        for (int c = tid; c < NC; c += kThreads) {
-          float u = 0.0f;
-          if (row0 + r < N && c < N) {
-            const U4 v = philox4x32_10(
-                static_cast<uint32_t>((row0 + r) * N + c), draw, stream, 0u,
-                k0, k1);
-            u = mixed_uniform(comp == 0 ? v.x : v.y);
-          }
-          us[r * US + c] = u;
-        }
-      __syncthreads();
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&ring.full[s], 1);
+      mbar_init(&ring.empty[s], kConsumers / 32);
     }
-    for (int c0 = 0; c0 < NC; c0 += kC) {
-      // W slice i of this tile: group i / 2, depth half i % 2
-      const auto stage_w_slice = [&](int i) {
-        float* buf = wt + (i & 1) * 2 * GW * kWS;
-        const int p0 = pz + (i >> 1) * GW, c = c0 + (i & 1) * kWD;
-        stage_tile<kWS, kWD>(buf, wr, p0, GW, P, N, c, vec);
-        stage_tile<kWS, kWD>(buf + GW * kWS, wi, p0, GW, P, N, c, vec);
-        cp_async_commit();
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&xfull[s], kConsumers);
+      mbar_init(&xempty[s], 2 * kConsumers / 32);
+    }
+    mbar_init_fence();
+  }
+  if (kPair)
+    cluster_sync();  // the peer's barriers are set up
+  else
+    __syncthreads();
+
+  if (tid >= kConsumers) {
+    // the producer: one thread walks the schedule, each round the mixing
+    // slices of the block's own column tile, then the W steps of the
+    // round's tiles
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid == kConsumers) {
+      const float* wz = wpack + static_cast<size_t>(zb) * NC * 8 * 32 * PB;
+      uint32_t it = 0;
+      for (int c0 = 0; c0 < NC; c0 += cstep) {
+        const int c = c0 + rank;
+        if (kMixed && c < NC)
+          for (int kc = 0; kc < nkc; ++kc)
+            ring.load(it++, mpack + static_cast<size_t>(c * nkc + kc) *
+                                        kMStage,
+                      4 * kMStage);
+        for (int cc = c0; cc < min(c0 + cstep, NC); ++cc)
+          for (int q = 0; q < 8; ++q)
+            ring.load(it++, wz + static_cast<size_t>(cc * 8 + q) * 32 * PB,
+                      4 * 32 * PB);
+      }
+    }
+    if (kPair) cluster_sync();  // no block leaves while its peer may write
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = tid >> 7;                   // component / part of G'
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int r = ((tid >> 5) & 3) * 16 + g;   // the thread's rows r, r + 8
+  float gb[NCH > 0 ? NCH : 1][32], gt[TW / 2];
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int v = 0; v < 32; ++v) gb[c][v] = 0.0f;
+#pragma unroll
+  for (int v = 0; v < TAIL / 2; ++v) gt[v] = 0.0f;
+
+  // G' += x W^T over the 64-deep x tile at `x`, stages it.. of the ring:
+  // part 0 (Re) takes xr wr^T and -xi wi^T, part 1 (Im) xr wi^T and
+  // xi wr^T. In 4 fold groups of 2 steps; `between(h)` runs while group
+  // h's first products are in flight.
+  const auto gprime = [&](const float* x, uint32_t it, auto between) {
+#pragma unroll 1
+    for (int h = 0; h < 4; ++h) {
+      Frag a[2][2];
+      const float* st[2];
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        st[s] = ring.take(it + 2 * h + s);
+        const int f = 4 * (2 * h + s) + t;
+        a[0][s] = load_frag(x, r, f, kZC, false);
+        a[1][s] = load_frag(x + kRows * kZC, r, f, kZC, wg == 0);
+      }
+      // term 0 with wr (Re) or wi (Im), term 1 with wi (Re) or wr (Im)
+      const auto descs = [&](int col, uint64_t (&bh)[2][2],
+                             uint64_t (&bl)[2][2]) {
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const float* tab = st[s] + ((q ^ wg) ? 2 : 0) * PB * 8 + col * 8;
+            bh[q][s] = b_desc(tab);
+            bl[q][s] = b_desc(tab + PB * 8);
+          }
       };
-      if (kMixed) {
-        // z = u @ M[:, c0:c0+64] over the ring of mixing slices: the
-        // warp's 16 rows, column blocks warp / RR + 8 / RR * i; the small
-        // terms in zl
-        float z[RR][4], zl[RR][4];
-#pragma unroll
-        for (int i = 0; i < RR; ++i)
-#pragma unroll
-          for (int v = 0; v < 4; ++v) z[i][v] = zl[i][v] = 0.0f;
-        const int nst = NC / kKT;
-#pragma unroll
-        for (int s = 0; s < kStages - 1; ++s) {
-          if (s < nst)
-            stage_tile<kMS, kC>(wt + s * kKT * kMS, mix, s * kKT, kKT, N, N,
-                                c0, vec);
-          cp_async_commit();
+      // the slice's column chunks (NCH of 64, then the tail), two in
+      // flight: chunk u + 1 is issued before chunk u is folded
+      constexpr int NU = NCH + (TAIL > 0 ? 1 : 0);
+      float d[2][32];
+      const auto issue = [&](int u, float (&dd)[32]) {
+        uint64_t bh[2][2], bl[2][2];
+        descs(64 * u, bh, bl);
+        if (u < NCH)
+          mma3_group<64, 2>(dd, a, bh, bl);
+        else
+          mma3_group<TW, 2>(reinterpret_cast<float(&)[TW / 2]>(dd), a, bh,
+                            bl);
+      };
+      const auto land = [&](int u, float (&dd)[32], bool more) {
+        auto& dt = reinterpret_cast<float(&)[TW / 2]>(dd);
+        if (u < NCH) {
+          if (more) fold<1>(gb[u], dd); else fold(gb[u], dd);
+        } else {
+          if (more) fold<1>(gt, dt); else fold(gt, dt);
         }
-        for (int s = 0; s < nst; ++s) {
-          cp_async_wait<kStages - 2>();
-          __syncthreads();  // slice s landed; slice s - 1 read by all
-          const int sn = s + kStages - 1;
-          if (sn < nst)
-            stage_tile<kMS, kC>(wt + (sn % kStages) * kKT * kMS, mix,
-                                sn * kKT, kKT, N, N, c0, vec);
-          cp_async_commit();
-          const float* ms = wt + (s % kStages) * kKT * kMS;
-          const float* ua = us + (mf * 16 + g) * US + s * kKT + 2 * t;
+      };
+      issue(0, d[0]);
+      between(h);
 #pragma unroll
-          for (int k8 = 0; k8 < kKT; k8 += 8) {
-            uint32_t ah[4], al[4];
-            const float2 u0 = *reinterpret_cast<const float2*>(ua + k8);
-            const float2 u1 =
-                *reinterpret_cast<const float2*>(ua + 8 * US + k8);
-            split(u0.x, ah[0], al[0]);
-            split(u1.x, ah[1], al[1]);
-            split(u0.y, ah[2], al[2]);
-            split(u1.y, ah[3], al[3]);
+      for (int u = 1; u < NU; ++u) {
+        issue(u, d[u & 1]);
+        land(u - 1, d[(u - 1) & 1], true);
+      }
+      land(NU - 1, d[(NU - 1) & 1], false);
 #pragma unroll
-            for (int i = 0; i < RR; ++i) {
-              const float* mb = ms + (k8 + 2 * t) * kMS +
-                                (warp / RR + 8 / RR * i) * 8 + g;
-              uint32_t bh[2], bl[2];
-              split(mb[0], bh[0], bl[0]);
-              split(mb[kMS], bh[1], bl[1]);
-              mma3(z[i], zl[i], ah, al, bh, bl);
+      for (int s = 0; s < 2; ++s) ring.release(it + 2 * h + s);
+    }
+  };
+
+  uint32_t it = 0;
+  if (kMixed) {
+    // all chunks of uniforms kept (made in the block's first column tile)
+    // or two, remade for every tile
+    const bool keep = nbuf >= nkc;
+    make_uniforms(us, tid, row0, 0, N, draw, stream, k0, k1);
+    make_uniforms(us, tid + 2 * kConsumers, row0, 0, N, draw, stream, k0,
+                  k1);
+    named_sync(1, kConsumers);
+    int q = 0;  // chunks of uniforms used so far
+    // a round: the block's own column tile (a pair's blocks make every
+    // other one), then G' over the round's tiles
+    for (int c0 = 0; c0 < NC; c0 += cstep) {
+      const int c = c0 + rank;
+      if (c < NC) {
+        // z = u @ M[:, 64c : 64c + 64] for component wg
+        float z[32];
+#pragma unroll
+        for (int v = 0; v < 32; ++v) z[v] = 0.0f;
+        // a fold group: the A fragments of steps 2h, 2h + 1 of a chunk of
+        // uniforms, against the mixing slice ms, into d
+        const auto issue = [&](const float* uc, const float* ms, int h,
+                               Frag (&a)[1][2], float (&d)[32]) {
+          uint64_t bh[1][2], bl[1][2];
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+            const int step = 2 * h + s;
+            a[0][s] = load_frag(uc + wg * kRows * kKU, r, 4 * step + t, kKU,
+                                false);
+            bh[0][s] = b_desc(ms + (2 * step) * kZC * 8);
+            bl[0][s] = b_desc(ms + (2 * step + 1) * kZC * 8);
+          }
+          mma3_group<64, 1>(d, a, bh, bl);
+        };
+        // both fold groups of a chunk in flight: group 1 is issued before
+        // group 0 is folded
+        Frag a0[1][2], a1[1][2];
+        float d0[32], d1[32];
+        for (int kc = 0; kc < nkc; ++kc, ++q, ++it) {
+          const float* u = us + (keep ? kc : q & 1) * kUChunk;
+          const bool last = kc + 1 == nkc;
+          const bool make =
+              keep ? (c == rank && !last) : (!last || c + cstep < NC);
+          float* un = us + (keep ? kc + 1 : (q + 1) & 1) * kUChunk;
+          const int coln = last ? 0 : (kc + 1) * kKU;
+          const float* ms = ring.take(it);
+          issue(u, ms, 0, a0, d0);
+          issue(u, ms, 1, a1, d1);
+          if (make)
+            make_uniforms(un, tid, row0, coln, N, draw, stream, k0, k1);
+          fold<1>(z, d0);
+          if (make)
+            make_uniforms(un, tid + 2 * kConsumers, row0, coln, N, draw,
+                          stream, k0, k1);
+          fold(z, d1);
+          ring.release(it);
+          if (make) named_sync(1, kConsumers);  // the next chunk is made
+        }
+        // x = z * s_t into the x tile (and the peer's): the thread's z
+        // holds rows r, r + 8, columns 8i + 2t, 8i + 2t + 1 of the tile
+        float* x = xs + rank * kXTile + wg * kRows * kZC;
+        if (kPair)  // both blocks have read the slot's previous tile
+          mbar_wait_cluster(&xempty[rank], ((c >> 1) & 1) ^ 1);
+        else
+          named_sync(1, kConsumers);  // the previous tile's x is read
+        const uint32_t xp = kPair ? peer_addr(x, rank ^ 1) : 0u;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = row0 + r + 8 * h, col = c * kZC + 8 * i + 2 * t;
+            float s0 = 0.0f, s1 = 0.0f;
+            if (row < N) {
+              const float* sr = s_t + static_cast<size_t>(row) * N;
+              if (col < N) s0 = sr[col];
+              if (col + 1 < N) s1 = sr[col + 1];
             }
+            const int at = swz(r + 8 * h, 4 * i + t, kZC);
+            const float2 v =
+                make_float2(z[4 * i + 2 * h] * s0, z[4 * i + 2 * h + 1] * s1);
+            *reinterpret_cast<float2*>(x + at) = v;
+            if (kPair) st_peer(xp + 4 * at, v);
           }
-        }
-#pragma unroll
-        for (int i = 0; i < RR; ++i)
-#pragma unroll
-          for (int v = 0; v < 4; ++v) z[i][v] += zl[i][v];
-        __syncthreads();  // the ring is read: the W slices take its place
-        stage_w_slice(0);
-        // x = z * s_t into the x tile, split
-#pragma unroll
-        for (int i = 0; i < RR; ++i)
-#pragma unroll
-          for (int v = 0; v < 4; ++v) {
-            const int r = mf * 16 + g + (v >> 1) * 8;
-            const int cc = (warp / RR + 8 / RR * i) * 8 + 2 * t + (v & 1);
-            const int row = row0 + r, col = c0 + cc;
-            const float x =
-                (row < N && col < N)
-                    ? z[i][v] * s_t[static_cast<size_t>(row) * N + col]
-                    : 0.0f;
-            split(x, xs[r * kXS + cc], xs[(R + r) * kXS + cc]);
-          }
-      } else {
-        stage_w_slice(0);
-        // both components of a grid point from one Philox call
-        for (int e = tid; e < R * kC; e += kThreads) {
-          const int r = e / kC, cc = e - r * kC;
-          const int row = row0 + r, col = c0 + cc;
-          float xr = 0.0f, xi = 0.0f;
-          if (row < N && col < N) {
-            const U4 v = philox4x32_10(static_cast<uint32_t>(row * N + col),
-                                       draw, stream, 0u, k0, k1);
-            float zc, zs;
-            box_muller(v.x, v.y, &zc, &zs);
-            const float s = s_t[static_cast<size_t>(row) * N + col];
-            xr = zc * s;
-            xi = zs * s;
-          }
-          split(xr, xs[r * kXS + cc], xs[(R + r) * kXS + cc]);
-          split(xi, xs[(2 * R + r) * kXS + cc], xs[(3 * R + r) * kXS + cc]);
+        if (kPair) {
+          mbar_arrive(&xfull[rank]);
+          mbar_arrive_peer(peer_addr(&xfull[rank], rank ^ 1));
+        } else {
+          named_sync(1, kConsumers);  // both components written
         }
       }
-      // G' += x W^T per column group, over two W slices of 32 in a ring.
-      // Component 0 (x = xr): Re += xr wr^T, Im += xr wi^T; component 1
-      // (x = xi): Re -= xi wi^T (the A fragment negated, exactly),
-      // Im += xi wr^T. The small terms of each group's tile in `small`,
-      // added to acc at the tile's end.
-      const int nsl = 2 * ngroups;
-#pragma unroll
-      for (int q = 0; q < NG; ++q) {
-        if (q >= ngroups) break;
-        float small[FW][4];
-#pragma unroll
-        for (int f = 0; f < FW; ++f)
-#pragma unroll
-          for (int v = 0; v < 4; ++v) small[f][v] = 0.0f;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int i = 2 * q + h;
-          if (i + 1 < nsl) {
-            stage_w_slice(i + 1);
-            cp_async_wait<1>();
-          } else {
-            cp_async_wait<0>();
+      for (int cc = c0; cc < min(c0 + cstep, NC); ++cc, it += 8) {
+        const int sl = cc & (cstep - 1);  // the x slot (and its maker)
+        if (kPair) mbar_wait_cluster(&xfull[sl], (cc >> 1) & 1);
+        gprime(xs + sl * kXTile, it, [](int) {});
+        if (kPair) {
+          __syncwarp();
+          if (lane == 0) {
+            if (sl == rank)
+              mbar_arrive(&xempty[sl]);
+            else
+              mbar_arrive_peer(peer_addr(&xempty[sl], sl));
           }
-          __syncthreads();  // slice i (and the x tile) visible to all
-          const float* wsl = wt + (i & 1) * 2 * GW * kWS;
-#pragma unroll
-          for (int x = 0; x < NX; ++x) {
-            const int cp = kMixed ? comp : x;  // the tile's component
-            const uint32_t sgn = (cp == 1 && out == 0) ? 0x80000000u : 0u;
-            const uint32_t* xh =
-                xs + (2 * x * R + mf * 16 + g) * kXS + h * kWD + 2 * t;
-            const uint32_t* xl = xh + R * kXS;
-            const float* wb =
-                wsl + ((out == cp ? 0 : GW) + cb0 * 8 + g) * kWS + 2 * t;
-#pragma unroll
-            for (int k8 = 0; k8 < kWD; k8 += 8) {
-              const uint2 h0 = *reinterpret_cast<const uint2*>(xh + k8);
-              const uint2 h1 =
-                  *reinterpret_cast<const uint2*>(xh + 8 * kXS + k8);
-              const uint2 l0 = *reinterpret_cast<const uint2*>(xl + k8);
-              const uint2 l1 =
-                  *reinterpret_cast<const uint2*>(xl + 8 * kXS + k8);
-              const uint32_t ah[4] = {h0.x ^ sgn, h1.x ^ sgn, h0.y ^ sgn,
-                                      h1.y ^ sgn};
-              const uint32_t al[4] = {l0.x ^ sgn, l1.x ^ sgn, l0.y ^ sgn,
-                                      l1.y ^ sgn};
-#pragma unroll
-              for (int f = 0; f < FW; ++f) {
-                if (cb0 + CBS * f >= 2 * PJ) break;  // RR = 1, PJ odd
-                const float2 b = *reinterpret_cast<const float2*>(
-                    wb + CBS * f * 8 * kWS + k8);
-                uint32_t bh[2], bl[2];
-                split(b.x, bh[0], bl[0]);
-                split(b.y, bh[1], bl[1]);
-                mma3(acc[q][f], small[f], ah, al, bh, bl);
-              }
-            }
-          }
-          __syncthreads();  // slice i's buffer is refilled at i + 2
         }
-#pragma unroll
-        for (int f = 0; f < FW; ++f)
-#pragma unroll
-          for (int v = 0; v < 4; ++v) acc[q][f][v] += small[f][v];
       }
+    }
+  } else {
+    // the x tile of column tile c + 1 is made, a quarter a fold group,
+    // while tile c's products run
+    make_gauss(xs, tid, row0, 0, N, draw, stream, k0, k1, s_t);
+    make_gauss(xs, tid + 2 * kConsumers, row0, 0, N, draw, stream, k0, k1,
+               s_t);
+    make_gauss(xs, tid + 4 * kConsumers, row0, 0, N, draw, stream, k0, k1,
+               s_t);
+    make_gauss(xs, tid + 6 * kConsumers, row0, 0, N, draw, stream, k0, k1,
+               s_t);
+    named_sync(1, kConsumers);
+    for (int c = 0; c < NC; ++c, it += 8) {
+      float* xn = xs + ((c + 1) & 1) * kXTile;
+      const bool more = c + 1 < NC;
+      gprime(xs + (c & 1) * kXTile, it, [&](int h) {
+        if (more)
+          make_gauss(xn, tid + 2 * h * kConsumers, row0, (c + 1) * kZC, N,
+                     draw, stream, k0, k1, s_t);
+      });
+      named_sync(1, kConsumers);
     }
   }
-  // fragment (row g | g + 8, columns 2t, 2t + 1) of column block cb
-  float* gout = out ? g_im : g_re;
-#pragma unroll
-  for (int q = 0; q < NG; ++q)
-#pragma unroll
-    for (int f = 0; f < FW; ++f) {
-      const int cb = cb0 + CBS * f;
-      const int p = pz + q * GW + cb * 8 + 2 * t;
-      if (cb >= 2 * PJ || (NG > 1 && p >= P)) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = row0 + mf * 16 + g + 8 * h;
-        if (row >= N) continue;
-        *reinterpret_cast<float2*>(
-            gout + (static_cast<size_t>(j) * N + row) * P + p) =
-            make_float2(acc[q][f][2 * h], acc[q][f][2 * h + 1]);
-      }
-    }
-}
 
-// Dynamic shared memory of pass 1 in bytes. Must match _smem_bytes in
-// fast_tpu_torch/ops/synth_detect.py, which picks RR and decides which
-// shapes the wrapper takes.
-template <bool kMixed>
-size_t pass1_smem(int N, int GW, int RR) {
-  const int NC = (N + kC - 1) / kC * kC;
-  const int R = 16 * RR;
-  return sizeof(float) * (pass1_tile_words(kMixed, GW) +
-                          pass1_x_words(kMixed, R) +
-                          (kMixed ? R * (NC + 4) : 0));
+  // G' rows r, r + 8 of part wg: columns 8i + 2t, + 1 of each chunk
+  float* gout = wg ? g_im : g_re;
+  const auto put = [&](int col, float v0, float v1, int h) {
+    const int row = row0 + r + 8 * h, p = zb * PB + col;
+    if (row < N && p < P)
+      *reinterpret_cast<float2*>(
+          gout + (static_cast<size_t>(j) * N + row) * P + p) =
+          make_float2(v0, v1);
+  };
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        put(64 * c + 8 * i + 2 * t, gb[c][4 * i + 2 * h],
+            gb[c][4 * i + 2 * h + 1], h);
+#pragma unroll
+  for (int i = 0; i < TAIL / 8; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      put(64 * NCH + 8 * i + 2 * t, gt[4 * i + 2 * h], gt[4 * i + 2 * h + 1],
+          h);
+  if (kPair) cluster_sync();
 }
 
 struct Pass1Args {
   uint32_t k0, k1, stream_id;
   int draw0, nbatch;
-  const float *s_t, *wr, *wi, *mix;
+  const float *s_t, *wpack, *mpack;
   float *g_re, *g_im;
   int N, P;
   cudaStream_t stream;
 };
 
-template <bool kMixed, int PJ, int RR, int NG>
+template <bool kMixed, bool kPair, int NCH, int TAIL>
 cudaError_t launch_pass1(const Pass1Args& a, int nz) {
-  const size_t smem = pass1_smem<kMixed>(a.N, 16 * PJ, RR);
-  auto* k_pass1 = synth_pass1<kMixed, PJ, RR, NG>;
+  constexpr int PB = 64 * NCH + TAIL;
+  const int nbuf = kMixed ? pass1_u_chunks(a.N, PB, kPair) : 0;
+  const int smem = pass1_smem(kMixed, PB, nbuf, kPair);
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  auto* k_pass1 = synth_pass1<kMixed, kPair, NCH, TAIL>;
   cudaError_t err = cudaFuncSetAttribute(
-      k_pass1, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      k_pass1, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const int row_blocks = (a.N + 16 * RR - 1) / (16 * RR);
-  k_pass1<<<dim3(a.nbatch, row_blocks, nz), kThreads, smem, a.stream>>>(
-      a.k0, a.k1, a.stream_id, a.draw0, a.s_t, a.wr, a.wi, a.mix, a.g_re,
-      a.g_im, a.N, a.P);
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.nbatch, (a.N + kRows - 1) / kRows, nz);
+  cfg.blockDim = dim3(kPass1Threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = kPair ? 2 : 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, k_pass1, a.k0, a.k1, a.stream_id, a.draw0,
+                            a.s_t, a.wpack, a.mpack, a.g_re, a.g_im, a.N,
+                            a.P, nbuf);
 }
 
-template <bool kMixed, int RR>
+// 'mixed' noise over two pupil slices (nz = 2, slices of 112 to 208 px)
+// runs as pairs: the two slices' blocks of a draw's rows, a cluster of
+// two, make the noise once between them.
+template <bool kMixed>
 cudaError_t dispatch_pass1(const Pass1Args& a) {
   const Pass1Geom g = pass1_geom(a.P);
-#define FAST_CASE(PJ, NG) \
-  case PJ:                \
-    return launch_pass1<kMixed, PJ, RR, NG>(a, g.nz);
-  if (g.NG == 1) {
-    switch (g.PJ) {
-      FAST_CASE(1, 1)
-      FAST_CASE(2, 1)
-      FAST_CASE(3, 1)
-      FAST_CASE(4, 1)
-      FAST_CASE(5, 1)
-      FAST_CASE(6, 1)
-      FAST_CASE(7, 1)
-      FAST_CASE(8, 1)
+#define FAST_CASE(PAIR, PB) \
+  case PB:                  \
+    return launch_pass1<kMixed, PAIR, PB / 64, PB % 64>(a, g.nz);
+  if constexpr (kMixed) {
+    if (g.nz == 2) {
+      switch (g.PB) {
+        FAST_CASE(true, 112)
+        FAST_CASE(true, 128)
+        FAST_CASE(true, 144)
+        FAST_CASE(true, 160)
+        FAST_CASE(true, 176)
+        FAST_CASE(true, 192)
+        FAST_CASE(true, 208)
+      }
+      return cudaErrorInvalidValue;
     }
-  } else {
-    switch (g.PJ) {  // 144 px in 4 groups of 48 up to 512 px in 4 of 128
-      FAST_CASE(3, 4)
-      FAST_CASE(4, 4)
-      FAST_CASE(5, 4)
-      FAST_CASE(6, 4)
-      FAST_CASE(7, 4)
-      FAST_CASE(8, 4)
-    }
+  }
+  switch (g.PB) {
+    FAST_CASE(false, 16)
+    FAST_CASE(false, 32)
+    FAST_CASE(false, 48)
+    FAST_CASE(false, 64)
+    FAST_CASE(false, 80)
+    FAST_CASE(false, 96)
+    FAST_CASE(false, 112)
+    FAST_CASE(false, 128)
+    FAST_CASE(false, 144)
+    FAST_CASE(false, 160)
+    FAST_CASE(false, 176)
+    FAST_CASE(false, 192)
+    FAST_CASE(false, 208)
   }
 #undef FAST_CASE
   return cudaErrorInvalidValue;
 }
 
-cudaError_t pass1(const Pass1Args& a, int rows) {
+cudaError_t pass1(const Pass1Args& a) {
   if (a.N <= 0 || !pass2_takes(a.P) || a.nbatch <= 0 ||
-      (rows != 1 && rows != 2) || pass1_geom(a.P).nz > 65535 ||
-      (a.N + 16 * rows - 1) / (16 * rows) > 65535)
+      a.wpack == nullptr || pass1_geom(a.P).nz > 65535 ||
+      (a.N + kRows - 1) / kRows > 65535)
     return cudaErrorInvalidValue;
-  if (a.mix == nullptr) return dispatch_pass1<false, 2>(a);
-  return rows == 2 ? dispatch_pass1<true, 2>(a) : dispatch_pass1<true, 1>(a);
+  return a.mpack ? dispatch_pass1<true>(a) : dispatch_pass1<false>(a);
 }
 
 // The screens pass: the tiles of the detect pass in fp32 FMA
@@ -571,44 +825,43 @@ __global__ void sincos_kernel(const float* __restrict__ phi,
 
 }  // namespace
 
-// K2. Shapes: s_t, mix (N, N); wr, wi (P, N); pm_t (P, P); g_re, g_im
-// scratch (nbatch, N, P); out (nbatch, 4) = (sum pm cos h1, sum pm sin h1,
-// sum pm cos h2, sum pm sin h2); part: scratch (nbatch, T * T, 4) for a
-// pupil over 128 px (T = ceil(P / 128)), else unused. mix == nullptr
-// selects 'gauss' noise. sh_t: nullptr, or (nbatch, 2, P, P) transposed
-// subharmonic screens added to (Re H, Im H) before the detector. P must be
-// a multiple of 16. rows (RR) is 1 or 2 for 'mixed' noise, whose pass-1
-// shared memory at (N, P, rows) must fit the card; 'gauss' keeps no
-// uniforms in shared memory and always takes 2. Returns the cudaError_t of
-// the launches (0 on success).
+// K2. Shapes: s_t (N, N); wr, wi (P, N); pm_t (P, P); wpack, mpack: pass
+// 1's tables, split and laid out by the wrapper (ops/synth_detect.py,
+// pass1_tables: W for the pupil slices of pass1_geom(P), the mixing
+// matrix in column tiles of 64); g_re, g_im scratch (nbatch, N, P); out
+// (nbatch, 4) = (sum pm cos h1, sum pm sin h1, sum pm cos h2, sum pm sin
+// h2); part: scratch (nbatch, T * T, 4) for a pupil over 128 px (T =
+// ceil(P / 128)), else unused. mpack == nullptr selects 'gauss' noise.
+// sh_t: nullptr, or (nbatch, 2, P, P) transposed subharmonic screens added
+// to (Re H, Im H) before the detector. P must be a multiple of 16. Returns
+// the cudaError_t of the launches (0 on success).
 extern "C" int fast_synth_detect(uint32_t k0, uint32_t k1, uint32_t stream_id,
                                  int draw0, int nbatch, const float* s_t,
                                  const float* wr, const float* wi,
-                                 const float* pm_t, const float* mix,
-                                 const float* sh_t, float* g_re, float* g_im,
-                                 float* part, float* out, int N, int P,
-                                 int rows, void* stream) {
+                                 const float* pm_t, const float* wpack,
+                                 const float* mpack, const float* sh_t,
+                                 float* g_re, float* g_im, float* part,
+                                 float* out, int N, int P, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = pass1({k0, k1, stream_id, draw0, nbatch, s_t, wr, wi, mix,
-                           g_re, g_im, N, P, st}, rows);
+  cudaError_t err = pass1({k0, k1, stream_id, draw0, nbatch, s_t, wpack,
+                           mpack, g_re, g_im, N, P, st});
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_detect(P, nbatch, wr, wi, g_re, g_im, pm_t,
                                         sh_t, part, out, N, st));
 }
 
 // Pass 1 alone: G' = X' W^T of nbatch draws into g_re, g_im (nbatch, N,
-// P), as K2 (mix != nullptr: 'mixed' noise) or K7 (mix == nullptr) make it
-// before their second pass. For timing pass 1 and for holding it element
-// by element against its plain version. Other arguments as K2's.
+// P), as K2 (mpack != nullptr: 'mixed' noise) or K7 (mpack == nullptr)
+// make it before their second pass. For timing pass 1 and for holding it
+// element by element against its plain version. Other arguments as K2's.
 extern "C" int fast_synth_pass1(uint32_t k0, uint32_t k1, uint32_t stream_id,
                                 int draw0, int nbatch, const float* s_t,
-                                const float* wr, const float* wi,
-                                const float* mix, float* g_re, float* g_im,
-                                int N, int P, int rows, void* stream) {
-  return static_cast<int>(pass1({k0, k1, stream_id, draw0, nbatch, s_t, wr,
-                                 wi, mix, g_re, g_im, N, P,
-                                 static_cast<cudaStream_t>(stream)},
-                                rows));
+                                const float* wpack, const float* mpack,
+                                float* g_re, float* g_im, int N, int P,
+                                void* stream) {
+  return static_cast<int>(pass1({k0, k1, stream_id, draw0, nbatch, s_t,
+                                 wpack, mpack, g_re, g_im, N, P,
+                                 static_cast<cudaStream_t>(stream)}));
 }
 
 // K7. Pass 1 with Box-Muller noise, then the screens of the nbatch draws:
@@ -617,12 +870,12 @@ extern "C" int fast_synth_pass1(uint32_t k0, uint32_t k1, uint32_t stream_id,
 extern "C" int fast_synth_screens(uint32_t k0, uint32_t k1, uint32_t stream_id,
                                   int draw0, int nbatch, const float* s_t,
                                   const float* wr, const float* wi,
-                                  float* g_re, float* g_im, float* scr_re,
-                                  float* scr_im, int N, int P, int npup,
-                                  void* stream) {
+                                  const float* wpack, float* g_re,
+                                  float* g_im, float* scr_re, float* scr_im,
+                                  int N, int P, int npup, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = pass1({k0, k1, stream_id, draw0, nbatch, s_t, wr, wi,
-                           nullptr, g_re, g_im, N, P, st}, 2);
+  cudaError_t err = pass1({k0, k1, stream_id, draw0, nbatch, s_t, wpack,
+                           nullptr, g_re, g_im, N, P, st});
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_screens(P, nbatch, wr, wi, g_re, g_im,
                                          scr_re, scr_im, N, npup, st));

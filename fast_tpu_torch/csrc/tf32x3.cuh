@@ -1,11 +1,21 @@
 // Device code shared by the products that run on the tensor cores: TF32
 // rounding and the hi/lo split of an fp32 operand, warp-level
-// mma.sync.m16n8k8 TF32 products, and the asynchronous copies that stage
-// their operands into shared memory. K2's and K7's pass 1
-// (synth_detect.cu), the AR kernels' first DFT product (ar_flow.cu), K1's
-// and K3's pass 1 (colfac_detect.cu, colfac_split.cu) and the iid kernels'
-// detect pass (detect.cuh) use them; each says how it sums the three
-// products of a step.
+// mma.sync.m16n8k8 TF32 products, and the asynchronous copies (cp.async)
+// that stage their operands into shared memory. The AR kernels' first DFT
+// product (ar_flow.cu), K1's and K3's pass 1 (colfac_detect.cu,
+// colfac_split.cu) and the iid kernels' detect pass (detect.cuh) use them;
+// each says how it sums the three products of a step.
+//
+// K2's and K7's pass 1 (synth_detect.cu) takes only the split from here:
+// its products are Hopper's warpgroup products (wgmma.cuh), with B split
+// once by the wrapper and staged by bulk copies on mbarriers, A split in
+// registers, and fold groups of two 8-deep steps added in fp32. Moving it
+// off mma.sync took its 256^2 'mixed' pass from 16.5 to 7.4 ms a 4096
+// draws and K7's 1024^2 G' from 134.9 to 33.8 ms a 630 (H100 80GB HBM3,
+// 700 W, scripts/torch_pass1_ab.py, the parent in turns): with the
+// fragment loads of B, its split in registers and the per-step barriers
+// gone, what bounds it is the noise and the fragment work of A around
+// the products (synth_detect.cu says how much of each).
 
 #pragma once
 

@@ -25,8 +25,9 @@ The Philox counter's last word keeps the kernels' streams of one seed
 apart: 0 for K2 and K7, 1 for K1
 (:mod:`~fast_tpu_torch.ops.colfac_detect`), 2 for the AR kernels
 (:mod:`~fast_tpu_torch.ops.ar_flow`), 3 for K3. Pass 1 of K2 and K7 runs
-its products on the tensor cores as three TF32 products (3xTF32);
-:func:`synth_pass1` runs it alone.
+its products on the tensor cores as three TF32 products (3xTF32, Hopper's
+``wgmma``) against tables that :func:`pass1_tables` splits and lays out
+once a call; :func:`synth_pass1` runs it alone.
 
 Output layout, as the TPU kernel's: ``(2 * nbatch, 2)`` float32, rows
 ``0..nbatch-1`` the screens from the real parts and rows
@@ -62,6 +63,16 @@ _G_BYTES = 2 << 30
 # Philox temporaries to about 3 GB (512 draws at N=256)
 _REF_POINTS = 1 << 25
 _SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block can use
+# pass 1 (csrc/synth_detect.cu): the widest pupil slice of a block; the
+# depth of a chunk of uniforms and of a staged slice of the mixing matrix;
+# the words of such a slice (4 steps x {hi, lo} x 64 columns x 8), of a
+# chunk of both components' uniforms (64 rows x 32) and of an x tile (Re
+# and Im, 64 x 64)
+_PB_MAX = 208
+_KU = 32
+_M_STAGE = 4 * 2 * 64 * 8
+_U_CHUNK = 2 * 64 * _KU
+_X_TILE = 2 * 64 * 64
 _P_ALIGN = 16         # the kernel pads the pupil axis to this multiple
 _P_MAX = 128          # widest tile of the pupil axis (csrc/detect.cuh);
                       # K1 takes no wider pupil
@@ -345,52 +356,61 @@ def check_subharm(sh_t, nbatch, P, device):
 
 
 def _pass1_geom(P):
-    """How pass 1 covers a padded pupil ``P``: ``(PJ, NG, nz)``, NG column
-    groups of width 16 * PJ a block and nz blocks along the pupil
-    (``pass1_geom`` of the CUDA source): one group up to 128 px, else 4
-    groups a block, up to 512 px, split evenly over the blocks."""
+    """How pass 1 covers a padded pupil ``P``: ``(PB, nz)``, nz blocks
+    along the pupil, each a slice of PB <= 208 columns (a multiple of 16;
+    ``pass1_geom`` of the CUDA source)."""
+    nz = -(-P // _PB_MAX)
+    return -(-(P // 16) // nz) * 16, nz
+
+
+def _smem_bytes(N, P, mixed):
+    """Dynamic shared memory of pass 1 (``pass1_smem`` of the CUDA
+    source): a ring of 4 B stages (one 8-deep step of W's four split
+    tables over the block's PB columns, or with 'mixed' noise a 32-deep
+    slice of the mixing matrix, whichever is larger); the x tiles of 64
+    rows x 64 columns, Re and Im (one with 'mixed' noise, two with 'gauss'
+    and for 'mixed' over two pupil slices, whose blocks make every other
+    tile for both); with 'mixed' noise the 32-column chunks of both
+    components' uniforms of the block's 64 rows, all of the grid's where
+    they fit, else two; 12 mbarriers."""
+    PB, nz = _pass1_geom(padded_pupil(P))
+    xtiles = 1 if mixed and nz != 2 else 2
+
+    def words(nbuf):
+        slot = max(_M_STAGE if mixed else 0, 32 * PB)
+        return (4 * slot + xtiles * _X_TILE
+                + (nbuf * _U_CHUNK if mixed else 0))
+
+    nkc = -(-int(N) // _KU)
+    nbuf = nkc if 4 * words(nkc) + 96 <= _SMEM_LIMIT else 2
+    return 4 * words(nbuf) + 96
+
+
+def _mixed_envelope(N, P):
+    """Whether the port takes 'mixed' noise on an (N, N) grid with a P px
+    pupil: the grids its first kernel took, whose shared memory held 16
+    grid rows of uniforms (N up to 2304 at a 128 px pupil). The kernel has
+    no such limit any more; the envelope keeps what ``Fast`` accepts as
+    it was."""
+    P = padded_pupil(P)
     if P <= _P_MAX:
-        return P // 16, 1, 1
-    nz = -(-P // 512)
-    per = -(-(P // 16) // nz)
-    return -(-per // 4), 4, nz
-
-
-def _smem_bytes(N, P, mixed, rows):
-    """Dynamic shared memory of pass 1 (``pass1_smem`` of the CUDA source):
-    two 32-deep slices of one column group's W tile (2 GW rows each) or,
-    with 'mixed' noise, a ring of three 64-row slices of the mixing matrix
-    in their place; the x tiles as TF32 hi and lo parts (one component's
-    with 'mixed' noise, both with 'gauss'); and with 'mixed' noise one
-    component's uniforms of ``16 * rows`` grid rows, the grid side padded
-    to a multiple of 64. Rows stride 4 words past a multiple of 32
-    against bank conflicts."""
-    NC = -(-N // 64) * 64
-    R = 16 * rows
-    GW = 16 * _pass1_geom(padded_pupil(P))[0]
-    tile = max(2 * 2 * GW * 36, 3 * 64 * 68 if mixed else 0)
-    x = (2 if mixed else 4) * R * 68
-    u = R * (NC + 4) if mixed else 0
-    return 4 * (tile + x + u)
-
-
-def _rows_per_thread(N, P, mixed):
-    """Pass 1's rows per thread (2, or 1 for grids too wide for 32 rows of
-    uniforms in shared memory); 0 where the kernel does not take the
-    shape. 'gauss' noise always takes 2."""
-    if N <= 0 or P <= 0:
-        return 0
-    for rows in ((2, 1) if mixed else (2,)):
-        if _smem_bytes(N, P, mixed, rows) <= _SMEM_LIMIT:
-            return rows
-    return 0
+        gw = P
+    else:  # 4 column groups a block, up to 512 px
+        per = -(-(P // 16) // -(-P // 512))
+        gw = 16 * -(-per // 4)
+    tile = max(4 * gw * 36, 3 * 64 * 68)
+    return 4 * (tile + 2 * 16 * 68 + 16 * (-(-N // 64) * 64 + 4)) \
+        <= _SMEM_LIMIT
 
 
 def supports(N, P, mixed=True):
     """Whether the kernel takes an (N, N) grid with a P-pixel pupil: any
-    N and any pupil width, but with 'mixed' noise 16 grid rows of uniforms
-    within shared memory (N up to 2304 at a 128 px pupil)."""
-    return _rows_per_thread(N, P, mixed) > 0
+    N and any pupil width with 'gauss' noise; with 'mixed' noise the
+    port's envelope (:func:`_mixed_envelope`: N up to 2304 at a 128 px
+    pupil)."""
+    if N <= 0 or P <= 0:
+        return False
+    return not mixed or _mixed_envelope(N, P)
 
 
 def draws_per_launch(N, P, nbatch=_MAX_DRAWS):
@@ -405,18 +425,79 @@ def pupil_tiles(P):
     return -(-P // _P_MAX)
 
 
+def _tf32(x):
+    """float32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds (to
+    nearest, ties away from zero, on the 13 low mantissa bits)."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _core_layout(b, width):
+    """A (K, n) operand B of a tensor-core product, K a multiple of 8 and
+    n of ``width`` (a multiple of 8), as wgmma reads it from shared memory
+    (``csrc/wgmma.cuh``), in tiles of ``width`` columns: per tile and
+    8-deep step, column c of the tile and depth slot s at word (c // 8) 64
+    + (s // 4) 32 + (c % 8) 4 + s % 4, slot s holding depth 2 (s % 4) + s
+    // 4. Returns (n / width, K / 8, 8 width)."""
+    K, n = b.shape
+    # depth 2a + e of a step is slot 4e + a: (step, a, e, tile, column // 8,
+    # column % 8) to (tile, step, column // 8, e, column % 8, a)
+    t = b.reshape(K // 8, 4, 2, n // width, width // 8, 8)
+    return t.permute(3, 0, 4, 2, 5, 1).reshape(n // width, K // 8, 8 * width)
+
+
+def _hi_lo(b):
+    """(hi, lo) of a float32 tensor: ``hi = tf32(b)``, ``lo = tf32(b -
+    hi)``; hi + lo carries 22 of its 24 bits."""
+    hi = _tf32(b)
+    return hi, _tf32(b - hi)
+
+
+def pass1_tables(wr, wi, mix=None):
+    """Pass 1's tables for the kernel (``wpack``, ``mpack``), each operand
+    split once into TF32 hi and lo parts and laid out as its B stages
+    land in shared memory, one contiguous block a stage:
+
+    * ``wpack``: for each of the nz slices of PB pupil columns
+      (:func:`_pass1_geom` of the padded pupil, rows of ``wr`` past it
+      zero) and each 8-deep step of the depth N (padded to a multiple of
+      64), the step's ``wr^T`` hi, lo and ``wi^T`` hi, lo: (nz, N64 / 8,
+      4, 8 PB);
+    * ``mpack`` ('mixed' noise, else None): for each 64-column tile of
+      ``mix`` and each 32-deep slice of its depth (N padded to a multiple
+      of 32), the slice's 4 steps, hi then lo: (N64 / 64, N32 / 32, 4, 2,
+      512).
+
+    ``wr``, ``wi``: (P, N) with P a multiple of 16 (:func:`pad_pupil`);
+    ``mix``: (N, N). On the tables' device, in stock torch ops.
+    """
+    P, N = wr.shape
+    PB, nz = _pass1_geom(P)
+    n64, n32 = -(-N // 64) * 64, -(-N // _KU) * _KU
+    pad = torch.nn.functional.pad
+    w = pad(torch.stack([wr, wi]), (0, n64 - N, 0, nz * PB - P))
+    pieces = [_core_layout(x.T, PB) for part in w for x in _hi_lo(part)]
+    wpack = torch.stack(pieces, dim=2).contiguous()
+    if mix is None:
+        return wpack, None
+    m = pad(mix, (0, n64 - N, 0, n32 - N))
+    tiles = [_core_layout(x, 64).reshape(n64 // 64, n32 // _KU, 4, 512)
+             for x in _hi_lo(m)]
+    return wpack, torch.stack(tiles, dim=3).contiguous()
+
+
 def _library():
     lib, info = _build.load_library("synth_detect")
     if not getattr(lib, "_fast_typed", False):
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
         lib.fast_synth_detect.argtypes = [u, u, u, i, i, p, p, p, p, p, p, p,
-                                          p, p, p, i, i, i, p]
+                                          p, p, p, p, i, i, p]
         lib.fast_synth_detect.restype = i
         lib.fast_synth_screens.argtypes = [u, u, u, i, i, p, p, p, p, p, p, p,
-                                           i, i, i, p]
+                                           p, i, i, i, p]
         lib.fast_synth_screens.restype = i
-        lib.fast_synth_pass1.argtypes = [u, u, u, i, i, p, p, p, p, p, p, i,
-                                         i, i, p]
+        lib.fast_synth_pass1.argtypes = [u, u, u, i, i, p, p, p, p, p, i, i,
+                                         p]
         lib.fast_synth_pass1.restype = i
         lib.fast_sincos.argtypes = [p, p, p, i, p]
         lib.fast_sincos.restype = i
@@ -471,17 +552,16 @@ def _check(s_t, wr, wi, pm_t, nbatch, mix):
 
 
 def _launch_args(s_t, wr, wi, nbatch, mix, stream, what):
-    """Checks shared by the kernels' launches; returns ``(N, rows)``."""
+    """Checks shared by the kernels' launches; returns N."""
     N = s_t.shape[0]
-    rows = _rows_per_thread(N, wr.shape[0], mix is not None)
-    if not rows:
+    if not supports(N, wr.shape[0], mix is not None):
         raise ValueError(
-            f"the {what} kernel takes, with 'mixed' noise, 16 grid rows of "
-            f"uniforms within {_SMEM_LIMIT} B of shared memory (a grid of at "
-            f"most 2304 px at a 128 px pupil); got N={N}, P={wr.shape[0]}")
+            f"the {what} kernel takes 'mixed' noise within the port's "
+            f"envelope (a grid of at most 2304 px at a 128 px pupil); got "
+            f"N={N}, P={wr.shape[0]}")
     if not 0 <= int(stream) < 2 ** 32:
         raise ValueError("stream must fit in 32 bits")
-    return N, rows
+    return N
 
 
 def synth_detect(seed, s_t, wr, wi, pm_t, nbatch, mix=None, stream=0,
@@ -503,10 +583,11 @@ def synth_detect(seed, s_t, wr, wi, pm_t, nbatch, mix=None, stream=0,
                                       mix=mix, stream=stream, sh_t=sh_t)
     if dev.type != "cuda":
         raise ValueError(f"synth_detect runs on CPU or CUDA, not {dev}")
-    N, rows = _launch_args(s_t, wr, wi, nbatch, mix, stream, "synth-detect")
+    N = _launch_args(s_t, wr, wi, nbatch, mix, stream, "synth-detect")
     k0, k1 = _key(seed)
     wr, wi, pm_t = pad_pupil(wr, wi, pm_t)
     Pp = wr.shape[0]
+    wpack, mpack = pass1_tables(wr, wi, mix)
     check_subharm(sh_t, nbatch, Pp, dev)
     lib, _ = _library()
     nbatch = int(nbatch)
@@ -521,11 +602,11 @@ def synth_detect(seed, s_t, wr, wi, pm_t, nbatch, mix=None, stream=0,
             nb = min(per, nbatch - d0)
             err = lib.fast_synth_detect(
                 k0, k1, int(stream), d0, nb, s_t.data_ptr(), wr.data_ptr(),
-                wi.data_ptr(), pm_t.data_ptr(),
-                None if mix is None else mix.data_ptr(),
+                wi.data_ptr(), pm_t.data_ptr(), wpack.data_ptr(),
+                None if mpack is None else mpack.data_ptr(),
                 None if sh_t is None else sh_t[d0].data_ptr(),
                 g[0].data_ptr(), g[1].data_ptr(), part.data_ptr(),
-                out[d0:d0 + nb].data_ptr(), N, Pp, rows, cs)
+                out[d0:d0 + nb].data_ptr(), N, Pp, cs)
             raise_on(lib, err, "synth_detect launch")
             synth_detect.LAUNCHES += 1
     return _pack(out)
@@ -553,10 +634,11 @@ def synth_screens(seed, s_t, wr, wi, nbatch, npup=None, stream=0):
                                        stream=stream)
     if dev.type != "cuda":
         raise ValueError(f"synth_screens runs on CPU or CUDA, not {dev}")
-    N, _ = _launch_args(s_t, wr, wi, nbatch, None, stream, "synth-screens")
+    N = _launch_args(s_t, wr, wi, nbatch, None, stream, "synth-screens")
     k0, k1 = _key(seed)
     wr, wi, _ = pad_pupil(wr, wi, None)
     Pp = wr.shape[0]
+    wpack, _ = pass1_tables(wr, wi)
     lib, _ = _library()
     nbatch = int(nbatch)
     scr = torch.empty((2, nbatch, npup, npup), dtype=torch.float32,
@@ -569,8 +651,8 @@ def synth_screens(seed, s_t, wr, wi, nbatch, npup=None, stream=0):
             nb = min(per, nbatch - d0)
             err = lib.fast_synth_screens(
                 k0, k1, int(stream), d0, nb, s_t.data_ptr(), wr.data_ptr(),
-                wi.data_ptr(), g[0].data_ptr(), g[1].data_ptr(),
-                scr[0, d0].data_ptr(), scr[1, d0].data_ptr(), N, Pp, npup,
+                wi.data_ptr(), wpack.data_ptr(), g[0].data_ptr(),
+                g[1].data_ptr(), scr[0, d0].data_ptr(), scr[1, d0].data_ptr(), N, Pp, npup,
                 cs)
             raise_on(lib, err, "synth_screens launch")
             synth_screens.LAUNCHES += 1
@@ -611,9 +693,10 @@ def synth_pass1(seed, s_t, wr, wi, nbatch, mix=None, stream=0, draw0=0):
                                      stream=stream, draw0=draw0)
     if dev.type != "cuda":
         raise ValueError(f"synth_pass1 runs on CPU or CUDA, not {dev}")
-    N, rows = _launch_args(s_t, wr, wi, nbatch, mix, stream, "synth pass-1")
+    N = _launch_args(s_t, wr, wi, nbatch, mix, stream, "synth pass-1")
     k0, k1 = _key(seed)
     Pp = wr.shape[0]
+    wpack, mpack = pass1_tables(wr, wi, mix)
     lib, _ = _library()
     nbatch = int(nbatch)
     g = torch.empty((2, nbatch, N, Pp), dtype=torch.float32, device=dev)
@@ -624,9 +707,8 @@ def synth_pass1(seed, s_t, wr, wi, nbatch, mix=None, stream=0, draw0=0):
             nb = min(per, nbatch - d0)
             err = lib.fast_synth_pass1(
                 k0, k1, int(stream), int(draw0) + d0, nb, s_t.data_ptr(),
-                wr.data_ptr(), wi.data_ptr(),
-                None if mix is None else mix.data_ptr(), g[0, d0].data_ptr(),
-                g[1, d0].data_ptr(), N, Pp, rows, cs)
+                wpack.data_ptr(), None if mpack is None else mpack.data_ptr(),
+                g[0, d0].data_ptr(), g[1, d0].data_ptr(), N, Pp, cs)
             raise_on(lib, err, "synth_pass1 launch")
             synth_pass1.LAUNCHES += 1
     return g[0], g[1]

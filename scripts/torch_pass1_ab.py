@@ -11,7 +11,10 @@ The shapes are chip_smoke.py's: the 256^2 flagship's (P=82, padded to 96)
 per 4096 draws, and the 1024^2 link with a 4 m pupil (P=402, padded to
 416) per launch of 630 draws; inputs from a numpy seed, screens of about
 1.5 rad rms. Prints one line per measurement and the card's name and
-power limit.
+power limit. Then the warm ``run()`` rate through ``SYNTH='auto'`` (K2)
+of chip_smoke.py's 256^2 flagship (262,144 realizations, NCHUNKS=16) and
+of its 1024^2 link with a 4 m telescope (16,384 realizations, NCHUNKS=4),
+the mean of two runs after a warm one.
 """
 
 import json
@@ -24,6 +27,26 @@ import numpy as np
 # (label, N, lo, hi, draws a timed call)
 SHAPES = [("256^2, P=82", 256, 87, 169, 4096),
           ("1024^2, P=402", 1024, 311, 713, 630)]
+# (label, overrides of the flagship's parameters) of the timed runs
+RUNS = [("256^2 flagship", {}),
+        ("1024^2, 4 m pupil", dict(NPXLS=1024, D_GROUND=4.0, DSUBAP=0.5,
+                                   NITER=16384, NCHUNKS=4, SEED=3))]
+
+
+def flagship(**overrides):
+    """chip_smoke.py's 256^2 flagship link: 4 HV57 layers, AO, 55 deg."""
+    from fast_tpu_torch import conf, turbulence_models
+    h, cn2, w = turbulence_models.HV57_Bufton_profile(4)
+    p = dict(conf.DEFAULTS)
+    p.update({
+        "NPXLS": 256, "DX": 0.01, "NITER": 262144, "NCHUNKS": 16,
+        "TEMPORAL": False, "D_GROUND": 0.8, "WVL": 1550e-9,
+        "ZENITH_ANGLE": 55, "AO_MODE": "AO", "DSUBAP": 0.1, "TLOOP": 0.001,
+        "TEXP": 0.001, "ALIAS": True, "H_TURB": h, "CN2_TURB": cn2,
+        "WIND_SPD": w, "WIND_DIR": np.arange(4) * 90.0, "SEED": 1,
+        "LOGLEVEL": "WARNING"})
+    p.update(overrides)
+    return p
 
 
 def measure(root):
@@ -82,6 +105,20 @@ def measure(root):
                     "kernel_ms": ms7})
         del s_t, wr, wi, pm_t, mix
         torch.cuda.empty_cache()
+    import time
+    from fast_tpu_torch import Fast
+    for label, kw in RUNS:
+        sim = Fast(flagship(**kw), device="cuda")
+        sim.run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            sim.run()
+        torch.cuda.synchronize()
+        rate = 2 * sim.params["NITER"] / (time.perf_counter() - t0)
+        out.append({"run": label, "synth": sim._synth, "rate": rate})
+        del sim
+        torch.cuda.empty_cache()
     return out
 
 
@@ -101,6 +138,11 @@ def main():
             print(proc.stdout, proc.stderr, file=sys.stderr)
             raise SystemExit(f"measuring {root} failed")
         for r in json.loads(proc.stdout.strip().splitlines()[-1]):
+            if "run" in r:
+                print(f"{root}: run() {r['run']} through 'auto' "
+                      f"({r['synth']}): {r['rate']:,.0f} realizations/s "
+                      f"({card})")
+                continue
             p1 = (f"pass 1 {r['pass1_ms']:.3f} ms "
                   f"({r['pass1_tflops']:.1f} TFLOP/s), "
                   if "pass1_ms" in r else "")

@@ -10,13 +10,18 @@ P=82 over 4096 draws; 1024^2, P=402 over 630). The variants compute wrong
 numbers on purpose; only their times mean anything:
 
   base       the kernel as it is
-  one_mma    one TF32 product a step instead of three (and no lo parts)
-  no_mma     each 3xTF32 step replaced by four FFMA on the same operands:
-             the time without the tensor cores' work
+  one_mma    one TF32 wgmma a step instead of three (a_hi b_hi only)
+  no_mma     no wgmma: each fold group's products replaced by a few
+             instructions on the same A fragments (the tables still land
+             in shared memory): the time without the tensor cores' work
   no_split   hi = x, lo = 0: the three products without the split
   no_philox  a two-multiply hash in place of Philox4x32-10
+  half_copy  each bulk copy of a B stage moves half its bytes: the time
+             with half the traffic from L2 into shared memory
 
-Prints one line per shape and noise, with the card's name and power limit.
+Prints ptxas's registers and spills of each variant's pass 1 at the two
+shapes' pupil slices (PB = 96 and 208) and one line per shape and noise,
+with the card's name and power limit.
 """
 
 import ctypes
@@ -27,8 +32,8 @@ import numpy as np
 import torch
 
 # torch_variants puts the checkout's root on the path first
-from torch_variants import (build, card, cuda_ms, read_sources,
-                            replace_body, replace_once)
+from torch_variants import (build, card, cuda_ms, ptxas,
+                            read_sources, replace_body, replace_once)
 from fast_tpu_torch.ops import _build
 from fast_tpu_torch.ops import synth_detect as sd
 from fast_tpu_torch.synthesis import pruned_ift2_matrix
@@ -47,23 +52,34 @@ __device__ __forceinline__ fast::U4 hash_bits(uint32_t c0, uint32_t c1,
 
 def variants(src, tf32x3):
     """{name: (kernel source, tf32x3.cuh source)}."""
-    fma = "".join(
-        f"\n  big[{v}] = fmaf(__uint_as_float(ah[{v}] ^ al[{v}]), "
-        f"__uint_as_float(bh[{v % 2}] ^ bl[{v % 2}]), big[{v}]);"
-        for v in range(4))
+    one = """
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int q = 0; q < NT; ++q) wgmma_tf32<N>(d, a[q][s].h, bh[q][s], s + q);
+  wgmma_commit();"""
+    none = """
+  const float b = __uint_as_float(static_cast<uint32_t>(bh[0][0] ^ bl[0][1]));
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i)
+    d[i] = __uint_as_float(a[0][0].h[i & 3] ^ a[NT - 1][1].l[i & 3]) + b;
+  wgmma_commit();"""
     return {
         "base": (src, tf32x3),
-        "one_mma": (replace_body(
-            src, "mma3", "\n  float d[4];\n  mma_tf32_new(d, ah, bh);"
-            "\n  for (int v = 0; v < 4; ++v) big[v] += d[v];", "one_mma"),
-            tf32x3),
-        "no_mma": (replace_body(src, "mma3", fma, "no_mma"), tf32x3),
+        "one_mma": (replace_body(src, "mma3_group", one, "one_mma"), tf32x3),
+        "no_mma": (replace_body(src, "mma3_group", none, "no_mma"), tf32x3),
         "no_split": (src, replace_body(
             tf32x3, "split", "\n  hi = __float_as_uint(x);\n  lo = 0u;",
             "no_split")),
         "no_philox": (replace_once(src, r'#include "detect\.cuh"\n',
                                    '#include "detect.cuh"\n' + HASH,
                                    "no_philox"), tf32x3),
+        "half_copy": (replace_once(
+            src, r"mbar_expect\(&full\[s\], bytes\);(\s*)bulk_copy\(slots "
+            r"\+ s \* words, src, bytes, &full\[s\]\);",
+            "mbar_expect(&full[s], bytes / 2);\n    bulk_copy(slots + s * "
+            "words, src, bytes / 2, &full[s]);", "half_copy"), tf32x3),
     }
 
 
@@ -72,9 +88,18 @@ def main():
     if sys.argv[1:]:
         todo = {k: v for k, v in todo.items() if k in sys.argv[1:]}
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-    libs = {name: fn for name, (fn, _) in build(
-        OUT, todo, _build._NVCC_FLAGS, "fast_synth_pass1",
-        [u, u, u, i, i, p, p, p, p, p, p, i, i, i, p]).items()}
+    built = build(OUT, todo, _build._NVCC_FLAGS, "fast_synth_pass1",
+                  [u, u, u, i, i, p, p, p, p, p, i, i, p])
+    for name, (_, log) in built.items():
+        regs = ptxas(log, "synth_pass1")
+        for mixed in (1, 0):
+            for nch, tail in ((1, 32), (3, 16)):
+                # 'mixed' over two slices of 208 px runs as pairs
+                k = f"{mixed}, {int(mixed and nch == 3)}, {nch}, {tail}"
+                print(f"ptxas {name}: synth_pass1 "
+                      f"{('gauss', 'mixed')[mixed]} PB={64 * nch + tail}: "
+                      f"{regs.get(k)}")
+    libs = {name: fn for name, (fn, _) in built.items()}
     dev = torch.device("cuda")
     where = card()
     for N, lo, hi, nb in ((256, 87, 169, 4096), (1024, 311, 713, 630)):
@@ -89,15 +114,15 @@ def main():
         P = wr.shape[0]
         g = torch.empty((2, nb, N, P), device=dev)
         for noise in ("mixed", "gauss"):
-            m = mix if noise == "mixed" else None
-            rows = sd._rows_per_thread(N, P, m is not None)
+            wpack, mpack = sd.pass1_tables(wr, wi,
+                                           mix if noise == "mixed" else None)
             res = []
             for name, fn in libs.items():
                 def call():
                     err = fn(
-                        1, 2, 0, 0, nb, s_t.data_ptr(), wr.data_ptr(),
-                        wi.data_ptr(), None if m is None else m.data_ptr(),
-                        g[0].data_ptr(), g[1].data_ptr(), N, P, rows,
+                        1, 2, 0, 0, nb, s_t.data_ptr(), wpack.data_ptr(),
+                        None if mpack is None else mpack.data_ptr(),
+                        g[0].data_ptr(), g[1].data_ptr(), N, P,
                         torch.cuda.current_stream().cuda_stream)
                     if err:
                         raise RuntimeError(f"{name}: CUDA error {err}")

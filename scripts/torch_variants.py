@@ -23,7 +23,7 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 CSRC = os.path.join(ROOT, "fast_tpu_torch", "csrc")
-HEADERS = ("common.cuh", "detect.cuh")
+HEADERS = ("common.cuh", "detect.cuh", "wgmma.cuh")
 
 
 def read_sources(name):

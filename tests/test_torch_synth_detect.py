@@ -186,19 +186,85 @@ def test_kernel_shape_rule():
     # any pupil width: the pupil axis is tiled past 128 px
     assert sd.supports(256, 129) and sd.supports(1024, 402)
     assert sd.supports(2368, 402) and not sd.supports(4096, 402)
-    assert sd._rows_per_thread(1024, 402, True) == 2
-    assert sd._pass1_geom(96) == (6, 1, 1) and sd._pass1_geom(144) == (3, 4, 1)
-    assert sd._pass1_geom(416) == (7, 4, 1) and sd._pass1_geom(1040) == (6, 4, 3)
+    # pupil slices of at most 208 columns a block: two at the 4 m link's
+    assert sd._pass1_geom(96) == (96, 1) and sd._pass1_geom(144) == (144, 1)
+    assert sd._pass1_geom(416) == (208, 2) and sd._pass1_geom(1040) == (208, 5)
     assert sd.pupil_tiles(128) == 1 and sd.pupil_tiles(416) == 4
     assert sd.draws_per_launch(256, 96) == 4096
     assert sd.draws_per_launch(1024, 416) == 630
     assert sd.draws_per_launch(1024, 416, 8) == 8
     # 16 rows of 'mixed' uniforms overflow shared memory; 'gauss' keeps none
     assert not sd.supports(2305, 128) and sd.supports(4096, 128, mixed=False)
-    assert sd._rows_per_thread(256, 82, True) == 2
-    assert sd._rows_per_thread(2048, 128, True) == 1
-    assert sd._rows_per_thread(2048, 128, False) == 2
+    # the flagship keeps all 8 chunks of its uniforms; the 1024^2 link
+    # remakes two for every column tile, and its two slices' blocks make
+    # every other x tile for both; 'gauss' keeps two x tiles
+    assert sd._smem_bytes(256, 82, True) == 4 * (4 * 4096 + 8192
+                                                 + 8 * 4096) + 96
+    assert sd._smem_bytes(1024, 402, True) == 4 * (4 * 6656 + 2 * 8192
+                                                   + 2 * 4096) + 96
+    assert sd._smem_bytes(1024, 402, False) == 4 * (4 * 6656
+                                                    + 2 * 8192) + 96
     assert sd.padded_pupil(82) == 96 and sd.padded_pupil(96) == 96
+
+
+# (N, P, noise) shapes that the kernel of the parent design took, among
+# them every shape the card tests, chip_smoke.py and the examples run:
+# each is still taken, within a block's shared memory
+PARENT_SHAPES = [
+    (N, P, noise) for N, P, noise in [
+        (64, 24, "mixed"), (64, 24, "gauss"), (64, 42, "mixed"),
+        (96, 30, "mixed"), (102, 102, "mixed"), (102, 102, "gauss"),
+        (128, 82, "mixed"), (192, 144, "mixed"), (192, 144, "gauss"),
+        (256, 82, "mixed"), (256, 82, "gauss"), (256, 96, "mixed"),
+        (256, 129, "mixed"), (512, 82, "mixed"), (512, 128, "mixed"),
+        (1024, 402, "mixed"), (1024, 402, "gauss"), (1024, 416, "mixed"),
+        (1600, 32, "mixed"), (1600, 32, "gauss"), (2048, 128, "mixed"),
+        (2048, 128, "gauss"), (2304, 128, "mixed"), (2368, 402, "mixed"),
+        (4096, 128, "gauss"), (4096, 402, "gauss")]]
+
+
+@pytest.mark.parametrize("shape", PARENT_SHAPES,
+                         ids=lambda s: f"N{s[0]}P{s[1]}{s[2]}")
+def test_parent_shapes_still_taken(shape):
+    N, P, noise = shape
+    assert sd.supports(N, P, mixed=noise == "mixed")
+    assert sd._smem_bytes(N, P, noise == "mixed") <= 232448
+
+
+def _word(col, depth):
+    """Word of column ``col`` and depth ``depth`` within an 8-deep step of
+    wgmma's B layout (csrc/wgmma.cuh), in the kernel's depth-slot order:
+    slot s holds depth 2 (s % 4) + s // 4 (the A fragments' order)."""
+    s = (0, 2, 4, 6, 1, 3, 5, 7).index(depth % 8)
+    return (col // 8) * 64 + (s // 4) * 32 + (col % 8) * 4 + s % 4
+
+
+def test_pass1_tables_lay_out_split_operands():
+    """Every element of the kernel's tables where pass 1 reads it: W's
+    pupil slices (two of 208 columns at 416 px) and the mixing matrix's
+    64-column tiles of 32-deep slices, as TF32 hi and lo parts whose sum
+    is the element to 22 bits; padding zero."""
+    rng = np.random.default_rng(3)
+    N, P = 100, 416
+    wr, wi, mix = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                   for s in ((P, N), (P, N), (N, N)))
+    wpack, mpack = sd.pass1_tables(wr, wi, mix)
+    assert wpack.shape == (2, 128 // 8, 4, 8 * 208)
+    assert mpack.shape == (2, 4, 4, 2, 512)
+    hi, lo = sd._hi_lo(wr)
+    for p, d in [(0, 0), (5, 7), (207, 99), (208, 8), (415, 63), (300, 41)]:
+        z, c = divmod(p, 208)
+        w = wpack[z, d // 8, :, _word(c, d)]
+        assert float(w[0]) == float(hi[p, d]) and float(w[1]) == float(lo[p, d])
+        assert float(w[2] + w[3]) == pytest.approx(float(wi[p, d]), rel=2e-6)
+    assert float(wpack[:, 100 // 8 + 1:].abs().max()) == 0.0  # depth >= 104
+    mh, ml = sd._hi_lo(mix)
+    for r, c in [(0, 0), (31, 63), (32, 64), (99, 99), (77, 5)]:
+        m = mpack[c // 64, r // 32, (r % 32) // 8, :, _word(c % 64, r)]
+        assert float(m[0]) == float(mh[r, c]) and float(m[1]) == float(ml[r, c])
+    assert float(mpack[:, 3, 1:].abs().max()) == 0.0  # depth >= 104
+    assert float((wr - hi - lo).abs().max()) <= 2.0 ** -21 * float(
+        wr.abs().max())
 
 
 def test_pad_pupil_pads_to_the_kernel_width():
@@ -246,10 +312,12 @@ def test_kernel_matches_plain_on_card(cuda_device, noise, case):
 
 
 # (N, lo, hi, draws) of pass 1 alone: 64^2, the default config's 102^2
-# (no multiple of 64), the 256^2 flagship's grid at 96 px (one group of
-# the whole pupil) and the 1024^2 link at 416 px (four column groups)
+# (no multiple of 64), the 256^2 flagship's grid at 96 px (one slice of
+# the whole pupil, its uniforms kept), the 1024^2 link at 416 px (two
+# slices of 208 px in pairs, the uniforms remade) and 320^2 at 240 px
+# (pairs over an odd count of column tiles)
 PASS1_CASES = [(64, 20, 44, 37), (102, 0, 102, 16), (256, 80, 176, 8),
-               (1024, 304, 720, 3)]
+               (1024, 304, 720, 3), (320, 40, 280, 5)]
 
 
 @pytest.mark.cuda

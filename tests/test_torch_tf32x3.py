@@ -11,12 +11,19 @@ This settles, without a card, that the kernel's 3xTF32 products keep the
 limits the card tests hold it to: K2's sums within KERNEL_REL = 4e-6 of
 the largest |sum| of the plain ``synth_detect_reference``, K7's screens
 within 2N 2^-24 max |phi|; and that those limits still reject products
-at one TF32 pass. The emulation sums each of the three terms over the
-whole depth in fp32 (round to nearest) before adding them: the same
-operands and products as the card's. It does not model the tensor cores'
-own sums, which round toward zero; the kernel keeps those short (each
-8-deep step's a_hi b_hi is added to its accumulator in fp32), and the
-card tests hold it to the same limits.
+at one TF32 pass. The first tests sum each of the three terms over the
+whole depth in fp32 (round to nearest): the operand rounding alone.
+
+The tests of ``pass1_sums`` model the tensor cores' own sums as pass 1
+(csrc/synth_detect.cu) takes them. Each wgmma adds an 8-deep step's
+products, exact, to its accumulator and rounds the sum toward zero (the
+``rz32`` of tests/test_torch_ar_tf32x3.py); a fold group of FOLD = 16
+deep (two steps) is a fresh accumulator that takes the small terms of
+both steps first, then their a_hi b_hi, and is then added to an fp32 sum,
+rounded to nearest. They hold K2's sums within KERNEL_REL and G' within
+GPRIME_REL in that order of sums, at N <= 128; and show that keeping the
+a_hi b_hi in the accumulator over the whole depth reads over the limit
+where the fold groups read under it.
 
 It also fixes the limit of the card test of pass 1 alone
 (``test_torch_synth_detect.test_pass1_matches_plain_on_card``): G'
@@ -185,3 +192,99 @@ def test_tf32_rounding_matches_cvt_rna():
                                   .numpy(), True)
     # hi + lo carries 22 of float32's 24 bits
     assert float(((hi + lo) - x).abs().max()) <= 2.0 ** -21
+
+
+# ---- the tensor cores' sums, in pass 1's order ------------------------------
+
+FOLD = 16  # depth of a fold group of pass 1 (two 8-deep steps)
+
+
+def rz32(x):
+    """float64 ``x`` to float32, rounded toward zero."""
+    y = x.to(torch.float32)
+    over = y.to(torch.float64).abs() > x.abs()
+    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def product_rz(a, b, fold=FOLD):
+    """``a @ b`` as pass 1 sums it: fold groups of ``fold`` deep, each a
+    fresh accumulator rounded toward zero after every 8-deep product (the
+    group's a_lo b_hi and a_hi b_lo first, then its a_hi b_hi), added to
+    an fp32 sum; ``fold=None``: one accumulator over the whole depth."""
+    f64 = torch.float64
+    ah, bh = tf32(a), tf32(b)
+    al, bl = tf32(a - ah), tf32(b - bh)
+    K = a.shape[-1]
+    fold = K if fold is None else fold
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    for g0 in range(0, K, fold):
+        steps = range(g0, min(K, g0 + fold), 8)
+        d = torch.zeros_like(acc)
+        for x, y in [(al, bh), (ah, bl)]:
+            for k in steps:
+                d = rz32(d.to(f64) + x[..., k:k + 8].to(f64)
+                         @ y[k:k + 8].to(f64))
+        for k in steps:
+            d = rz32(d.to(f64) + ah[..., k:k + 8].to(f64)
+                     @ bh[k:k + 8].to(f64))
+        acc = acc + d
+    return acc
+
+
+def pass1_sums(case, mixed, fold=FOLD, phase_rms=1.5):
+    """(K2's sums error, G' error), each in units of its card limit, with
+    both products of pass 1 summed as :func:`product_rz` sums them (the
+    detect pass as the first tests emulate it)."""
+    N, lo, hi, nb = case
+    _, t = k2_inputs(N, lo, hi, phase_rms=phase_rms)
+    mix = t["mix"] if mixed else None
+    b1, b2 = sd.philox_bits(SEED, nb, N)
+    if mixed:
+        z1 = product_rz(sd.uniforms(b1), mix, fold)
+        z2 = product_rz(sd.uniforms(b2), mix, fold)
+    else:
+        z1, z2 = sd.box_muller(b1, b2)
+    xr, xi = z1 * t["s_t"], z2 * t["s_t"]
+    wrt, wit = t["wr"].T.contiguous(), t["wi"].T.contiguous()
+    g = (product_rz(xr, wrt, fold) - product_rz(xi, wit, fold),
+         product_rz(xr, wit, fold) + product_rz(xi, wrt, fold))
+    ref = sd.synth_detect_reference(SEED, t["s_t"], t["wr"], t["wi"],
+                                    t["pm_t"], nb, mix=mix)
+    g32 = sd.synth_pass1_reference(SEED, t["s_t"], t["wr"], t["wi"], nb,
+                                   mix=mix)
+    sums = sd._pack(detect(*g, t["wr"], t["wi"], t["pm_t"], 3))
+    k2 = (float((sums - ref).abs().max())
+          / (KERNEL_REL * float(ref.abs().max())))
+    top = max(float(x.abs().max()) for x in g32)
+    gp = (max(float((x - y).abs().max()) for x, y in zip(g, g32))
+          / (N * 2.0 ** -24 * top))
+    return k2, gp
+
+
+# (N, lo, hi, draws): 64^2 with a 24 px pupil and 128^2 with the
+# flagships' 82 px one
+RZ_CASES = [(64, 20, 44, 8), (128, 23, 105, 4)]
+
+
+@pytest.mark.parametrize("mixed", [True, False], ids=["mixed", "gauss"])
+@pytest.mark.parametrize("case", RZ_CASES,
+                         ids=lambda c: f"N{c[0]}P{c[2] - c[1]}")
+def test_pass1_sums_in_fold_groups_within_the_limits(case, mixed):
+    """Pass 1's order of sums keeps K2 within a quarter of KERNEL_REL and
+    G' within a quarter of GPRIME_REL."""
+    k2, gp = pass1_sums(case, mixed)
+    assert k2 < 0.25
+    assert gp < GPRIME_REL / 4
+
+
+def test_hi_products_kept_over_the_whole_depth_miss_the_limit():
+    """The control: with the a_hi b_hi kept in the tensor cores' sum over
+    the whole depth (no fp32 fold), K2's sums read over KERNEL_REL where
+    pass 1's fold groups read under half of it. 'mixed' noise at 128^2
+    with a 128 px pupil and screens of 2.5 rad rms, whose sums see the
+    sums' drift toward zero most."""
+    case = (128, 0, 128, 8)
+    folded, _ = pass1_sums(case, True, FOLD, phase_rms=2.5)
+    whole, _ = pass1_sums(case, True, None, phase_rms=2.5)
+    assert folded < 0.5
+    assert whole > 1.0
