@@ -26,12 +26,14 @@ Phases, in order; any failure exits non-zero before the result line:
    complex64 ``torch.matmul`` of W @ G'; K2 with subharmonic screens over
    4100 draws; and the device sincos against float64;
 4. K1 against its plain version at the 512^2 flagship shapes (N=512,
-   P=82), 'mixed' and 'gauss', over 4100 draws (two launches), with the
-   TF32 control; its two passes alone ('mixed': pass 1, ``colfac_pass1``,
-   and the detect pass, ``detect_pass``, both 3xTF32 on the tensor cores)
-   timed with their FLOP/s over the pupil's px and their bounds, beside
-   their yardsticks: one batched ``torch.bmm`` of pass 1's (draws x K) @ (K
-   x 2P) per column and one complex64 ``torch.matmul`` of W @ G' (TF32 off);
+   P=82), 'mixed' and 'gauss', over 4100 draws (two launches), the kernel
+   on the engine's table (split and laid out once for its pass 1), the
+   plain version on the unsplit one, with the TF32 control; its two passes
+   alone ('mixed': pass 1, ``colfac_pass1``, 3xTF32 ``wgmma``, and the
+   detect pass, ``detect_pass``, 3xTF32 ``mma.sync``) timed with their
+   FLOP/s over the pupil's px and their bounds, beside their yardsticks:
+   one batched ``torch.bmm`` of pass 1's (draws x K) @ (K x 2P) per column
+   and one complex64 ``torch.matmul`` of W @ G' (TF32 off);
 5. the 256^2 slice: ``Fast(flagship(), device="cuda").run()`` at
    NITER=262144, NCHUNKS=16, which must go through K2 (launch count) and
    agree in distribution with the plain SYNTH='matmul' path on the same
@@ -70,9 +72,11 @@ Phases, in order; any failure exits non-zero before the result line:
    pinned 'pallas_colfac' (K3, 8192) and 'pallas' (K7, 8192), each of
    which must launch its kernel and no other and agree with a 'matmul' run
    (4096); times per 630-draw launch beside bounds and plain versions,
-   pass 1 alone for K2 ('mixed') and K7 (Box-Muller), K3's two passes
-   alone with their yardsticks (as K1's in 4), warm rates and one profile
-   per path;
+   pass 1 alone for K2 ('mixed') and K7 (Box-Muller), K2's detect pass
+   alone beside one complex64 ``torch.matmul`` of W @ G' (the yardstick of
+   K7's screens pass too, whose time is K7's less its pass 1), K3's two
+   passes alone with their yardsticks (as K1's in 4), warm rates and one
+   profile per path;
 11. times: each kernel's ms per 4096 draws or steps beside its bound and
    its plain version's; the factor build at 512^2; warm ``run()`` rates at
    256^2 (K2, 'matmul', K2 'gauss', K1 pinned), at 512^2 (K1, 'colfac',
@@ -477,8 +481,8 @@ _ENTRY = re.compile(r"(synth_pass1|colfac_pass1|split_pass1|detect_pass|"
 def _describe(name, a):
     """What one compiled pass is, or None for those not printed: the
     passes at the flagships' padded pupil (P=96, one tile) and at the 4 m
-    link's (P=416 in tiles of 112 px; pass 1 of K2 and K7 in slices of 208
-    px), and the AR passes at 4 layers a thread."""
+    link's (P=416 in tiles of 112 px; pass 1 of K2, K7 and K3 in slices of
+    208 px), and the AR passes at 4 layers a thread."""
     noise = ("gauss", "mixed")
     if name == "synth_pass1" and 64 * a[2] + a[3] in (16 * PJ, 208):
         pb = 64 * a[2] + a[3]
@@ -486,8 +490,8 @@ def _describe(name, a):
                 f"slices of {pb} px" + (" in pairs" if a[1] else ""))
     if name == "colfac_pass1" and a[1] == PJ:
         return f"P={16 * PJ} {noise[a[0]]}"
-    if name == "split_pass1" and a[1] == PJ_W:
-        return f"P=416 {noise[a[0]]}"
+    if name == "split_pass1" and 64 * a[1] + a[2] == 208:
+        return f"P=416 {noise[a[0]]} slices of 208 px in clusters of two"
     if name in ("detect_pass", "screens_pass") and tuple(a) in ((PJ, 1),
                                                                 (PJ_W, 0)):
         return f"P={16 * PJ if a[1] else 416}"
@@ -524,11 +528,12 @@ def phase_build():
                       f"{line.split(':', 1)[-1].strip()}")
 
 
-def check(kernel, fn, ref_fn, args, kw, label):
-    """A kernel against its plain version on the same inputs; returns
-    (max |d|, the plain version's sums)."""
+def check(kernel, fn, ref_fn, args, kw, label, kargs=None):
+    """A kernel against its plain version on the same inputs (the kernel
+    given ``kargs`` where its table is laid out for it); returns (max
+    |d|, the plain version's sums)."""
     before = fn.LAUNCHES
-    ck = fn(*args, **kw)
+    ck = fn(*(kargs or args), **kw)
     cp = ref_fn(*args, **kw)
     torch.cuda.synchronize()
     launches = fn.LAUNCHES - before
@@ -563,12 +568,14 @@ def tf32_control(kernel, ref_fn, args, kw, c32, label, n=512):
         fail(f"the limit does not reject TF32 products ({kernel} {label})")
 
 
-def time_kernel(fn, ref_fn, args, kw, ntime=NTIME, reps=(10, 3)):
-    """(kernel ms, plain ms) per ``ntime`` draws; the launches do not
-    count."""
+def time_kernel(fn, ref_fn, args, kw, ntime=NTIME, reps=(10, 3),
+                kargs=None):
+    """(kernel ms, plain ms) per ``ntime`` draws (the kernel given
+    ``kargs`` if any); the launches do not count."""
     args = args[:-1] + (ntime,)
+    kargs = args if kargs is None else kargs[:-1] + (ntime,)
     before = fn.LAUNCHES
-    ms = cuda_ms(lambda: fn(*args, **kw), reps[0])
+    ms = cuda_ms(lambda: fn(*kargs, **kw), reps[0])
     plain_ms = cuda_ms(lambda: ref_fn(*args, **kw), reps[1])
     fn.LAUNCHES = before
     return ms, plain_ms
@@ -618,11 +625,13 @@ def time_pass1(T, nbatch, mixed, label, reps):
     return ms, tflops, lib
 
 
-def k2_detect_alone(T, nbatch, npup, reps):
+def k2_detect_alone(T, nbatch, npup, reps, label="256^2"):
     """K2's detect pass alone (``colfac_detect.detect_pass`` on the G' of
     K2's pass 1, 3xTF32 on the tensor cores), with its FLOP/s over the
     pupil's ``npup`` px and its bound, beside its yardstick: one complex64
-    ``torch.matmul`` of W @ G' (TF32 off). The launches do not count."""
+    ``torch.matmul`` of W @ G' (TF32 off), which also computes, and
+    writes out, what K7's screens pass does. The launches do not
+    count."""
     from fast_tpu_torch.ops import colfac_detect as cd
     from fast_tpu_torch.ops import synth_detect as sd
     N, P = T["s_t"].shape[0], T["wr"].shape[0]
@@ -641,7 +650,7 @@ def k2_detect_alone(T, nbatch, npup, reps):
     flops = nbatch * 8 * npup * npup * N
     bound = _bound(flops, 4 * (2 * nbatch * N * P + 2 * P * N + P * P
                                + 4 * nbatch))
-    print(f"K2 detect pass alone: {ms:.3f} ms per {nbatch} draws "
+    print(f"K2 detect pass alone at {label}: {ms:.3f} ms per {nbatch} draws "
           f"({flops / ms / 1e9:.1f} TFLOP/s over {npup} px, 3xTF32 "
           f"mma.sync), bound {bound[0]:.3f} ms ({bound[1]}; "
           f"{bound[0] / ms:.1%} of it), yardstick complex64 torch.matmul "
@@ -652,9 +661,10 @@ def k2_detect_alone(T, nbatch, npup, reps):
 
 def colfac_passes(kernel, pass1, table, K, npup, T, nbatch, kw, reps):
     """The two passes of K1 or K3 alone, 'mixed' noise: pass 1 (``pass1``
-    on ``table``, ``colfac_pass1`` or ``split_pass1``; 3xTF32 on the tensor
-    cores) and the detect pass (``colfac_detect.detect_pass``, H = W G' in
-    3xTF32, then sincos and the sums) on its G'. Their ms per ``nbatch``
+    on ``table``, the engine's laid table; ``colfac_pass1`` or
+    ``split_pass1``, 3xTF32 ``wgmma`` from the laid table) and the detect
+    pass (``colfac_detect.detect_pass``, H = W G' in 3xTF32 ``mma.sync``,
+    then sincos and the sums) on its G'. Their ms per ``nbatch``
     draws, FLOP/s and bounds count the pupil's own ``npup`` px, as the
     kernels' bounds do, with pass 1 as the real (draws x K) @ (K x 2 npup)
     product per column it is. Beside each, its yardstick (a PyTorch call
@@ -694,7 +704,8 @@ def colfac_passes(kernel, pass1, table, K, npup, T, nbatch, kw, reps):
         flops = f1 if name == "pass 1" else f2
         print(f"{kernel} {name} alone: {ms:.3f} ms per {nbatch} draws "
               f"({flops / ms / 1e9:.1f} TFLOP/s over {npup} px, 3xTF32 "
-              f"mma.sync), bound {bound[0]:.3f} ms ({bound[1]}; "
+              f"{'wgmma' if name == 'pass 1' else 'mma.sync'}), bound "
+              f"{bound[0]:.3f} ms ({bound[1]}; "
               f"{bound[0] / ms:.1%} of it), yardstick "
               f"{'torch.bmm' if name == 'pass 1' else 'complex64 torch.matmul'}"
               f" (TF32 off) {lib:.3f} ms")
@@ -773,16 +784,21 @@ def phase_k1(sim):
     res = {"max_abs_err": 0.0}
     for noise in ("mixed", "gauss"):
         mixed = noise == "mixed"
-        S = T["S_colfac"] if mixed else cd.pack_tables(T["L"], mixed=False)
+        # the plain version's table, and the kernel's laid out from it (the
+        # engine's own for 'mixed')
+        S = cd.pack_tables(T["L"], mixed=mixed)
+        laid = T["S_colfac"] if mixed else cd.lay_tables(S)
         args = (SEED, S, T["wr"], T["wi"], T["pm_t"], NDRAWS)
+        kargs = (SEED, laid) + args[2:]
         kw = {"mixed": mixed, "stream": 3}
         err, cp = check("K1", cd.colfac_detect, cd.colfac_detect_reference,
-                        args, kw, f"{noise} flagship 512^2, P={P}")
+                        args, kw, f"{noise} flagship 512^2, P={P}", kargs)
         res["max_abs_err"] = max(res["max_abs_err"], err)
         tf32_control("K1", cd.colfac_detect_reference, args, kw, cp, noise)
 
         ms, plain_ms = time_kernel(cd.colfac_detect,
-                                   cd.colfac_detect_reference, args, kw)
+                                   cd.colfac_detect_reference, args, kw,
+                                   kargs=kargs)
         bound_ms, bound_by, flops = k1_bound(N, P, NTIME, mixed)
         print(f"K1 {noise}: {ms:.3f} ms kernel, {plain_ms:.3f} ms plain, "
               f"bound {bound_ms:.3f} ms ({flops / NTIME / 1e6:.1f} MFLOP "
@@ -792,7 +808,7 @@ def phase_k1(sim):
         res.update({"ms" + sfx: ms, "plain_ms" + sfx: plain_ms,
                     "bound_ms" + sfx: bound_ms, "bound_by" + sfx: bound_by})
         if mixed:
-            res.update(colfac_passes("K1", cd.colfac_pass1, S, S.shape[1],
+            res.update(colfac_passes("K1", cd.colfac_pass1, laid, S.shape[1],
                                      P, T, NTIME, {"mixed": True}, 10))
     return res
 
@@ -1258,8 +1274,8 @@ def phase_wide(card):
           f"launch; Fast() {init_s:.2f} s ('auto', powerspec "
           f"{sim_2.timings['powerspec']:.2f} s), {init3_s:.2f} s with the "
           f"column factors ({sim_3.timings['column_factors']:.3f} s, float32 "
-          f"on the card; L {T['L'].numel() * 8 / 1e9:.2f} GB, split table "
-          f"{T['T_colfac'].numel() * 4 / 1e9:.2f} GB)")
+          f"on the card; L {T['L'].numel() * 8 / 1e9:.2f} GB, K3's laid "
+          f"table {T['T_colfac'].nbytes / 1e9:.2f} GB)")
 
     # the kernels against their plain versions, two launches each
     label = f"{N}^2, P={P}"
@@ -1273,27 +1289,30 @@ def phase_wide(card):
         k2w["max_abs_err"] = max(k2w["max_abs_err"], err)
         tf32_control("K2", sd.synth_detect_reference, base, kw, cp,
                      f"{noise} {label}", n=64)
-        tab = (T["T_colfac"] if mixed
-               else cd.pack_tables_split(T["L"], mixed=False))
+        # the plain version's table, and the kernel's laid out from it
+        # (the engine's own for 'mixed')
+        tab = cd.pack_tables_split(T["L"], mixed=mixed)
+        laid = T["T_colfac"] if mixed else cd.lay_tables_split(tab)
         args3 = (SEED, tab) + base[2:]
+        kargs3 = (SEED, laid) + base[2:]
         kw3 = {"mixed": mixed, "stream": 3}
         err, cp = check("K3", cd.colfac_detect_split,
                         cd.colfac_split_reference, args3, kw3,
-                        f"{noise} {label}")
+                        f"{noise} {label}", kargs3)
         k3["max_abs_err"] = max(k3["max_abs_err"], err)
         tf32_control("K3", cd.colfac_split_reference, args3, kw3, cp,
                      f"{noise} {label}", n=64)
         if not mixed:
-            del tab
+            del tab, laid, args3, kargs3
             continue
         # times per launch of `per` draws, 'mixed' (the default noise)
-        for res, fn, ref, a, k, bound in (
-                (k2w, sd.synth_detect, sd.synth_detect_reference, base, kw,
-                 k2_bound(N, P, per, True)),
+        for res, fn, ref, a, ka, k, bound in (
+                (k2w, sd.synth_detect, sd.synth_detect_reference, base, None,
+                 kw, k2_bound(N, P, per, True)),
                 (k3, cd.colfac_detect_split, cd.colfac_split_reference,
-                 args3, kw3, k3_bound(N, P, per, True))):
+                 args3, kargs3, kw3, k3_bound(N, P, per, True))):
             res["ms"], res["plain_ms"] = time_kernel(fn, ref, a, k, per,
-                                                     (3, 1))
+                                                     (3, 1), ka)
             res["bound_ms"], res["bound_by"], flops = bound
             print(f"{'K2' if res is k2w else 'K3'} mixed: {res['ms']:.3f} ms "
                   f"kernel ({res['ms'] / per:.4f} ms a draw), "
@@ -1304,8 +1323,11 @@ def phase_wide(card):
         k2w["pass1_ms"], k2w["pass1_tflops"], lib = time_pass1(
             T, per, True, f"K2 mixed {label}", 3)
         k2w.update(lib)
-        k3.update(colfac_passes("K3", cd.split_pass1, tab, 2 * tab.shape[1],
-                                P, T, per, {"mixed": True}, 3))
+        k2w.update(k2_detect_alone(T, per, P, 3, label))
+        k3.update(colfac_passes("K3", cd.split_pass1, laid,
+                                2 * tab.shape[1], P, T, per,
+                                {"mixed": True}, 3))
+        del tab, laid, args3, kargs3
     g = torch.Generator(device=DEVICE).manual_seed(11)
     sh = torch.complex(*torch.randn((2, NDRAWS_W, P, P), device=DEVICE,
                                     generator=g))
@@ -1323,6 +1345,17 @@ def phase_wide(card):
     k7["pass1_ms"], k7["pass1_tflops"], lib = time_pass1(
         T, per, False, f"K7 (Box-Muller) {label}", 3)
     k7.update(lib)
+    # the screens pass: the whole kernel less pass 1, both timed above;
+    # its yardstick the complex64 W @ G' timed beside K2's detect pass
+    k7["screens_ms"] = k7["ms"] - k7["pass1_ms"]
+    k7["screens_library_ms"] = k2w["detect_library_ms"]
+    k7["screens_bound_ms"] = _bound(
+        per * 8 * P * P * N, 4 * (2 * per * N * Pp + 2 * Pp * N
+                                  + 2 * per * P * P))[0]
+    print(f"K7 screens pass: {k7['screens_ms']:.3f} ms per {per} draws (the "
+          f"kernel less pass 1), bound {k7['screens_bound_ms']:.3f} ms, "
+          f"yardstick complex64 torch.matmul W @ G' (TF32 off) "
+          f"{k7['screens_library_ms']:.3f} ms")
     k2w["ms_gauss"] = cuda_ms(lambda: sd.synth_detect(*base[:-1], per), 3)
     sd.synth_detect.LAUNCHES = 0
     print(f"K7: {k7['ms']:.3f} ms kernel ({k7['ms'] / per:.4f} ms a draw; "

@@ -36,44 +36,69 @@
 //
 // The work. At 512^2 with an 82 px pupil (padded to 96), one 'mixed' draw
 // costs N * 2 * 256 * 164 = 43 MFLOP of factor products and 8 P^2 N = 27.5
-// MFLOP for H, against 86 MB of factor tables that every launch reads once
-// and a G' of 0.4 MB a draw through device memory.
+// MFLOP for H, against 172 MB of split factor tables (86 MB unsplit) that
+// every launch reads once and a G' of 0.4 MB a draw through device memory.
 //
-// Both products run on the tensor cores as warp-level mma.sync.m16n8k8 TF32
-// products in three passes (3xTF32, tf32x3.cuh): every operand element x is
-// split into hi = tf32(x) and lo = tf32(x - hi), and each 8-deep step's
-// products of an output block, the small terms a_lo b_hi + a_hi b_lo first,
-// then a_hi b_hi, are a sum of their own in fresh accumulators, added to
-// the block's sums in fp32 (the tensor cores round their sums toward
-// zero). What the design does:
-// * Pass 1 is one block per (128 draws, column m): a (128 x K) @ (K x 2P)
-//   product with the draws as its rows; warp w takes draws 16 w .. + 15 by
-//   all 2 P columns, so its A fragment (the noise, split as it is drawn
-//   into shared memory) serves the 4 PJ output blocks of a step. The slices of 32 rows
-//   of S_m land by cp.async, one ahead; the block splits each once into the
-//   B fragments' order (split_pairs), since every warp reads every element.
-// * Blocks of one column are adjacent in launch order, so the 32 draw
-//   tiles of a 4096-draw launch read S_m from L2, not from device memory.
+// Pass 1 runs on Hopper's warpgroup products (wgmma.mma_async m64nNk8
+// TF32, wgmma.cuh), the detect pass on warp-level mma.sync.m16n8k8
+// (detect.cuh), both in three TF32 passes (3xTF32, tf32x3.cuh): every
+// operand element x is split into hi = tf32(x) and lo = tf32(x - hi), and
+// each 8-deep step computes a_lo b_hi + a_hi b_lo (the small terms) and
+// a_hi b_hi; hi + lo carries 22 of fp32's 24 bits. Every PRECISION value
+// means this arithmetic.
+//
+// Pass 1, the design:
+// * B pre-split and pre-laid, once per configuration. wgmma takes a 32-bit
+//   B only K-major, and S_m stores its output columns contiguously, so the
+//   wrapper lays the table out anew (ops/colfac_detect.py, lay_tables; the
+//   engine keeps only that copy on the card): per column m and 8-deep step
+//   of the depth, S_m's hi and lo parts over its 2P output columns in
+//   wgmma's core-matrix layout (wgmma.cuh), the columns of each 8 px block
+//   in the order 8 Re, 8 Im (so that a thread's accumulators hold two
+//   neighbouring pixels of one part). A fold group's two steps are one
+//   contiguous stage, 256 P bytes.
+// * Asynchronous copies. A block takes 128 draws (two consumer warpgroups
+//   of 64) for kCols columns in turn; one producer thread streams the
+//   columns' stages into a ring of kStages slots with cp.async.bulk, each
+//   completing on its slot's full mbarrier; the 8 consumer warps release a
+//   slot on its empty one once their products that read it have landed.
+//   The draw tiles of a column are adjacent in launch order, so S_m comes
+//   from L2.
+// * A in registers, drawn where it is used. The noise is the A operand,
+//   64 draws x 8 deep a step and warpgroup; the tables' depth slots are
+//   permuted (slot t of a step holds depth 2t, slot t + 4 depth 2t + 1),
+//   so a thread's slots t and t + 4 of a step are rows 2q and 2q + 1 of
+//   S_m: u_r and u_i of one lane q, one Philox call's two words. Each
+//   thread draws its own fragments' noise and splits it in registers: no
+//   shared memory, no block barrier. The next fold group's noise is drawn
+//   while this group's products run.
+// * Sums. The tensor cores round their sums toward zero, so each fold
+//   group (two 8-deep steps, 16 of the depth) is a fresh accumulator that
+//   takes the small terms of both steps first, then their a_hi b_hi, and
+//   is then added to an fp32 sum (round to nearest), as in K2's pass 1;
+//   tests/test_torch_colfac_tf32x3.py models this order. The 2P columns
+//   are products of N = 64 and a tail of 32; at P <= 96 two are in flight,
+//   so the fold of one overlaps the next one's products; wider pupils keep
+//   one (the accumulators then leave no room for a second).
 // * The TPU kernel's on-chip (b, P, P) accumulators over sequential column
 //   blocks do not carry over (blocks run in no order): pass 1 writes G'
 //   (N x P per draw, 1.6 GB per 4096-draw launch at 512^2, P=96) and pass 2
 //   contracts it over the columns in one block per draw (detect.cuh, on
-//   the tensor cores too).
+//   mma.sync).
 //
-// What bounds it now (H100 80GB HBM3, 700 W; scripts/torch_colfac_ab.py
-// and scripts/torch_colfac_variants.py): K1 takes 9.20-9.27 ms per 4096
-// draws at 512^2 (fp32 FMA: 10.45-10.52). The detect pass went from 4.50
-// to 3.25-3.34 ms (34 TFLOP/s over the 82 px). Pass 1 did not get faster:
-// 5.87-5.97 ms (30 TFLOP/s), as fp32 FMA. Its tensor-core work is 2.1 ms
-// of it (one TF32 pass: 4.49 ms), Philox 0.7 ms (a hash in its place: 5.18
-// ms); the rest is the noise and the split between the block's barriers,
-// with the tensor cores idle, and 1.6 GB of G' written. Per column the
-// product is thin (K = 256 deep, 192 wide), so the noise, one Philox call
-// per 1.1 products, is as much work as the products themselves. Other
-// layouts were no faster on the same card: the next slice's noise drawn
-// between the steps, 64 draws a block at two blocks a SM with the split per
-// warp, producer warps beside consumer warps, sums over two steps. The G'
-// round trip is the lever left.
+// What bounds pass 1 now (H100 80GB HBM3, 700 W; scripts/torch_colfac_ab.py
+// and scripts/torch_colfac_variants.py): 3.56-3.64 ms a 4096 draws at
+// 512^2 'mixed' (49 TFLOP/s over the 82 px; on mma.sync 5.87-5.88),
+// 3.71-3.72 'gauss' (5.32-5.45), under the 4.90 ms of one torch.bmm of the
+// same product; K1 6.85-6.89 ms (9.09). Variants, 'mixed': one TF32
+// product a step 2.92 ms, no products 2.68, no split 3.57, a hash for
+// Philox 2.45, half the bytes copied 3.55. The noise sets the pace, not
+// the tensor cores (about 1 ms of TF32 work) nor the copies: the product
+// per column is thin (256 deep, 192 wide), one Philox call per 1.1
+// products, and the work around the products (noise, splits, folds, 1.6
+// GB of G' written) overlaps them only in part with two consumer
+// warpgroups a SM (168 registers a thread, no spills; ptxas serializes
+// the wgmma of PJ = 5 'mixed' and PJ = 7 'gauss' only, its C7511).
 //
 // Random bits. Philox4x32-10 keyed by the 64-bit seed (k0 = low word,
 // k1 = high word). Counter of lane q (0..127) of column m of draw d:
@@ -88,161 +113,217 @@
 
 #include "detect.cuh"
 #include "tf32x3.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 using namespace fast;
 
-constexpr int kDT = 128;         // draws per pass-1 block, 16 a warp
-constexpr int kKS = 32;          // depth slice: 16 lanes x 2 components
-constexpr int kSS = kKS / 8;     // 8-deep steps of a slice
+constexpr int kDraws = 64;       // draws a consumer warpgroup takes
+constexpr int kConsumers = 256;  // two consumer warpgroups: 128 draws
+constexpr int kPass1Threads = kConsumers + 128;  // and the producer's
+constexpr int kConsumerRegs = 240;  // registers a thread: 2 x 128 x 240 +
+constexpr int kProducerRegs = 24;   // 128 x 24 <= 65536
+constexpr int kStages = 6;       // fold groups in the ring
+constexpr int kCols = 4;         // columns a block takes in turn
 constexpr int kLanes = 128;      // Philox lanes per column
-constexpr int kZS = kKS + 8;     // shared row stride of the noise slice
+constexpr int kKS = 32;          // the depth is a multiple of kKS rows
 
-// Words of pass 1's dynamic shared memory at a padded pupil of 16 PJ px:
-// the noise slice as TF32 hi and lo parts (kDT draws x kKS rows each); two
-// raw slices of S_m (kKS rows of P (re, im) column pairs, row stride 2 P +
-// 4), one landing while the other is used; and one slice split into the B
-// fragments' order (split_pairs).
-__host__ __device__ constexpr int pass1_words(int PJ) {
-  return 2 * kDT * kZS + 2 * kKS * (32 * PJ + 4) + kSS * 2 * PJ * 32 * 8;
+// Words of a ring stage at a padded pupil of 16 PJ px: a fold group's two
+// 8-deep steps of S_m, hi and lo, over its 2P = 32 PJ columns
+// (lay_tables of ops/colfac_detect.py lays the table out in these).
+__host__ __device__ constexpr int pass1_stage_words(int PJ) {
+  return 2 * 2 * 8 * 32 * PJ;
 }
 
-// Pass 1: one block per (128 draws, column m), warp w taking draws 16 w ..
-// + 15 (one m16 block) by every pixel block of 8 px, for Re G' and Im G':
-// 4 PJ independent sums a step, whose A fragment is formed once. Per
-// slice of kKS rows the block draws the noise, split as it is drawn, and
-// splits the landed slice of S_m once (split_pairs: a pixel's two columns
-// are a pair; every warp reads each element), the next slice landing
-// meanwhile (cp.async); each B fragment is then two 16-byte shared loads.
-// Writes G'[j, m, :].
+// Bytes of pass 1's shared memory: the ring and its mbarriers.
+// _pass1_smem of ops/colfac_detect.py mirrors it.
+__host__ __device__ constexpr int pass1_smem(int PJ) {
+  return 4 * kStages * pass1_stage_words(PJ) + 8 * 2 * kStages;
+}
+
+// Pass 1: one block per (128 draws, kCols columns m), warpgroup w taking
+// draws 64 w .. + 63 of the block by all 2P output columns of S_m (Re and
+// Im of each pixel), the columns one after another; one producer thread
+// streams the columns' fold groups through the ring. Writes G'[j, m, :].
 template <bool kMixed, int PJ>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kPass1Threads, 1)
     colfac_pass1(uint32_t k0, uint32_t k1, uint32_t stream, int draw0,
                  int nbatch, const float* __restrict__ S,
                  float* __restrict__ g_re, float* __restrict__ g_im, int N,
                  int K) {
   constexpr int P = 16 * PJ;       // padded pupil width
-  constexpr int C = 2 * P;         // columns of S_m: (pixel, re/im)
-  constexpr int SS = C + 4;        // shared row stride of the raw slices
-  constexpr int NT = 2 * PJ;       // pixel blocks
-  extern __shared__ __align__(16) float smem[];
-  uint32_t* zh = reinterpret_cast<uint32_t*>(smem);  // [draw][row], hi
-  uint32_t* zl = zh + kDT * kZS;                     // ... lo
-  float* ss = smem + 2 * kDT * kZS;                  // 2 x [row][col]
-  uint4* ps = reinterpret_cast<uint4*>(ss + 2 * kKS * SS);  // split slice
+  constexpr int C = 2 * P;         // columns of S_m: 8 Re, 8 Im a block
+  constexpr int NCH = C / 64;      // chunks of 64 columns
+  constexpr int TAIL = C % 64;     // and a tail of 32 (or none)
+  constexpr int TW = TAIL > 0 ? TAIL : 16;  // the tail's wgmma width
+  constexpr int NU = NCH + (TAIL > 0 ? 1 : 0);
+  constexpr int SW = pass1_stage_words(PJ);
+  constexpr bool kTwo = PJ <= 6;   // two chunks in flight
+  extern __shared__ __align__(128) float smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kStages * SW);
+  const Ring<kStages> ring{smem, bars, bars + kStages, SW};
 
-  const int m = blockIdx.y;
-  const int j0 = blockIdx.x * kDT;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const float* sm = S + static_cast<size_t>(m) * K * C;
+  const int m0 = blockIdx.y * kCols;
+  const int ng = K / 16;                      // fold groups a column
+  const int nit = (min(m0 + kCols, N) - m0) * ng;
+  const int tid = threadIdx.x;
 
-  // rows s kKS .. of S_m into raw buffer s & 1, in 16-byte pieces
-  const auto stage = [&](int s) {
-    stage_rows<SS, C, 4>(ss + (s & 1) * kKS * SS, sm, s * kKS, kKS, K, C, 0);
-    cp_async_commit();
-  };
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&ring.full[s], 1);
+      mbar_init(&ring.empty[s], kConsumers / 32);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  float acc[NT][2][4];  // [pixel block][re, im][fragment]
+  if (tid >= kConsumers) {
+    // the producer: the block's columns' fold groups, in order
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid == kConsumers) {
+      const float* sm = S + static_cast<size_t>(m0) * ng * SW;
+      for (int it = 0; it < nit; ++it)
+        ring.load(it, sm + static_cast<size_t>(it) * SW, 4 * SW);
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int r = ((tid >> 5) & 3) * 16 + g;    // the thread's rows r, r + 8
+  const int j = blockIdx.x * 2 * kDraws + (tid >> 7) * kDraws + r;  // draws
+  const bool live[2] = {j < nbatch, j + 8 < nbatch};  // j and j + 8
+
+  // The A fragments of step s of fold group h of column m: lane q = 4 (2h
+  // + s) + t of draws j (row g) and j + 8 (row g + 8), u_r in slot t and
+  // u_i in slot t + 4, split; draws past nbatch are zeros
+  const auto noise = [&](int m, int h, int s, Frag& a) {
+    const uint32_t e = static_cast<uint32_t>(m * kLanes + 8 * h + 4 * s + t);
+    float z[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};  // [draw][u_r, u_i]
 #pragma unroll
-  for (int b = 0; b < NT; ++b)
-#pragma unroll
-    for (int v = 0; v < 4; ++v) acc[b][0][v] = acc[b][1][v] = 0.0f;
-
-  const int nsl = K / kKS;
-  stage(0);
-  for (int s = 0; s < nsl; ++s) {
-    cp_async_wait<0>();
-    __syncthreads();  // slice s landed; slice s - 1 used by all
-    if (s + 1 < nsl) stage(s + 1);
-    // the noise of lanes s kKS / 2 .. + 15 for the block's draws, split:
-    // row 2 l of draw d is u_r of lane l, row 2 l + 1 its u_i (S_m's row
-    // order); draws past nbatch are zeros
-#pragma unroll
-    for (int i = 0; i < kKS / 2 * kDT / kThreads; ++i) {
-      const int e = tid + i * kThreads;
-      const int l = e & 15, d = e >> 4;
-      float z0 = 0.0f, z1 = 0.0f;
-      if (j0 + d < nbatch) {
-        const U4 v = philox4x32_10(
-            static_cast<uint32_t>(m * kLanes + s * (kKS / 2) + l),
-            static_cast<uint32_t>(draw0 + j0 + d), stream, 1u, k0, k1);
+    for (int v = 0; v < 2; ++v)
+      if (live[v]) {
+        const U4 w = philox4x32_10(
+            e, static_cast<uint32_t>(draw0 + j + 8 * v), stream, 1u, k0, k1);
         if (kMixed) {
-          z0 = mixed_uniform(v.x);
-          z1 = mixed_uniform(v.y);
+          z[v][0] = mixed_uniform(w.x);
+          z[v][1] = mixed_uniform(w.y);
         } else {
-          box_muller(v.x, v.y, &z0, &z1);
+          box_muller(w.x, w.y, &z[v][0], &z[v][1]);
         }
       }
-      uint2 h, lo;
-      split(z0, h.x, lo.x);
-      split(z1, h.y, lo.y);
-      *reinterpret_cast<uint2*>(zh + d * kZS + 2 * l) = h;
-      *reinterpret_cast<uint2*>(zl + d * kZS + 2 * l) = lo;
+    a = split_frag({z[0][0], z[1][0], z[0][1], z[1][1]}, false);
+  };
+
+  float gb[NCH > 0 ? NCH : 1][32], gt[TW / 2];
+  Frag a[1][2], an[1][2];  // this fold group's A, the next one's
+  noise(m0, 0, 0, a[0][0]);
+  noise(m0, 0, 1, a[0][1]);
+#pragma unroll 1
+  for (int it = 0; it < nit; ++it) {
+    const int m = m0 + it / ng, h = it % ng;
+    if (h == 0) {
+#pragma unroll
+      for (int u = 0; u < NCH; ++u)
+#pragma unroll
+        for (int v = 0; v < 32; ++v) gb[u][v] = 0.0f;
+#pragma unroll
+      for (int v = 0; v < TAIL / 2; ++v) gt[v] = 0.0f;
     }
-    split_pairs<kSS, NT, SS>(ps, ss + (s & 1) * kKS * SS);
-    __syncthreads();  // noise and split slice visible to all
+    // the block's next fold group, whose noise is drawn meanwhile
+    const bool more = it + 1 < nit;
+    const int mn = h + 1 < ng ? m : m + 1, hn = h + 1 < ng ? h + 1 : 0;
+    const float* st = ring.take(it);
+    const auto issue = [&](int u, float (&dd)[32]) {
+      uint64_t bh[1][2], bl[1][2];
 #pragma unroll
-    for (int ks = 0; ks < kSS; ++ks) {
-      // A fragment: draws 16 warp + g and + 8, rows 8 ks + 2t (slots t)
-      // and + 1 (slots t + 4)
-      uint32_t ah[4], al[4];
-      const int at = (16 * warp + g) * kZS + 8 * ks + 2 * t;
-      load_a(zh + at, kZS, ah);
-      load_a(zl + at, kZS, al);
+      for (int s = 0; s < 2; ++s) {
+        bh[0][s] = b_desc(st + (2 * s) * C * 8 + 64 * u * 8);
+        bl[0][s] = b_desc(st + (2 * s + 1) * C * 8 + 64 * u * 8);
+      }
+      if (u < NCH)
+        mma3_group<64, 1>(dd, a, bh, bl);
+      else
+        mma3_group<TW, 1>(reinterpret_cast<float(&)[TW / 2]>(dd), a, bh, bl);
+    };
+    const auto land = [&](int u, float (&dd)[32], bool pending) {
+      auto& dt = reinterpret_cast<float(&)[TW / 2]>(dd);
+      if (u < NCH) {
+        if (pending) fold<1>(gb[u], dd); else fold(gb[u], dd);
+      } else {
+        if (pending) fold<1>(gt, dt); else fold(gt, dt);
+      }
+    };
+    // the next group's noise, a step after each of the first chunks
+    const auto between = [&](int u) {
+      if (more && u < 2) noise(mn, hn, u, an[0][u]);
+      if (more && NU == 1) noise(mn, hn, 1, an[0][1]);
+    };
+    float d[2][32];
+    if (kTwo) {
+      issue(0, d[0]);
+      between(0);
 #pragma unroll
-      for (int b = 0; b < NT; ++b) {
-        // B fragments of pixel block b: its real-part and imaginary-part
-        // columns, hi and lo
-        const int u = (ks * NT + b) * 32 + lane;
-        const uint4 r4 = ps[u], i4 = ps[kSS * NT * 32 + u];
-        const uint32_t rh[2] = {r4.x, r4.y}, rl[2] = {r4.z, r4.w};
-        const uint32_t ih[2] = {i4.x, i4.y}, il[2] = {i4.z, i4.w};
-        // each step's products a sum of their own, the small terms first,
-        // added to acc in fp32 (tf32x3.cuh)
-        float d[4];
-        mma_tf32_new(d, al, rh);
-        mma_tf32(d, ah, rl);
-        mma_tf32(d, ah, rh);
+      for (int u = 1; u < NU; ++u) {
+        issue(u, d[u & 1]);
+        between(u);
+        land(u - 1, d[(u - 1) & 1], true);
+      }
+      land(NU - 1, d[(NU - 1) & 1], false);
+    } else {
 #pragma unroll
-        for (int v = 0; v < 4; ++v) acc[b][0][v] += d[v];
-        mma_tf32_new(d, al, ih);
-        mma_tf32(d, ah, il);
-        mma_tf32(d, ah, ih);
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[b][1][v] += d[v];
+      for (int u = 0; u < NU; ++u) {
+        issue(u, d[0]);
+        between(u);
+        land(u, d[0], false);
       }
     }
-  }
-  // fragment (draw g | g + 8 of the warp's, pixels 2t, 2t + 1 of the pixel
-  // block): 32 bytes a quad
-#pragma unroll
-  for (int b = 0; b < NT; ++b)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int j = j0 + 16 * warp + g + 8 * h;
-      if (j >= nbatch) continue;
-      const size_t at = (static_cast<size_t>(j) * N + m) * P + 8 * b + 2 * t;
-      *reinterpret_cast<float2*>(g_re + at) =
-          make_float2(acc[b][0][2 * h], acc[b][0][2 * h + 1]);
-      *reinterpret_cast<float2*>(g_im + at) =
-          make_float2(acc[b][1][2 * h], acc[b][1][2 * h + 1]);
+    ring.release(it);
+    if (more) {
+      a[0][0] = an[0][0];
+      a[0][1] = an[0][1];
     }
+    if (h + 1 < ng) continue;
+    // G' of column m: a chunk's column 8 i + 2t (+ 1) is part i % 2 of
+    // pixel 8 (i / 2) + 2t (+ 1) of its 32, rows r (h = 0) and r + 8
+    const auto put = [&](int px, int part, float v0, float v1, int hh) {
+      const int jj = j + 8 * hh;
+      if (!live[hh]) return;
+      *reinterpret_cast<float2*>((part ? g_im : g_re) +
+                                 (static_cast<size_t>(jj) * N + m) * P +
+                                 px) = make_float2(v0, v1);
+    };
+#pragma unroll
+    for (int u = 0; u < NCH; ++u)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          put(32 * u + 8 * (i / 2) + 2 * t, i & 1, gb[u][4 * i + 2 * hh],
+              gb[u][4 * i + 2 * hh + 1], hh);
+#pragma unroll
+    for (int i = 0; i < TAIL / 8; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        put(32 * NCH + 8 * (i / 2) + 2 * t, i & 1, gt[4 * i + 2 * hh],
+            gt[4 * i + 2 * hh + 1], hh);
+  }
 }
 
 template <bool kMixed, int PJ>
 cudaError_t launch_pass1(uint32_t k0, uint32_t k1, uint32_t stream_id,
                          int draw0, int nbatch, const float* S, float* g_re,
                          float* g_im, int N, int K, cudaStream_t stream) {
-  const int smem = static_cast<int>(sizeof(float) * pass1_words(PJ));
+  constexpr int smem = pass1_smem(PJ);
   auto* k_pass1 = colfac_pass1<kMixed, PJ>;
   cudaError_t err = cudaFuncSetAttribute(
       k_pass1, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((nbatch + kDT - 1) / kDT, N);
-  k_pass1<<<grid, kThreads, smem, stream>>>(k0, k1, stream_id, draw0, nbatch,
-                                            S, g_re, g_im, N, K);
+  const dim3 grid((nbatch + 2 * kDraws - 1) / (2 * kDraws),
+                  (N + kCols - 1) / kCols);
+  k_pass1<<<grid, kPass1Threads, smem, stream>>>(k0, k1, stream_id, draw0,
+                                                 nbatch, S, g_re, g_im, N, K);
   return cudaGetLastError();
 }
 
@@ -281,7 +362,9 @@ bool takes(int N, int P, int nbatch, int K, int mixed) {
 
 }  // namespace
 
-// Shapes: S (N, K, P, 2) packed factors; wr, wi (P, N); pm_t (P, P);
+// Shapes: S (N, K / 8, 2, 16 P), the factor table of K rows split and laid
+// out for pass 1 (ops/colfac_detect.py, lay_tables); wr, wi (P, N); pm_t
+// (P, P);
 // sh_t nullptr or (nbatch, 2, P, P) transposed subharmonic screens;
 // g_re, g_im scratch (nbatch, N, P); out (nbatch, 4) = (sum pm cos h1,
 // sum pm sin h1, sum pm cos h2, sum pm sin h2). P is a multiple of 16 and

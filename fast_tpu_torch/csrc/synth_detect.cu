@@ -154,7 +154,6 @@ constexpr int kProducerRegs = 24;   // 128 x 24 <= 65536
 constexpr int kMStage = 4 * 2 * kZC * 8;  // words of a mixing slice: 4 steps
                                           // x {hi, lo} x 64 columns x 8
 constexpr int kUChunk = 2 * kRows * kKU;  // words of a chunk of uniforms
-constexpr int kXTile = 2 * kRows * kZC;   // words of an x tile (Re and Im)
 constexpr int kSmemLimit = 232448;        // bytes of shared memory a block
 
 // How pass 1 covers the padded pupil P: nz blocks along it, each a slice
@@ -200,83 +199,6 @@ __host__ __device__ constexpr int pass1_smem(bool mixed, int PB, int nbuf,
 int pass1_u_chunks(int N, int PB, bool pair) {
   const int nkc = (N + kKU - 1) / kKU;
   return pass1_smem(true, PB, nkc, pair) <= kSmemLimit ? nkc : 2;
-}
-
-// Word of float pair f of row r in a shared tile whose rows hold `words`
-// words: the pair index XOR 4 (r % 4), so that a warp's 64-bit fragment
-// loads (rows g, pairs 4 s + t) hit every bank once.
-__device__ __forceinline__ int swz(int r, int f, int words) {
-  return r * words + 2 * (f ^ ((r & 3) << 2));
-}
-
-// ---- the products of a fold group ----------------------------------------
-
-// One A operand of an 8-deep step, split: hi and lo fragments.
-struct Frag {
-  uint32_t h[4], l[4];
-};
-
-// The A fragment of a warp's rows g and g + 8 at float pair f of a
-// shared tile (rows of `words` words), split into hi and lo, negated
-// (exactly: the sign bits) if neg. Depth slots t and t + 4 hold the pair's
-// two values, depths 2t and 2t + 1 of the step: the tables' slot order.
-__device__ __forceinline__ Frag load_frag(const float* tile, int r, int f,
-                                          int words, bool neg) {
-  const float2 v0 = *reinterpret_cast<const float2*>(tile + swz(r, f, words));
-  const float2 v1 =
-      *reinterpret_cast<const float2*>(tile + swz(r + 8, f, words));
-  const uint32_t s = neg ? 0x80000000u : 0u;
-  Frag a;
-  const float x[4] = {v0.x, v1.x, v0.y, v1.y};
-#pragma unroll
-  for (int v = 0; v < 4; ++v) {
-    split(x[v], a.h[v], a.l[v]);
-    a.h[v] ^= s;
-    a.l[v] ^= s;
-  }
-  return a;
-}
-
-// d = the sum over a fold group's two 8-deep steps and NT terms of a b, in
-// a fresh accumulator: the small terms a_lo b_hi + a_hi b_lo of every step
-// first, then the a_hi b_hi, each wgmma adding 8 products to the tensor
-// cores' sum; then commit. bh, bl: descriptors of the B steps' hi and lo.
-template <int N, int NT>
-__device__ __forceinline__ void mma3_group(float (&d)[N / 2],
-                                           Frag (&a)[NT][2],
-                                           const uint64_t (&bh)[NT][2],
-                                           const uint64_t (&bl)[NT][2]) {
-#pragma unroll
-  for (int q = 0; q < NT; ++q)
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      fence_regs(a[q][s].h);
-      fence_regs(a[q][s].l);
-    }
-  fence_regs(d);
-  wgmma_fence();
-#pragma unroll
-  for (int s = 0; s < 2; ++s)
-#pragma unroll
-    for (int q = 0; q < NT; ++q) {
-      wgmma_tf32<N>(d, a[q][s].l, bh[q][s], s + q);
-      wgmma_tf32<N>(d, a[q][s].h, bl[q][s], 1);
-    }
-#pragma unroll
-  for (int s = 0; s < 2; ++s)
-#pragma unroll
-    for (int q = 0; q < NT; ++q) wgmma_tf32<N>(d, a[q][s].h, bh[q][s], 1);
-  wgmma_commit();
-}
-
-// Wait until at most kPending groups are in flight, then add the sum d of
-// one that has landed to the fp32 sum acc: round to nearest.
-template <int kPending = 0, int R>
-__device__ __forceinline__ void fold(float (&acc)[R], float (&d)[R]) {
-  wgmma_wait<kPending>();
-  fence_regs(d);
-#pragma unroll
-  for (int i = 0; i < R; ++i) acc[i] += d[i];
 }
 
 // ---- the noise -------------------------------------------------------------
@@ -345,32 +267,6 @@ __device__ __forceinline__ void make_gauss(float* x, int i0, int row0,
 
 // ---- pass 1 ----------------------------------------------------------------
 
-// The ring of B stages: stage `it` of the schedule lands in slot it % 4;
-// full[slot] completes when its bytes have landed, empty[slot] when the 8
-// consumer warps are done with it.
-struct Ring {
-  float* slots;
-  uint64_t* full;
-  uint64_t* empty;
-  int words;
-
-  __device__ __forceinline__ const float* take(uint32_t it) const {
-    const int s = it % kStages;
-    mbar_wait(&full[s], (it / kStages) & 1);
-    return slots + s * words;
-  }
-  __device__ __forceinline__ void release(uint32_t it) const {
-    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[it % kStages]);
-  }
-  __device__ __forceinline__ void load(uint32_t it, const float* src,
-                                       uint32_t bytes) const {
-    const int s = it % kStages;
-    mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
-    mbar_expect(&full[s], bytes);
-    bulk_copy(slots + s * words, src, bytes, &full[s]);
-  }
-};
-
 // Pass 1: one block per (draw, 64 rows of X', slice of PB = 64 NCH + TAIL
 // pupil columns). Consumer warpgroup w makes component w of the noise's
 // mixing product and then part w of G' (0 Re, 1 Im) for the slice; one
@@ -392,7 +288,7 @@ __global__ void __launch_bounds__(kPass1Threads, 1)
   float* us = xs + pass1_x_tiles(kMixed, kPair) * kXTile;  // uniforms
   uint64_t* bars = reinterpret_cast<uint64_t*>(
       us + (kMixed ? nbuf * kUChunk : 0));
-  const Ring ring{smem, bars, bars + kStages, slot_words};
+  const Ring<kStages> ring{smem, bars, bars + kStages, slot_words};
   // a pair: x tile c in slot c % 2, made by the pair's block of rank
   // c % 2; xfull[s] completes when its maker has written it into both
   // blocks, xempty[s] when the 16 consumer warps of both have read it
@@ -462,66 +358,10 @@ __global__ void __launch_bounds__(kPass1Threads, 1)
 #pragma unroll
   for (int v = 0; v < TAIL / 2; ++v) gt[v] = 0.0f;
 
-  // G' += x W^T over the 64-deep x tile at `x`, stages it.. of the ring:
-  // part 0 (Re) takes xr wr^T and -xi wi^T, part 1 (Im) xr wi^T and
-  // xi wr^T. In 4 fold groups of 2 steps; `between(h)` runs while group
-  // h's first products are in flight.
+  // G' += x W^T over the x tile at `x`, stages it.. of the ring
+  // (wgmma.cuh): Re G' = xr wr^T - xi wi^T, Im G' = xr wi^T + xi wr^T
   const auto gprime = [&](const float* x, uint32_t it, auto between) {
-#pragma unroll 1
-    for (int h = 0; h < 4; ++h) {
-      Frag a[2][2];
-      const float* st[2];
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        st[s] = ring.take(it + 2 * h + s);
-        const int f = 4 * (2 * h + s) + t;
-        a[0][s] = load_frag(x, r, f, kZC, false);
-        a[1][s] = load_frag(x + kRows * kZC, r, f, kZC, wg == 0);
-      }
-      // term 0 with wr (Re) or wi (Im), term 1 with wi (Re) or wr (Im)
-      const auto descs = [&](int col, uint64_t (&bh)[2][2],
-                             uint64_t (&bl)[2][2]) {
-#pragma unroll
-        for (int s = 0; s < 2; ++s)
-#pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            const float* tab = st[s] + ((q ^ wg) ? 2 : 0) * PB * 8 + col * 8;
-            bh[q][s] = b_desc(tab);
-            bl[q][s] = b_desc(tab + PB * 8);
-          }
-      };
-      // the slice's column chunks (NCH of 64, then the tail), two in
-      // flight: chunk u + 1 is issued before chunk u is folded
-      constexpr int NU = NCH + (TAIL > 0 ? 1 : 0);
-      float d[2][32];
-      const auto issue = [&](int u, float (&dd)[32]) {
-        uint64_t bh[2][2], bl[2][2];
-        descs(64 * u, bh, bl);
-        if (u < NCH)
-          mma3_group<64, 2>(dd, a, bh, bl);
-        else
-          mma3_group<TW, 2>(reinterpret_cast<float(&)[TW / 2]>(dd), a, bh,
-                            bl);
-      };
-      const auto land = [&](int u, float (&dd)[32], bool more) {
-        auto& dt = reinterpret_cast<float(&)[TW / 2]>(dd);
-        if (u < NCH) {
-          if (more) fold<1>(gb[u], dd); else fold(gb[u], dd);
-        } else {
-          if (more) fold<1>(gt, dt); else fold(gt, dt);
-        }
-      };
-      issue(0, d[0]);
-      between(h);
-#pragma unroll
-      for (int u = 1; u < NU; ++u) {
-        issue(u, d[u & 1]);
-        land(u - 1, d[(u - 1) & 1], true);
-      }
-      land(NU - 1, d[(NU - 1) & 1], false);
-#pragma unroll
-      for (int s = 0; s < 2; ++s) ring.release(it + 2 * h + s);
-    }
+    tile_products<NCH, TAIL>(gb, gt, x, ring, it, wg, r, t, between);
   };
 
   uint32_t it = 0;

@@ -1,8 +1,11 @@
 // Hopper's asynchronous tensor-core path, shared by the kernels that use
-// it (K2's and K7's pass 1, synth_detect.cu): warpgroup products
-// (wgmma.mma_async, TF32, A from registers, B from shared memory through a
-// matrix descriptor), the 1-D bulk copies (cp.async.bulk) that stage B
-// from device memory, and the mbarriers the copies complete on. sm_90a
+// it (pass 1 of K2 and K7, synth_detect.cu; of K1, colfac_detect.cu; of
+// K3, colfac_split.cu): warpgroup products (wgmma.mma_async, TF32, A from
+// registers, B from shared memory through a matrix descriptor), the 1-D
+// bulk copies (cp.async.bulk) that stage B from device memory, the
+// mbarriers the copies complete on, thread-block clusters, and the pieces
+// the three passes build from them (the ring of B stages, the fold groups
+// of 3xTF32 products, the products over a 64-deep tile of A). sm_90a
 // only: wgmma does not exist for plain sm_90.
 //
 // B's layout in shared memory ("core matrices", no swizzle). wgmma reads
@@ -13,13 +16,16 @@
 // block are 128 bytes apart (the leading byte offset) and 8-column blocks
 // 256 bytes apart (the stride byte offset). Every 128-byte core matrix is
 // contiguous, so the tensor cores read it without bank conflicts. The
-// wrapper lays its tables out so (ops/synth_detect.py, _core_layout), and
-// a step of a stage is one contiguous block of n * 32 bytes.
+// wrappers lay their tables out so (ops/synth_detect.py, _core_layout;
+// ops/colfac_detect.py, lay_tables and lay_tables_split), and a step of a
+// stage is one contiguous block of n * 32 bytes.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tf32x3.cuh"
 
 namespace fast {
 
@@ -217,6 +223,13 @@ __device__ __forceinline__ int cluster_rank() {
   return static_cast<int>(r);
 }
 
+// The number of blocks in this block's cluster.
+__device__ __forceinline__ int cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return static_cast<int>(n);
+}
+
 // The address of `p` (this block's shared memory) in the shared memory of
 // the cluster's block `rank`, for the st/mbarrier forms below.
 __device__ __forceinline__ uint32_t peer_addr(const void* p, int rank) {
@@ -281,6 +294,195 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // (1..15; __syncthreads() is 0).
 __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---- pass 1's building blocks ----------------------------------------------
+
+// The ring of B stages: stage `it` of the schedule lands in slot it %
+// kStages; full[slot] completes when its bytes have landed, empty[slot]
+// when the consumer warps are done with it (each warp's lane 0 arrives;
+// the barrier counts the consumer warps).
+template <int kStages>
+struct Ring {
+  float* slots;
+  uint64_t* full;
+  uint64_t* empty;
+  int words;
+
+  __device__ __forceinline__ const float* take(uint32_t it) const {
+    const int s = it % kStages;
+    mbar_wait(&full[s], (it / kStages) & 1);
+    return slots + s * words;
+  }
+  __device__ __forceinline__ void release(uint32_t it) const {
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[it % kStages]);
+  }
+  __device__ __forceinline__ void load(uint32_t it, const float* src,
+                                       uint32_t bytes) const {
+    const int s = it % kStages;
+    mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+    mbar_expect(&full[s], bytes);
+    bulk_copy(slots + s * words, src, bytes, &full[s]);
+  }
+};
+
+// Word of float pair f of row r in a shared tile whose rows hold `words`
+// words: the pair index XOR 4 (r % 4), so that a warp's 64-bit fragment
+// loads (rows g, pairs 4 s + t) hit every bank once.
+__device__ __forceinline__ int swz(int r, int f, int words) {
+  return r * words + 2 * (f ^ ((r & 3) << 2));
+}
+
+// One A operand of an 8-deep step, split: hi and lo fragments.
+struct Frag {
+  uint32_t h[4], l[4];
+};
+
+// The split of four A values, negated (exactly: the sign bits) if neg.
+__device__ __forceinline__ Frag split_frag(const float (&x)[4], bool neg) {
+  const uint32_t s = neg ? 0x80000000u : 0u;
+  Frag a;
+#pragma unroll
+  for (int v = 0; v < 4; ++v) {
+    split(x[v], a.h[v], a.l[v]);
+    a.h[v] ^= s;
+    a.l[v] ^= s;
+  }
+  return a;
+}
+
+// The A fragment of a warp's rows g and g + 8 at float pair f of a
+// shared tile (rows of `words` words), split into hi and lo, negated if
+// neg. Depth slots t and t + 4 hold the pair's two values, depths 2t and
+// 2t + 1 of the step: the tables' slot order.
+__device__ __forceinline__ Frag load_frag(const float* tile, int r, int f,
+                                          int words, bool neg) {
+  const float2 v0 = *reinterpret_cast<const float2*>(tile + swz(r, f, words));
+  const float2 v1 =
+      *reinterpret_cast<const float2*>(tile + swz(r + 8, f, words));
+  return split_frag({v0.x, v1.x, v0.y, v1.y}, neg);
+}
+
+// d = the sum over a fold group's two 8-deep steps and NT terms of a b, in
+// a fresh accumulator: the small terms a_lo b_hi + a_hi b_lo of every step
+// first, then the a_hi b_hi, each wgmma adding 8 products to the tensor
+// cores' sum; then commit. bh, bl: descriptors of the B steps' hi and lo.
+template <int N, int NT>
+__device__ __forceinline__ void mma3_group(float (&d)[N / 2],
+                                           Frag (&a)[NT][2],
+                                           const uint64_t (&bh)[NT][2],
+                                           const uint64_t (&bl)[NT][2]) {
+#pragma unroll
+  for (int q = 0; q < NT; ++q)
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      fence_regs(a[q][s].h);
+      fence_regs(a[q][s].l);
+    }
+  fence_regs(d);
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int q = 0; q < NT; ++q) {
+      wgmma_tf32<N>(d, a[q][s].l, bh[q][s], s + q);
+      wgmma_tf32<N>(d, a[q][s].h, bl[q][s], 1);
+    }
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int q = 0; q < NT; ++q) wgmma_tf32<N>(d, a[q][s].h, bh[q][s], 1);
+  wgmma_commit();
+}
+
+// Wait until at most kPending groups are in flight, then add the sum d of
+// one that has landed to the fp32 sum acc: round to nearest.
+template <int kPending = 0, int R>
+__device__ __forceinline__ void fold(float (&acc)[R], float (&d)[R]) {
+  wgmma_wait<kPending>();
+  fence_regs(d);
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] += d[i];
+}
+
+// An x tile: the A operand of 64 rows (a warpgroup's wgmma M) by 64 deep
+// (8 steps, 4 fold groups), real and imaginary planes of kXRows x kXDepth
+// floats, float pairs swizzled by row (swz).
+constexpr int kXRows = 64;
+constexpr int kXDepth = 64;
+constexpr int kXTile = 2 * kXRows * kXDepth;
+
+// The complex product G' += x B of one x tile at `x` against 8 stages of
+// the ring from `it` on, one 8-deep step each: B_r hi, B_r lo, B_i hi,
+// B_i lo over PB = 64 NCH + TAIL columns (8 PB words each, the core-matrix
+// layout). Consumer warpgroup wg makes part wg of G': 0 (Re) takes x_r B_r
+// and -x_i B_i (the sign flipped in the A fragment, exactly), 1 (Im) x_r
+// B_i and x_i B_r; the thread's rows are r and r + 8. In 4 fold groups of
+// 2 steps, over the columns in chunks of 64 and the tail, two chunks in
+// flight (chunk u + 1 is issued before chunk u is folded into gb, gt);
+// `between(h)` runs while group h's first chunk is in flight. Every group
+// has landed when it returns: ptxas cannot follow a group in flight
+// around a loop (it then serializes every wgmma, warning C7514).
+template <int NCH, int TAIL, int kStages, class Between>
+__device__ __forceinline__ void tile_products(
+    float (&gb)[NCH > 0 ? NCH : 1][32],
+    float (&gt)[(TAIL > 0 ? TAIL : 16) / 2], const float* x,
+    const Ring<kStages>& ring, uint32_t it, int wg, int r, int t,
+    Between between) {
+  constexpr int PB = 64 * NCH + TAIL;
+  constexpr int TW = TAIL > 0 ? TAIL : 16;  // the tail's wgmma width
+  constexpr int NU = NCH + (TAIL > 0 ? 1 : 0);
+#pragma unroll 1
+  for (int h = 0; h < 4; ++h) {
+    Frag a[2][2];
+    const float* st[2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      st[s] = ring.take(it + 2 * h + s);
+      const int f = 4 * (2 * h + s) + t;
+      a[0][s] = load_frag(x, r, f, kXDepth, false);
+      a[1][s] = load_frag(x + kXRows * kXDepth, r, f, kXDepth, wg == 0);
+    }
+    // term 0 with B_r (Re) or B_i (Im), term 1 with B_i (Re) or B_r (Im)
+    const auto descs = [&](int col, uint64_t (&bh)[2][2],
+                           uint64_t (&bl)[2][2]) {
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const float* tab = st[s] + ((q ^ wg) ? 2 : 0) * PB * 8 + col * 8;
+          bh[q][s] = b_desc(tab);
+          bl[q][s] = b_desc(tab + PB * 8);
+        }
+    };
+    float d[2][32];
+    const auto issue = [&](int u, float (&dd)[32]) {
+      uint64_t bh[2][2], bl[2][2];
+      descs(64 * u, bh, bl);
+      if (u < NCH)
+        mma3_group<64, 2>(dd, a, bh, bl);
+      else
+        mma3_group<TW, 2>(reinterpret_cast<float(&)[TW / 2]>(dd), a, bh, bl);
+    };
+    const auto land = [&](int u, float (&dd)[32], bool more) {
+      auto& dt = reinterpret_cast<float(&)[TW / 2]>(dd);
+      if (u < NCH) {
+        if (more) fold<1>(gb[u], dd); else fold(gb[u], dd);
+      } else {
+        if (more) fold<1>(gt, dt); else fold(gt, dt);
+      }
+    };
+    issue(0, d[0]);
+    between(h);
+#pragma unroll
+    for (int u = 1; u < NU; ++u) {
+      issue(u, d[u & 1]);
+      land(u - 1, d[(u - 1) & 1], true);
+    }
+    land(NU - 1, d[(NU - 1) & 1], false);
+#pragma unroll
+    for (int s = 0; s < 2; ++s) ring.release(it + 2 * h + s);
+  }
 }
 
 }  // namespace fast

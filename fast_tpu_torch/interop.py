@@ -13,7 +13,7 @@ module imports nothing of the JAX package.
 import numpy as np
 import torch
 
-from .ops.colfac_detect import colfac_layout, pack_tables, pack_tables_split
+from .ops.colfac_detect import colfac_layout, kernel_table
 from .ops.synth_detect import mixing_matrix, pad_pupil
 
 #: The arrays :func:`tables_from_numpy` reads.
@@ -61,9 +61,10 @@ def tables_from_numpy(arrays, device="cpu", dtype=torch.float32,
         int64 tensor. With ``L_colfac``: ``L`` (N, Npup, Npup) complex in
         the working type for ``SYNTH='colfac'`` and the colfac-detect
         kernel's float32 table: ``S_colfac`` for K1 at a pupil of at most
-        128 px (:func:`~fast_tpu_torch.ops.colfac_detect.pack_tables`),
-        ``T_colfac`` for K3 above
-        (:func:`~fast_tpu_torch.ops.colfac_detect.pack_tables_split`). With the
+        128 px, ``T_colfac`` for K3 above
+        (:func:`~fast_tpu_torch.ops.colfac_detect.kernel_table`: on the
+        card split and laid out once for the kernel's pass 1, on the CPU
+        as the plain version takes it). With the
         subharmonic tables: ``sqrt_psd_sh`` (levels, 3, 3), ``sh_df``
         (levels,) and ``sh_modes`` (levels, 3, 3, Npup, Npup) complex, in
         the working type. Temporal mode (no ``mix``, which only the iid
@@ -157,10 +158,9 @@ def _own_tables(arrays, device, dtype, noise):
     if arrays.get("L_colfac") is not None:
         L = dev(np.asarray(arrays["L_colfac"]).astype(np_cdt))
         T["L"] = L
-        if colfac_layout(L.shape[1]) == "split":
-            T["T_colfac"] = pack_tables_split(L, mixed=noise == "mixed")
-        else:
-            T["S_colfac"] = pack_tables(L, mixed=noise == "mixed")
+        split = colfac_layout(L.shape[1]) == "split"
+        T["T_colfac" if split else "S_colfac"] = kernel_table(
+            L, mixed=noise == "mixed")
     if arrays.get("powerspec_subharm") is not None:
         T["sqrt_psd_sh"] = dev(np.sqrt(arrays["powerspec_subharm"])
                                .astype(np_dt))

@@ -36,7 +36,10 @@ output layout.
   that K1, K2 and K3 share, ``csrc/detect.cuh``, against
   :func:`~fast_tpu_torch.ops.synth_detect.detect_reference`). Each counts
   its launches in its own ``LAUNCHES``. Both kernels run both products on
-  the tensor cores (3xTF32 ``mma.sync``).
+  the tensor cores in 3xTF32: pass 1 on Hopper's ``wgmma``, from tables
+  split and laid out once (:func:`lay_tables`, :func:`lay_tables_split`,
+  :class:`LaidTable`; :func:`laid_table` builds one from ``L``,
+  :func:`kernel_table` the engine's), the detect pass on ``mma.sync``.
 
 Mixing width: 'mixed' noise mixes 128 uniforms per component per column
 in K1, as the TPU kernel does over its 128-lane tile, and ``LW`` in K3,
@@ -50,12 +53,17 @@ import numpy as np
 import torch
 
 from . import _build
-from .synth_detect import (_P_MAX, _REF_POINTS, _key, _pack, box_muller,
-                           check_subharm, check_tables, detect_reference,
-                           draws_per_launch, mixing_matrix, padded_pupil,
-                           philox4x32_10, pupil_tiles, raise_on, uniforms)
+from .synth_detect import (_P_MAX, _PB_MAX, _REF_POINTS, _hi_lo, _key,
+                           _pack, box_muller, check_subharm, check_tables,
+                           detect_reference, draws_per_launch, mixing_matrix,
+                           padded_pupil, philox4x32_10, pupil_tiles, raise_on,
+                           uniforms)
 
 LANES = 128  # Philox lanes per column; 'mixed' noise mixes all of them
+_STAGES_K1 = 6   # fold groups in K1's ring of B stages
+_STAGES_K3 = 4   # 8-deep steps in K3's
+_X_TILE = 2 * 64 * 64  # words of one of K3's x tiles of noise
+_MAX_CLUSTER = 8  # the portable cluster size
 
 
 def supports(N, P):
@@ -106,6 +114,59 @@ def pack_tables(L, mixed=True):
     S = torch.stack([torch.stack([br, bi], dim=-1),
                      torch.stack([-bi, br], dim=-1)], dim=2)
     return S.reshape(N, 2 * Kq, P, 2).contiguous()
+
+
+class LaidTable:
+    """A factor table as the card's pass 1 reads it: ``data``, the table
+    split into TF32 hi and lo parts and laid out in ``wgmma``'s
+    core-matrix order (:func:`lay_tables`, :func:`lay_tables_split`), and
+    ``shape``, the (N, K or Kq, P, 2) shape of the table it was laid from.
+    The kernel wrappers take it in place of that table on the card."""
+
+    def __init__(self, data, shape, split):
+        self.data, self.shape, self.split = data, torch.Size(shape), split
+
+    @property
+    def device(self):
+        return self.data.device
+
+    @property
+    def nbytes(self):
+        return self.data.numel() * self.data.element_size()
+
+
+def _core_steps(b):
+    """``b`` (..., K, n), K a multiple of 8, as the 8-deep steps of a B
+    operand of ``wgmma`` (``csrc/wgmma.cuh``): (..., K / 8, 8 n), column c
+    and depth slot s of a step at word (c // 8) 64 + (s // 4) 32 + (c % 8) 4
+    + s % 4, slot s holding depth 2 (s % 4) + s // 4 (the A fragments'
+    order); ``synth_detect._core_layout`` with one tile of all n columns."""
+    *lead, K, n = b.shape
+    t = b.reshape(*lead, K // 8, 4, 2, n // 8, 8)
+    nl = len(lead)
+    perm = list(range(nl)) + [nl + i for i in (0, 3, 2, 4, 1)]
+    return t.permute(perm).reshape(*lead, K // 8, 8 * n)
+
+
+def lay_tables(S):
+    """K1's table ``S`` (:func:`pack_tables`) as its pass 1 reads it: a
+    :class:`LaidTable` of (N, K / 8, 2, 16 P) float32, per column and
+    8-deep step of the K rows S_m's TF32 hi, then lo part (hi + lo carries
+    22 of the 24 bits), over the 2P output columns in ``wgmma``'s
+    core-matrix order, the columns of each 8 px block as 8 Re, then 8 Im
+    (``csrc/colfac_detect.cu``). On ``S``'s device, in stock torch ops."""
+    N, K, P, _ = S.shape
+    B = S.reshape(N, K, P // 8, 8, 2).transpose(-1, -2).reshape(N, K, 2 * P)
+    hi, lo = _hi_lo(B)
+    data = torch.stack([_core_steps(hi), _core_steps(lo)], dim=2)
+    return LaidTable(data.contiguous(), S.shape, split=False)
+
+
+def _pass1_smem(P):
+    """Bytes of K1's pass-1 shared memory at a padded pupil ``P``
+    (``pass1_smem`` of ``csrc/colfac_detect.cu``): a ring of 6 fold groups,
+    two 8-deep steps of hi and lo over 2P columns each, and 12 mbarriers."""
+    return 4 * _STAGES_K1 * 2 * 2 * 8 * 2 * P + 8 * 2 * _STAGES_K1
 
 
 def colfac_bits(seed, nbatch, N, lanes, stream=0, device="cpu", draw0=0,
@@ -195,8 +256,42 @@ def _library():
     return lib, info
 
 
+def _data(S, split):
+    """The tensor of a table the wrappers take: ``S`` itself or a
+    :class:`LaidTable`'s data (of the layout ``split`` says)."""
+    if not isinstance(S, LaidTable):
+        return S
+    if S.split != split:
+        raise ValueError(f"a table laid out for {'K1' if split else 'K3'} "
+                         f"passed to {'K3' if split else 'K1'}")
+    N, K, P, _ = S.shape
+    if split:
+        PB, nz, _ = _split_geom(P)
+        want = (N, nz, -(-K // 64) * 8, 4, 8 * PB)
+    else:
+        want = (N, K // 8, 2, 16 * P)
+    if tuple(S.data.shape) != want:
+        raise ValueError(f"a LaidTable of {tuple(S.shape)} must hold {want}, "
+                         f"got {tuple(S.data.shape)}")
+    return S.data
+
+
+def _laid(S, what):
+    """``S`` as its pass 1 reads it on the card: a :class:`LaidTable`, or
+    the plain table laid out anew for this call (``what`` does it)."""
+    return S if isinstance(S, LaidTable) else what(S)
+
+
+def _plain(S, what):
+    """Raise unless the plain version can take ``S``: it takes the table of
+    :func:`pack_tables` (:func:`pack_tables_split`), not a laid one."""
+    if isinstance(S, LaidTable):
+        raise ValueError(f"{what}'s plain version takes the unsplit table; a "
+                         f"LaidTable runs only on the card")
+
+
 def _check_table(S, mixed):
-    if S.ndim != 4 or S.shape[-1] != 2:
+    if len(S.shape) != 4 or S.shape[-1] != 2:
         raise ValueError(f"S must be (N, K, P, 2), got {tuple(S.shape)}")
     N, K, P, _ = S.shape
     if mixed and K != 2 * LANES:
@@ -210,8 +305,8 @@ def _check_table(S, mixed):
 
 def _check(S, wr, wi, pm_t, nbatch, mixed):
     N, K, P = _check_table(S, mixed)
-    check_tables({"S": (S, None), "wr": (wr, (P, N)), "wi": (wi, (P, N)),
-                  "pm_t": (pm_t, (P, P))}, nbatch)
+    check_tables({"S": (_data(S, False), None), "wr": (wr, (P, N)),
+                  "wi": (wi, (P, N)), "pm_t": (pm_t, (P, P))}, nbatch)
     return N, K, P
 
 
@@ -240,17 +335,21 @@ def colfac_detect(seed, S, wr, wi, pm_t, nbatch, mixed=True, stream=0,
     launch from the draw index it starts at) on the current stream and
     counts each launch in ``colfac_detect.LAUNCHES``, or raises for a
     shape it does not take (:func:`supports`); on CPU tensors it runs the
-    plain version.
+    plain version. On the card ``S`` may be the :class:`LaidTable` of
+    :func:`lay_tables` (the engine's, laid out once per configuration); a
+    plain ``S`` is laid out anew for the call.
     """
     N, K, P = _check(S, wr, wi, pm_t, nbatch, mixed)
     dev = S.device
     check_subharm(sh_t, nbatch, P, dev)
     if dev.type == "cpu":
+        _plain(S, "colfac_detect")
         return colfac_detect_reference(seed, S, wr, wi, pm_t, nbatch,
                                        mixed=mixed, stream=stream, sh_t=sh_t)
     if dev.type != "cuda":
         raise ValueError(f"colfac_detect runs on CPU or CUDA, not {dev}")
     _check_launch(N, P, stream)
+    S = _laid(S, lay_tables).data
     k0, k1 = _key(seed)
     lib, _ = _library()
     nbatch = int(nbatch)
@@ -292,17 +391,20 @@ def colfac_pass1(seed, S, nbatch, mixed=True, stream=0, draw0=0):
     On CUDA tensors this launches pass 1 of ``csrc/colfac_detect.cu``
     (launches of :func:`~fast_tpu_torch.ops.synth_detect.draws_per_launch`
     draws, counted in ``colfac_pass1.LAUNCHES``) on the current stream, or
-    raises; on CPU tensors it runs the plain version.
+    raises; on CPU tensors it runs the plain version. ``S`` as
+    :func:`colfac_detect` takes it.
     """
     N, K, P = _check_table(S, mixed)
-    check_tables({"S": (S, None)}, nbatch)
+    check_tables({"S": (_data(S, False), None)}, nbatch)
     dev = S.device
     if dev.type == "cpu":
+        _plain(S, "colfac_pass1")
         return colfac_pass1_reference(seed, S, nbatch, mixed=mixed,
                                       stream=stream, draw0=draw0)
     if dev.type != "cuda":
         raise ValueError(f"colfac_pass1 runs on CPU or CUDA, not {dev}")
     _check_launch(N, P, stream)
+    S = _laid(S, lay_tables).data
     k0, k1 = _key(seed)
     lib, _ = _library()
     nbatch = int(nbatch)
@@ -374,6 +476,29 @@ detect_pass.LAUNCHES = 0
 # ---------------------------------------------------------------------------
 
 
+def _split_columns(L, mixed, per=64):
+    """:func:`pack_tables_split`'s table ``per`` columns at a time: yields
+    ``(m0, T[m0 : m0 + per])``."""
+    L = L.to(torch.complex64)
+    N, npup, _ = L.shape
+    P = padded_pupil(npup)
+    Kq = lane_width(npup) if mixed else P
+    if mixed:
+        M = torch.from_numpy(mixing_matrix(Kq).astype(np.float64))
+        M = M[:, :npup].to(L.device)
+    for m0 in range(0, N, per):
+        Lt = torch.view_as_real(L[m0:m0 + per].transpose(1, 2))
+        T = torch.zeros((Lt.shape[0], Kq, P, 2), dtype=torch.float32,
+                        device=L.device)
+        if mixed:
+            # (Kq, npup) @ (cols, npup, npup real-imag pairs), in float64
+            T[:, :, :npup] = torch.einsum("jq,mqpc->mjpc", M,
+                                          Lt.double()).float()
+        else:
+            T[:, :npup, :npup] = Lt
+        yield m0, T
+
+
 def pack_tables_split(L, mixed=True):
     """K3's factor table from ``L`` (N, npup, npup) complex.
 
@@ -387,21 +512,85 @@ def pack_tables_split(L, mixed=True):
     noise)``, each part stored once. Runs on ``L``'s device, 64 columns
     at a time (1.7 GB of table at N=1024 with a 402 px pupil).
     """
-    L = L.to(torch.complex64)
     N, npup, _ = L.shape
     P = padded_pupil(npup)
     Kq = lane_width(npup) if mixed else P
-    T = torch.zeros((N, Kq, P, 2), dtype=torch.float32, device=L.device)
-    if not mixed:
-        T[:, :npup, :npup] = torch.view_as_real(L.transpose(1, 2))
-        return T
-    M = torch.from_numpy(mixing_matrix(Kq).astype(np.float64)).to(L.device)
-    for m0 in range(0, N, 64):
-        # (Kq, npup) @ (cols, npup, npup real-imag pairs), in float64
-        Lt = torch.view_as_real(L[m0:m0 + 64].transpose(1, 2)).double()
-        T[m0:m0 + 64, :, :npup] = torch.einsum(
-            "jq,mqpc->mjpc", M[:, :npup], Lt).float()
+    T = torch.empty((N, Kq, P, 2), dtype=torch.float32, device=L.device)
+    for m0, part in _split_columns(L, mixed):
+        T[m0:m0 + part.shape[0]] = part
     return T
+
+
+def _split_geom(P):
+    """How K3's pass 1 covers a padded pupil ``P`` (``split_geom`` of
+    ``csrc/colfac_split.cu``): ``(PB, nz, cs)``, nz slices of PB <= 208 px
+    (a multiple of 16), run as clusters of cs blocks: all nz where nz <=
+    8, else one."""
+    nz = -(-P // _PB_MAX)
+    return -(-(P // 16) // nz) * 16, nz, nz if nz <= _MAX_CLUSTER else 1
+
+
+def _split_smem(P):
+    """Bytes of K3's pass-1 shared memory at a padded pupil ``P``
+    (``pass1_smem`` of ``csrc/colfac_split.cu``): a ring of 4 steps of
+    B_r and B_i, hi and lo, over PB px; two x tiles of noise; 12
+    mbarriers."""
+    PB = _split_geom(P)[0]
+    return 4 * (_STAGES_K3 * 32 * PB + 2 * _X_TILE) + 8 * (2 * _STAGES_K3 + 4)
+
+
+def _lay_split(T):
+    """:func:`lay_tables_split`'s data of the columns of ``T``."""
+    n, Kq, P, _ = T.shape
+    PB, nz, _ = _split_geom(P)
+    k64 = -(-Kq // 64) * 64
+    t = torch.nn.functional.pad(T, (0, 0, 0, nz * PB - P, 0, k64 - Kq))
+    t = t.reshape(n, k64, nz, PB, 2).permute(0, 4, 2, 1, 3)
+    hi, lo = _hi_lo(t)
+    return torch.stack([_core_steps(x[:, i]) for i in (0, 1)
+                        for x in (hi, lo)], dim=3)
+
+
+def lay_tables_split(T):
+    """K3's table ``T`` (:func:`pack_tables_split`) as its pass 1 reads
+    it: a :class:`LaidTable` of (N, nz, Kq64 / 8, 4, 8 PB) float32: per
+    column, pupil slice of PB px (:func:`_split_geom`) and 8-deep step of
+    the Kq lanes (padded with zeros to Kq64, a multiple of 64), B_r's
+    TF32 hi and lo parts, then B_i's, over the slice in ``wgmma``'s
+    core-matrix order (``csrc/colfac_split.cu``). On ``T``'s device, 64
+    columns at a time."""
+    parts = [_lay_split(T[m0:m0 + 64]) for m0 in range(0, T.shape[0], 64)]
+    return LaidTable(torch.cat(parts).contiguous(), T.shape, split=True)
+
+
+def laid_table(L, mixed=True):
+    """The :class:`LaidTable` of the factors ``L`` (N, npup, npup) on
+    ``L``'s device: K1's or K3's by :func:`colfac_layout`, K3's laid from
+    :func:`pack_tables_split`'s columns 64 at a time, so that the unsplit
+    table never exists whole."""
+    if colfac_layout(L.shape[1]) != "split":
+        return lay_tables(pack_tables(L, mixed=mixed))
+    N, npup, _ = L.shape
+    P = padded_pupil(npup)
+    Kq = lane_width(npup) if mixed else P
+    PB, nz, _ = _split_geom(P)
+    data = torch.empty((N, nz, -(-Kq // 64) * 8, 4, 8 * PB),
+                       dtype=torch.float32, device=L.device)
+    for m0, part in _split_columns(L, mixed):
+        data[m0:m0 + part.shape[0]] = _lay_split(part)
+    return LaidTable(data, (N, Kq, P, 2), split=True)
+
+
+def kernel_table(L, mixed=True):
+    """The colfac kernel's table of the factors ``L`` on ``L``'s device, as
+    the engine keeps it: on the card the :class:`LaidTable` its pass 1
+    reads (:func:`laid_table`, built once per configuration), on the CPU
+    the table the plain version takes (:func:`pack_tables`,
+    :func:`pack_tables_split`)."""
+    if L.device.type == "cuda":
+        return laid_table(L, mixed)
+    split = colfac_layout(L.shape[1]) == "split"
+    return (pack_tables_split if split else pack_tables)(L, mixed=mixed)
 
 
 def _split_gprime(seed, T, nbatch, mixed, stream, draw0, bits, LW):
@@ -463,7 +652,7 @@ def _library_split():
 
 
 def _check_split_table(T, LW):
-    if T.ndim != 4 or T.shape[-1] != 2:
+    if len(T.shape) != 4 or T.shape[-1] != 2:
         raise ValueError(f"T must be (N, Kq, P, 2), got {tuple(T.shape)}")
     N, Kq, P, _ = T.shape
     LW = lane_width(Kq) if LW is None else int(LW)
@@ -479,8 +668,8 @@ def _check_split_table(T, LW):
 
 def _check_split(T, wr, wi, pm_t, nbatch, LW):
     N, Kq, P, LW = _check_split_table(T, LW)
-    check_tables({"T": (T, None), "wr": (wr, (P, N)), "wi": (wi, (P, N)),
-                  "pm_t": (pm_t, (P, P))}, nbatch)
+    check_tables({"T": (_data(T, True), None), "wr": (wr, (P, N)),
+                  "wi": (wi, (P, N)), "pm_t": (pm_t, (P, P))}, nbatch)
     return N, Kq, P, LW
 
 
@@ -492,18 +681,22 @@ def colfac_detect_split(seed, T, wr, wi, pm_t, nbatch, mixed=True, stream=0,
     On CUDA tensors this launches the kernel (launches as
     :func:`colfac_detect`'s) on the current stream and counts each launch
     in ``colfac_detect_split.LAUNCHES``, or raises; on CPU tensors it runs
-    the plain version.
+    the plain version. On the card ``T`` may be the :class:`LaidTable` of
+    :func:`lay_tables_split` or :func:`laid_table`; a plain ``T`` is laid
+    out anew for the call.
     """
     N, Kq, P, LW = _check_split(T, wr, wi, pm_t, nbatch, LW)
     dev = T.device
     check_subharm(sh_t, nbatch, P, dev)
     if dev.type == "cpu":
+        _plain(T, "colfac_detect_split")
         return colfac_split_reference(seed, T, wr, wi, pm_t, nbatch,
                                       mixed=mixed, stream=stream, sh_t=sh_t,
                                       LW=LW)
     if dev.type != "cuda":
         raise ValueError(f"colfac_detect_split runs on CPU or CUDA, not {dev}")
     _check_stream(stream)
+    T = _laid(T, lay_tables_split).data
     k0, k1 = _key(seed)
     lib, _ = _library_split()
     nbatch = int(nbatch)
@@ -550,17 +743,20 @@ def split_pass1(seed, T, nbatch, mixed=True, stream=0, draw0=0, LW=None):
     On CUDA tensors this launches pass 1 of ``csrc/colfac_split.cu``
     (launches of :func:`~fast_tpu_torch.ops.synth_detect.draws_per_launch`
     draws, counted in ``split_pass1.LAUNCHES``) on the current stream, or
-    raises; on CPU tensors it runs the plain version.
+    raises; on CPU tensors it runs the plain version. ``T`` as
+    :func:`colfac_detect_split` takes it.
     """
     N, Kq, P, LW = _check_split_table(T, LW)
-    check_tables({"T": (T, None)}, nbatch)
+    check_tables({"T": (_data(T, True), None)}, nbatch)
     dev = T.device
     if dev.type == "cpu":
+        _plain(T, "split_pass1")
         return split_pass1_reference(seed, T, nbatch, mixed=mixed,
                                      stream=stream, draw0=draw0, LW=LW)
     if dev.type != "cuda":
         raise ValueError(f"split_pass1 runs on CPU or CUDA, not {dev}")
     _check_stream(stream)
+    T = _laid(T, lay_tables_split).data
     k0, k1 = _key(seed)
     lib, _ = _library_split()
     nbatch = int(nbatch)

@@ -79,8 +79,8 @@ def sim(niter=2 ** 20, nchunks=16, split=False, nlayers=4, **kw):
     s = Fast(flagship_params(nlayers, NITER=niter, NCHUNKS=nchunks, **kw),
              device="cuda")
     if split:  # K3 on a pupil K1 takes: the split-layout tables
-        s.tables["T_colfac"] = cd.pack_tables_split(
-            s.tables["L"], mixed=kw["MC_NOISE"] == "mixed")
+        s.tables["T_colfac"] = cd.lay_tables_split(cd.pack_tables_split(
+            s.tables["L"], mixed=kw["MC_NOISE"] == "mixed"))
     return s
 
 

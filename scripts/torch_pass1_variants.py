@@ -3,8 +3,10 @@ variants of itself with one part of its work taken out.
 
     python scripts/torch_pass1_variants.py [variant ...]
 
-Each variant is csrc/synth_detect.cu with one function body replaced,
-built by nvcc (the package's flags) into build/pass1_variants/ and timed
+Each variant is csrc/synth_detect.cu with one piece of its pass 1 (or of
+the wgmma.cuh and tf32x3.cuh it includes) replaced
+(``torch_variants.wgmma_variants``), built by nvcc (the package's flags)
+into build/pass1_variants/ and timed
 through its ``fast_synth_pass1`` entry at chip_smoke.py's shapes (256^2,
 P=82 over 4096 draws; 1024^2, P=402 over 630). The variants compute wrong
 numbers on purpose; only their times mean anything:
@@ -14,7 +16,7 @@ numbers on purpose; only their times mean anything:
   no_mma     no wgmma: each fold group's products replaced by a few
              instructions on the same A fragments (the tables still land
              in shared memory): the time without the tensor cores' work
-  no_split   hi = x, lo = 0: the three products without the split
+  no_split   hi = x, lo = 0 for A: the three products without the split
   no_philox  a two-multiply hash in place of Philox4x32-10
   half_copy  each bulk copy of a B stage moves half its bytes: the time
              with half the traffic from L2 into shared memory
@@ -32,59 +34,16 @@ import numpy as np
 import torch
 
 # torch_variants puts the checkout's root on the path first
-from torch_variants import (build, card, cuda_ms, ptxas,
-                            read_sources, replace_body, replace_once)
+from torch_variants import build, card, cuda_ms, ptxas, wgmma_variants
 from fast_tpu_torch.ops import _build
 from fast_tpu_torch.ops import synth_detect as sd
 from fast_tpu_torch.synthesis import pruned_ift2_matrix
 
 OUT = os.path.join(os.path.dirname(str(_build._BUILD)), "pass1_variants")
-HASH = """
-__device__ __forceinline__ fast::U4 hash_bits(uint32_t c0, uint32_t c1,
-                                              uint32_t, uint32_t,
-                                              uint32_t k0, uint32_t) {
-  const uint32_t h = (c0 * 0x9E3779B9u) ^ (c1 * 0x85EBCA6Bu) ^ k0;
-  return {h, h * 0xC2B2AE35u, 0u, 0u};
-}
-#define philox4x32_10 hash_bits
-"""
-
-
-def variants(src, tf32x3):
-    """{name: (kernel source, tf32x3.cuh source)}."""
-    one = """
-  wgmma_fence();
-#pragma unroll
-  for (int s = 0; s < 2; ++s)
-#pragma unroll
-    for (int q = 0; q < NT; ++q) wgmma_tf32<N>(d, a[q][s].h, bh[q][s], s + q);
-  wgmma_commit();"""
-    none = """
-  const float b = __uint_as_float(static_cast<uint32_t>(bh[0][0] ^ bl[0][1]));
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i)
-    d[i] = __uint_as_float(a[0][0].h[i & 3] ^ a[NT - 1][1].l[i & 3]) + b;
-  wgmma_commit();"""
-    return {
-        "base": (src, tf32x3),
-        "one_mma": (replace_body(src, "mma3_group", one, "one_mma"), tf32x3),
-        "no_mma": (replace_body(src, "mma3_group", none, "no_mma"), tf32x3),
-        "no_split": (src, replace_body(
-            tf32x3, "split", "\n  hi = __float_as_uint(x);\n  lo = 0u;",
-            "no_split")),
-        "no_philox": (replace_once(src, r'#include "detect\.cuh"\n',
-                                   '#include "detect.cuh"\n' + HASH,
-                                   "no_philox"), tf32x3),
-        "half_copy": (replace_once(
-            src, r"mbar_expect\(&full\[s\], bytes\);(\s*)bulk_copy\(slots "
-            r"\+ s \* words, src, bytes, &full\[s\]\);",
-            "mbar_expect(&full[s], bytes / 2);\n    bulk_copy(slots + s * "
-            "words, src, bytes / 2, &full[s]);", "half_copy"), tf32x3),
-    }
 
 
 def main():
-    todo = variants(*read_sources("synth_detect"))
+    todo = wgmma_variants("synth_detect")
     if sys.argv[1:]:
         todo = {k: v for k, v in todo.items() if k in sys.argv[1:]}
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32

@@ -299,8 +299,10 @@ class Dossier:
         # K3 wherever the tables hold its packing
         npup = sim.Npxls_pup
         try:
-            sim.tables["T_colfac"] = cd.pack_tables_split(sim.tables["L"],
-                                                          mixed=True)
+            T = cd.pack_tables_split(sim.tables["L"], mixed=True)
+            # the card's kernel reads the table laid out for its pass 1
+            sim.tables["T_colfac"] = cd.lay_tables_split(T) if T.is_cuda \
+                else T
             c, ok_c, note_c = self.run(sim, "K3", 33)
         except (ValueError, RuntimeError) as e:
             self.record("fold", "merged vs split layout (same RV family)",

@@ -1,6 +1,7 @@
-"""The harness that scripts/torch_pass1_variants.py and
-scripts/torch_ar_dft_variants.py share: copies of one CUDA source of
-fast_tpu_torch, each with one piece of its code replaced, built by nvcc
+"""The harness that scripts/torch_pass1_variants.py,
+scripts/torch_colfac_variants.py and scripts/torch_ar_dft_variants.py
+share: copies of one CUDA source of fast_tpu_torch (and of its headers),
+each with one piece of its code replaced, built by nvcc
 (one process each, all at once, with the package's flags and headers)
 into a directory of their own under build/, loaded with ctypes and timed
 with CUDA events. A replacement that no longer finds the code it replaces
@@ -23,14 +24,18 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 CSRC = os.path.join(ROOT, "fast_tpu_torch", "csrc")
-HEADERS = ("common.cuh", "detect.cuh", "wgmma.cuh")
+HEADERS = ("common.cuh", "detect.cuh", "tf32x3.cuh", "wgmma.cuh")
+
+
+def read_source(name):
+    """csrc/<name> (a source or a header) as text."""
+    with open(os.path.join(CSRC, name)) as f:
+        return f.read()
 
 
 def read_sources(name):
     """(csrc/<name>.cu, csrc/tf32x3.cuh) as text."""
-    with open(os.path.join(CSRC, f"{name}.cu")) as f, \
-            open(os.path.join(CSRC, "tf32x3.cuh")) as g:
-        return f.read(), g.read()
+    return read_source(f"{name}.cu"), read_source("tf32x3.cuh")
 
 
 def find_once(pattern, src, what):
@@ -58,21 +63,86 @@ def replace_body(src, name, new, what):
     return src[:m.start(1)] + new + src[m.end(1):]
 
 
+HASH = """
+__device__ __forceinline__ fast::U4 hash_bits(uint32_t c0, uint32_t c1,
+                                              uint32_t, uint32_t,
+                                              uint32_t k0, uint32_t) {
+  const uint32_t h = (c0 * 0x9E3779B9u) ^ (c1 * 0x85EBCA6Bu) ^ k0;
+  return {h, h * 0xC2B2AE35u, 0u, 0u};
+}
+#define philox4x32_10 hash_bits
+"""
+ONE_MMA = """
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int q = 0; q < NT; ++q) wgmma_tf32<N>(d, a[q][s].h, bh[q][s], s + q);
+  wgmma_commit();"""
+NO_MMA = """
+  const float b = __uint_as_float(static_cast<uint32_t>(bh[0][0] ^ bl[0][1]));
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i)
+    d[i] = __uint_as_float(a[0][0].h[i & 3] ^ a[NT - 1][1].l[i & 3]) + b;
+  wgmma_commit();"""
+
+
+def wgmma_variants(name):
+    """{variant: {file: text}} of csrc/<name>.cu, a kernel whose pass 1
+    runs on wgmma.cuh's fold groups (K1, K2/K7, K3), each variant with one
+    part of pass 1's work taken out (they compute wrong numbers on
+    purpose; only their times mean anything):
+
+      base       the kernel as it is
+      one_mma    one TF32 wgmma a step instead of three (a_hi b_hi only)
+      no_mma     no wgmma: each fold group's products replaced by a few
+                 instructions on the same A fragments (the tables still
+                 land in shared memory): the time without the tensor
+                 cores' work
+      no_split   hi = x, lo = 0 for the A operands (B is split before)
+      no_philox  a two-multiply hash in place of Philox4x32-10
+      half_copy  each bulk copy of a B stage moves half its bytes: the time
+                 with half the traffic from L2 into shared memory
+    """
+    src = read_source(f"{name}.cu")
+    tf32x3, wg = read_source("tf32x3.cuh"), read_source("wgmma.cuh")
+    return {
+        "base": {"k.cu": src},
+        "one_mma": {"k.cu": src, "wgmma.cuh": replace_body(
+            wg, "mma3_group", ONE_MMA, "one_mma")},
+        "no_mma": {"k.cu": src, "wgmma.cuh": replace_body(
+            wg, "mma3_group", NO_MMA, "no_mma")},
+        "no_split": {"k.cu": src, "tf32x3.cuh": replace_body(
+            tf32x3, "split", "\n  hi = __float_as_uint(x);\n  lo = 0u;",
+            "no_split")},
+        "no_philox": {"k.cu": replace_once(
+            src, r'#include "detect\.cuh"\n', '#include "detect.cuh"\n'
+            + HASH, "no_philox")},
+        "half_copy": {"k.cu": src, "wgmma.cuh": replace_once(
+            wg, r"mbar_expect\(&full\[s\], bytes\);(\s*)bulk_copy\(slots "
+            r"\+ s \* words, src, bytes, &full\[s\]\);",
+            "mbar_expect(&full[s], bytes / 2);\n    bulk_copy(slots + s * "
+            "words, src, bytes / 2, &full[s]);", "half_copy")},
+    }
+
+
 def build(out, todo, flags, entry, argtypes):
-    """Build {name: (kernel source, tf32x3.cuh source[, detect.cuh
-    source])} into out/<name>/, one nvcc each, all at once; returns {name:
-    (the C function ``entry`` with ``argtypes``, nvcc's log)}."""
+    """Build {name: sources} into out/<name>/, one nvcc each, all at once;
+    sources are (kernel source, tf32x3.cuh source[, detect.cuh source]) or
+    {file name: text} with the kernel source as "k.cu", the headers not
+    given copied from csrc/. Returns {name: (the C function ``entry`` with
+    ``argtypes``, nvcc's log)}."""
     from fast_tpu_torch.ops import _build
     t0 = time.perf_counter()
     procs = {}
     for name, srcs in todo.items():
         d = os.path.join(out, name)
         os.makedirs(d, exist_ok=True)
-        for h in HEADERS:
-            with open(os.path.join(CSRC, h)) as f, \
-                    open(os.path.join(d, h), "w") as g:
-                g.write(f.read())
-        for fname, text in zip(("k.cu", "tf32x3.cuh", "detect.cuh"), srcs):
+        if not isinstance(srcs, dict):
+            srcs = dict(zip(("k.cu", "tf32x3.cuh", "detect.cuh"), srcs))
+        files = {h: read_source(h) for h in HEADERS}
+        files.update(srcs)
+        for fname, text in files.items():
             with open(os.path.join(d, fname), "w") as f:
                 f.write(text)
         procs[name] = subprocess.Popen(
@@ -106,6 +176,20 @@ def ptxas(log, kernel):
         if key and ("Used" in line or "spill" in line):
             out[key] = "; ".join(
                 filter(None, (out.get(key), line.split(":", 1)[-1].strip())))
+    return out
+
+
+def serialized(log, kernel):
+    """{template arguments: [ptxas warning codes]} of each entry function
+    ``kernel`` in an nvcc log whose wgmma ptxas serialized or fenced
+    (C7510-C7519: "Potential Performance Loss")."""
+    out = {}
+    for line in log.splitlines():
+        m = re.search(r"\((C751\d)\).*function '(\S+)'", line)
+        e = m and re.search(kernel + r"I((?:L[bi]\d+E)+)E", m.group(2))
+        if e:
+            key = ", ".join(re.findall(r"L[bi](\d+)E", e.group(1)))
+            out.setdefault(key, []).append(m.group(1))
     return out
 
 

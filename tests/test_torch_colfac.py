@@ -299,6 +299,123 @@ def test_pack_tables_layout(noise):
         assert not S[:, 8:].any()  # lanes past the pupil meet zero rows
 
 
+def _word(col, depth):
+    """Word of column ``col`` and depth ``depth`` within an 8-deep step of
+    wgmma's B layout (csrc/wgmma.cuh), in the kernels' depth-slot order:
+    slot s holds depth 2 (s % 4) + s // 4 (the A fragments' order)."""
+    s = (0, 2, 4, 6, 1, 3, 5, 7).index(depth % 8)
+    return (col // 8) * 64 + (s // 4) * 32 + (col % 8) * 4 + s % 4
+
+
+@pytest.mark.parametrize("noise", ["gauss", "mixed"])
+def test_lay_tables_lays_out_split_operands(noise):
+    """Every element of K1's laid table where pass 1 reads it: S_m's TF32
+    hi and lo parts per 8-deep step, output column 16 (p // 8) + 8 part +
+    p % 8 of pupil pixel p (8 Re, then 8 Im a block), the parts summing to
+    the element to 22 bits."""
+    mixed = noise == "mixed"
+    S = k1_inputs(N=6, lo=2, hi=26, mixed=mixed)[1]["S"]   # P = 32
+    N, K, P, _ = S.shape
+    laid = cd.lay_tables(S)
+    assert isinstance(laid, cd.LaidTable) and not laid.split
+    assert laid.shape == S.shape and laid.data.is_contiguous()
+    assert laid.data.shape == (N, K // 8, 2, 16 * P)
+    hi, lo = sd._hi_lo(S)
+    k = np.arange(K)[:, None, None]
+    p = np.arange(P)[None, :, None]
+    part = np.arange(2)[None, None, :]
+    col = 16 * (p // 8) + 8 * part + p % 8
+    word = np.vectorize(_word)(col, k)
+    # (N, hi/lo, K, P, part)
+    got = laid.data.transpose(1, 2)[:, :, k // 8, word]
+    assert torch.equal(got[:, 0], hi) and torch.equal(got[:, 1], lo)
+    assert float((S - hi - lo).abs().max()) <= 2.0 ** -21 * float(
+        S.abs().max())
+
+
+@pytest.mark.parametrize("npup,noise", [(20, "mixed"), (20, "gauss"),
+                                        (150, "mixed"), (150, "gauss")])
+def test_laid_table_is_the_plain_table_laid_out(npup, noise):
+    """``laid_table`` (the engine's table on the card, K3's built 64
+    columns at a time) is the plain table laid out, bit for bit, over 70
+    columns; ``kernel_table`` on the CPU is the plain table."""
+    mixed = noise == "mixed"
+    rng = np.random.default_rng(4)
+    L = torch.from_numpy((rng.normal(size=(70, npup, npup))
+                          + 1j * rng.normal(size=(70, npup, npup)))
+                         .astype(np.complex64))
+    split = npup > 128
+    plain = (cd.pack_tables_split if split else cd.pack_tables)(L, mixed)
+    want = (cd.lay_tables_split if split else cd.lay_tables)(plain)
+    got = cd.laid_table(L, mixed)
+    assert got.split == split and got.shape == plain.shape
+    assert torch.equal(got.data, want.data)
+    assert torch.equal(cd.kernel_table(L, mixed), plain)
+
+
+def test_laid_tables_run_only_on_the_card():
+    """The plain version takes the unsplit table: a LaidTable on the CPU
+    raises, as does one of the other kernel's layout or of a wrong
+    shape."""
+    _, t = k1_inputs()
+    laid = cd.lay_tables(t["S"])
+    with pytest.raises(ValueError, match="only on the card"):
+        cd.colfac_detect(1, laid, t["wr"], t["wi"], t["pm_t"], 2)
+    with pytest.raises(ValueError, match="only on the card"):
+        cd.colfac_pass1(1, laid, 2)
+    T = cd.pack_tables_split(torch.from_numpy(k1_inputs()[0][0]))
+    with pytest.raises(ValueError, match="laid out for K3"):
+        cd.colfac_pass1(1, cd.lay_tables_split(T), 2, mixed=False)
+    bad = cd.LaidTable(laid.data[:, 1:].contiguous(), t["S"].shape, False)
+    with pytest.raises(ValueError, match="must hold"):
+        cd.colfac_pass1(1, bad, 2)
+
+
+# (kernel, N, P, K or Kq, noise): shapes the kernels took before pass 1
+# moved to wgmma (their C `takes`): K1 up to 128 px, 'mixed' 256 rows,
+# 'gauss' 2P; K3 any pupil, Kq = LW ('mixed') or P ('gauss'). The default
+# config (102 px, P = 112), the flagships' 82 px (P = 96), 16 and 128 px;
+# K3 at 24, 144, 402 (P = 416, two slices), 530 (P = 544, three slices,
+# the last partial), 1000 (P = 1008, five) and 1680 px (nine slices: no
+# cluster)
+PARENT_SHAPES = [
+    ("K1", 102, 112, 256, "mixed"), ("K1", 102, 112, 224, "gauss"),
+    ("K1", 512, 96, 256, "mixed"), ("K1", 512, 96, 192, "gauss"),
+    ("K1", 64, 16, 256, "mixed"), ("K1", 64, 16, 32, "gauss"),
+    ("K1", 256, 128, 256, "mixed"), ("K1", 256, 128, 256, "gauss"),
+    ("K1", 65535, 32, 64, "gauss"),
+    ("K3", 64, 32, 128, "mixed"), ("K3", 64, 16, 16, "gauss"),
+    ("K3", 160, 144, 256, "mixed"), ("K3", 160, 144, 144, "gauss"),
+    ("K3", 1024, 416, 512, "mixed"), ("K3", 1024, 416, 416, "gauss"),
+    ("K3", 544, 544, 640, "mixed"), ("K3", 1024, 1008, 1024, "mixed"),
+    ("K3", 1024, 1008, 1008, "gauss"), ("K3", 2048, 1680, 1792, "mixed"),
+]
+
+
+@pytest.mark.parametrize("shape", PARENT_SHAPES,
+                         ids=lambda c: f"{c[0]}-N{c[1]}P{c[2]}K{c[3]}{c[4]}")
+def test_parent_shapes_still_taken(shape):
+    """Each shape the kernels took is still taken by the wrappers' checks,
+    within a block's shared memory (the Python mirrors of the CUDA
+    sources' ``pass1_smem``) and the grid's limits; K3's slices cover the
+    pupil and run as clusters of at most 8."""
+    kernel, N, P, K, noise = shape
+    mixed = noise == "mixed"
+    tab = torch.empty((N, K, P, 2), device="meta")
+    if kernel == "K1":
+        assert cd._check_table(tab, mixed) == (N, K, P)
+        cd._check_launch(N, P, 0)
+        smem = cd._pass1_smem(P)
+    else:
+        assert cd._check_split_table(tab, None)[:3] == (N, K, P)
+        PB, nz, cs = cd._split_geom(P)
+        assert PB % 16 == 0 and PB <= 208 and P <= nz * PB < P + 16 * nz
+        assert cs == (nz if nz <= 8 else 1) and nz % cs == 0
+        smem = cd._split_smem(P)
+    assert smem <= 232448
+    assert N <= 65535 and sd.draws_per_launch(N, P) <= 4096
+
+
 def test_wrapper_runs_plain_version_on_cpu():
     _, t = k1_inputs()
     before = cd.colfac_detect.LAUNCHES
@@ -415,9 +532,12 @@ def cuda_device():
 
 
 # (N, lo, hi, draws): 4100 draws take two launches, the second from draw
-# 4096; a grid side that is no multiple of 64 with its pupil as wide as the
-# grid; the 512^2 flagship's shapes
-KERNEL_CASES = [(64, 20, 44, 4100), (102, 0, 102, 64), (512, 215, 297, 4100)]
+# 4096; a grid side that is no multiple of 64 (nor of the 4 columns a block
+# takes) with its pupil as wide as the grid; the 512^2 flagship's shapes;
+# a 128 px pupil (one chunk of pass 1 in flight) over 100 draws, the
+# second warpgroup's 64 partial
+KERNEL_CASES = [(64, 20, 44, 4100), (102, 0, 102, 64), (512, 215, 297, 4100),
+                (128, 0, 128, 100)]
 
 
 @pytest.mark.cuda
@@ -440,8 +560,11 @@ def test_kernel_matches_plain_on_card(cuda_device, noise, case):
 
 
 # (N, lo, hi, draws) of the passes alone: 64^2; the default config's 102^2
-# with its pupil as wide as the grid; the 512^2 flagship's shapes
-PASS_CASES = [(64, 20, 44, 37), (102, 0, 102, 16), (512, 215, 297, 70)]
+# with its pupil as wide as the grid; the 512^2 flagship's shapes; a 12 px
+# pupil (P = 16: 32 output columns, the tail alone) and a 128 px one over
+# draws that leave a partial 64-draw tile
+PASS_CASES = [(64, 20, 44, 37), (102, 0, 102, 16), (512, 215, 297, 70),
+              (64, 26, 38, 100), (128, 0, 128, 67)]
 
 
 @pytest.mark.cuda
@@ -467,6 +590,32 @@ def test_pass1_matches_plain_on_card(cuda_device, noise, case):
     top = max(float(rr.abs().max()), float(ri.abs().max()))
     err = max(float((gr - rr).abs().max()), float((gi - ri).abs().max()))
     assert err <= GPRIME_REL * N * 2.0 ** -24 * top
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("npup", [82, 402])
+def test_engine_table_runs_as_the_plain_table_on_card(cuda_device, npup):
+    """The engine's table on the card (``kernel_table``: laid out once,
+    K3's 64 columns at a time) gives the G' of the plain table laid out
+    for the call, bit for bit: K1 at 82 px, K3 at 402 px (two slices, a
+    cluster of two), 70 columns."""
+    rng = np.random.default_rng(6)
+    L = ((rng.normal(size=(70, npup, npup))
+          + 1j * rng.normal(size=(70, npup, npup))) / npup).astype(
+        np.complex64)
+    L = torch.from_numpy(L).to(cuda_device)
+    laid = cd.kernel_table(L)
+    assert isinstance(laid, cd.LaidTable)
+    if npup > 128:
+        plain = cd.pack_tables_split(L)
+        got = cd.split_pass1(0xABCDEF0123, laid, 67, stream=4)
+        want = cd.split_pass1(0xABCDEF0123, plain, 67, stream=4)
+    else:
+        plain = cd.pack_tables(L)
+        got = cd.colfac_pass1(0xABCDEF0123, laid, 67, stream=4)
+        want = cd.colfac_pass1(0xABCDEF0123, plain, 67, stream=4)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.cuda

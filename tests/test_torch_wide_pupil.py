@@ -31,6 +31,8 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_colfac
+
 from fast_tpu_torch import synthesis as ts
 from fast_tpu_torch.ops import colfac_detect as cd
 from fast_tpu_torch.ops import synth_detect as sd
@@ -303,6 +305,32 @@ def test_split_plain_draw_offset_continues_the_stream(monkeypatch):
         cd.colfac_split_reference(*args, 6, stream=1), full, rtol=0, atol=0)
 
 
+def test_lay_tables_split_lays_out_split_operands():
+    """Every element of K3's laid table where pass 1 reads it: per pupil
+    slice of PB px (448 px cut into three of 160, the last partial) and
+    8-deep step of the lanes (80, padded to 128), B_r's TF32 hi and lo
+    parts, then B_i's, in wgmma's core-matrix order; padding zero."""
+    N, Kq, P = 3, 80, 448
+    T = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(N, Kq, P, 2)).astype(np.float32))
+    PB, nz, cs = cd._split_geom(P)
+    assert (PB, nz, cs) == (160, 3, 3)
+    laid = cd.lay_tables_split(T)
+    assert laid.split and laid.shape == T.shape
+    assert laid.data.shape == (N, nz, 128 // 8, 4, 8 * PB)
+    hi, lo = sd._hi_lo(T)
+    q = np.arange(Kq)[:, None]
+    p = np.arange(P)[None, :]
+    word = np.vectorize(test_torch_colfac._word)(p % PB, q)
+    # (N, 4, Kq, P): B_r hi, B_r lo, B_i hi, B_i lo
+    got = laid.data.permute(0, 3, 1, 2, 4)[:, :, p // PB, q // 8, word]
+    want = torch.stack([hi[..., 0], lo[..., 0], hi[..., 1], lo[..., 1]], 1)
+    assert torch.equal(got, want)
+    assert float(laid.data[:, :, Kq // 8:].abs().max()) == 0.0
+    last = laid.data[:, nz - 1].reshape(N, 128 // 8, 4, PB // 8, 64)
+    assert float(last[:, :, :, (P - (nz - 1) * PB) // 8:].abs().max()) == 0.0
+
+
 def test_split_wrapper_runs_plain_version_on_cpu():
     _, t = k3_inputs()
     args = (11, t["T"], t["wr"], t["wi"], t["pm_t"], 3)
@@ -464,10 +492,14 @@ def cuda_device():
 # tiles an axis and two pass-1 blocks along the pupil in K2
 KERNEL_CASES = [(64, 20, 44, 70), (160, 8, 152, 4100), (416, 7, 409, 5),
                 (544, 7, 537, 3)]
+# K3's: the first three, then 530 px (pass 1 in three slices of 192 px,
+# a cluster of three, the last slice partial) and the 402 px pupil over
+# 70 draws (a partial second 64-draw tile)
+SPLIT_CASES = KERNEL_CASES[:3] + [(544, 7, 537, 3), (416, 7, 409, 70)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", KERNEL_CASES[:3],
+@pytest.mark.parametrize("case", SPLIT_CASES,
                          ids=lambda c: f"N{c[0]}x{c[3]}")
 @pytest.mark.parametrize("noise", ["gauss", "mixed"])
 def test_split_kernel_matches_plain_on_card(cuda_device, noise, case):
@@ -513,7 +545,7 @@ def test_k2_kernel_matches_plain_at_wide_pupils_on_card(cuda_device, noise,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", KERNEL_CASES[:3],
+@pytest.mark.parametrize("case", SPLIT_CASES,
                          ids=lambda c: f"N{c[0]}x{c[3]}")
 @pytest.mark.parametrize("noise", ["gauss", "mixed"])
 def test_split_pass1_matches_plain_on_card(cuda_device, noise, case):
