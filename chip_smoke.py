@@ -11,8 +11,9 @@ Phases, in order; any failure exits non-zero before the result line:
    (``csrc/colfac_detect.cu``) and K3 (``csrc/colfac_split.cu``) and the AR
    flow kernels K4, K5 and K6 (``csrc/ar_flow.cu``), one ``nvcc`` each, started
    together; print ptxas registers, spills and shared memory of each pass
-   at the flagships' padded pupil (P=96) and at the 4 m link's (P=416, in
-   tiles of 112 px; K2's and K7's pass 1 in two slices of 208 px);
+   at the flagships' padded pupil (P=96) and at the 4 m link's (P=416: the
+   AR kernels' detect in tiles of 112 px; pass 1 of K2, K7 and K3 and the
+   second pass of K1, K2, K3 and K7 in two slices of 208 px);
 3. K2 against its plain torch version on the card, 'mixed' and 'gauss'
    noise, from the same Philox bits: at the 256^2 flagship shapes (N=256,
    P=82) over 4100 draws, which takes two launches, the second from draw
@@ -22,15 +23,17 @@ Phases, in order; any failure exits non-zero before the result line:
    (``fast_synth_pass1``, 3xTF32 ``wgmma`` on the tensor cores) timed with the
    FLOP/s of its products beside its yardsticks (one ``torch.matmul`` of
    the mixing product and one complex64 ``torch.matmul`` of G' = X' W^T,
-   TF32 off), and K2's detect pass alone (``detect_pass``) beside one
-   complex64 ``torch.matmul`` of W @ G'; K2 with subharmonic screens over
+   TF32 off), and K2's detect pass alone (``detect_pass``, H^T = G'^T W^T
+   in 3xTF32 ``wgmma``, the draws stacked along its 64 rows, from the laid
+   W table) beside one complex64 ``torch.matmul`` of W @ G'; K2 with
+   subharmonic screens over
    4100 draws; and the device sincos against float64;
 4. K1 against its plain version at the 512^2 flagship shapes (N=512,
    P=82), 'mixed' and 'gauss', over 4100 draws (two launches), the kernel
    on the engine's table (split and laid out once for its pass 1), the
    plain version on the unsplit one, with the TF32 control; its two passes
    alone ('mixed': pass 1, ``colfac_pass1``, 3xTF32 ``wgmma``, and the
-   detect pass, ``detect_pass``, 3xTF32 ``mma.sync``) timed with their
+   detect pass, ``detect_pass``, 3xTF32 ``wgmma``) timed with their
    FLOP/s over the pupil's px and their bounds, beside their yardsticks:
    one batched ``torch.bmm`` of pass 1's (draws x K) @ (K x 2P) per column
    and one complex64 ``torch.matmul`` of W @ G' (TF32 off);
@@ -73,8 +76,11 @@ Phases, in order; any failure exits non-zero before the result line:
    which must launch its kernel and no other and agree with a 'matmul' run
    (4096); times per 630-draw launch beside bounds and plain versions,
    pass 1 alone for K2 ('mixed') and K7 (Box-Muller), K2's detect pass
-   alone beside one complex64 ``torch.matmul`` of W @ G' (the yardstick of
-   K7's screens pass too, whose time is K7's less its pass 1), K3's two
+   alone beside one complex64 ``torch.matmul`` of W @ G', K7's screens pass
+   alone (``screens_pass``, the same product on ``wgmma``, the screens
+   written out) on K7's G', held element by element against its plain
+   version (2N 2^-24 max |phi|) and timed beside the same yardstick, K3's
+   two
    passes alone with their yardsticks (as K1's in 4), warm rates and one
    profile per path;
 11. times: each kernel's ms per 4096 draws or steps beside its bound and
@@ -227,8 +233,8 @@ SI_REL = 0.05         # scintillation index, relative
 SEED = 0x5EED_1234_ABCD
 DEVICE = "cuda"
 PJ = 6                # the flagships' pupil, 82 px, padded to 16 * PJ = 96
-PJ_W = 7              # the 4 m link's pupil, 402 px, padded to 416: tiles
-                      # and column groups of 16 * PJ_W = 112 px
+PJ_W = 7              # the 4 m link's pupil, 402 px, padded to 416: the AR
+                      # kernels' tiles of 16 * PJ_W = 112 px
 WIDE = dict(NPXLS=1024, D_GROUND=4.0, DSUBAP=0.5)  # the wide-pupil link
 WIDE_SHAPE = (1024, 402)  # its grid side and pupil width
 NITER_W = 16384       # its realizations through 'auto' (K2), NCHUNKS=4
@@ -492,9 +498,10 @@ def _describe(name, a):
         return f"P={16 * PJ} {noise[a[0]]}"
     if name == "split_pass1" and 64 * a[1] + a[2] == 208:
         return f"P=416 {noise[a[0]]} slices of 208 px in clusters of two"
-    if name in ("detect_pass", "screens_pass") and tuple(a) in ((PJ, 1),
-                                                                (PJ_W, 0)):
-        return f"P={16 * PJ if a[1] else 416}"
+    if name in ("detect_pass", "screens_pass") and 64 * a[0] + a[1] in (
+            16 * PJ, 208):
+        pb = 64 * a[0] + a[1]
+        return (f"P={pb}" if pb == 16 * PJ else "P=416 slices of 208 px")
     if name == "ar_update" and a[0] == 4:
         return "4 layers " + ("frozen", "uniform", "gauss")[a[1]]
     if name in ("ar_dft", "ar_detect") and tuple(a) in ((PJ, 1), (PJ_W, 0)):
@@ -528,12 +535,12 @@ def phase_build():
                       f"{line.split(':', 1)[-1].strip()}")
 
 
-def check(kernel, fn, ref_fn, args, kw, label, kargs=None):
+def check(kernel, fn, ref_fn, args, kw, label, kargs=None, kkw=None):
     """A kernel against its plain version on the same inputs (the kernel
-    given ``kargs`` where its table is laid out for it); returns (max
-    |d|, the plain version's sums)."""
+    given ``kargs`` where its table is laid out for it, and ``kkw``, the
+    engine's laid W table); returns (max |d|, the plain version's sums)."""
     before = fn.LAUNCHES
-    ck = fn(*(kargs or args), **kw)
+    ck = fn(*(kargs or args), **kw, **(kkw or {}))
     cp = ref_fn(*args, **kw)
     torch.cuda.synchronize()
     launches = fn.LAUNCHES - before
@@ -569,13 +576,13 @@ def tf32_control(kernel, ref_fn, args, kw, c32, label, n=512):
 
 
 def time_kernel(fn, ref_fn, args, kw, ntime=NTIME, reps=(10, 3),
-                kargs=None):
+                kargs=None, kkw=None):
     """(kernel ms, plain ms) per ``ntime`` draws (the kernel given
-    ``kargs`` if any); the launches do not count."""
+    ``kargs`` and ``kkw`` if any); the launches do not count."""
     args = args[:-1] + (ntime,)
     kargs = args if kargs is None else kargs[:-1] + (ntime,)
     before = fn.LAUNCHES
-    ms = cuda_ms(lambda: fn(*kargs, **kw), reps[0])
+    ms = cuda_ms(lambda: fn(*kargs, **kw, **(kkw or {})), reps[0])
     plain_ms = cuda_ms(lambda: ref_fn(*args, **kw), reps[1])
     fn.LAUNCHES = before
     return ms, plain_ms
@@ -597,7 +604,8 @@ def time_pass1(T, nbatch, mixed, label, reps):
     mix = T["mix"] if mixed else None
     before = sd.synth_pass1.LAUNCHES
     ms = cuda_ms(lambda: sd.synth_pass1(SEED, T["s_t"], T["wr"], T["wi"],
-                                        nbatch, mix=mix), reps)
+                                        nbatch, mix=mix,
+                                        laid=T.get("w_laid")), reps)
     sd.synth_pass1.LAUNCHES = before
     tflops = nbatch * ((4 * N ** 3 if mixed else 0) + 8 * N * N * P) / (
         ms * 1e9)
@@ -627,19 +635,20 @@ def time_pass1(T, nbatch, mixed, label, reps):
 
 def k2_detect_alone(T, nbatch, npup, reps, label="256^2"):
     """K2's detect pass alone (``colfac_detect.detect_pass`` on the G' of
-    K2's pass 1, 3xTF32 on the tensor cores), with its FLOP/s over the
-    pupil's ``npup`` px and its bound, beside its yardstick: one complex64
-    ``torch.matmul`` of W @ G' (TF32 off), which also computes, and
-    writes out, what K7's screens pass does. The launches do not
-    count."""
+    K2's pass 1, 3xTF32 ``wgmma`` from the engine's laid W table), with its
+    FLOP/s over the pupil's ``npup`` px and its bound, beside its
+    yardstick: one complex64 ``torch.matmul`` of W @ G' (TF32 off), which
+    also computes, and writes out, what K7's screens pass does. The
+    launches do not count."""
     from fast_tpu_torch.ops import colfac_detect as cd
     from fast_tpu_torch.ops import synth_detect as sd
     N, P = T["s_t"].shape[0], T["wr"].shape[0]
     b1, b2 = sd.synth_pass1.LAUNCHES, cd.detect_pass.LAUNCHES
+    laid = T["w_laid"]
     gr, gi = sd.synth_pass1(SEED, T["s_t"], T["wr"], T["wi"], nbatch,
-                            mix=T["mix"])
+                            mix=T["mix"], laid=laid)
     ms = cuda_ms(lambda: cd.detect_pass(gr, gi, T["wr"], T["wi"],
-                                        T["pm_t"]), reps)
+                                        T["pm_t"], laid=laid), reps)
     sd.synth_pass1.LAUNCHES, cd.detect_pass.LAUNCHES = b1, b2
     wc = torch.complex(T["wr"], T["wi"])
     gc = torch.complex(gr, gi)
@@ -652,19 +661,74 @@ def k2_detect_alone(T, nbatch, npup, reps, label="256^2"):
                                + 4 * nbatch))
     print(f"K2 detect pass alone at {label}: {ms:.3f} ms per {nbatch} draws "
           f"({flops / ms / 1e9:.1f} TFLOP/s over {npup} px, 3xTF32 "
-          f"mma.sync), bound {bound[0]:.3f} ms ({bound[1]}; "
+          f"wgmma), bound {bound[0]:.3f} ms ({bound[1]}; "
           f"{bound[0] / ms:.1%} of it), yardstick complex64 torch.matmul "
           f"(TF32 off) {lib_ms:.3f} ms")
     return {"detect_ms": ms, "detect_tflops": flops / ms / 1e9,
             "detect_bound_ms": bound[0], "detect_library_ms": lib_ms}
 
 
+def k7_screens_alone(T, nbatch, npup, label, reps=3, lib_ms=None):
+    """K7's screens pass alone (``synth_detect.screens_pass``, H^T =
+    G'^T W^T in 3xTF32 ``wgmma`` from the laid W table, the screens
+    written out) on the G' of K7's pass 1: held element by element against
+    its plain version on the same G' within 2N 2^-24 max |phi|, then (with
+    ``reps``) timed with its FLOP/s over the pupil's ``npup`` px and its
+    bound beside its yardstick, one complex64 ``torch.matmul`` of W @ G'
+    (TF32 off; ``lib_ms`` if already timed). The launches do not count."""
+    from fast_tpu_torch.ops import synth_detect as sd
+    N, Pp = T["s_t"].shape[0], T["wr"].shape[0]
+    laid = T.get("w_laid")
+    b1, b2 = sd.synth_pass1.LAUNCHES, sd.screens_pass.LAUNCHES
+    gr, gi = sd.synth_pass1(SEED, T["s_t"], T["wr"], T["wi"], nbatch,
+                            stream=2, laid=laid)
+    got = sd.screens_pass(gr, gi, T["wr"], T["wi"], npup, laid=laid)
+    ref = sd.screens_pass_reference(gr, gi, T["wr"], T["wi"], npup)
+    torch.cuda.synchronize()
+    if got.shape != (2 * nbatch, npup, npup) or not bool(
+            torch.isfinite(got).all()):
+        fail(f"K7's screens pass ({label}) gave screens that are not finite "
+             f"of shape (2 * draws, {npup}, {npup})")
+    err, top = float((got - ref).abs().max()), float(ref.abs().max())
+    limit = 2 * N * 2.0 ** -24 * top
+    del got, ref
+    print(f"K7 screens pass alone {label}, {nbatch} draws: max |kernel - "
+          f"plain| = {err:.3e} rad on the same G' (limit {limit:.3e} = 2N "
+          f"2^-24 max |phi|; {err / limit:.3f} of it)")
+    if not err <= limit:
+        fail(f"K7's screens pass ({label}) disagrees with its plain version")
+    out = {"screens_max_abs_err": err}
+    if reps:
+        ms = cuda_ms(lambda: sd.screens_pass(gr, gi, T["wr"], T["wi"], npup,
+                                             laid=laid), reps)
+        if lib_ms is None:
+            wc = torch.complex(T["wr"], T["wi"])
+            gc = torch.complex(gr, gi)
+            lib_ms = cuda_ms(lambda: torch.matmul(wc, gc), reps)
+            del gc
+        flops = nbatch * 8 * npup * npup * N
+        bound = _bound(flops, 4 * (2 * nbatch * N * Pp + 2 * Pp * N
+                                   + 2 * nbatch * npup * npup))
+        print(f"K7 screens pass alone at {label}: {ms:.3f} ms per {nbatch} "
+              f"draws ({flops / ms / 1e9:.1f} TFLOP/s over {npup} px, 3xTF32 "
+              f"wgmma), bound {bound[0]:.3f} ms ({bound[1]}; "
+              f"{bound[0] / ms:.1%} of it), yardstick complex64 torch.matmul "
+              f"(TF32 off) {lib_ms:.3f} ms")
+        out.update(screens_ms=ms, screens_tflops=flops / ms / 1e9,
+                   screens_bound_ms=bound[0], screens_library_ms=lib_ms)
+    sd.synth_pass1.LAUNCHES, sd.screens_pass.LAUNCHES = b1, b2
+    del gr, gi
+    torch.cuda.empty_cache()
+    return out
+
+
 def colfac_passes(kernel, pass1, table, K, npup, T, nbatch, kw, reps):
     """The two passes of K1 or K3 alone, 'mixed' noise: pass 1 (``pass1``
     on ``table``, the engine's laid table; ``colfac_pass1`` or
     ``split_pass1``, 3xTF32 ``wgmma`` from the laid table) and the detect
-    pass (``colfac_detect.detect_pass``, H = W G' in 3xTF32 ``mma.sync``,
-    then sincos and the sums) on its G'. Their ms per ``nbatch``
+    pass (``colfac_detect.detect_pass``, H^T = G'^T W^T in 3xTF32
+    ``wgmma`` from the engine's laid W table, then sincos and the sums) on
+    its G'. Their ms per ``nbatch``
     draws, FLOP/s and bounds count the pupil's own ``npup`` px, as the
     kernels' bounds do, with pass 1 as the real (draws x K) @ (K x 2 npup)
     product per column it is. Beside each, its yardstick (a PyTorch call
@@ -677,7 +741,8 @@ def colfac_passes(kernel, pass1, table, K, npup, T, nbatch, kw, reps):
     p1_ms = cuda_ms(lambda: pass1(SEED, table, nbatch, **kw), reps)
     gr, gi = pass1(SEED, table, nbatch, **kw)
     det_ms = cuda_ms(lambda: cd.detect_pass(gr, gi, T["wr"], T["wi"],
-                                            T["pm_t"]), reps)
+                                            T["pm_t"], laid=T["w_laid"]),
+                     reps)
     pass1.LAUNCHES, cd.detect_pass.LAUNCHES = b1, b2
     g = torch.Generator(device=DEVICE).manual_seed(13)
     z = torch.randn((N, nbatch, K), device=DEVICE, generator=g)
@@ -704,7 +769,7 @@ def colfac_passes(kernel, pass1, table, K, npup, T, nbatch, kw, reps):
         flops = f1 if name == "pass 1" else f2
         print(f"{kernel} {name} alone: {ms:.3f} ms per {nbatch} draws "
               f"({flops / ms / 1e9:.1f} TFLOP/s over {npup} px, 3xTF32 "
-              f"{'wgmma' if name == 'pass 1' else 'mma.sync'}), bound "
+              f"wgmma), bound "
               f"{bound[0]:.3f} ms ({bound[1]}; "
               f"{bound[0] / ms:.1%} of it), yardstick "
               f"{'torch.bmm' if name == 'pass 1' else 'complex64 torch.matmul'}"
@@ -720,19 +785,22 @@ def phase_k2(sim, sim_default):
     for noise in ("mixed", "gauss"):
         kw = {"mix": T["mix"] if noise == "mixed" else None}
         args = (SEED, T["s_t"], T["wr"], T["wi"], T["pm_t"], NDRAWS)
+        lw = {"laid": T["w_laid"]}  # the engine's laid W table
         err, cp = check("K2", sd.synth_detect, sd.synth_detect_reference,
-                        args, kw, f"{noise} flagship 256^2, P={P}")
+                        args, kw, f"{noise} flagship 256^2, P={P}", kkw=lw)
         res["max_abs_err"] = max(res["max_abs_err"], err)
         Td = sim_default.tables
         kwd = {"mix": Td["mix"] if noise == "mixed" else None}
         err = check("K2", sd.synth_detect, sd.synth_detect_reference,
                     (SEED, Td["s_t"], Td["wr"], Td["wi"], Td["pm_t"], 512),
-                    kwd, f"{noise} default config 102^2, P=102")[0]
+                    kwd, f"{noise} default config 102^2, P=102",
+                    kkw={"laid": Td["w_laid"]})[0]
         res["max_abs_err"] = max(res["max_abs_err"], err)
         tf32_control("K2", sd.synth_detect_reference, args, kw, cp, noise)
 
         ms, plain_ms = time_kernel(sd.synth_detect,
-                                   sd.synth_detect_reference, args, kw)
+                                   sd.synth_detect_reference, args, kw,
+                                   kkw=lw)
         bound_ms, bound_by, flops = k2_bound(N, P, NTIME, noise == "mixed")
         print(f"K2 {noise}: {ms:.3f} ms kernel, {plain_ms:.3f} ms plain, "
               f"bound {bound_ms:.3f} ms ({flops / NTIME / 1e6:.1f} MFLOP "
@@ -758,7 +826,8 @@ def phase_k2(sim, sim_default):
     err = check("K2", sd.synth_detect, sd.synth_detect_reference,
                 (SEED, T["s_t"], T["wr"], T["wi"], T["pm_t"], NDRAWS),
                 {"mix": T["mix"], "sh_t": sh_t},
-                "mixed with subharmonic screens, 256^2")[0]
+                "mixed with subharmonic screens, 256^2",
+                kkw={"laid": T["w_laid"]})[0]
     res["max_abs_err_sh"] = err
 
     g = torch.Generator(device=DEVICE).manual_seed(7)
@@ -791,14 +860,16 @@ def phase_k1(sim):
         args = (SEED, S, T["wr"], T["wi"], T["pm_t"], NDRAWS)
         kargs = (SEED, laid) + args[2:]
         kw = {"mixed": mixed, "stream": 3}
+        lw = {"laid": T["w_laid"]}  # the engine's laid W table
         err, cp = check("K1", cd.colfac_detect, cd.colfac_detect_reference,
-                        args, kw, f"{noise} flagship 512^2, P={P}", kargs)
+                        args, kw, f"{noise} flagship 512^2, P={P}", kargs,
+                        lw)
         res["max_abs_err"] = max(res["max_abs_err"], err)
         tf32_control("K1", cd.colfac_detect_reference, args, kw, cp, noise)
 
         ms, plain_ms = time_kernel(cd.colfac_detect,
                                    cd.colfac_detect_reference, args, kw,
-                                   kargs=kargs)
+                                   kargs=kargs, kkw=lw)
         bound_ms, bound_by, flops = k1_bound(N, P, NTIME, mixed)
         print(f"K1 {noise}: {ms:.3f} ms kernel, {plain_ms:.3f} ms plain, "
               f"bound {bound_ms:.3f} ms ({flops / NTIME / 1e6:.1f} MFLOP "
@@ -1174,7 +1245,7 @@ def check_screens(T, npup, ndraws, label):
     args = (SEED, T["s_t"], T["wr"], T["wi"], ndraws)
     kw = {"npup": npup, "stream": 2}
     before = sd.synth_screens.LAUNCHES, sd.synth_detect.LAUNCHES
-    sk = sd.synth_screens(*args, **kw)
+    sk = sd.synth_screens(*args, **kw, laid=T.get("w_laid"))
     launches = sd.synth_screens.LAUNCHES - before[0]
     sp = sd.synth_screens_reference(*args, **kw)
     n = min(64, ndraws)
@@ -1281,11 +1352,12 @@ def phase_wide(card):
     label = f"{N}^2, P={P}"
     k2w, k3, k7 = ({"max_abs_err": 0.0} for _ in range(3))
     base = (SEED, T["s_t"], T["wr"], T["wi"], T["pm_t"], NDRAWS_W)
+    lw = {"laid": T["w_laid"]}  # the engine's laid W table
     for noise in ("mixed", "gauss"):
         mixed = noise == "mixed"
         kw = {"mix": T["mix"] if mixed else None}
         err, cp = check("K2", sd.synth_detect, sd.synth_detect_reference,
-                        base, kw, f"{noise} {label}")
+                        base, kw, f"{noise} {label}", kkw=lw)
         k2w["max_abs_err"] = max(k2w["max_abs_err"], err)
         tf32_control("K2", sd.synth_detect_reference, base, kw, cp,
                      f"{noise} {label}", n=64)
@@ -1298,7 +1370,7 @@ def phase_wide(card):
         kw3 = {"mixed": mixed, "stream": 3}
         err, cp = check("K3", cd.colfac_detect_split,
                         cd.colfac_split_reference, args3, kw3,
-                        f"{noise} {label}", kargs3)
+                        f"{noise} {label}", kargs3, lw)
         k3["max_abs_err"] = max(k3["max_abs_err"], err)
         tf32_control("K3", cd.colfac_split_reference, args3, kw3, cp,
                      f"{noise} {label}", n=64)
@@ -1312,7 +1384,7 @@ def phase_wide(card):
                 (k3, cd.colfac_detect_split, cd.colfac_split_reference,
                  args3, kargs3, kw3, k3_bound(N, P, per, True))):
             res["ms"], res["plain_ms"] = time_kernel(fn, ref, a, k, per,
-                                                     (3, 1), ka)
+                                                     (3, 1), ka, lw)
             res["bound_ms"], res["bound_by"], flops = bound
             print(f"{'K2' if res is k2w else 'K3'} mixed: {res['ms']:.3f} ms "
                   f"kernel ({res['ms'] / per:.4f} ms a draw), "
@@ -1334,29 +1406,23 @@ def phase_wide(card):
     k2w["max_abs_err_sh"] = check(
         "K2", sd.synth_detect, sd.synth_detect_reference, base,
         {"mix": T["mix"], "sh_t": sd.pack_subharm(sh, Pp)},
-        f"mixed with subharmonic screens, {label}")[0]
+        f"mixed with subharmonic screens, {label}", kkw=lw)[0]
     del sh
     k7["max_abs_err"] = check_screens(T, P, NDRAWS_W, label)
     a7 = (SEED, T["s_t"], T["wr"], T["wi"], per)
     k7["ms"], k7["plain_ms"] = time_kernel(
         sd.synth_screens, sd.synth_screens_reference, a7, {"npup": P}, per,
-        (3, 1))
+        (3, 1), kkw=lw)
     k7["bound_ms"], k7["bound_by"], flops = k7_bound(N, P, per)
     k7["pass1_ms"], k7["pass1_tflops"], lib = time_pass1(
         T, per, False, f"K7 (Box-Muller) {label}", 3)
     k7.update(lib)
-    # the screens pass: the whole kernel less pass 1, both timed above;
-    # its yardstick the complex64 W @ G' timed beside K2's detect pass
-    k7["screens_ms"] = k7["ms"] - k7["pass1_ms"]
-    k7["screens_library_ms"] = k2w["detect_library_ms"]
-    k7["screens_bound_ms"] = _bound(
-        per * 8 * P * P * N, 4 * (2 * per * N * Pp + 2 * Pp * N
-                                  + 2 * per * P * P))[0]
-    print(f"K7 screens pass: {k7['screens_ms']:.3f} ms per {per} draws (the "
-          f"kernel less pass 1), bound {k7['screens_bound_ms']:.3f} ms, "
-          f"yardstick complex64 torch.matmul W @ G' (TF32 off) "
-          f"{k7['screens_library_ms']:.3f} ms")
-    k2w["ms_gauss"] = cuda_ms(lambda: sd.synth_detect(*base[:-1], per), 3)
+    # the screens pass alone on K7's G', its yardstick the complex64 W @ G'
+    # timed beside K2's detect pass
+    k7.update(k7_screens_alone(T, per, P, label,
+                               lib_ms=k2w["detect_library_ms"]))
+    k2w["ms_gauss"] = cuda_ms(lambda: sd.synth_detect(*base[:-1], per,
+                                                      **lw), 3)
     sd.synth_detect.LAUNCHES = 0
     print(f"K7: {k7['ms']:.3f} ms kernel ({k7['ms'] / per:.4f} ms a draw; "
           f"K2 gauss {k2w['ms_gauss']:.3f} ms), {k7['plain_ms']:.3f} ms "
@@ -1373,6 +1439,7 @@ def phase_wide(card):
     check("K3", cd.colfac_detect_split, cd.colfac_split_reference,
           (SEED, R["T_colfac"]) + rbase[2:], {"mixed": True}, f"mixed {rl}")
     check_screens(R, 144, 300, rl)
+    k7_screens_alone(R, 300, 144, rl, reps=0)
     del R
 
     # the slice: each route of the engine against 'matmul'

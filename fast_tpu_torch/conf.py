@@ -89,10 +89,11 @@ TPU_DEFAULTS = {
                             # 'fft' (batched ifft2)
     "PRECISION": "default", # accepted; every value means fp32-accurate
                             # products on the card: 3xTF32 on the tensor
-                            # cores in K2's and K7's pass 1 and in the AR
-                            # kernels' first DFT product, fp32 FMA in the
-                            # other passes (a TF32/bf16 meaning of
-                            # 'default' is still to come)
+                            # cores in both passes of K1, K2, K3 and K7 and
+                            # in the AR kernels' first DFT product, fp32
+                            # FMA in the AR kernels' other passes (a
+                            # TF32/bf16 meaning of 'default' is still to
+                            # come)
     "TEMPORAL_SYNTH": "auto",  # temporal mode: 'screens' (large per-layer
                             # screens sampled along the wind, the grid
                             # grown to the series) | 'ar' (AR(1) in Fourier

@@ -40,8 +40,8 @@
 // every launch reads once and a G' of 0.4 MB a draw through device memory.
 //
 // Pass 1 runs on Hopper's warpgroup products (wgmma.mma_async m64nNk8
-// TF32, wgmma.cuh), the detect pass on warp-level mma.sync.m16n8k8
-// (detect.cuh), both in three TF32 passes (3xTF32, tf32x3.cuh): every
+// TF32, wgmma.cuh), and so does the detect pass (detect.cuh, the draws
+// stacked along wgmma's 64 rows), both in three TF32 passes (3xTF32): every
 // operand element x is split into hi = tf32(x) and lo = tf32(x - hi), and
 // each 8-deep step computes a_lo b_hi + a_hi b_lo (the small terms) and
 // a_hi b_hi; hi + lo carries 22 of fp32's 24 bits. Every PRECISION value
@@ -83,8 +83,9 @@
 // * The TPU kernel's on-chip (b, P, P) accumulators over sequential column
 //   blocks do not carry over (blocks run in no order): pass 1 writes G'
 //   (N x P per draw, 1.6 GB per 4096-draw launch at 512^2, P=96) and pass 2
-//   contracts it over the columns in one block per draw (detect.cuh, on
-//   mma.sync).
+//   contracts it over the columns (detect.cuh: blocks of 64 stacked (draw,
+//   p2) rows on wgmma, against the laid W table, the engine's once per
+//   configuration).
 //
 // What bounds pass 1 now (H100 80GB HBM3, 700 W; scripts/torch_colfac_ab.py
 // and scripts/torch_colfac_variants.py): 3.56-3.64 ms a 4096 draws at
@@ -363,29 +364,30 @@ bool takes(int N, int P, int nbatch, int K, int mixed) {
 }  // namespace
 
 // Shapes: S (N, K / 8, 2, 16 P), the factor table of K rows split and laid
-// out for pass 1 (ops/colfac_detect.py, lay_tables); wr, wi (P, N); pm_t
-// (P, P);
-// sh_t nullptr or (nbatch, 2, P, P) transposed subharmonic screens;
-// g_re, g_im scratch (nbatch, N, P); out (nbatch, 4) = (sum pm cos h1,
-// sum pm sin h1, sum pm cos h2, sum pm sin h2). P is a multiple of 16 and
-// at most 128; K is 256 for 'mixed' noise (mixed != 0), else a multiple of
-// 32 up to 256. Returns the cudaError_t of the launches (0 on success).
+// out for pass 1 (ops/colfac_detect.py, lay_tables); wpack (1, N64 / 8, 4,
+// 8 P), the laid W table of the detect pass (ops/synth_detect.py, laid_w);
+// pm_t (P, P); sh_t nullptr or (nbatch, 2, P, P) transposed subharmonic
+// screens; g_re, g_im scratch (nbatch, N, P); part scratch (nbatch, P /
+// 16, 4), the detect pass's partial sums; out (nbatch, 4) = (sum pm cos
+// h1, sum pm sin h1, sum pm cos h2, sum pm sin h2). P is a multiple of 16
+// and at most 128; K is 256 for 'mixed' noise (mixed != 0), else a
+// multiple of 32 up to 256. Returns the cudaError_t of the launches (0 on
+// success).
 extern "C" int fast_colfac_detect(uint32_t k0, uint32_t k1,
                                   uint32_t stream_id, int draw0, int nbatch,
-                                  const float* S, const float* wr,
-                                  const float* wi, const float* pm_t,
-                                  const float* sh_t, float* g_re,
-                                  float* g_im, float* out, int N, int P,
-                                  int K, int mixed, void* stream) {
+                                  const float* S, const float* wpack,
+                                  const float* pm_t, const float* sh_t,
+                                  float* g_re, float* g_im, float* part,
+                                  float* out, int N, int P, int K, int mixed,
+                                  void* stream) {
   if (!takes(N, P, nbatch, K, mixed))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = pass1(P, mixed != 0, k0, k1, stream_id, draw0,
                                 nbatch, S, g_re, g_im, N, K, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // a pupil of at most 128 px is one tile: no partial sums
-  return static_cast<int>(launch_detect(P, nbatch, wr, wi, g_re, g_im, pm_t,
-                                        sh_t, nullptr, out, N, st));
+  return static_cast<int>(launch_detect(P, nbatch, wpack, g_re, g_im, pm_t,
+                                        sh_t, part, out, N, st));
 }
 
 // Pass 1 alone: G' of nbatch draws into g_re, g_im (nbatch, N, P), as
@@ -405,18 +407,15 @@ extern "C" int fast_colfac_pass1(uint32_t k0, uint32_t k1, uint32_t stream_id,
 
 // The detect pass of K1, K2 and K3 alone (detect.cuh): the sums of nbatch
 // draws from their G' (g_re, g_im: nbatch, N, P) into out (nbatch, 4),
-// through part (nbatch, T * T, 4), T = ceil(P / 128), for a pupil over
-// 128 px (else unused, may be nullptr). P is a multiple of 16; wr, wi,
-// pm_t and sh_t as fast_colfac_detect's. For timing the pass and holding
-// it against its plain version.
-extern "C" int fast_detect_pass(int nbatch, const float* wr, const float* wi,
+// through part (nbatch, detect_parts(P), 4). P is a multiple of 16; wpack
+// (the laid W table of w_slices(P)), pm_t and sh_t as fast_colfac_detect's.
+// For timing the pass and holding it against its plain version.
+extern "C" int fast_detect_pass(int nbatch, const float* wpack,
                                 const float* g_re, const float* g_im,
                                 const float* pm_t, const float* sh_t,
                                 float* part, float* out, int N, int P,
                                 void* stream) {
-  if (N <= 0 || nbatch <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_detect(P, nbatch, wr, wi, g_re, g_im, pm_t,
+  return static_cast<int>(launch_detect(P, nbatch, wpack, g_re, g_im, pm_t,
                                         sh_t, part, out, N,
                                         static_cast<cudaStream_t>(stream)));
 }

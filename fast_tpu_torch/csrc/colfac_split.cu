@@ -35,7 +35,7 @@
 // * Products, on the tensor cores: pass 1 on Hopper's warpgroup products
 //   (wgmma.mma_async m64nNk8 TF32, wgmma.cuh), three TF32 passes each
 //   (3xTF32, tf32x3.cuh), as in K1 and in K2's pass 1, in fold groups of
-//   two 8-deep steps added to fp32 sums; the detect pass on mma.sync
+//   two 8-deep steps added to fp32 sums; the detect pass the same way
 //   (detect.cuh). The complex product is four real ones, the sign of -z_i
 //   flipped in its A fragment (exactly).
 //
@@ -71,7 +71,7 @@
 // 2P * 2 = 1.74 GFLOP of factor products and 8 P^2 N = 1.42 GFLOP for H,
 // against 3.49 GB of split tables read once per launch and 3.4 MB of G' per
 // draw through device memory, as in K1 and K2, whose G' this is: pass 2 is
-// the shared tiled detect pass of detect.cuh.
+// the shared detect pass of detect.cuh.
 //
 // What bounds pass 1 now (H100 80GB HBM3, 700 W; scripts/torch_colfac_ab.py
 // and scripts/torch_colfac_variants.py): 14.64-14.73 ms a 630 draws at
@@ -377,28 +377,27 @@ cudaError_t pass1(uint32_t k0, uint32_t k1, uint32_t stream_id, int draw0,
 // Shapes: tab (N, nz, Kq64 / 8, 4, 8 PB), the factor table of Kq lanes
 // split and laid out for pass 1 (ops/colfac_detect.py, lay_tables_split:
 // nz slices of PB px as split_geom(P) cuts them, the lanes padded to
-// Kq64, a multiple of 64); wr, wi (P, N); pm_t (P, P);
-// sh_t nullptr or (nbatch, 2, P, P) transposed subharmonic screens; g_re,
-// g_im scratch (nbatch, N, P); part scratch (nbatch, T * T, 4) for a pupil
-// over 128 px (T = ceil(P / 128)); out (nbatch, 4) = (sum pm cos h1, sum pm
-// sin h1, sum pm cos h2, sum pm sin h2). P is a multiple of 16; Kq, the
-// noise lanes a column, is a multiple of 16, at most LW, the lane stride of
-// the Philox counter. Returns the cudaError_t of the launches (0 on
-// success).
+// Kq64, a multiple of 64); wpack, the laid W table of the detect pass
+// (ops/synth_detect.py, laid_w); pm_t (P, P); sh_t nullptr or (nbatch, 2,
+// P, P) transposed subharmonic screens; g_re, g_im scratch (nbatch, N,
+// P); part scratch (nbatch, detect_parts(P), 4), the detect pass's partial
+// sums; out (nbatch, 4) = (sum pm cos h1, sum pm sin h1, sum pm cos h2,
+// sum pm sin h2). P is a multiple of 16; Kq, the noise lanes a column, is
+// a multiple of 16, at most LW, the lane stride of the Philox counter.
+// Returns the cudaError_t of the launches (0 on success).
 extern "C" int fast_colfac_split(uint32_t k0, uint32_t k1, uint32_t stream_id,
                                  int draw0, int nbatch, const float* tab,
-                                 const float* wr, const float* wi,
-                                 const float* pm_t, const float* sh_t,
-                                 float* g_re, float* g_im, float* part,
-                                 float* out, int N, int P, int Kq, int LW,
-                                 int mixed, void* stream) {
+                                 const float* wpack, const float* pm_t,
+                                 const float* sh_t, float* g_re, float* g_im,
+                                 float* part, float* out, int N, int P,
+                                 int Kq, int LW, int mixed, void* stream) {
   if (!takes(N, P, nbatch, Kq, LW))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = pass1(k0, k1, stream_id, draw0, nbatch, tab, g_re,
                                 g_im, N, P, Kq, LW, mixed, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_detect(P, nbatch, wr, wi, g_re, g_im, pm_t,
+  return static_cast<int>(launch_detect(P, nbatch, wpack, g_re, g_im, pm_t,
                                         sh_t, part, out, N, st));
 }
 

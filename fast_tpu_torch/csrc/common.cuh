@@ -1,6 +1,6 @@
 // Device code shared by the kernels: Philox4x32-10, the Cody-Waite sincos
 // and the noise transforms. The detect pass that the iid kernels end with
-// is in detect.cuh, the tensor-core helpers in tf32x3.cuh.
+// is in detect.cuh, the tensor-core helpers in tf32x3.cuh and wgmma.cuh.
 
 #pragma once
 
@@ -10,7 +10,7 @@
 namespace fast {
 
 constexpr int kThreads = 256;
-constexpr int kK2 = 16;  // depth tile of the fp32 FMA tile products
+constexpr int kK2 = 16;  // depth tile of the AR kernels' fp32 FMA detect
 
 constexpr float kS3 = 1.7320508075688772f;             // sqrt(3)
 constexpr float kS3Scale = 1.7320508075688772f * 1.1920928955078125e-07f;

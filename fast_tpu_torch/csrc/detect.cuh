@@ -1,50 +1,82 @@
-// The detect pass that the iid kernels K1, K2 and K3 end with, and the
-// tiled fp32 FMA product that K7's screens pass keeps.
+// The second pass of the iid kernels: the detect pass that K1, K2 and K3
+// end with and K7's screens pass, one tensor-core product on Hopper's
+// wgmma (sm_90a).
 //
-// Detect pass (pass 2 of the three iid kernels): from a draw's G' (N x P,
-// real and imaginary parts) it forms the transposed screens H = W G' (P x P
-// complex; Re H and Im H are two screens), adds the transposed subharmonic
-// screens if given, and reduces
+// Both form, for each draw, the transposed screens from its G' (N x P,
+// real and imaginary parts, P contiguous, as pass 1 writes it):
+//   H^T = G'^T W^T,  Re H^T = Gr^T Wr^T - Gi^T Wi^T,
+//                    Im H^T = Gr^T Wi^T + Gi^T Wr^T
+// (H = W G', P x P complex; Re H and Im H are two screens). The detect
+// pass adds the transposed subharmonic screens if given and reduces
 //   sum(pm_t * cos/sin(Re H)), sum(pm_t * cos/sin(Im H))
-// in a fixed order (each thread's terms, warp shuffles, then the 8 warp
-// partials), so a run is reproducible bit for bit on one card.
+// in a fixed order; the screens pass writes Re H^T and Im H^T, un-padded.
 //
-// Any pupil width. A block holds one (16 PJ x 16 PJ) tile of H in its
-// registers, so a tile is at most 128 px wide. A pupil of up to 128 px
-// (padded to P = 16 PJ) is one tile, one block per draw, which writes the
-// draw's four sums itself. A wider pupil is cut into T x T tiles, T =
-// ceil(P / 128), of width 16 ceil(P / 16 / T), the last one ragged and
-// masked; a block per (draw, tile) writes the tile's four partial sums
-// into a scratch and sum_tiles adds them per draw in tile order: no
-// atomics, the same sums from run to run.
+// One GEMM with the draws stacked. The rows of the product are the (draw,
+// p2) pairs of a launch, flattened: M = nbatch P. A block of work is 64
+// rows (wgmma's M; P is a multiple of 16, so each warp's 16 rows belong to
+// one draw, and a group of 64 / gcd(P, 64) draws fills whole blocks: no
+// rows are padded, where one draw a block would pad 96 to 128) by one
+// slice of PB <= 208 p1 columns (w_slices: one slice up to 208 px, two of
+// 208 at 416), over the depth N. Its shape is pass 1's (synth_detect.cu):
+// two consumer warpgroups and a producer warpgroup (setmaxnreg); consumer
+// warpgroup 0 forms Re H^T, 1 Im H^T. One block a SM runs blocks of work
+// in turn (persistent), so the producers stream the next one's operands
+// while the consumers end this one.
+// * B = W^T is the same for every draw: the laid W table, split once per
+//   configuration into TF32 hi and lo and laid out in wgmma's core-matrix
+//   order (ops/synth_detect.py, laid_w: pass 1's own wpack, read here
+//   too). One producer thread streams its 8-deep steps into a ring with
+//   cp.async.bulk on mbarriers; the kernel splits no B operand.
+// * A = G'^T from G' as pass 1 writes it. Three producer warps copy each
+//   64-deep tile's rows [k][p2] in 16-byte cp.async pieces into shared
+//   memory at a row stride of 68 floats, two or three tiles in flight,
+//   each thread's arrival on the tile's mbarrier waiting for its pieces.
+//   The consumers load each A fragment (rows p2, depths k) from there,
+//   conflict-free, split it into hi and lo in registers and flip -Gi's
+//   sign in the fragment (exactly: the sign bit). One bulk copy per depth,
+//   part and run of one draw's rows (a first version) made the A supply
+//   the bound: 2.03 against 1.25 ms at 256^2, its requests a few hundred
+//   bytes each.
+// * Sums: 3xTF32 in fold groups of two 8-deep steps, each a fresh
+//   accumulator (the small terms first, then a_hi b_hi) added to an fp32
+//   sum: the tensor cores round toward zero (synth_detect.cu), so nothing
+//   long stays in their accumulators. The products are tile_products of
+//   wgmma.cuh, pass 1's.
+// * Epilogues. Each accumulator element is H^T[p2][p1]. Detect: add sh_t,
+//   sincos_cw (common.cuh), weight by pm_t[p1 P + p2]; each thread sums its
+//   terms, a warp its lanes by shuffles, and lane 0 writes the warp's two
+//   sums (warpgroup 0 sums 0 and 1, warpgroup 1 sums 2 and 3) into a
+//   scratch per (draw, 16 rows, slice), which sum_tiles adds per draw in
+//   that order: no atomics, the same sums from run to run. Screens: each
+//   thread stores its column pairs (2t, 2t + 1) of rows p2 as
+//   scr[j][p2][p1], 8 bytes a store at an even pupil width.
 //
-// H = W G' on the tensor cores (mma_tile_product): warp-level
-// mma.sync.m16n8k8 TF32 in three passes (3xTF32, tf32x3.cuh), Re H = Wr Gr
-// - Wi Gi and Im H = Wr Gi + Wi Gr as real products with -Wi's sign flipped
-// in its fragment; each step's six products of an output block a sum of
-// their own, added in fp32. W and G' are staged raw by cp.async; the block
-// splits each W slice once (every warp of a block row reads it), the warps
-// split G' as they form its fragments. The C interfaces take no scratch, so
-// W is split per block, not once per call.
-//
-// What bounds it (H100 80GB HBM3, 700 W; scripts/torch_colfac_ab.py and
-// scripts/torch_colfac_variants.py): the tensor cores. At 1024^2 with a
-// 402 px pupil (4 x 4 tiles of 112 px) it takes 20.6 ms per 630 draws
-// (40.5 TFLOP/s over the 402 px; fp32 FMA 44.5 ms, 19), at one TF32 pass
-// 13.1; at 512^2 with 82 px (one tile) 3.25-3.34 ms per 4096 (34 TFLOP/s;
-// fp32 FMA 4.50), at one TF32 pass 2.10. ptxas: 198 registers at PJ = 6,
-// 248 at PJ = 7 (tiles of 112 px), no spills. K7's screens_pass
-// (synth_detect.cu) keeps the fp32 FMA tile_product below.
+// What bounds it (H100 80GB HBM3, 700 W; scripts/torch_detect_ab.py and
+// scripts/torch_detect_variants.py): at 1024^2 with the 402 px pupil the
+// detect pass takes 10.4-10.5 ms a 630 draws (80 TFLOP/s over the 402 px;
+// on mma.sync 21.0), 6.5 with no products at all and 8.7 without the
+// epilogue's sincos: the products, the work around them (A fragments and
+// their split, folds, barriers) and the epilogue add up, two consumer
+// warpgroups a SM leaving little to overlap. K7's screens pass takes 10.2
+// there (on fp32 FMA 42.1): ptxas serializes its wgmma at the 208 px
+// slice (C7511), which the detect pass escapes with a third A tile. At
+// the flagships' 82 px (P = 96) 1.26-1.28 ms a 4096 draws at 256^2 (on
+// mma.sync 1.72), 2.37-2.38 at 512^2 (3.25-3.28): the work around the
+// products (0.89 ms at 256^2 with none), the A supply (one A tile in
+// flight: 1.56 ms) and the epilogue (0.1). G' is read once (2.1 GB at
+// 1024^2 per 630 draws, 0.64 ms at 3.35 TB/s), W from L2 by every block.
 
 #pragma once
 
 #include "common.cuh"
 #include "tf32x3.cuh"
+#include "wgmma.cuh"
 
 namespace fast {
 
 // The tiles of the pupil axis: T tiles of width 16 * PJ cover the padded
-// width P (a multiple of 16).
+// width P (a multiple of 16). The AR kernels' detect (ar_flow.cu) tiles the
+// pupil so; pass2_takes bounds P by it for every kernel.
 struct PupilTiles {
   int T, PJ;
 };
@@ -52,360 +84,6 @@ struct PupilTiles {
 inline PupilTiles pupil_tiles(int P) {
   const int T = (P + 127) / 128;
   return {T, (P / 16 + T - 1) / T};
-}
-
-// One (16 PJ x 16 PJ) tile of H = W G' for one draw in fp32 FMA (K7's
-// screens pass), summed over the depth N through shared memory: rows r0..
-// of W against columns c0.. of the draw's G' (gr, gi: N x P). Thread
-// (tx, ty) = (tid & 15, tid >> 4) gets, for a, b < PJ, in hr[a][b] and
-// hi[a][b] H[r0 + tx + 16 b][c0 + ty + 16 a]: a tile of H^T, whose rows
-// then run along tx. Rows of W and columns of G' past P and depth past N
-// read as zeros. kOne: the tile is the whole pupil, P = 16 PJ, known to the
-// compiler.
-template <int PJ, bool kOne>
-__device__ __forceinline__ void tile_product(
-    const float* __restrict__ wr, const float* __restrict__ wi,
-    const float* __restrict__ gr, const float* __restrict__ gi, int N,
-    int P_rt, int r0, int c0, float (&hr)[PJ][PJ], float (&hi)[PJ][PJ]) {
-  constexpr int TP = 16 * PJ;
-  constexpr int WS = TP + 1;
-  __shared__ float swr[kK2 * WS], swi[kK2 * WS];
-  __shared__ float sgr[kK2 * TP], sgi[kK2 * TP];
-  const int P = kOne ? TP : P_rt;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-
-#pragma unroll
-  for (int a = 0; a < PJ; ++a)
-#pragma unroll
-    for (int b = 0; b < PJ; ++b) hr[a][b] = hi[a][b] = 0.0f;
-
-  for (int kb = 0; kb < N; kb += kK2) {
-    __syncthreads();
-    for (int e = tid; e < TP * kK2; e += kThreads) {
-      const int p = e / kK2, kk = e - p * kK2;
-      const bool in = kb + kk < N && r0 + p < P;
-      const size_t at = static_cast<size_t>(r0 + p) * N + kb + kk;
-      swr[kk * WS + p] = in ? wr[at] : 0.0f;
-      swi[kk * WS + p] = in ? wi[at] : 0.0f;
-    }
-    for (int e = tid; e < kK2 * TP; e += kThreads) {
-      const int kk = e / TP, pp = e - kk * TP;
-      const bool in = kb + kk < N && c0 + pp < P;
-      const size_t at = static_cast<size_t>(kb + kk) * P + c0 + pp;
-      sgr[e] = in ? gr[at] : 0.0f;
-      sgi[e] = in ? gi[at] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int kk = 0; kk < kK2; ++kk) {
-      float ar[PJ], ai[PJ], br[PJ], bi[PJ];
-#pragma unroll
-      for (int a = 0; a < PJ; ++a) {
-        ar[a] = sgr[kk * TP + ty + 16 * a];
-        ai[a] = sgi[kk * TP + ty + 16 * a];
-        br[a] = swr[kk * WS + tx + 16 * a];
-        bi[a] = swi[kk * WS + tx + 16 * a];
-      }
-#pragma unroll
-      for (int a = 0; a < PJ; ++a)
-#pragma unroll
-        for (int b = 0; b < PJ; ++b) {
-          hr[a][b] = fmaf(ar[a], br[b], hr[a][b]);
-          hr[a][b] = fmaf(-ai[a], bi[b], hr[a][b]);
-          hi[a][b] = fmaf(ar[a], bi[b], hi[a][b]);
-          hi[a][b] = fmaf(ai[a], br[b], hi[a][b]);
-        }
-    }
-  }
-}
-
-// ---- the detect pass on the tensor cores ---------------------------------
-
-constexpr int kDD = 32;        // depth of one staged slice of the detect pass
-constexpr int kDWS = kDD + 8;  // shared row stride of its raw W slices
-
-// Words of one raw slice of the detect pass at tile width 16 PJ: the tile's
-// rows of wr and wi, kDD deep (row stride kDWS), then kDD rows of the
-// draw's Re G' and Im G' over the tile's columns (row stride 16 PJ + 4).
-__host__ __device__ constexpr int detect_slice_words(int PJ) {
-  return 2 * 16 * PJ * kDWS + 2 * kDD * (16 * PJ + 4);
-}
-
-// Words of one slice of W split into the A fragments' order: for each m16
-// row block, 8-deep step and lane, Re hi, Re lo, Im hi, Im lo, 4 words each.
-__host__ __device__ constexpr int detect_wsplit_words(int PJ) {
-  return PJ * (kDD / 8) * 32 * 16;
-}
-
-// Bytes of the detect pass's dynamic shared memory: two raw slices (one
-// lands while the other is used) and the split W of one.
-inline int detect_smem(int PJ) {
-  return static_cast<int>(sizeof(float) * (2 * detect_slice_words(PJ) +
-                                           detect_wsplit_words(PJ)));
-}
-
-// How the 8 warps of a detect block cover the (16 PJ x 16 PJ) tile of H,
-// PJ m16 row blocks of W by 2 PJ n8 column blocks of G': a WR x WC grid,
-// warp w taking the row blocks (w / WC) MA .. and the column blocks
-// (w % WC) NB ... Even PJ: 2 x 4, PJ / 2 x PJ / 2 blocks a warp; odd PJ:
-// 1 x 8, every row block by 2 column blocks (PJ = 7, 112 px tiles of a
-// 402 px pupil: 7 warps busy, 14 blocks each), so that no warp holds more
-// blocks than another and the accumulators fit without spills.
-template <int PJ>
-struct DetectWarps {
-  static constexpr int WR = PJ % 2 == 0 ? 2 : 1;
-  static constexpr int WC = 8 / WR;
-  static constexpr int LWC = WC == 8 ? 3 : 2;  // log2(WC)
-  static constexpr int MA = (PJ + WR - 1) / WR;
-  static constexpr int NB = (2 * PJ + WC - 1) / WC;
-};
-
-// One (16 PJ x 16 PJ) tile of H = W G' for one draw on the tensor cores
-// (3xTF32 mma.sync.m16n8k8): rows r0.. of W against columns c0.. of the
-// draw's G' (gr, gi: N x P), summed over the depth N in slices of kDD. W
-// and G' are staged raw by cp.async, one slice landing while the other is
-// used. W is read by every warp of a block row (4 or 8), so the block
-// splits each landed W slice once into hi and lo in the A fragments'
-// order (a 16-byte shared load a lane per fragment part); each warp splits
-// the G' elements of its B fragments, which at most two warps read, as it
-// forms them. Lane (g, t) of warp w gets, for its row block i and column
-// block j,
-//   hr[i][j][v], hi[i][j][v] = Re, Im H[r0 + 16 (i0 + i) + g + 8 (v >> 1)]
-//                                       [c0 + 8 (j0 + j) + 2 t + (v & 1)]
-// with i0 = (w / WC) MA, j0 = (w % WC) NB (DetectWarps). Rows of W and
-// columns of G' past P and depth past N read as zeros. kOne: the tile is
-// the whole pupil, P = 16 PJ, known to the compiler.
-//
-// Each 8-deep step's products of one output block, Re H += Wr Gr - Wi Gi
-// and Im H += Wr Gi + Wi Gr in three TF32 passes each (the small terms
-// first, then a_hi b_hi), are a sum of their own in fresh accumulators,
-// added to hr, hi in fp32: nothing long stays in the tensor cores'
-// accumulators, which round toward zero (tf32x3.cuh; synth_detect.cu).
-// Depth slots: lane t of a quad holds depths 2t and 2t + 1 of the step in
-// A and B alike (fragment slots t and t + 4).
-template <int PJ, bool kOne>
-__device__ __forceinline__ void mma_tile_product(
-    float* smem, const float* __restrict__ wr, const float* __restrict__ wi,
-    const float* __restrict__ gr, const float* __restrict__ gi, int N,
-    int P_rt, int r0, int c0,
-    float (&hr)[DetectWarps<PJ>::MA][DetectWarps<PJ>::NB][4],
-    float (&hi)[DetectWarps<PJ>::MA][DetectWarps<PJ>::NB][4]) {
-  using Warps = DetectWarps<PJ>;
-  constexpr int MA = Warps::MA, NB = Warps::NB;
-  constexpr int TP = 16 * PJ;
-  constexpr int GS = TP + 4;  // shared row stride of the G' slices
-  constexpr int SW = detect_slice_words(PJ);
-  constexpr int KS = kDD / 8;  // 8-deep steps of a slice
-  uint4* ws = reinterpret_cast<uint4*>(smem + 2 * SW);  // split W
-  const int P = kOne ? TP : P_rt;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int i0 = (warp >> Warps::LWC) * MA;
-  const int j0 = (warp & (Warps::WC - 1)) * NB;
-  // rows 16-byte aligned: copy them in 16-byte pieces (P is a multiple of 16)
-  const bool vw = (N & 3) == 0 &&
-                  ((reinterpret_cast<uintptr_t>(wr) |
-                    reinterpret_cast<uintptr_t>(wi)) & 15) == 0;
-  const bool vg = ((reinterpret_cast<uintptr_t>(gr) |
-                    reinterpret_cast<uintptr_t>(gi)) & 15) == 0;
-
-#pragma unroll
-  for (int i = 0; i < MA; ++i)
-#pragma unroll
-    for (int j = 0; j < NB; ++j)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) hr[i][j][v] = hi[i][j][v] = 0.0f;
-
-  // slice s into raw buffer s & 1: rows r0.. of wr, wi at depths s kDD..;
-  // rows s kDD.. of gr, gi at columns c0..
-  const auto stage = [&](int s) {
-    float* b = smem + (s & 1) * SW;
-    const int kb = s * kDD;
-    stage_tile<kDWS, kDD>(b, wr, r0, TP, P, N, kb, vw);
-    stage_tile<kDWS, kDD>(b + TP * kDWS, wi, r0, TP, P, N, kb, vw);
-    stage_tile<GS, TP>(b + 2 * TP * kDWS, gr, kb, kDD, N, P, c0, vg);
-    stage_tile<GS, TP>(b + 2 * TP * kDWS + kDD * GS, gi, kb, kDD, N, P, c0,
-                       vg);
-    cp_async_commit();
-  };
-
-  const int nsl = (N + kDD - 1) / kDD;
-  stage(0);
-  for (int s = 0; s < nsl; ++s) {
-    cp_async_wait<0>();
-    __syncthreads();  // slice s visible to all; slice s - 1 used by all
-    if (s + 1 < nsl) stage(s + 1);
-    const float* swr = smem + (s & 1) * SW;
-    const float* swi = swr + TP * kDWS;
-    const float* sgr = swr + 2 * TP * kDWS;
-    const float* sgi = sgr + kDD * GS;
-    // W's A fragments, split: unit (row block mi, step ks, lane) holds rows
-    // 16 mi + g and + 8 at depths 8 ks + 2t (slots t) and + 1 (slots t + 4)
-    for (int u = tid; u < PJ * KS * 32; u += kThreads) {
-      const int ul = u & 31, mk = u >> 5;
-      const int at = (16 * (mk / KS) + (ul >> 2)) * kDWS + 8 * (mk % KS) +
-                     2 * (ul & 3);
-      uint4* dst = ws + 4 * 32 * mk + ul;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const float* w = c ? swi : swr;
-        const float2 x0 = *reinterpret_cast<const float2*>(w + at);
-        const float2 x1 = *reinterpret_cast<const float2*>(w + at + 8 * kDWS);
-        uint4 h, l;
-        split(x0.x, h.x, l.x);
-        split(x1.x, h.y, l.y);
-        split(x0.y, h.z, l.z);
-        split(x1.y, h.w, l.w);
-        dst[(2 * c) * 32] = h;
-        dst[(2 * c + 1) * 32] = l;
-      }
-    }
-    __syncthreads();  // the split W visible to all
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      // B fragments of the warp's column blocks: G' rows 8 ks + 2t and
-      // + 1, column 8 (j0 + j) + g
-      uint32_t brh[NB][2], brl[NB][2], bih[NB][2], bil[NB][2];
-#pragma unroll
-      for (int j = 0; j < NB; ++j) {
-        if (j0 + j >= 2 * PJ) break;
-        const int at = (8 * ks + 2 * t) * GS + 8 * (j0 + j) + g;
-        split(sgr[at], brh[j][0], brl[j][0]);
-        split(sgr[at + GS], brh[j][1], brl[j][1]);
-        split(sgi[at], bih[j][0], bil[j][0]);
-        split(sgi[at + GS], bih[j][1], bil[j][1]);
-      }
-#pragma unroll
-      for (int i = 0; i < MA; ++i) {
-        if (i0 + i >= PJ) break;
-        // A fragments of row block i0 + i; nh, nl: -Wi
-        const uint4* a = ws + 4 * 32 * ((i0 + i) * KS + ks) + lane;
-        const uint4 rh4 = a[0], rl4 = a[32], ih4 = a[64], il4 = a[96];
-        const uint32_t arh[4] = {rh4.x, rh4.y, rh4.z, rh4.w};
-        const uint32_t arl[4] = {rl4.x, rl4.y, rl4.z, rl4.w};
-        const uint32_t aih[4] = {ih4.x, ih4.y, ih4.z, ih4.w};
-        const uint32_t ail[4] = {il4.x, il4.y, il4.z, il4.w};
-        uint32_t nh[4], nl[4];
-#pragma unroll
-        for (int v = 0; v < 4; ++v) {
-          nh[v] = aih[v] ^ 0x80000000u;
-          nl[v] = ail[v] ^ 0x80000000u;
-        }
-#pragma unroll
-        for (int j = 0; j < NB; ++j) {
-          if (j0 + j >= 2 * PJ) break;
-          float d[4];
-          mma_tf32_new(d, arl, brh[j]);
-          mma_tf32(d, arh, brl[j]);
-          mma_tf32(d, nl, bih[j]);
-          mma_tf32(d, nh, bil[j]);
-          mma_tf32(d, arh, brh[j]);
-          mma_tf32(d, nh, bih[j]);
-#pragma unroll
-          for (int v = 0; v < 4; ++v) hr[i][j][v] += d[v];
-          mma_tf32_new(d, arl, bih[j]);
-          mma_tf32(d, arh, bil[j]);
-          mma_tf32(d, ail, brh[j]);
-          mma_tf32(d, aih, brl[j]);
-          mma_tf32(d, arh, bih[j]);
-          mma_tf32(d, aih, brh[j]);
-#pragma unroll
-          for (int v = 0; v < 4; ++v) hi[i][j][v] += d[v];
-        }
-      }
-    }
-  }
-}
-
-// The detect pass: block (j, tile) of a (nbatch, T * T) grid, 8 warps,
-// detect_smem(PJ) bytes of dynamic shared memory. g_re/g_im: (nbatch, N,
-// P) per launch; sh_t: nullptr or (nbatch, 2, P, P), the transposed real
-// and imaginary subharmonic screens; out: (nbatch, T * T, 4), the tile's
-// sums (the draw's own where T = 1).
-template <int PJ, bool kOne>
-__global__ void __launch_bounds__(kThreads, 1)
-    detect_pass(const float* __restrict__ wr, const float* __restrict__ wi,
-                const float* __restrict__ g_re, const float* __restrict__ g_im,
-                const float* __restrict__ pm_t, const float* __restrict__ sh_t,
-                float* __restrict__ out, int N, int P_rt, int T) {
-  constexpr int MA = DetectWarps<PJ>::MA, NB = DetectWarps<PJ>::NB;
-  constexpr int TP = 16 * PJ;
-  extern __shared__ __align__(16) float smem[];
-  __shared__ float red[kThreads / 32][4];
-
-  const int P = kOne ? TP : P_rt;
-  const int j = blockIdx.x;
-  const int tile = kOne ? 0 : blockIdx.y;
-  const int r0 = kOne ? 0 : tile / T * TP, c0 = kOne ? 0 : tile % T * TP;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int g = (tid >> 2) & 7, t = tid & 3;
-  const int i0 = (warp >> DetectWarps<PJ>::LWC) * MA;
-  const int j0 = (warp & (DetectWarps<PJ>::WC - 1)) * NB;
-
-  float hr[MA][NB][4], hi[MA][NB][4];
-  mma_tile_product<PJ, kOne>(smem, wr, wi,
-                             g_re + static_cast<size_t>(j) * N * P,
-                             g_im + static_cast<size_t>(j) * N * P, N, P, r0,
-                             c0, hr, hi);
-
-  const float* sh_r =
-      sh_t == nullptr ? nullptr : sh_t + static_cast<size_t>(j) * 2 * P * P;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int a = 0; a < MA; ++a) {
-    if (i0 + a >= PJ) break;
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      if (j0 + b >= 2 * PJ) break;
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int p1 = r0 + 16 * (i0 + a) + g + 8 * (v >> 1);
-        const int p2 = c0 + 8 * (j0 + b) + 2 * t + (v & 1);
-        if (!kOne && (p1 >= P || p2 >= P)) continue;
-        const int idx = p1 * P + p2;
-        const float w = pm_t[idx];
-        float h1 = hr[a][b][v], h2 = hi[a][b][v];
-        if (sh_r != nullptr) {
-          h1 += sh_r[idx];
-          h2 += sh_r[P * P + idx];
-        }
-        float s, c;
-        sincos_cw(h1, &s, &c);
-        acc[0] = fmaf(w, c, acc[0]);
-        acc[1] = fmaf(w, s, acc[1]);
-        sincos_cw(h2, &s, &c);
-        acc[2] = fmaf(w, c, acc[2]);
-        acc[3] = fmaf(w, s, acc[3]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
-  if ((tid & 31) == 0)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) red[tid >> 5][i] = acc[i];
-  __syncthreads();
-  if (tid < 4) {
-    float s = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) s += red[w][tid];
-    out[(static_cast<size_t>(j) * gridDim.y + tile) * 4 + tid] = s;
-  }
-}
-
-// out[j][c] = sum over the tiles, in tile order, of part[j][tile][c].
-__global__ void sum_tiles(const float* __restrict__ part,
-                          float* __restrict__ out, int n4, int ntiles) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n4) return;
-  const float* p = part + static_cast<size_t>(i >> 2) * ntiles * 4 + (i & 3);
-  float s = 0.0f;
-  for (int t = 0; t < ntiles; ++t) s += p[4 * t];
-  out[i] = s;
 }
 
 // The switch over the tile geometry t of a padded pupil: LAUNCH(PJ, ONE)
@@ -438,37 +116,427 @@ inline bool pass2_takes(int P) {
   return P % 16 == 0 && P >= 16 && pupil_tiles(P).T <= 255;
 }
 
-// Launch the detect pass for a padded pupil P: the sums of nbatch draws
-// into out (nbatch, 4), through part, the (nbatch, T * T, 4) scratch of a
-// pupil over 128 px (unused, and may be nullptr, up to 128 px).
-inline cudaError_t launch_detect(int P, int nbatch, const float* wr,
-                                 const float* wi, const float* g_re,
-                                 const float* g_im, const float* pm_t,
-                                 const float* sh_t, float* part, float* out,
-                                 int N, cudaStream_t stream) {
-  const PupilTiles t = pupil_tiles(P);
-  if (!pass2_takes(P) || (t.T > 1 && part == nullptr))
-    return cudaErrorInvalidValue;
-  const dim3 grid(nbatch, t.T * t.T);
-  float* sums = t.T == 1 ? out : part;
-  cudaError_t err = cudaSuccess;
-#define FAST_DETECT(PJ, ONE)                                              \
-  {                                                                       \
-    auto* k_detect = detect_pass<PJ, ONE>;                                \
-    err = cudaFuncSetAttribute(                                           \
-        k_detect, cudaFuncAttributeMaxDynamicSharedMemorySize,            \
-        detect_smem(PJ));                                                 \
-    if (err != cudaSuccess) return err;                                   \
-    k_detect<<<grid, kThreads, detect_smem(PJ), stream>>>(                \
-        wr, wi, g_re, g_im, pm_t, sh_t, sums, N, P, t.T);                 \
+// ---- the laid W table's slices ----------------------------------------------
+
+constexpr int kWSliceMax = 208;  // widest slice of the pupil a block covers
+
+// How W^T's columns are cut: nz slices of PB <= 208 columns (a multiple of
+// 16). Pass 1 of K2 and K7 and the second pass share the rule, and so the
+// laid W table (_pass1_geom of ops/synth_detect.py is the same rule).
+struct WSlices {
+  int PB, nz;
+};
+
+__host__ __device__ inline WSlices w_slices(int P) {
+  const int nz = (P + kWSliceMax - 1) / kWSliceMax;
+  return {(P / 16 + nz - 1) / nz * 16, nz};
+}
+
+// The switch over a slice width PB: CASE(PB) is the launch of one width.
+#define FAST_PB_SWITCH(pb, CASE)                                          \
+  switch (pb) {                                                           \
+    CASE(16) CASE(32) CASE(48) CASE(64) CASE(80) CASE(96) CASE(112)       \
+    CASE(128) CASE(144) CASE(160) CASE(176) CASE(192) CASE(208)           \
+    default: return cudaErrorInvalidValue;                                \
   }
-  FAST_TILE_SWITCH(t, FAST_DETECT)
+
+// ---- the second pass on wgmma ------------------------------------------------
+
+constexpr int kDetRows = 64;    // stacked (draw, p2) rows a block
+constexpr int kDetDepth = 64;   // depth of an A tile: 8 steps, 4 fold groups
+constexpr int kDetAS = kDetRows + 4;  // shared row stride of an A tile
+constexpr int kDetAPart = kDetDepth * kDetAS;  // words of Re or Im
+constexpr int kDetATile = 2 * kDetAPart;
+constexpr int kDetConsumers = 256;                  // two warpgroups
+constexpr int kDetThreads = kDetConsumers + 128;    // and the producer's
+constexpr int kDetAWarps = 3;   // producer warps that copy A
+
+// By slice width PB (H100 80GB HBM3, 700 W; copies of the pass timed as
+// scripts/torch_detect_variants.py times them): W steps in the ring, 8 up
+// to 128 columns (a fold group's products are short there), 4 above; A
+// tiles in flight, 3 above 128 columns (else ptxas serializes the wgmma
+// of the 208-column slice: 11.88 against 10.56 ms at 1024^2), 2 up to it
+// (where a third squeezes L1, which the epilogue's pm_t loads use: 0.92
+// against 1.17 ms at 102^2); registers of a consumer and of a producer
+// thread (2 x 128 x c + 128 x p <= 65536), 232 and 40 up to 128 columns
+// (no spills), 240 and 24 above.
+__host__ __device__ constexpr int det_stages(int PB) {
+  return PB <= 128 ? 8 : 4;
+}
+__host__ __device__ constexpr int det_atiles(int PB) {
+  return PB <= 128 ? 2 : 3;
+}
+__host__ __device__ constexpr int det_consumer_regs(int PB) {
+  return PB <= 128 ? 232 : 240;
+}
+__host__ __device__ constexpr int det_producer_regs(int PB) {
+  return PB <= 128 ? 40 : 24;
+}
+
+// Bytes of the second pass's shared memory at slice width PB: the ring of
+// W steps (wr hi, lo, wi hi, lo over PB columns, 32 PB words each), the A
+// tiles and the mbarriers.
+__host__ __device__ constexpr int detect_smem(int PB) {
+  return 4 * (det_stages(PB) * 32 * PB + det_atiles(PB) * kDetATile) +
+         8 * (2 * det_stages(PB) + 2 * det_atiles(PB));
+}
+
+// An A tile of the second pass: G' rows [k][p2] of 64 depths, Re then Im,
+// at a row stride of kDetAS words.
+struct KTile {
+  const float* a;
+};
+
+// Its A fragment at 8-deep step `step` for the thread's rows r, r + 8 and
+// quad lane t (depths 2t and 2t + 1 in slots t and t + 4, as the laid
+// table's B), split and negated if neg. With the stride 68 (= 4 mod 16)
+// the 32 lanes of each of the four loads hit 32 banks.
+__device__ __forceinline__ Frag a_frag(const KTile& x, int part, int step,
+                                       int r, int t, bool neg) {
+  const float* p = x.a + part * kDetAPart + (8 * step + 2 * t) * kDetAS + r;
+  return split_frag({p[0], p[8], p[kDetAS], p[kDetAS + 8]}, neg);
+}
+
+// p, opaque to the compiler's code motion: loads through it stay after the
+// (volatile) products before this move, so the epilogue's table loads are
+// not hoisted into the product loop, where their registers would starve
+// the wgmma pipeline (ptxas C7511).
+__device__ __forceinline__ const float* after_products(const float* p) {
+  asm volatile("mov.b64 %0, %0;" : "+l"(p));
+  return p;
+}
+
+// The second pass's blocks: 64 stacked rows by one W slice each, block b
+// taking rows b / nz and slice b % nz.
+__host__ __device__ inline int second_pass_blocks(int P, int nbatch) {
+  return (nbatch * P + kDetRows - 1) / kDetRows * w_slices(P).nz;
+}
+
+// H^T = G'^T W^T, block after block: the block runs blocks blockIdx.x,
+// + gridDim.x, ... of the launch's second_pass_blocks, each the stacked
+// rows 64 rb.. of the launch's draws (G' in g_re, g_im: nbatch x N x P)
+// against slice zb of the laid W table (wpack: nz x N64 / 8 x 4 x 8 PB, N64
+// = N rounded up to 64). The producers stream every block's operands in
+// turn, running ahead into the next block's while the consumers end this
+// one. A consumer thread calls epi(rb, zb, gb, gt) after each block with,
+// in gb and gt, rows r and r + 8 of part wg of that block's H^T (wg =
+// threadIdx.x / 128, r = 16 (warp % 4) + lane / 4): columns 64 c + 8 i +
+// 2t and + 1 of chunk c in gb[c][4 i + 2 h] and [4 i + 2 h + 1] for row
+// r + 8 h, the tail's in gt alike (t = lane % 4).
+template <int NCH, int TAIL, class Epilogue>
+__device__ __forceinline__ void second_pass(
+    float* smem, const float* __restrict__ wpack,
+    const float* __restrict__ g_re, const float* __restrict__ g_im,
+    int nbatch, int N, int P, int nz, Epilogue epi) {
+  constexpr int PB = 64 * NCH + TAIL;
+  constexpr int kStages = det_stages(PB);
+  constexpr int kATiles = det_atiles(PB);
+  constexpr int SW = 32 * PB;  // words of a W step
+  float* as = smem + kStages * SW;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(as + kATiles * kDetATile);
+  const Ring<kStages> ring{smem, bars, bars + kStages, SW};
+  uint64_t* afull = bars + 2 * kStages;  // A tile s landed
+  uint64_t* aempty = afull + kATiles;    // A tile s read by the 8 warps
+  const int tid = threadIdx.x;
+  const int NC = (N + kDetDepth - 1) / kDetDepth;  // A tiles a block
+  const int nblk = second_pass_blocks(P, nbatch);
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&ring.full[s], 1);
+      mbar_init(&ring.empty[s], kDetConsumers / 32);
+    }
+    for (int s = 0; s < kATiles; ++s) {
+      mbar_init(&afull[s], 32 * kDetAWarps);
+      mbar_init(&aempty[s], kDetConsumers / 32);
+    }
+    mbar_init_fence();
+  }
+  // what no copy writes (depths past N, rows past the last draw) must be
+  // finite: it meets W's zero padding or a masked row
+  for (int e = tid; e < kATiles * kDetATile; e += kDetThreads) as[e] = 0.0f;
+  __syncthreads();
+
+  if (tid >= kDetConsumers) {
+    setmaxnreg_dec<det_producer_regs(PB)>();
+    const int pw = (tid - kDetConsumers) >> 5, lane = tid & 31;
+    if (pw == 0 && lane == 0) {
+      // W: each block's slice, its 8-deep steps in the consumers' order
+      uint32_t it = 0;
+      for (int b = blockIdx.x; b < nblk; b += gridDim.x) {
+        const float* wz = wpack + static_cast<size_t>(b % nz) * NC * 8 * SW;
+        for (int q = 0; q < 8 * NC; ++q, ++it)
+          ring.load(it, wz + static_cast<size_t>(q) * SW, 4 * SW);
+      }
+    } else if (pw >= 1) {
+      // A: 16-byte pieces by the three other warps; piece e of a tile is
+      // part e & 1, rows 4 ((e >> 1) & 15).. of the block, depth e >> 5.
+      // Each thread's arrival on the tile's full barrier waits for its
+      // pieces to land.
+      const int ta = tid - kDetConsumers - 32;
+      uint32_t at_tile = 0;
+      for (int b = blockIdx.x; b < nblk; b += gridDim.x) {
+        const int R0 = b / nz * kDetRows;
+        const int rows = min(kDetRows, nbatch * P - R0);
+        for (int c = 0; c < NC; ++c, ++at_tile) {
+          const int s = at_tile % kATiles;
+          mbar_wait(&aempty[s], ((at_tile / kATiles) & 1) ^ 1);
+          const int kn = min(kDetDepth, N - c * kDetDepth);
+          float* dst = as + s * kDetATile;
+          for (int e = ta; e < 32 * kn; e += 32 * kDetAWarps) {
+            const int q = 4 * ((e >> 1) & 15), k = e >> 5;
+            if (q >= rows) continue;
+            const int j = (R0 + q) / P, p2 = R0 + q - j * P;
+            cp_async(dst + (e & 1) * kDetAPart + k * kDetAS + q,
+                     ((e & 1) ? g_im : g_re) +
+                         (static_cast<size_t>(j) * N + c * kDetDepth + k) * P +
+                         p2,
+                     true, true);
+          }
+          cp_async_mbar_arrive(&afull[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<det_consumer_regs(PB)>();
+  const int wg = tid >> 7, lane = tid & 31, t = lane & 3;
+  const int r = ((tid >> 5) & 3) * 16 + (lane >> 2);
+  float gb[NCH > 0 ? NCH : 1][32], gt[(TAIL > 0 ? TAIL : 16) / 2];
+  uint32_t it = 0, at_tile = 0;
+  for (int b = blockIdx.x; b < nblk; b += gridDim.x) {
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int v = 0; v < 32; ++v) gb[c][v] = 0.0f;
+#pragma unroll
+    for (int v = 0; v < TAIL / 2; ++v) gt[v] = 0.0f;
+    for (int c = 0; c < NC; ++c, ++at_tile, it += 8) {
+      const int s = at_tile % kATiles;
+      mbar_wait(&afull[s], (at_tile / kATiles) & 1);
+      tile_products<NCH, TAIL>(gb, gt, KTile{as + s * kDetATile}, ring, it,
+                               wg, r, t, [](int) {});
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&aempty[s]);
+    }
+    epi(b / nz, b % nz, gb, gt);
+  }
+}
+
+// Calls f(col, v0, v1, h) for each column pair the thread holds after a
+// block of the second pass: values v0, v1 at columns col, col + 1 of the
+// slice, row r + 8 h.
+template <int NCH, int TAIL, class F>
+__device__ __forceinline__ void for_each_ht(
+    const float (&gb)[NCH > 0 ? NCH : 1][32],
+    const float (&gt)[(TAIL > 0 ? TAIL : 16) / 2], int t, F f) {
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        f(64 * c + 8 * i + 2 * t, gb[c][4 * i + 2 * h],
+          gb[c][4 * i + 2 * h + 1], h);
+#pragma unroll
+  for (int i = 0; i < TAIL / 8; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      f(64 * NCH + 8 * i + 2 * t, gt[4 * i + 2 * h], gt[4 * i + 2 * h + 1],
+        h);
+}
+
+// The detect pass: a persistent block a SM (second_pass), detect_smem(PB)
+// bytes of dynamic shared memory. pm_t (P, P); sh_t nullptr or (nbatch, 2,
+// P, P), the transposed real and imaginary subharmonic screens; part
+// (nbatch, P / 16, nz, 4): each warp's sums of its 16 rows over a slice.
+template <int NCH, int TAIL>
+__global__ void __launch_bounds__(kDetThreads, 1)
+    detect_pass(const float* __restrict__ wpack,
+                const float* __restrict__ g_re,
+                const float* __restrict__ g_im,
+                const float* __restrict__ pm_t,
+                const float* __restrict__ sh_t, float* __restrict__ part,
+                int nbatch, int N, int P, int nz) {
+  constexpr int PB = 64 * NCH + TAIL;
+  extern __shared__ __align__(128) float smem[];
+  const int tid = threadIdx.x, wg = (tid >> 7) & 1, lane = tid & 31;
+  const auto epi = [&](int rb, int zb, const auto& gb, const auto& gt) {
+    const int R = rb * kDetRows + ((tid >> 5) & 3) * 16;  // the warp's rows
+    const int j = R / P, p2w = R - j * P;
+    if (j >= nbatch) return;  // the whole warp: rows past the last draw
+    const float* pm = after_products(pm_t);
+    const float* sh =
+        sh_t == nullptr
+            ? nullptr
+            : after_products(sh_t) + (static_cast<size_t>(j) * 2 + wg) * P * P;
+    const int p2 = p2w + (lane >> 2);
+    float acc[2] = {0.0f, 0.0f};
+    for_each_ht<NCH, TAIL>(gb, gt, lane & 3, [&](int col, float v0, float v1,
+                                                 int h) {
+      const int p1 = zb * PB + col;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (p1 + e >= P) continue;
+        const int idx = (p1 + e) * P + p2 + 8 * h;
+        float v = e ? v1 : v0;
+        if (sh != nullptr) v += sh[idx];
+        float s, c;
+        sincos_cw(v, &s, &c);
+        const float w = pm[idx];
+        acc[0] = fmaf(w, c, acc[0]);
+        acc[1] = fmaf(w, s, acc[1]);
+      }
+    });
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
+    if (lane == 0) {
+      float* o =
+          part +
+          ((static_cast<size_t>(j) * (P / 16) + p2w / 16) * nz + zb) * 4 +
+          2 * wg;
+      o[0] = acc[0];
+      o[1] = acc[1];
+    }
+  };
+  second_pass<NCH, TAIL>(smem, wpack, g_re, g_im, nbatch, N, P, nz, epi);
+}
+
+// The screens pass: blocks as the detect pass's; scr_re and scr_im
+// (nbatch, npup, npup) un-padded, un-transposed screens, scr[j][p2][p1] =
+// H[p1][p2] = H^T[p2][p1].
+template <int NCH, int TAIL>
+__global__ void __launch_bounds__(kDetThreads, 1)
+    screens_pass(const float* __restrict__ wpack,
+                 const float* __restrict__ g_re,
+                 const float* __restrict__ g_im, float* __restrict__ scr_re,
+                 float* __restrict__ scr_im, int nbatch, int N, int P,
+                 int nz, int npup) {
+  constexpr int PB = 64 * NCH + TAIL;
+  extern __shared__ __align__(128) float smem[];
+  const int tid = threadIdx.x, wg = (tid >> 7) & 1, lane = tid & 31;
+  const bool even = (npup & 1) == 0;  // column pairs 8-byte aligned
+  const auto epi = [&](int rb, int zb, const auto& gb, const auto& gt) {
+    const int R = rb * kDetRows + ((tid >> 5) & 3) * 16;
+    const int j = R / P, p2w = R - j * P;
+    if (j >= nbatch) return;
+    float* out =
+        (wg ? scr_im : scr_re) + static_cast<size_t>(j) * npup * npup;
+    const int p2 = p2w + (lane >> 2);
+    for_each_ht<NCH, TAIL>(gb, gt, lane & 3, [&](int col, float v0, float v1,
+                                                 int h) {
+      const int p1 = zb * PB + col;
+      if (p1 >= npup || p2 + 8 * h >= npup) return;
+      float* o = out + static_cast<size_t>(p2 + 8 * h) * npup + p1;
+      if (even) {
+        *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+      } else {
+        o[0] = v0;
+        if (p1 + 1 < npup) o[1] = v1;
+      }
+    });
+  };
+  second_pass<NCH, TAIL>(smem, wpack, g_re, g_im, nbatch, N, P, nz, epi);
+}
+
+// out[j][c] = sum over the tiles, in tile order, of part[j][tile][c].
+__global__ void sum_tiles(const float* __restrict__ part,
+                          float* __restrict__ out, int n4, int ntiles) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  const float* p = part + static_cast<size_t>(i >> 2) * ntiles * 4 + (i & 3);
+  float s = 0.0f;
+  for (int t = 0; t < ntiles; ++t) s += p[4 * t];
+  out[i] = s;
+}
+
+// Partial sums a draw of the detect pass: one per 16 rows and slice.
+inline int detect_parts(int P) { return P / 16 * w_slices(P).nz; }
+
+// Whether the second pass takes nbatch draws of an (N, P) G' at these
+// addresses (bulk copies: 16-byte aligned).
+inline bool second_pass_takes(int P, int nbatch, int N, const float* wpack,
+                              const float* g_re, const float* g_im) {
+  return pass2_takes(P) && nbatch > 0 && N > 0 && wpack != nullptr &&
+         static_cast<long long>(nbatch) * P <= 0x7fffffffLL - kDetRows &&
+         ((reinterpret_cast<uintptr_t>(wpack) |
+           reinterpret_cast<uintptr_t>(g_re) |
+           reinterpret_cast<uintptr_t>(g_im)) & 15) == 0;
+}
+
+// The second pass's grid: one persistent block a SM (a block takes one
+// SM's registers), at most one a block of work.
+inline dim3 second_pass_grid(int P, int nbatch) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int nblk = second_pass_blocks(P, nbatch);
+  return dim3(nblk < sms ? nblk : sms);
+}
+
+// Launch the detect pass for a padded pupil P: the sums of nbatch draws
+// into out (nbatch, 4), through part, a (nbatch, detect_parts(P), 4)
+// scratch. wpack: the laid W table (ops/synth_detect.py, laid_w). A
+// template, so that only the sources that launch it build its kernels
+// (ar_flow.cu includes this header for pupil_tiles).
+template <int kUnused = 0>
+cudaError_t launch_detect(int P, int nbatch, const float* wpack,
+                          const float* g_re, const float* g_im,
+                          const float* pm_t, const float* sh_t, float* part,
+                          float* out, int N, cudaStream_t stream) {
+  if (!second_pass_takes(P, nbatch, N, wpack, g_re, g_im) || part == nullptr)
+    return cudaErrorInvalidValue;
+  const WSlices w = w_slices(P);
+  const dim3 grid = second_pass_grid(P, nbatch);
+  cudaError_t err = cudaSuccess;
+#define FAST_DETECT(PB)                                                     \
+  case PB: {                                                                \
+    auto* k = detect_pass<PB / 64, PB % 64>;                                \
+    err = cudaFuncSetAttribute(                                             \
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, detect_smem(PB));   \
+    if (err != cudaSuccess) return err;                                     \
+    k<<<grid, kDetThreads, detect_smem(PB), stream>>>(                      \
+        wpack, g_re, g_im, pm_t, sh_t, part, nbatch, N, P, w.nz);           \
+    break;                                                                  \
+  }
+  FAST_PB_SWITCH(w.PB, FAST_DETECT)
 #undef FAST_DETECT
   err = cudaGetLastError();
-  if (err != cudaSuccess || t.T == 1) return err;
-  sum_tiles<<<(4 * nbatch + 255) / 256, 256, 0, stream>>>(part, out,
-                                                          4 * nbatch,
-                                                          t.T * t.T);
+  if (err != cudaSuccess) return err;
+  sum_tiles<<<(4 * nbatch + 255) / 256, 256, 0, stream>>>(
+      part, out, 4 * nbatch, detect_parts(P));
+  return cudaGetLastError();
+}
+
+// Launch the screens pass for a padded pupil P: the screens of nbatch
+// draws into scr_re and scr_im (nbatch, npup, npup), npup <= P.
+template <int kUnused = 0>
+cudaError_t launch_screens(int P, int nbatch, const float* wpack,
+                           const float* g_re, const float* g_im,
+                           float* scr_re, float* scr_im, int N, int npup,
+                           cudaStream_t stream) {
+  if (!second_pass_takes(P, nbatch, N, wpack, g_re, g_im) || npup <= 0 ||
+      npup > P)
+    return cudaErrorInvalidValue;
+  const WSlices w = w_slices(P);
+  const dim3 grid = second_pass_grid(P, nbatch);
+  cudaError_t err = cudaSuccess;
+#define FAST_SCREENS(PB)                                                    \
+  case PB: {                                                                \
+    auto* k = screens_pass<PB / 64, PB % 64>;                               \
+    err = cudaFuncSetAttribute(                                             \
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, detect_smem(PB));   \
+    if (err != cudaSuccess) return err;                                     \
+    k<<<grid, kDetThreads, detect_smem(PB), stream>>>(                      \
+        wpack, g_re, g_im, scr_re, scr_im, nbatch, N, P, w.nz, npup);       \
+    break;                                                                  \
+  }
+  FAST_PB_SWITCH(w.PB, FAST_SCREENS)
+#undef FAST_SCREENS
   return cudaGetLastError();
 }
 

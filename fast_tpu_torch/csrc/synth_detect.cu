@@ -23,10 +23,10 @@
 // and the bulk of the work: at N=256, P=82 (padded to 96) one complex draw
 // costs 4N^3 = 67 MFLOP of mixing product and 8N^2 P = 50 MFLOP for G',
 // against 8 P^2 N = 19 MFLOP for H in pass 2; at N=1024 with a 402 px
-// pupil (padded to 416) 4.3 and 3.4 GFLOP against 1.3. Pass 2 is
-// detect_pass of detect.cuh (shared with K1 and K3, on the tensor cores
-// since K1's and K3's redesign) or K7's screens_pass, fp32 FMA on the CUDA
-// cores.
+// pupil (padded to 416) 4.3 and 3.4 GFLOP against 1.3. Pass 2 is the
+// second pass of detect.cuh, H^T = G'^T W^T on wgmma with the draws
+// stacked along the 64-row axis: detect_pass (shared with K1 and K3) for
+// K2, screens_pass for K7, which stores Re H^T and Im H^T.
 //
 // Pass 1 on the tensor cores. Both of its products run as Hopper's
 // warpgroup products, wgmma.mma_async m64nNk8 TF32 (wgmma.cuh), each in
@@ -60,12 +60,14 @@
 // The design, a block per (draw, 64 rows of X', slice of PB <= 208 pupil
 // columns): two consumer warpgroups and a producer warpgroup (setmaxnreg:
 // 240 registers a consumer thread, 24 a producer thread).
-// * B operands pre-split and pre-laid. The wrapper splits the constant
-//   tables once a call (ops/synth_detect.py, pass1_tables): the mixing
+// * B operands pre-split and pre-laid, once per configuration
+//   (ops/synth_detect.py, laid_w; the engine keeps the LaidW on the card,
+//   a wrapper given plain wr, wi lays them out for the call): the mixing
 //   matrix in 64-column tiles of 32-deep slices and wr^T, wi^T in 8-deep
 //   steps of the block's pupil slice, each as hi and lo in wgmma's
 //   core-matrix layout, so a stage of the ring is one contiguous block.
-//   The kernel splits no B operand.
+//   The second pass reads the same W table. The kernel splits no B
+//   operand.
 // * Asynchronous copies. One producer thread streams the stages into a
 //   ring of 4 slots with cp.async.bulk; each completes on its slot's full
 //   mbarrier, and the 8 consumer warps release the slot on its empty one
@@ -96,10 +98,14 @@
 //   column tile's x and writes it into both blocks' shared memory
 //   (st.shared::cluster), with an mbarrier pair per x slot, so the noise
 //   and the mixing product are made once for the pupil.
-// * Pass 2 is a block per (draw, tile of H of at most 128 x 128): H = W G',
-//   then sincos and a fixed-order reduction, so the result is the same
-//   from run to run (no atomics); K7 ends in screens_pass, the same tiles
-//   written out.
+// * Pass 2 is a block per (64 stacked (draw, p2) rows, W slice): H^T =
+//   G'^T W^T, then sincos and a fixed-order reduction, so the result is the
+//   same from run to run (no atomics); K7 ends in screens_pass, the same
+//   product written out (detect.cuh). On wgmma it takes K2 at 256^2 from
+//   9.17-9.27 to 8.59-8.62 ms a 4096 draws and K7 at 1024^2 with the
+//   402 px pupil from 75.9-76.0 to 44.3-44.4 ms a 630, its screens pass
+//   from 42.1-42.4 to 10.2 (scripts/torch_detect_ab.py; H100 80GB HBM3,
+//   700 W).
 //
 // What bounds pass 1 (H100 80GB HBM3, 700 W; scripts/torch_pass1_variants
 // .py: the kernel beside copies of itself with one part taken out): the
@@ -146,7 +152,6 @@ constexpr int kZC = 64;         // column tile of X' (and of z), the depth of
 constexpr int kKU = 32;         // depth of a chunk of uniforms and of a staged
                                 // slice of the mixing matrix
 constexpr int kStages = 4;      // B stages in the ring
-constexpr int kPBMax = 208;     // widest slice of the pupil a block covers
 constexpr int kConsumers = 256;                  // two warpgroups
 constexpr int kPass1Threads = kConsumers + 128;  // and the producer's
 constexpr int kConsumerRegs = 240;  // registers a thread: 2 x 128 x 240 +
@@ -155,18 +160,6 @@ constexpr int kMStage = 4 * 2 * kZC * 8;  // words of a mixing slice: 4 steps
                                           // x {hi, lo} x 64 columns x 8
 constexpr int kUChunk = 2 * kRows * kKU;  // words of a chunk of uniforms
 constexpr int kSmemLimit = 232448;        // bytes of shared memory a block
-
-// How pass 1 covers the padded pupil P: nz blocks along it, each a slice
-// of PB <= 208 columns (a multiple of 16). _pass1_geom of
-// fast_tpu_torch/ops/synth_detect.py is the same rule.
-struct Pass1Geom {
-  int PB, nz;
-};
-
-Pass1Geom pass1_geom(int P) {
-  const int nz = (P + kPBMax - 1) / kPBMax;
-  return {(P / 16 + nz - 1) / nz * 16, nz};
-}
 
 // Words of one ring slot: a W stage (one 8-deep step of wr and wi, hi and
 // lo, PB columns) or, with 'mixed' noise, a slice of the mixing matrix.
@@ -554,12 +547,14 @@ cudaError_t launch_pass1(const Pass1Args& a, int nz) {
                             a.P, nbuf);
 }
 
+// How pass 1 covers the padded pupil P: nz blocks along it, each a slice
+// of PB <= 208 columns, the laid W table's (w_slices of detect.cuh).
 // 'mixed' noise over two pupil slices (nz = 2, slices of 112 to 208 px)
 // runs as pairs: the two slices' blocks of a draw's rows, a cluster of
 // two, make the noise once between them.
 template <bool kMixed>
 cudaError_t dispatch_pass1(const Pass1Args& a) {
-  const Pass1Geom g = pass1_geom(a.P);
+  const WSlices g = w_slices(a.P);
 #define FAST_CASE(PAIR, PB) \
   case PB:                  \
     return launch_pass1<kMixed, PAIR, PB / 64, PB % 64>(a, g.nz);
@@ -598,62 +593,10 @@ cudaError_t dispatch_pass1(const Pass1Args& a) {
 
 cudaError_t pass1(const Pass1Args& a) {
   if (a.N <= 0 || !pass2_takes(a.P) || a.nbatch <= 0 ||
-      a.wpack == nullptr || pass1_geom(a.P).nz > 65535 ||
+      a.wpack == nullptr || w_slices(a.P).nz > 65535 ||
       (a.N + kRows - 1) / kRows > 65535)
     return cudaErrorInvalidValue;
   return a.mpack ? dispatch_pass1<true>(a) : dispatch_pass1<false>(a);
-}
-
-// The screens pass: the tiles of the detect pass in fp32 FMA
-// (tile_product), written out. scr_re and scr_im: (nbatch, npup, npup)
-// un-padded, un-transposed screens, scr[j][p2][p1] = H[p1][p2]; the tile is
-// formed transposed, so neighbouring threads write neighbouring addresses.
-template <int PJ, bool kOne>
-__global__ void __launch_bounds__(kThreads)
-    screens_pass(const float* __restrict__ wr, const float* __restrict__ wi,
-                 const float* __restrict__ g_re,
-                 const float* __restrict__ g_im, float* __restrict__ scr_re,
-                 float* __restrict__ scr_im, int N, int P_rt, int T,
-                 int npup) {
-  constexpr int TP = 16 * PJ;
-  const int P = kOne ? TP : P_rt;
-  const int j = blockIdx.x;
-  const int tile = kOne ? 0 : blockIdx.y;
-  const int r0 = kOne ? 0 : tile / T * TP, c0 = kOne ? 0 : tile % T * TP;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-
-  float hr[PJ][PJ], hi[PJ][PJ];
-  tile_product<PJ, kOne>(wr, wi, g_re + static_cast<size_t>(j) * N * P,
-                         g_im + static_cast<size_t>(j) * N * P, N, P, r0, c0,
-                         hr, hi);
-#pragma unroll
-  for (int a = 0; a < PJ; ++a)
-#pragma unroll
-    for (int b = 0; b < PJ; ++b) {
-      const int p2 = c0 + ty + 16 * a, p1 = r0 + tx + 16 * b;
-      if (p1 >= npup || p2 >= npup) continue;
-      const size_t at = (static_cast<size_t>(j) * npup + p2) * npup + p1;
-      scr_re[at] = hr[a][b];
-      scr_im[at] = hi[a][b];
-    }
-}
-
-// Launch the screens pass for a padded pupil P: the screens of nbatch
-// draws into scr_re and scr_im (nbatch, npup, npup).
-cudaError_t launch_screens(int P, int nbatch, const float* wr,
-                                  const float* wi, const float* g_re,
-                                  const float* g_im, float* scr_re,
-                                  float* scr_im, int N, int npup,
-                                  cudaStream_t stream) {
-  const PupilTiles t = pupil_tiles(P);
-  if (!pass2_takes(P) || npup <= 0 || npup > P) return cudaErrorInvalidValue;
-  const dim3 grid(nbatch, t.T * t.T);
-#define FAST_SCREENS(PJ, ONE)                            \
-  screens_pass<PJ, ONE><<<grid, kThreads, 0, stream>>>(  \
-      wr, wi, g_re, g_im, scr_re, scr_im, N, P, t.T, npup)
-  FAST_TILE_SWITCH(t, FAST_SCREENS)
-#undef FAST_SCREENS
-  return cudaGetLastError();
 }
 
 __global__ void sincos_kernel(const float* __restrict__ phi,
@@ -665,19 +608,18 @@ __global__ void sincos_kernel(const float* __restrict__ phi,
 
 }  // namespace
 
-// K2. Shapes: s_t (N, N); wr, wi (P, N); pm_t (P, P); wpack, mpack: pass
-// 1's tables, split and laid out by the wrapper (ops/synth_detect.py,
-// pass1_tables: W for the pupil slices of pass1_geom(P), the mixing
-// matrix in column tiles of 64); g_re, g_im scratch (nbatch, N, P); out
-// (nbatch, 4) = (sum pm cos h1, sum pm sin h1, sum pm cos h2, sum pm sin
-// h2); part: scratch (nbatch, T * T, 4) for a pupil over 128 px (T =
-// ceil(P / 128)), else unused. mpack == nullptr selects 'gauss' noise.
+// K2. Shapes: s_t (N, N); pm_t (P, P); wpack, mpack: the laid W table
+// and mixing matrix (ops/synth_detect.py, laid_w: W^T in the pupil slices
+// of w_slices(P), split and laid out for wgmma, read by both passes; the
+// mixing matrix in column tiles of 64); g_re, g_im scratch (nbatch, N, P);
+// out (nbatch, 4) = (sum pm cos h1, sum pm sin h1, sum pm cos h2, sum pm
+// sin h2); part: scratch (nbatch, P / 16 x nz, 4), the detect pass's
+// partial sums (detect_parts). mpack == nullptr selects 'gauss' noise.
 // sh_t: nullptr, or (nbatch, 2, P, P) transposed subharmonic screens added
 // to (Re H, Im H) before the detector. P must be a multiple of 16. Returns
 // the cudaError_t of the launches (0 on success).
 extern "C" int fast_synth_detect(uint32_t k0, uint32_t k1, uint32_t stream_id,
                                  int draw0, int nbatch, const float* s_t,
-                                 const float* wr, const float* wi,
                                  const float* pm_t, const float* wpack,
                                  const float* mpack, const float* sh_t,
                                  float* g_re, float* g_im, float* part,
@@ -686,7 +628,7 @@ extern "C" int fast_synth_detect(uint32_t k0, uint32_t k1, uint32_t stream_id,
   cudaError_t err = pass1({k0, k1, stream_id, draw0, nbatch, s_t, wpack,
                            mpack, g_re, g_im, N, P, st});
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_detect(P, nbatch, wr, wi, g_re, g_im, pm_t,
+  return static_cast<int>(launch_detect(P, nbatch, wpack, g_re, g_im, pm_t,
                                         sh_t, part, out, N, st));
 }
 
@@ -709,7 +651,6 @@ extern "C" int fast_synth_pass1(uint32_t k0, uint32_t k1, uint32_t stream_id,
 // W X W^T cropped to the npup <= P pupil pixels. Other arguments as K2's.
 extern "C" int fast_synth_screens(uint32_t k0, uint32_t k1, uint32_t stream_id,
                                   int draw0, int nbatch, const float* s_t,
-                                  const float* wr, const float* wi,
                                   const float* wpack, float* g_re,
                                   float* g_im, float* scr_re, float* scr_im,
                                   int N, int P, int npup, void* stream) {
@@ -717,8 +658,21 @@ extern "C" int fast_synth_screens(uint32_t k0, uint32_t k1, uint32_t stream_id,
   cudaError_t err = pass1({k0, k1, stream_id, draw0, nbatch, s_t, wpack,
                            nullptr, g_re, g_im, N, P, st});
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_screens(P, nbatch, wr, wi, g_re, g_im,
+  return static_cast<int>(launch_screens(P, nbatch, wpack, g_re, g_im,
                                          scr_re, scr_im, N, npup, st));
+}
+
+// K7's screens pass alone: the screens (nbatch, npup, npup) of nbatch
+// draws from their G' (g_re, g_im: nbatch, N, P). For timing the pass and
+// holding it element by element against its plain version. Other
+// arguments as K7's.
+extern "C" int fast_screens_pass(int nbatch, const float* wpack,
+                                 const float* g_re, const float* g_im,
+                                 float* scr_re, float* scr_im, int N, int P,
+                                 int npup, void* stream) {
+  return static_cast<int>(launch_screens(P, nbatch, wpack, g_re, g_im,
+                                         scr_re, scr_im, N, npup,
+                                         static_cast<cudaStream_t>(stream)));
 }
 
 // The kernel's sincos on its own, for accuracy checks against float64.

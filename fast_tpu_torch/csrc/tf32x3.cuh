@@ -2,11 +2,12 @@
 // rounding and the hi/lo split of an fp32 operand, warp-level
 // mma.sync.m16n8k8 TF32 products, and the asynchronous copies (cp.async)
 // that stage their operands into shared memory. The AR kernels' first DFT
-// product (ar_flow.cu) and the iid kernels' detect pass (detect.cuh) use
-// them; each says how it sums the three products of a step.
+// product (ar_flow.cu) uses them and says how it sums the three products
+// of a step.
 //
 // Pass 1 of K2 and K7 (synth_detect.cu), of K1 (colfac_detect.cu) and of
-// K3 (colfac_split.cu) takes only the split from here: its products are
+// K3 (colfac_split.cu), and the iid kernels' second pass (detect.cuh),
+// take only the split from here: their products are
 // Hopper's warpgroup products (wgmma.cuh), with B split once by the
 // wrapper and staged by bulk copies on mbarriers, A split in registers,
 // and fold groups of two 8-deep steps added in fp32. Moving them off

@@ -1,12 +1,13 @@
 // Hopper's asynchronous tensor-core path, shared by the kernels that use
 // it (pass 1 of K2 and K7, synth_detect.cu; of K1, colfac_detect.cu; of
-// K3, colfac_split.cu): warpgroup products (wgmma.mma_async, TF32, A from
-// registers, B from shared memory through a matrix descriptor), the 1-D
-// bulk copies (cp.async.bulk) that stage B from device memory, the
-// mbarriers the copies complete on, thread-block clusters, and the pieces
-// the three passes build from them (the ring of B stages, the fold groups
-// of 3xTF32 products, the products over a 64-deep tile of A). sm_90a
-// only: wgmma does not exist for plain sm_90.
+// K3, colfac_split.cu; the detect and screens passes of detect.cuh):
+// warpgroup products (wgmma.mma_async, TF32, A from registers, B from
+// shared memory through a matrix descriptor), the 1-D bulk copies
+// (cp.async.bulk) that stage operands from device memory, the mbarriers
+// the copies complete on, thread-block clusters, and the pieces the passes
+// build from them (the ring of B stages, the fold groups of 3xTF32
+// products, the products over a 64-deep tile of A). sm_90a only: wgmma
+// does not exist for plain sm_90.
 //
 // B's layout in shared memory ("core matrices", no swizzle). wgmma reads
 // a K-major B of an 8-deep step and n columns as 8 x 16-byte core
@@ -201,6 +202,14 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "@!done bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
       "r"(parity)
       : "memory");
+}
+
+// One arrival on `bar` once every cp.async this thread issued before has
+// landed (the barrier's count includes it: noinc).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
 }
 
 // Copy `bytes` (a multiple of 16, both addresses 16-byte aligned) from
@@ -412,7 +421,18 @@ constexpr int kXRows = 64;
 constexpr int kXDepth = 64;
 constexpr int kXTile = 2 * kXRows * kXDepth;
 
-// The complex product G' += x B of one x tile at `x` against 8 stages of
+// The A fragment of part `part` (0 real, 1 imaginary) of an x tile at
+// 8-deep step `step` for the thread's rows r, r + 8 and quad lane t, split
+// and negated if neg. tile_products takes its A through this; a tile of
+// another layout brings an overload of its own (detect.cuh, KTile).
+__device__ __forceinline__ Frag a_frag(const float* x, int part, int step,
+                                       int r, int t, bool neg) {
+  return load_frag(x + part * kXRows * kXDepth, r, 4 * step + t, kXDepth,
+                   neg);
+}
+
+// The complex product G' += x B of one A tile `x` (an x tile, or any tile
+// with an a_frag overload) against 8 stages of
 // the ring from `it` on, one 8-deep step each: B_r hi, B_r lo, B_i hi,
 // B_i lo over PB = 64 NCH + TAIL columns (8 PB words each, the core-matrix
 // layout). Consumer warpgroup wg makes part wg of G': 0 (Re) takes x_r B_r
@@ -423,10 +443,10 @@ constexpr int kXTile = 2 * kXRows * kXDepth;
 // `between(h)` runs while group h's first chunk is in flight. Every group
 // has landed when it returns: ptxas cannot follow a group in flight
 // around a loop (it then serializes every wgmma, warning C7514).
-template <int NCH, int TAIL, int kStages, class Between>
+template <int NCH, int TAIL, int kStages, class ATile, class Between>
 __device__ __forceinline__ void tile_products(
     float (&gb)[NCH > 0 ? NCH : 1][32],
-    float (&gt)[(TAIL > 0 ? TAIL : 16) / 2], const float* x,
+    float (&gt)[(TAIL > 0 ? TAIL : 16) / 2], ATile x,
     const Ring<kStages>& ring, uint32_t it, int wg, int r, int t,
     Between between) {
   constexpr int PB = 64 * NCH + TAIL;
@@ -439,9 +459,8 @@ __device__ __forceinline__ void tile_products(
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
       st[s] = ring.take(it + 2 * h + s);
-      const int f = 4 * (2 * h + s) + t;
-      a[0][s] = load_frag(x, r, f, kXDepth, false);
-      a[1][s] = load_frag(x + kXRows * kXDepth, r, f, kXDepth, wg == 0);
+      a[0][s] = a_frag(x, 0, 2 * h + s, r, t, false);
+      a[1][s] = a_frag(x, 1, 2 * h + s, r, t, wg == 0);
     }
     // term 0 with B_r (Re) or B_i (Im), term 1 with B_i (Re) or B_r (Im)
     const auto descs = [&](int col, uint64_t (&bh)[2][2],

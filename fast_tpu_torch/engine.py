@@ -158,23 +158,25 @@ def chunk_couplings(T, synth, nbatch, *, noise="mixed", seed=0, stream=0,
     if synth in ("pallas_fused", "pallas_colfac"):
         sh_t = None if sh is None else pack_subharm(sh, T["wr"].shape[0])
         mixed = noise == "mixed"
+        laid = T.get("w_laid")
         if synth == "pallas_fused":
             c = synth_detect(seed, T["s_t"], T["wr"], T["wi"], T["pm_t"],
                              nbatch, mix=T["mix"] if mixed else None,
-                             stream=stream, sh_t=sh_t)
+                             stream=stream, sh_t=sh_t, laid=laid)
         elif "T_colfac" in T:
             c = cd.colfac_detect_split(seed, T["T_colfac"], T["wr"], T["wi"],
                                        T["pm_t"], nbatch, mixed=mixed,
-                                       stream=stream, sh_t=sh_t)
+                                       stream=stream, sh_t=sh_t, laid=laid)
         else:
             c = cd.colfac_detect(seed, T["S_colfac"], T["wr"], T["wi"],
                                  T["pm_t"], nbatch, mixed=mixed,
-                                 stream=stream, sh_t=sh_t)
+                                 stream=stream, sh_t=sh_t, laid=laid)
         return torch.complex(c[:, 0], c[:, 1]) * (dx ** 2 / norm)
     df = float(T["df"])
     if synth == "pallas":
         phs = synth_screens(seed, T["s_t"], T["wr"], T["wi"], nbatch,
-                            npup=T["pm"].shape[0], stream=stream)
+                            npup=T["pm"].shape[0], stream=stream,
+                            laid=T.get("w_laid"))
         if sh is not None:
             phs = phs + synthesis.double_screens(sh)
         return synthesis.detector_coupling(phs, T["pm"], dx, norm)

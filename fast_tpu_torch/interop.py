@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from .ops.colfac_detect import colfac_layout, kernel_table
-from .ops.synth_detect import mixing_matrix, pad_pupil
+from .ops.synth_detect import laid_w, mixing_matrix, pad_pupil
 
 #: The arrays :func:`tables_from_numpy` reads.
 KEYS = ("powerspec", "pupil_mode", "W_pruned", "df", "dx", "norm",
@@ -56,7 +56,11 @@ def tables_from_numpy(arrays, device="cpu", dtype=torch.float32,
         plain paths; ``s_t`` (N, N) = sqrt(PSD)^T * df, ``wr``/``wi`` (P, N)
         and ``pm_t`` (P, P), zero padded as the kernels take them
         (:func:`~fast_tpu_torch.ops.synth_detect.pad_pupil`), and
-        ``mix`` (N, N), all float32, for the synth-detect kernel; and 0-d
+        ``mix`` (N, N), all float32, for the synth-detect kernel; on the
+        card, ``w_laid``, the laid W table that the iid kernels' products
+        read (:func:`~fast_tpu_torch.ops.synth_detect.laid_w`: ``wr``,
+        ``wi`` and ``mix`` split and laid out once; on the CPU the plain
+        tables are the kernels' and there is none); and 0-d
         float64 CPU tensors for the scalars, with ``pup_crop`` a (2,)
         int64 tensor. With ``L_colfac``: ``L`` (N, Npup, Npup) complex in
         the working type for ``SYNTH='colfac'`` and the colfac-detect
@@ -131,6 +135,8 @@ def _grid_tables(arrays, temporal, device, dtype):
              pup_crop=torch.as_tensor(np.asarray(g["pup_crop"], np.int64)))
     if not temporal:
         T["mix"] = _dev(mixing_matrix(W.shape[-1]), device)
+        if wr.device.type == "cuda":
+            T["w_laid"] = laid_w(wr, wi, T["mix"])
     for k in ("df", "dx", "norm"):
         T[k] = torch.tensor(float(g[k]), dtype=torch.float64)
     if g["subharm_modes"] is not None:

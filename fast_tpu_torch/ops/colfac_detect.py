@@ -36,10 +36,12 @@ output layout.
   that K1, K2 and K3 share, ``csrc/detect.cuh``, against
   :func:`~fast_tpu_torch.ops.synth_detect.detect_reference`). Each counts
   its launches in its own ``LAUNCHES``. Both kernels run both products on
-  the tensor cores in 3xTF32: pass 1 on Hopper's ``wgmma``, from tables
+  the tensor cores in 3xTF32 on Hopper's ``wgmma``: pass 1 from tables
   split and laid out once (:func:`lay_tables`, :func:`lay_tables_split`,
   :class:`LaidTable`; :func:`laid_table` builds one from ``L``,
-  :func:`kernel_table` the engine's), the detect pass on ``mma.sync``.
+  :func:`kernel_table` the engine's), the detect pass from the laid W
+  table (:class:`~fast_tpu_torch.ops.synth_detect.LaidW`, ``laid=``; laid
+  out for the call without it).
 
 Mixing width: 'mixed' noise mixes 128 uniforms per component per column
 in K1, as the TPU kernel does over its 128-lane tile, and ``LW`` in K3,
@@ -53,8 +55,9 @@ import numpy as np
 import torch
 
 from . import _build
-from .synth_detect import (_P_MAX, _PB_MAX, _REF_POINTS, _hi_lo, _key,
-                           _pack, box_muller, check_subharm, check_tables,
+from .synth_detect import (_P_MAX, _PB_MAX, _REF_POINTS, _check_laid,
+                           _hi_lo, _key, _pack, _w_tables, box_muller,
+                           check_subharm, check_tables, detect_parts,
                            detect_reference, draws_per_launch, mixing_matrix,
                            padded_pupil, philox4x32_10, pupil_tiles, raise_on,
                            uniforms)
@@ -248,7 +251,7 @@ def _library():
         lib.fast_colfac_pass1.argtypes = [u, u, u, i, i, p, p, p, i, i, i, i,
                                           p]
         lib.fast_colfac_pass1.restype = i
-        lib.fast_detect_pass.argtypes = [i, p, p, p, p, p, p, p, p, i, i, p]
+        lib.fast_detect_pass.argtypes = [i, p, p, p, p, p, p, p, i, i, p]
         lib.fast_detect_pass.restype = i
         lib.fast_error_string.argtypes = [i]
         lib.fast_error_string.restype = ctypes.c_char_p
@@ -326,7 +329,7 @@ def _check_stream(stream):
 
 
 def colfac_detect(seed, S, wr, wi, pm_t, nbatch, mixed=True, stream=0,
-                  sh_t=None):
+                  sh_t=None, laid=None):
     """K1 on ``nbatch`` complex draws; arguments as
     :func:`colfac_detect_reference`.
 
@@ -337,9 +340,13 @@ def colfac_detect(seed, S, wr, wi, pm_t, nbatch, mixed=True, stream=0,
     shape it does not take (:func:`supports`); on CPU tensors it runs the
     plain version. On the card ``S`` may be the :class:`LaidTable` of
     :func:`lay_tables` (the engine's, laid out once per configuration); a
-    plain ``S`` is laid out anew for the call.
+    plain ``S`` is laid out anew for the call. ``laid``: the
+    :class:`~fast_tpu_torch.ops.synth_detect.LaidW` of ``wr``, ``wi`` that
+    the detect pass reads (the engine's), else laid out for the call.
     """
     N, K, P = _check(S, wr, wi, pm_t, nbatch, mixed)
+    if laid is not None:
+        _check_laid(laid, wr)
     dev = S.device
     check_subharm(sh_t, nbatch, P, dev)
     if dev.type == "cpu":
@@ -350,22 +357,25 @@ def colfac_detect(seed, S, wr, wi, pm_t, nbatch, mixed=True, stream=0,
         raise ValueError(f"colfac_detect runs on CPU or CUDA, not {dev}")
     _check_launch(N, P, stream)
     S = _laid(S, lay_tables).data
+    wpack, _ = _w_tables(wr, wi, None, laid)
     k0, k1 = _key(seed)
     lib, _ = _library()
     nbatch = int(nbatch)
     out = torch.empty((nbatch, 4), dtype=torch.float32, device=dev)
     per = draws_per_launch(N, P, nbatch)
     g = torch.empty((2, per, N, P), dtype=torch.float32, device=dev)
+    part = torch.empty((per, detect_parts(P), 4), dtype=torch.float32,
+                       device=dev)
     with torch.cuda.device(dev):
         cs = torch.cuda.current_stream(dev).cuda_stream
         for d0 in range(0, nbatch, per):
             nb = min(per, nbatch - d0)
             err = lib.fast_colfac_detect(
-                k0, k1, int(stream), d0, nb, S.data_ptr(), wr.data_ptr(),
-                wi.data_ptr(), pm_t.data_ptr(),
+                k0, k1, int(stream), d0, nb, S.data_ptr(), wpack.data_ptr(),
+                pm_t.data_ptr(),
                 None if sh_t is None else sh_t[d0].data_ptr(),
-                g[0].data_ptr(), g[1].data_ptr(), out[d0:d0 + nb].data_ptr(),
-                N, P, K, int(bool(mixed)), cs)
+                g[0].data_ptr(), g[1].data_ptr(), part.data_ptr(),
+                out[d0:d0 + nb].data_ptr(), N, P, K, int(bool(mixed)), cs)
             raise_on(lib, err, "colfac_detect launch")
             colfac_detect.LAUNCHES += 1
     return _pack(out)
@@ -426,7 +436,7 @@ def colfac_pass1(seed, S, nbatch, mixed=True, stream=0, draw0=0):
 colfac_pass1.LAUNCHES = 0
 
 
-def detect_pass(gr, gi, wr, wi, pm_t, sh_t=None):
+def detect_pass(gr, gi, wr, wi, pm_t, sh_t=None, laid=None):
     """The detect pass of K1, K2 and K3 alone: the sums (nbatch, 4) of
     :func:`~fast_tpu_torch.ops.synth_detect.detect_reference` from each
     draw's ``G'`` (``gr``, ``gi``: (nbatch, N, P), P a multiple of 16, as
@@ -434,9 +444,11 @@ def detect_pass(gr, gi, wr, wi, pm_t, sh_t=None):
     against that plain version.
 
     On CUDA tensors this launches ``detect_pass`` of ``csrc/detect.cuh``
-    (one launch of the given draws, counted in ``detect_pass.LAUNCHES``) on
-    the current stream, or raises; on CPU tensors it runs the plain
-    version.
+    (one launch of the given draws, then ``sum_tiles``, counted in
+    ``detect_pass.LAUNCHES``) on the current stream, or raises; on CPU
+    tensors it runs the plain version. ``laid``: the
+    :class:`~fast_tpu_torch.ops.synth_detect.LaidW` of ``wr``, ``wi``, else
+    laid out for the call.
     """
     if gr.ndim != 3:
         raise ValueError(f"gr must be (nbatch, N, P), got {tuple(gr.shape)}")
@@ -446,6 +458,8 @@ def detect_pass(gr, gi, wr, wi, pm_t, sh_t=None):
                   "pm_t": (pm_t, (P, P))}, nbatch)
     dev = gr.device
     check_subharm(sh_t, nbatch, P, dev)
+    if laid is not None:
+        _check_laid(laid, wr)
     if dev.type == "cpu":
         return detect_reference(gr, gi, wr, wi, pm_t, sh_t)
     if dev.type != "cuda":
@@ -453,13 +467,14 @@ def detect_pass(gr, gi, wr, wi, pm_t, sh_t=None):
     if P % 16 or pupil_tiles(P) > 255:
         raise ValueError(f"the detect pass takes a pupil padded to a "
                          f"multiple of 16 px; got P={P}")
+    wpack, _ = _w_tables(wr, wi, None, laid)
     lib, _ = _library()
     out = torch.empty((nbatch, 4), dtype=torch.float32, device=dev)
-    part = torch.empty((nbatch, pupil_tiles(P) ** 2, 4), dtype=torch.float32,
+    part = torch.empty((nbatch, detect_parts(P), 4), dtype=torch.float32,
                        device=dev)
     with torch.cuda.device(dev):
         err = lib.fast_detect_pass(
-            nbatch, wr.data_ptr(), wi.data_ptr(), gr.data_ptr(),
+            nbatch, wpack.data_ptr(), gr.data_ptr(),
             gi.data_ptr(), pm_t.data_ptr(),
             None if sh_t is None else sh_t.data_ptr(), part.data_ptr(),
             out.data_ptr(), N, P, torch.cuda.current_stream(dev).cuda_stream)
@@ -640,7 +655,7 @@ def _library_split():
     if not getattr(lib, "_fast_typed", False):
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
         lib.fast_colfac_split.argtypes = [u, u, u, i, i, p, p, p, p, p, p, p,
-                                          p, p, i, i, i, i, i, p]
+                                          p, i, i, i, i, i, p]
         lib.fast_colfac_split.restype = i
         lib.fast_split_pass1.argtypes = [u, u, u, i, i, p, p, p, i, i, i, i,
                                          i, p]
@@ -674,7 +689,7 @@ def _check_split(T, wr, wi, pm_t, nbatch, LW):
 
 
 def colfac_detect_split(seed, T, wr, wi, pm_t, nbatch, mixed=True, stream=0,
-                        sh_t=None, LW=None):
+                        sh_t=None, LW=None, laid=None):
     """K3 on ``nbatch`` complex draws; arguments as
     :func:`colfac_split_reference`.
 
@@ -683,9 +698,11 @@ def colfac_detect_split(seed, T, wr, wi, pm_t, nbatch, mixed=True, stream=0,
     in ``colfac_detect_split.LAUNCHES``, or raises; on CPU tensors it runs
     the plain version. On the card ``T`` may be the :class:`LaidTable` of
     :func:`lay_tables_split` or :func:`laid_table`; a plain ``T`` is laid
-    out anew for the call.
+    out anew for the call. ``laid`` as :func:`colfac_detect`'s.
     """
     N, Kq, P, LW = _check_split(T, wr, wi, pm_t, nbatch, LW)
+    if laid is not None:
+        _check_laid(laid, wr)
     dev = T.device
     check_subharm(sh_t, nbatch, P, dev)
     if dev.type == "cpu":
@@ -697,21 +714,22 @@ def colfac_detect_split(seed, T, wr, wi, pm_t, nbatch, mixed=True, stream=0,
         raise ValueError(f"colfac_detect_split runs on CPU or CUDA, not {dev}")
     _check_stream(stream)
     T = _laid(T, lay_tables_split).data
+    wpack, _ = _w_tables(wr, wi, None, laid)
     k0, k1 = _key(seed)
     lib, _ = _library_split()
     nbatch = int(nbatch)
     out = torch.empty((nbatch, 4), dtype=torch.float32, device=dev)
     per = draws_per_launch(N, P, nbatch)
     g = torch.empty((2, per, N, P), dtype=torch.float32, device=dev)
-    part = torch.empty((per, pupil_tiles(P) ** 2, 4), dtype=torch.float32,
+    part = torch.empty((per, detect_parts(P), 4), dtype=torch.float32,
                        device=dev)
     with torch.cuda.device(dev):
         cs = torch.cuda.current_stream(dev).cuda_stream
         for d0 in range(0, nbatch, per):
             nb = min(per, nbatch - d0)
             err = lib.fast_colfac_split(
-                k0, k1, int(stream), d0, nb, T.data_ptr(), wr.data_ptr(),
-                wi.data_ptr(), pm_t.data_ptr(),
+                k0, k1, int(stream), d0, nb, T.data_ptr(), wpack.data_ptr(),
+                pm_t.data_ptr(),
                 None if sh_t is None else sh_t[d0].data_ptr(),
                 g[0].data_ptr(), g[1].data_ptr(), part.data_ptr(),
                 out[d0:d0 + nb].data_ptr(), N, P, Kq, LW, int(bool(mixed)),

@@ -18,16 +18,22 @@ exactly K7's screens of the same seed.
   numerically on the card and not only in distribution.
 * :func:`synth_screens` and :func:`synth_screens_reference` are that pair
   for K7.
+* :func:`screens_pass` and :func:`screens_pass_reference` are K7's second
+  pass alone (``W G'`` written out as screens), the twin of
+  :func:`~fast_tpu_torch.ops.colfac_detect.detect_pass`.
 
 Any pupil width: the kernels tile the pupil axis (``csrc/detect.cuh``), so
 only 'mixed' noise on a grid over 2304 px (at a 128 px pupil) is refused.
 The Philox counter's last word keeps the kernels' streams of one seed
 apart: 0 for K2 and K7, 1 for K1
 (:mod:`~fast_tpu_torch.ops.colfac_detect`), 2 for the AR kernels
-(:mod:`~fast_tpu_torch.ops.ar_flow`), 3 for K3. Pass 1 of K2 and K7 runs
-its products on the tensor cores as three TF32 products (3xTF32, Hopper's
-``wgmma``) against tables that :func:`pass1_tables` splits and lays out
-once a call; :func:`synth_pass1` runs it alone.
+(:mod:`~fast_tpu_torch.ops.ar_flow`), 3 for K3. Both passes of K2 and K7
+run their products on the tensor cores as three TF32 products (3xTF32,
+Hopper's ``wgmma``) against the laid W table (:class:`LaidW`,
+:func:`laid_w`: split and laid out once per configuration, the engine's;
+a wrapper given plain ``wr``, ``wi`` lays them out for the call), which
+the detect pass of K1 and K3 reads too; :func:`synth_pass1` runs pass 1
+alone.
 
 Output layout, as the TPU kernel's: ``(2 * nbatch, 2)`` float32, rows
 ``0..nbatch-1`` the screens from the real parts and rows
@@ -74,8 +80,8 @@ _M_STAGE = 4 * 2 * 64 * 8
 _U_CHUNK = 2 * 64 * _KU
 _X_TILE = 2 * 64 * 64
 _P_ALIGN = 16         # the kernel pads the pupil axis to this multiple
-_P_MAX = 128          # widest tile of the pupil axis (csrc/detect.cuh);
-                      # K1 takes no wider pupil
+_P_MAX = 128          # widest tile of the AR kernels' detect
+                      # (csrc/detect.cuh); K1 takes no wider pupil
 
 
 # ---------------------------------------------------------------------------
@@ -356,9 +362,10 @@ def check_subharm(sh_t, nbatch, P, device):
 
 
 def _pass1_geom(P):
-    """How pass 1 covers a padded pupil ``P``: ``(PB, nz)``, nz blocks
-    along the pupil, each a slice of PB <= 208 columns (a multiple of 16;
-    ``pass1_geom`` of the CUDA source)."""
+    """How pass 1 and the second pass cover a padded pupil ``P``: ``(PB,
+    nz)``, nz blocks along the pupil, each a slice of PB <= 208 columns (a
+    multiple of 16; ``w_slices`` of ``csrc/detect.cuh``): the slices of the
+    laid W table."""
     nz = -(-P // _PB_MAX)
     return -(-(P // 16) // nz) * 16, nz
 
@@ -420,9 +427,16 @@ def draws_per_launch(N, P, nbatch=_MAX_DRAWS):
 
 
 def pupil_tiles(P):
-    """Tiles per axis of the detect pass at a padded pupil ``P``
+    """Tiles per axis of the AR kernels' detect at a padded pupil ``P``
     (``pupil_tiles`` of ``csrc/detect.cuh``): one up to 128 px."""
     return -(-P // _P_MAX)
+
+
+def detect_parts(P):
+    """Partial sums a draw of the detect pass at a padded pupil ``P``
+    (``detect_parts`` of ``csrc/detect.cuh``): one per 16 rows of ``H^T``
+    and W slice (:func:`_pass1_geom`)."""
+    return P // 16 * _pass1_geom(P)[1]
 
 
 def _tf32(x):
@@ -454,9 +468,9 @@ def _hi_lo(b):
 
 
 def pass1_tables(wr, wi, mix=None):
-    """Pass 1's tables for the kernel (``wpack``, ``mpack``), each operand
-    split once into TF32 hi and lo parts and laid out as its B stages
-    land in shared memory, one contiguous block a stage:
+    """The kernels' tables (``wpack``, ``mpack``), each operand split once
+    into TF32 hi and lo parts and laid out as its B stages land in shared
+    memory, one contiguous block a stage (:func:`laid_w` keeps them):
 
     * ``wpack``: for each of the nz slices of PB pupil columns
       (:func:`_pass1_geom` of the padded pupil, rows of ``wr`` past it
@@ -468,22 +482,91 @@ def pass1_tables(wr, wi, mix=None):
       of 32), the slice's 4 steps, hi then lo: (N64 / 64, N32 / 32, 4, 2,
       512).
 
+    ``wpack`` is ``W^T``, the B of both passes: pass 1's ``G' = X' W^T``
+    and the second pass's ``H^T = G'^T W^T`` (``csrc/detect.cuh``).
     ``wr``, ``wi``: (P, N) with P a multiple of 16 (:func:`pad_pupil`);
     ``mix``: (N, N). On the tables' device, in stock torch ops.
     """
+    return _w_table(wr, wi), None if mix is None else _mix_table(mix)
+
+
+def _w_table(wr, wi):
+    """:func:`pass1_tables`' ``wpack``."""
     P, N = wr.shape
     PB, nz = _pass1_geom(P)
-    n64, n32 = -(-N // 64) * 64, -(-N // _KU) * _KU
-    pad = torch.nn.functional.pad
-    w = pad(torch.stack([wr, wi]), (0, n64 - N, 0, nz * PB - P))
+    n64 = -(-N // 64) * 64
+    w = torch.nn.functional.pad(torch.stack([wr, wi]),
+                                (0, n64 - N, 0, nz * PB - P))
     pieces = [_core_layout(x.T, PB) for part in w for x in _hi_lo(part)]
-    wpack = torch.stack(pieces, dim=2).contiguous()
-    if mix is None:
-        return wpack, None
-    m = pad(mix, (0, n64 - N, 0, n32 - N))
+    return torch.stack(pieces, dim=2).contiguous()
+
+
+def _mix_table(mix):
+    """:func:`pass1_tables`' ``mpack``."""
+    N = mix.shape[0]
+    n64, n32 = -(-N // 64) * 64, -(-N // _KU) * _KU
+    m = torch.nn.functional.pad(mix, (0, n64 - N, 0, n32 - N))
     tiles = [_core_layout(x, 64).reshape(n64 // 64, n32 // _KU, 4, 512)
              for x in _hi_lo(m)]
-    return wpack, torch.stack(tiles, dim=3).contiguous()
+    return torch.stack(tiles, dim=3).contiguous()
+
+
+class LaidW:
+    """The laid W table: ``W^T`` (and the mixing matrix) as the card's
+    kernels read them, :func:`pass1_tables`' ``wpack`` and ``mpack`` (None
+    without a mixing matrix), laid out from the padded (P, N) ``wr``,
+    ``wi`` of ``shape``. Pass 1 of K2 and K7, the detect pass of K1, K2
+    and K3 and K7's screens pass read it; the wrappers take it as
+    ``laid=`` beside the plain ``wr``, ``wi``."""
+
+    def __init__(self, wpack, mpack, shape):
+        self.wpack, self.mpack, self.shape = wpack, mpack, torch.Size(shape)
+
+    @property
+    def device(self):
+        return self.wpack.device
+
+    @property
+    def nbytes(self):
+        return sum(t.numel() * t.element_size()
+                   for t in (self.wpack, self.mpack) if t is not None)
+
+
+def laid_w(wr, wi, mix=None):
+    """The :class:`LaidW` of ``wr``, ``wi`` (P, N; padded to
+    :func:`padded_pupil` first) and, if given, the mixing matrix ``mix``
+    (N, N), on their device: built once per configuration by the engine
+    (``interop.tables_from_numpy``) on the card. About 6.8 MB of ``wpack``
+    at N = 1024 with a 416 px padded pupil, 8.4 MB of ``mpack``."""
+    wr, wi, _ = pad_pupil(wr, wi, None)
+    return LaidW(*pass1_tables(wr, wi, mix), wr.shape)
+
+
+def _w_tables(wr, wi, mix, laid):
+    """``(wpack, mpack)`` of a launch on the padded ``wr``, ``wi``:
+    ``laid``'s (its ``mpack`` laid out here if ``mix`` is given and it has
+    none) or laid out anew for the call."""
+    if laid is None:
+        return pass1_tables(wr, wi, mix)
+    _check_laid(laid, wr)
+    mpack = laid.mpack
+    if mix is not None and mpack is None:
+        mpack = _mix_table(mix)
+    return laid.wpack, mpack if mix is not None else None
+
+
+def _check_laid(laid, wr):
+    """Raise unless ``laid`` is the :class:`LaidW` of a W of ``wr``'s
+    padded shape, on its device."""
+    if not isinstance(laid, LaidW):
+        raise TypeError(f"laid must be a LaidW (laid_w), got "
+                        f"{type(laid).__name__}")
+    want = (padded_pupil(wr.shape[0]), wr.shape[1])
+    if tuple(laid.shape) != want:
+        raise ValueError(f"laid is the table of a {tuple(laid.shape)} W, "
+                         f"not of {want}")
+    if laid.device != wr.device:
+        raise ValueError(f"laid is on {laid.device}, wr on {wr.device}")
 
 
 def _library():
@@ -491,11 +574,13 @@ def _library():
     if not getattr(lib, "_fast_typed", False):
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
         lib.fast_synth_detect.argtypes = [u, u, u, i, i, p, p, p, p, p, p, p,
-                                          p, p, p, p, i, i, p]
+                                          p, p, i, i, p]
         lib.fast_synth_detect.restype = i
-        lib.fast_synth_screens.argtypes = [u, u, u, i, i, p, p, p, p, p, p, p,
-                                           p, i, i, i, p]
+        lib.fast_synth_screens.argtypes = [u, u, u, i, i, p, p, p, p, p, p,
+                                           i, i, i, p]
         lib.fast_synth_screens.restype = i
+        lib.fast_screens_pass.argtypes = [i, p, p, p, p, p, i, i, i, p]
+        lib.fast_screens_pass.restype = i
         lib.fast_synth_pass1.argtypes = [u, u, u, i, i, p, p, p, p, p, i, i,
                                          p]
         lib.fast_synth_pass1.restype = i
@@ -565,7 +650,7 @@ def _launch_args(s_t, wr, wi, nbatch, mix, stream, what):
 
 
 def synth_detect(seed, s_t, wr, wi, pm_t, nbatch, mix=None, stream=0,
-                 sh_t=None):
+                 sh_t=None, laid=None):
     """K2 on ``nbatch`` complex draws; arguments as
     :func:`synth_detect_reference`.
 
@@ -574,9 +659,13 @@ def synth_detect(seed, s_t, wr, wi, pm_t, nbatch, mix=None, stream=0,
     starts at) on the current stream and counts each launch in
     ``synth_detect.LAUNCHES``, or raises for a shape it does not take
     (:func:`supports`); on CPU tensors it runs the plain version.
-    ``sh_t`` is padded as ``wr`` is.
+    ``sh_t`` is padded as ``wr`` is. ``laid``: the :class:`LaidW` of
+    ``wr``, ``wi`` (and ``mix``), the engine's; without it the kernel's
+    tables are laid out for the call.
     """
     N, P = _check(s_t, wr, wi, pm_t, nbatch, mix)
+    if laid is not None:
+        _check_laid(laid, wr)
     dev = s_t.device
     if dev.type == "cpu":
         return synth_detect_reference(seed, s_t, wr, wi, pm_t, nbatch,
@@ -587,22 +676,22 @@ def synth_detect(seed, s_t, wr, wi, pm_t, nbatch, mix=None, stream=0,
     k0, k1 = _key(seed)
     wr, wi, pm_t = pad_pupil(wr, wi, pm_t)
     Pp = wr.shape[0]
-    wpack, mpack = pass1_tables(wr, wi, mix)
+    wpack, mpack = _w_tables(wr, wi, mix, laid)
     check_subharm(sh_t, nbatch, Pp, dev)
     lib, _ = _library()
     nbatch = int(nbatch)
     out = torch.empty((nbatch, 4), dtype=torch.float32, device=dev)
     per = draws_per_launch(N, Pp, nbatch)
     g = torch.empty((2, per, N, Pp), dtype=torch.float32, device=dev)
-    part = torch.empty((per, pupil_tiles(Pp) ** 2, 4), dtype=torch.float32,
+    part = torch.empty((per, detect_parts(Pp), 4), dtype=torch.float32,
                        device=dev)
     with torch.cuda.device(dev):
         cs = torch.cuda.current_stream(dev).cuda_stream
         for d0 in range(0, nbatch, per):
             nb = min(per, nbatch - d0)
             err = lib.fast_synth_detect(
-                k0, k1, int(stream), d0, nb, s_t.data_ptr(), wr.data_ptr(),
-                wi.data_ptr(), pm_t.data_ptr(), wpack.data_ptr(),
+                k0, k1, int(stream), d0, nb, s_t.data_ptr(),
+                pm_t.data_ptr(), wpack.data_ptr(),
                 None if mpack is None else mpack.data_ptr(),
                 None if sh_t is None else sh_t[d0].data_ptr(),
                 g[0].data_ptr(), g[1].data_ptr(), part.data_ptr(),
@@ -615,7 +704,8 @@ def synth_detect(seed, s_t, wr, wi, pm_t, nbatch, mix=None, stream=0,
 synth_detect.LAUNCHES = 0
 
 
-def synth_screens(seed, s_t, wr, wi, nbatch, npup=None, stream=0):
+def synth_screens(seed, s_t, wr, wi, nbatch, npup=None, stream=0,
+                  laid=None):
     """K7 on ``nbatch`` complex draws: (2 * nbatch, npup, npup) float32
     screens; arguments as :func:`synth_screens_reference`.
 
@@ -623,11 +713,14 @@ def synth_screens(seed, s_t, wr, wi, nbatch, npup=None, stream=0):
     noise, then the screens pass; launches as :func:`synth_detect`'s) on
     the current stream and counts each launch in
     ``synth_screens.LAUNCHES``; on CPU tensors it runs the plain version.
+    ``laid`` as :func:`synth_detect`'s.
     """
     npup = wr.shape[0] if npup is None else int(npup)
     if not 0 < npup <= wr.shape[0]:
         raise ValueError(f"npup must be in 1..{wr.shape[0]}, got {npup}")
     _check(s_t, wr, wi, None, nbatch, None)
+    if laid is not None:
+        _check_laid(laid, wr)
     dev = s_t.device
     if dev.type == "cpu":
         return synth_screens_reference(seed, s_t, wr, wi, nbatch, npup=npup,
@@ -638,7 +731,7 @@ def synth_screens(seed, s_t, wr, wi, nbatch, npup=None, stream=0):
     k0, k1 = _key(seed)
     wr, wi, _ = pad_pupil(wr, wi, None)
     Pp = wr.shape[0]
-    wpack, _ = pass1_tables(wr, wi)
+    wpack, _ = _w_tables(wr, wi, None, laid)
     lib, _ = _library()
     nbatch = int(nbatch)
     scr = torch.empty((2, nbatch, npup, npup), dtype=torch.float32,
@@ -650,9 +743,9 @@ def synth_screens(seed, s_t, wr, wi, nbatch, npup=None, stream=0):
         for d0 in range(0, nbatch, per):
             nb = min(per, nbatch - d0)
             err = lib.fast_synth_screens(
-                k0, k1, int(stream), d0, nb, s_t.data_ptr(), wr.data_ptr(),
-                wi.data_ptr(), wpack.data_ptr(), g[0].data_ptr(),
-                g[1].data_ptr(), scr[0, d0].data_ptr(), scr[1, d0].data_ptr(), N, Pp, npup,
+                k0, k1, int(stream), d0, nb, s_t.data_ptr(),
+                wpack.data_ptr(), g[0].data_ptr(), g[1].data_ptr(),
+                scr[0, d0].data_ptr(), scr[1, d0].data_ptr(), N, Pp, npup,
                 cs)
             raise_on(lib, err, "synth_screens launch")
             synth_screens.LAUNCHES += 1
@@ -660,6 +753,66 @@ def synth_screens(seed, s_t, wr, wi, nbatch, npup=None, stream=0):
 
 
 synth_screens.LAUNCHES = 0
+
+
+def screens_pass_reference(gr, gi, wr, wi, npup=None):
+    """K7's screens pass in stock torch ops: the screens ``Re, Im (W
+    G')^T`` of each draw's ``G'`` (``gr``, ``gi``: (nbatch, N, P)) cropped
+    to ``npup`` px (default the rows of ``wr``): (2 * nbatch, npup, npup)
+    float32, real parts first, as :func:`synth_screens_reference`."""
+    npup = wr.shape[0] if npup is None else int(npup)
+    wr, wi = wr[:npup], wi[:npup]
+    gr, gi = gr[..., :npup], gi[..., :npup]
+    re = (wr @ gr - wi @ gi).transpose(-2, -1)
+    im = (wr @ gi + wi @ gr).transpose(-2, -1)
+    return torch.cat([re, im]).contiguous()
+
+
+def screens_pass(gr, gi, wr, wi, npup=None, laid=None):
+    """K7's screens pass alone: the screens (2 * nbatch, npup, npup) of
+    :func:`screens_pass_reference` from each draw's ``G'`` (``gr``,
+    ``gi``: (nbatch, N, P), P a multiple of 16, as :func:`synth_pass1`
+    returns it; ``wr``, ``wi``: (P, N)). For timing the pass and holding it
+    element by element against that plain version.
+
+    On CUDA tensors this launches ``screens_pass`` of ``csrc/detect.cuh``
+    (one launch of the given draws, counted in ``screens_pass.LAUNCHES``)
+    on the current stream, or raises; on CPU tensors it runs the plain
+    version. ``laid`` as :func:`synth_detect`'s.
+    """
+    if gr.ndim != 3:
+        raise ValueError(f"gr must be (nbatch, N, P), got {tuple(gr.shape)}")
+    nbatch, N, P = gr.shape
+    npup = P if npup is None else int(npup)
+    if not 0 < npup <= P:
+        raise ValueError(f"npup must be in 1..{P}, got {npup}")
+    check_tables({"gr": (gr, None), "gi": (gi, (nbatch, N, P)),
+                  "wr": (wr, (P, N)), "wi": (wi, (P, N))}, nbatch)
+    if laid is not None:
+        _check_laid(laid, wr)
+    dev = gr.device
+    if dev.type == "cpu":
+        return screens_pass_reference(gr, gi, wr, wi, npup)
+    if dev.type != "cuda":
+        raise ValueError(f"screens_pass runs on CPU or CUDA, not {dev}")
+    if P % _P_ALIGN or pupil_tiles(P) > 255:
+        raise ValueError(f"the screens pass takes a pupil padded to a "
+                         f"multiple of 16 px; got P={P}")
+    wpack, _ = _w_tables(wr, wi, None, laid)
+    lib, _ = _library()
+    scr = torch.empty((2, nbatch, npup, npup), dtype=torch.float32,
+                      device=dev)
+    with torch.cuda.device(dev):
+        err = lib.fast_screens_pass(
+            nbatch, wpack.data_ptr(), gr.data_ptr(), gi.data_ptr(),
+            scr[0].data_ptr(), scr[1].data_ptr(), N, P, npup,
+            torch.cuda.current_stream(dev).cuda_stream)
+    raise_on(lib, err, "screens_pass launch")
+    screens_pass.LAUNCHES += 1
+    return scr.reshape(2 * nbatch, npup, npup)
+
+
+screens_pass.LAUNCHES = 0
 
 
 def synth_pass1_reference(seed, s_t, wr, wi, nbatch, mix=None, stream=0,
@@ -673,7 +826,8 @@ def synth_pass1_reference(seed, s_t, wr, wi, nbatch, mix=None, stream=0,
             torch.cat([gi for _, _, gi in parts]))
 
 
-def synth_pass1(seed, s_t, wr, wi, nbatch, mix=None, stream=0, draw0=0):
+def synth_pass1(seed, s_t, wr, wi, nbatch, mix=None, stream=0, draw0=0,
+                laid=None):
     """Pass 1 of K2 ('mixed' noise with ``mix``) or of K7 and K2 'gauss'
     (``mix=None``) alone: ``(gr, gi)``, (nbatch, N, P) float32 with the
     pupil axis padded to :func:`padded_pupil` (padded columns are zero).
@@ -683,9 +837,11 @@ def synth_pass1(seed, s_t, wr, wi, nbatch, mix=None, stream=0, draw0=0):
     On CUDA tensors this launches pass 1 of ``csrc/synth_detect.cu``
     (launches of :func:`draws_per_launch` draws, counted in
     ``synth_pass1.LAUNCHES``) on the current stream, or raises; on CPU
-    tensors it runs the plain version.
+    tensors it runs the plain version. ``laid`` as :func:`synth_detect`'s.
     """
     _check(s_t, wr, wi, None, nbatch, mix)
+    if laid is not None:
+        _check_laid(laid, wr)
     wr, wi, _ = pad_pupil(wr, wi, None)
     dev = s_t.device
     if dev.type == "cpu":
@@ -696,7 +852,7 @@ def synth_pass1(seed, s_t, wr, wi, nbatch, mix=None, stream=0, draw0=0):
     N = _launch_args(s_t, wr, wi, nbatch, mix, stream, "synth pass-1")
     k0, k1 = _key(seed)
     Pp = wr.shape[0]
-    wpack, mpack = pass1_tables(wr, wi, mix)
+    wpack, mpack = _w_tables(wr, wi, mix, laid)
     lib, _ = _library()
     nbatch = int(nbatch)
     g = torch.empty((2, nbatch, N, Pp), dtype=torch.float32, device=dev)

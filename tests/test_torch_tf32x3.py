@@ -1,11 +1,13 @@
 """The arithmetic of K2's and K7's pass 1 on the tensor cores, emulated on
 the CPU: both products of pass 1 (the mixing product ``u @ M`` and
-``G' = X' W^T``) and, for K2, the detect pass's ``H = W G'`` as three TF32
+``G' = X' W^T``) and the second pass's ``H = W G'`` as three TF32
 products, ``a_lo b_hi + a_hi b_lo + a_hi b_hi`` (small terms first), with
 each operand split once into ``hi = tf32(x)`` and ``lo = tf32(x - hi)``,
 rounded as the card's ``cvt.rna.tf32.f32`` rounds (to nearest, ties away
 from zero, on the 13 low mantissa bits). Everything else is the plain
-version's float32. (K7's screens pass keeps fp32 FMA.)
+version's float32. K7's screens pass is the same product as the detect
+pass's (``tests/test_torch_detect_wgmma.py`` models both passes' order
+of sums).
 
 This settles, without a card, that the kernel's 3xTF32 products keep the
 limits the card tests hold it to: K2's sums within KERNEL_REL = 4e-6 of
@@ -156,18 +158,32 @@ def test_gprime_at_three_tf32_passes_within_the_card_limit(case, mixed):
     assert gprime_error(r, 1) > GPRIME_REL
 
 
+@pytest.mark.parametrize("order", ["operands", "fold groups"])
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"N{c[0]}P{c[2] - c[1]}")
-def test_k7_screens_at_three_tf32_passes_within_the_limit(case):
-    """K7's screens (pass 1 with Box-Muller noise, then W G' in fp32 as
-    the screens pass does) within 2N 2^-24 max |phi| of the plain
-    ``synth_screens_reference``, the limit of the card's K7 checks; a
-    tenth of it or less."""
+def test_k7_screens_at_three_tf32_passes_within_the_limit(case, order):
+    """K7's screens (pass 1 with Box-Muller noise, then the screens pass's
+    H^T = G'^T W^T, both at three TF32 passes) within 2N 2^-24 max |phi|
+    of the plain ``synth_screens_reference``, the limit of the card's K7
+    checks; a tenth of it or less. The screens pass's products summed over
+    the whole depth in fp32 ('operands': the operand rounding alone), or
+    as the pass sums them on wgmma ('fold groups': both terms of a part in
+    fold groups of two 8-deep steps, ``test_torch_colfac_tf32x3.
+    fold_sums``)."""
+    from test_torch_colfac_tf32x3 import fold_sums
     N, lo, hi, nb = case
     r = readings(case, False)
     t = r["t"]
     gr, gi = r[3][0]
-    re = (t["wr"] @ gr - t["wi"] @ gi).transpose(-2, -1)
-    im = (t["wr"] @ gi + t["wi"] @ gr).transpose(-2, -1)
+    if order == "operands":
+        re = (product(t["wr"], gr, 3)
+              - product(t["wi"], gi, 3)).transpose(-2, -1)
+        im = (product(t["wr"], gi, 3)
+              + product(t["wi"], gr, 3)).transpose(-2, -1)
+    else:
+        ar, ai = gr.transpose(-2, -1), gi.transpose(-2, -1)
+        br, bi = t["wr"].T.contiguous(), t["wi"].T.contiguous()
+        re = fold_sums([(ar, br, 1), (ai, bi, -1)], FOLD)
+        im = fold_sums([(ar, bi, 1), (ai, br, 1)], FOLD)
     got = torch.cat([re, im])
     ref = sd.synth_screens_reference(SEED, t["s_t"], t["wr"], t["wi"], nb)
     assert got.shape == ref.shape == (2 * nb, hi - lo, hi - lo)
