@@ -11,9 +11,10 @@ Phases, in order; any failure exits non-zero before the result line:
    (``csrc/colfac_detect.cu``) and K3 (``csrc/colfac_split.cu``) and the AR
    flow kernels K4, K5 and K6 (``csrc/ar_flow.cu``), one ``nvcc`` each, started
    together; print ptxas registers, spills and shared memory of each pass
-   at the flagships' padded pupil (P=96) and at the 4 m link's (P=416: the
-   AR kernels' detect in tiles of 112 px; pass 1 of K2, K7 and K3 and the
-   second pass of K1, K2, K3 and K7 in two slices of 208 px);
+   at the flagships' padded pupil (P=96) and at the 4 m link's (P=416:
+   pass 1 of K2, K7 and K3, the second pass of K1, K2, K3 and K7 and the
+   AR kernels' two products in two slices of 208 px), and of the AR update
+   at 4 layers a thread and at the streamed kernel's default block;
 3. K2 against its plain torch version on the card, 'mixed' and 'gauss'
    noise, from the same Philox bits: at the 256^2 flagship shapes (N=256,
    P=82) over 4100 draws, which takes two launches, the second from draw
@@ -51,9 +52,13 @@ Phases, in order; any failure exits non-zero before the result line:
    and the same Philox bits: pure frozen flow, 'uniform' and 'gauss'
    boiling, over 4100 steps (two launches: the carried state and the
    absolute-step counter), the final state bit for bit and the couplings
-   within the limit, with the TF32 control; K5 (``ar_flow_streamed``) the
+   within the limit, with the TF32 control; a K4 series cut into two calls
+   at an odd step against one call (the pairs of steps that share a
+   Philox call), bit for bit; K5 (``ar_flow_streamed``) the
    same on the 16-layer 512^2 link over 260 steps in launches of 256, and
-   K5 against K4 on the 4-layer flagship;
+   K5 against K4 on the 4-layer flagship; each AR kernel's passes
+   (``ar_update``, ``ar_dft``, ``ar_detect``) timed alone from one
+   profiled launch (here K4 and K5, K6 in 12, K4 at 402 px in 13);
 9. the temporal slice: ``Fast(flagship(TEMPORAL=True, TEMPORAL_SYNTH='ar',
    DT=0.001, NITER=65536, NCHUNKS=16), device="cuda").run()`` must launch
    K4 and no other kernel, return finite power with a lag-1
@@ -123,13 +128,17 @@ Phases, in order; any failure exits non-zero before the result line:
    pupil, times per 256 steps there, and the wide link's temporal run
    (``Fast(temporal(NPXLS=1024, D_GROUND=4.0, DSUBAP=0.5))``, 2,048 steps)
    through K4;
-14. the AR kernels' first DFT product alone (``ar_dft``, 3xTF32 on the
-   tensor cores) at the (step, series) pairs of one tile at 256^2 (K4's
-   and K6's), 512^2 (K5's) and 1024^2 with the 402 px pupil: G' against
-   its plain version element by element within N 2^-24 max |G'|, with
-   the TF32 control; its time and FLOP/s beside its bound, the plain
-   version and one complex64 ``torch.matmul`` of the same G' (TF32 off),
-   the stage's library time;
+14. the AR kernels' two products alone, on the laid W table, at the
+   (step, series) pairs of one tile at 256^2 (K4's and K6's), 512^2 (K5's)
+   and 1024^2 with the 402 px pupil: the first DFT product (``ar_dft``,
+   the second pass of ``csrc/detect.cuh``, 3xTF32 ``wgmma``) with G'
+   against its plain version element by element within N 2^-24 max |G'|,
+   with the TF32 control, and the real-only detect (``ar_detect``, the
+   same pass with two row groups a block of work) against its plain
+   version within the limit on the same G'; each time and FLOP/s beside
+   its bound, its plain version and its yardstick, the pass's library
+   time (one complex64 ``torch.matmul`` of G', the two real
+   ``torch.matmul`` of Re(W G'); TF32 off);
 15. the FSO comms layer: ``FastFSOC(flagship(COHERENT=True,
    MODULATION='16-QAM', EsN0=14))`` at NITER=262144 with 1000 symbols an
    iteration, which must launch K2 and no other kernel, its modem on the
@@ -233,8 +242,6 @@ SI_REL = 0.05         # scintillation index, relative
 SEED = 0x5EED_1234_ABCD
 DEVICE = "cuda"
 PJ = 6                # the flagships' pupil, 82 px, padded to 16 * PJ = 96
-PJ_W = 7              # the 4 m link's pupil, 402 px, padded to 416: the AR
-                      # kernels' tiles of 16 * PJ_W = 112 px
 WIDE = dict(NPXLS=1024, D_GROUND=4.0, DSUBAP=0.5)  # the wide-pupil link
 WIDE_SHAPE = (1024, 402)  # its grid side and pupil width
 NITER_W = 16384       # its realizations through 'auto' (K2), NCHUNKS=4
@@ -486,9 +493,9 @@ _ENTRY = re.compile(r"(synth_pass1|colfac_pass1|split_pass1|detect_pass|"
 
 def _describe(name, a):
     """What one compiled pass is, or None for those not printed: the
-    passes at the flagships' padded pupil (P=96, one tile) and at the 4 m
-    link's (P=416 in tiles of 112 px; pass 1 of K2, K7 and K3 in slices of
-    208 px), and the AR passes at 4 layers a thread."""
+    passes at the flagships' padded pupil (P=96, one W slice) and at the 4
+    m link's (P=416 in two slices of 208 px), and the AR update at 4 layers
+    a thread and at the streamed kernel's default block."""
     noise = ("gauss", "mixed")
     if name == "synth_pass1" and 64 * a[2] + a[3] in (16 * PJ, 208):
         pb = 64 * a[2] + a[3]
@@ -502,10 +509,13 @@ def _describe(name, a):
             16 * PJ, 208):
         pb = 64 * a[0] + a[1]
         return (f"P={pb}" if pb == 16 * PJ else "P=416 slices of 208 px")
-    if name == "ar_update" and a[0] == 4:
-        return "4 layers " + ("frozen", "uniform", "gauss")[a[1]]
-    if name in ("ar_dft", "ar_detect") and tuple(a) in ((PJ, 1), (PJ_W, 0)):
-        return f"P={16 * PJ if a[1] else 416}"
+    from fast_tpu_torch.ops.ar_flow import STREAM_LAYERS
+    if name == "ar_update" and a[0] in (4, STREAM_LAYERS):
+        return f"{a[0]} layers " + ("frozen", "uniform", "gauss")[a[1]]
+    if name in ("ar_dft", "ar_detect") and 64 * a[0] + a[1] in (16 * PJ,
+                                                                 208):
+        pb = 64 * a[0] + a[1]
+        return (f"P={pb}" if pb == 16 * PJ else "P=416 slices of 208 px")
     return None
 
 
@@ -1009,17 +1019,35 @@ def ar_tf32_control(kernel, inputs, noise, c32, label):
         fail(f"the limit does not reject TF32 products ({kernel} {label})")
 
 
+def ar_passes(label, fn):
+    """Each AR pass's device time in one profiled call of ``fn``: {pass:
+    ms} for ``ar_update``, ``ar_dft``, ``ar_detect`` (with its
+    ``sum_tiles``) and the whole device time."""
+    from fast_tpu_torch.utils.profiling import device_breakdown
+    _, busy, per = device_breakdown(fn)
+    out = {p: 1e3 * sum(v for k, v in per.items() if re.search(pat, k))
+           for p, pat in (("ar_update", "ar_update"), ("ar_dft", "ar_dft"),
+                          ("ar_detect", "ar_detect|sum_tiles"))}
+    out["device"] = 1e3 * busy
+    print(f"passes {label}: " + ", ".join(
+        f"{k} {v:.3f} ms ({v / out['device']:.1%})" for k, v in out.items()
+        if k != "device") + f" of {out['device']:.3f} ms device time")
+    return out
+
+
 def time_ar(fn, inputs, nsteps, kw, reps):
-    """(kernel ms, plain ms) per ``nsteps`` steps; the launches do not
-    count."""
+    """(kernel ms, plain ms, each pass's ms) per ``nsteps`` steps; the
+    launches do not count."""
     from fast_tpu_torch.ops import ar_flow as af
     before = fn.LAUNCHES
     ms = cuda_ms(lambda: fn(SEED, *inputs, nsteps, **kw), reps)
+    passes = ar_passes(f"{fn.__name__}, {nsteps} steps",
+                       lambda: fn(SEED, *inputs, nsteps, **kw))
     plain_ms = cuda_ms(lambda: af.ar_flow_reference(
         SEED, *inputs, nsteps, noise=kw.get("noise", "uniform")), 1,
         warm=False)  # the checks before ran it
     fn.LAUNCHES = before
-    return ms, plain_ms
+    return ms, plain_ms, passes
 
 
 def phase_ar(sim_t, sim_t16):
@@ -1046,10 +1074,24 @@ def phase_ar(sim_t, sim_t16):
                   f"(limit 0 for both: the same sums in the same order)")
             if d != 0.0 or ds != 0.0:
                 fail(f"K5 (blocks of {lb}) differs from K4 ({label})")
+        if noise:
+            # one Philox call serves a pair of steps: a series cut at an
+            # odd step takes the second half of the pair's call
+            c1, a1 = af.ar_flow_fused(SEED, *inputs, 301, **kw)
+            c2, a2 = af.ar_flow_fused(SEED, a1, *inputs[1:], 299, step0=301,
+                                      **kw)
+            same = (torch.equal(torch.cat([c1, c2]), cf[0])
+                    and torch.equal(a2, cf[1]))
+            print(f"K4 {label}, 600 steps cut at the odd step 301 against "
+                  f"one call: {'equal' if same else 'different'} bit for bit"
+                  f" (couplings and state)")
+            if not same:
+                fail(f"K4 cut at an odd step differs ({label})")
         af.ar_flow_fused.LAUNCHES = af.ar_flow_streamed.LAUNCHES = 0
     inputs = ar_inputs(sim_t, "uniform")
-    k4["ms"], k4["plain_ms"] = time_ar(af.ar_flow_fused, inputs, NTIME,
-                                       {"noise": "uniform"}, 5)
+    k4["ms"], k4["plain_ms"], k4["passes"] = time_ar(
+        af.ar_flow_fused, inputs, NTIME,
+        {"noise": "uniform", "laid": sim_t.tables["w_laid"]}, 5)
     k4["bound_ms"], k4["bound_by"], flops = ar_bound(L, N, P, NTIME, True)
     print(f"K4 uniform: {k4['ms']:.3f} ms kernel ({1e3 * k4['ms'] / NTIME:.3f}"
           f" us per step), {k4['plain_ms']:.3f} ms plain (the plain scan: "
@@ -1061,6 +1103,7 @@ def phase_ar(sim_t, sim_t16):
     for noise in (None, "gauss"):
         ms = cuda_ms(lambda: af.ar_flow_fused(
             SEED, *ar_inputs(sim_t, noise), NTIME,
+            laid=sim_t.tables["w_laid"],
             **({"noise": noise} if noise else {})), 5)
         k4["ms_" + (noise or "frozen")] = ms
         print(f"K4 {noise or 'frozen flow'}: {ms:.3f} ms per {NTIME} steps")
@@ -1079,12 +1122,14 @@ def phase_ar(sim_t, sim_t16):
         if noise == "uniform":  # the products are the same in every case
             ar_tf32_control("K5", inputs, noise, cp, noise)
     inputs = ar_inputs(sim_t16, "uniform")
-    k5["ms"], k5["plain_ms"] = time_ar(af.ar_flow_streamed, inputs,
-                                       MAX_STEPS_K5, {"noise": "uniform"}, 3)
+    lw16 = {"laid": sim_t16.tables["w_laid"]}
+    k5["ms"], k5["plain_ms"], k5["passes"] = time_ar(
+        af.ar_flow_streamed, inputs, MAX_STEPS_K5,
+        {"noise": "uniform", **lw16}, 3)
     k5["bound_ms"], k5["bound_by"], flops = ar_bound(L, N, P, MAX_STEPS_K5,
                                                      True)
     k5["ms_4096"] = cuda_ms(lambda: af.ar_flow_streamed(
-        SEED, *inputs, NTIME, noise="uniform"), 1)
+        SEED, *inputs, NTIME, noise="uniform", **lw16), 1)
     print(f"K5 uniform: {k5['ms']:.3f} ms kernel "
           f"({1e3 * k5['ms'] / MAX_STEPS_K5:.3f} us per step; "
           f"{k5['ms_4096']:.3f} ms per {NTIME} steps), {k5['plain_ms']:.3f} "
@@ -1573,15 +1618,19 @@ def phase_k6(osims):
         fail("K6 with one series differs from K4")
 
     inputs, B = full, len(osims)
+    lw = {"laid": s0.tables["w_laid"]}  # the engine's laid W table
     k6["ms"], k6["plain_ms"] = (
-        cuda_ms(lambda: af.ar_flow_fused_batch(SEED, *inputs, 256), 5),
+        cuda_ms(lambda: af.ar_flow_fused_batch(SEED, *inputs, 256, **lw), 5),
         cuda_ms(lambda: af.ar_flow_batch_reference(SEED, *inputs, 256), 1))
+    k6["passes"] = ar_passes(f"K6, {B} series x 256 steps",
+                             lambda: af.ar_flow_fused_batch(
+                                 SEED, *inputs, 256, **lw))
     k6["ms_4096"] = cuda_ms(lambda: af.ar_flow_fused_batch(
-        SEED, *inputs, NTIME), 2)
+        SEED, *inputs, NTIME, **lw), 2)
     k6["bound_ms"], k6["bound_by"], flops = ar_bound(L, N, P, 256, True, B)
     k4_ms = cuda_ms(lambda: af.ar_flow_fused(
         SEED, inputs[0][0], inputs[1][0], inputs[2][0], inputs[3],
-        inputs[4][0], NTIME), 3)
+        inputs[4][0], NTIME, **lw), 3)
     print(f"K6 uniform: {k6['ms']:.3f} ms kernel per 256 steps of {B} "
           f"series ({k6['ms_4096']:.3f} ms per {NTIME} steps; K4 "
           f"{k4_ms:.3f} ms per {NTIME} steps of one, x{B} = "
@@ -1812,10 +1861,11 @@ def definition_f64(a0, ph, ns, W, pm, z):
 def roundoff_witness():
     """K6 and its plain version against a float64 numpy evaluation of the
     same series, on inputs of the 64^2 amplitudes (screens of tens of
-    radians): at a 144 px pupil (two ragged tiles an axis) and at a 112 px
-    pupil (one tile) on a 192^2 grid, and at a 402 px pupil (four tiles) on
-    a 1024^2 grid. Round-off gives the two errors one size; a fault in the
-    tiled passes would put the kernel's far above the plain version's."""
+    radians): at a 144 px and a 112 px pupil (one W slice, padded to 144
+    and 112) on a 192^2 grid, and at a 402 px pupil (two slices of 208)
+    on a 1024^2 grid. Round-off gives the two errors one size; a fault in
+    the products' slices or sums would put the kernel's far above the plain
+    version's."""
     from fast_tpu_torch.ops import ar_flow as af
     fn = af.ar_flow_fused_batch
     before = fn.LAUNCHES
@@ -1837,7 +1887,7 @@ def roundoff_witness():
         ek, ep, ekp = (float(np.abs(x - y).max()) / top
                        for x, y in ((ck, ref), (cp, ref), (ck, cp)))
         print(f"round-off witness K6 {N}^2, P={hi - lo} "
-              f"({-(-(hi - lo) // 128)} tiles an axis), {B} series x "
+              f"({-(-(hi - lo) // 208)} W slices), {B} series x "
               f"{nsteps} steps, rms phase {max(r[1] for r in runs):.1f} rad:"
               f" max |d| against float64 numpy, kernel {ek:.3e}, plain "
               f"{ep:.3e} of the largest |sum| ({top:.3e}); kernel against "
@@ -1859,7 +1909,7 @@ def phase_wide_ar(card, counters, k4, k5, k6):
     K4, K5 = af.ar_flow_fused, af.ar_flow_streamed
     roundoff_witness()
     for noise in ("uniform", "gauss"):
-        label = f"{noise} 192^2, P=144 (tiles of 80 px)"
+        label = f"{noise} 192^2, P=144 (one W slice)"
         a0, ph, ns, W, pms = ar_random(192, 24, 168, 3, 3)
         one = (a0[0], ph[0], ns[0], W, pms[0])
         err = check_ar("K4", K4, one, 300, {"noise": noise, "max_steps": 256},
@@ -1899,8 +1949,12 @@ def phase_wide_ar(card, counters, k4, k5, k6):
     k6["max_abs_err_1024"] = check_k6(two, 32, {"noise": "uniform"},
                                       f"uniform {label}")[0]
     inputs = ar_inputs(sim, "uniform")
-    for res, fn, kw in ((k4, K4, {}), (k5, K5, {"lb_layers": 1})):
+    lw = {"laid": sim.tables["w_laid"]}
+    for res, fn, kw in ((k4, K4, lw), (k5, K5, {"lb_layers": 1, **lw})):
         res["ms_1024"] = cuda_ms(lambda: fn(SEED, *inputs, 256, **kw), 3)
+        res["passes_1024"] = ar_passes(
+            f"{fn.__name__} {label}, 256 steps",
+            lambda: fn(SEED, *inputs, 256, **kw))
         res["plain_ms_1024"] = cuda_ms(lambda: af.ar_flow_reference(
             SEED, *inputs, 256), 1)
         res["bound_ms_1024"] = ar_bound(L, N, P, 256, True)[0]
@@ -1923,23 +1977,26 @@ def phase_wide_ar(card, counters, k4, k5, k6):
 
 # (what, N, pupil rows lo..hi): the AR kernels' first product alone at the
 # (step, series) pairs of one of their tiles (ops/ar_flow.tile_steps)
-DFT_CASES = [("256^2, P=82: K4's tile of 256 steps, K6's of 16 steps x 16 "
+DFT_CASES = [("256^2, P=82: K4's tile of 1024 steps, K6's of 64 steps x 16 "
               "series", 256, 87, 169),
-             ("512^2, P=82: K5's tile of 64 steps", 512, 215, 297),
-             ("1024^2, P=402: K4's tile of 16 steps", 1024, 311, 713)]
+             ("512^2, P=82: K5's tile of 256 steps", 512, 215, 297),
+             ("1024^2, P=402: K4's tile of 64 steps", 1024, 311, 713)]
 GPRIME_REL = 1.0  # G' element by element, times N 2^-24 max |G'|
 
 
 def phase_ar_dft(card):
-    """The first DFT product of K4, K5 and K6 alone (``fast_ar_dft``:
-    ``ar_dft`` on the tensor cores, W split first) against its plain
-    version element by element, with the TF32 control; its time and
-    FLOP/s beside its bound, its plain version and one complex64
-    ``torch.matmul`` of the same G' with TF32 off, the stage's library
-    time (a yardstick: the port never calls it)."""
+    """The AR kernels' two products alone, on the laid W table: the first
+    DFT product (``fast_ar_dft``: ``ar_dft``, the second pass of
+    ``csrc/detect.cuh`` with A's rows from the layer sums) against its
+    plain version element by element, with the TF32 control, and the
+    real-only detect (``fast_ar_detect``) on the plain G' against its
+    plain version within the limit; each time and FLOP/s beside its bound,
+    its plain version and its yardstick (one complex64 ``torch.matmul`` of
+    the same G'; the two real ``torch.matmul`` of Re(W G')), TF32 off, the
+    pass's library time (the port never calls them)."""
     from fast_tpu_torch import synthesis
     from fast_tpu_torch.ops import ar_flow as af
-    from fast_tpu_torch.ops.synth_detect import pad_pupil
+    from fast_tpu_torch.ops.synth_detect import laid_w, pad_pupil
     out = {}
     for label, N, lo, hi in DFT_CASES:
         rng = np.random.default_rng(SEED & 0xFFFFFFFF)
@@ -1947,17 +2004,18 @@ def phase_ar_dft(card):
         wr = torch.from_numpy(np.ascontiguousarray(W.real)).to(DEVICE)
         wi = torch.from_numpy(np.ascontiguousarray(W.imag)).to(DEVICE)
         wrp, wip, _ = pad_pupil(wr, wi, None)
+        laid = laid_w(wr, wi)
         P = wrp.shape[0]
         nj = af.tile_steps(N, P)
         # layer sums of screens of about a radian
         a = torch.from_numpy(rng.standard_normal((2, nj, N, N),
                                                  dtype=np.float32)
                              * np.float32(0.5 / N)).to(DEVICE)
-        before = af.ar_dft.LAUNCHES
-        gr, gi = af.ar_dft(a[0], a[1], wr, wi)
+        before = af.ar_dft.LAUNCHES, af.ar_detect.LAUNCHES
+        gr, gi = af.ar_dft(a[0], a[1], wr, wi, laid=laid)
         rr, ri = af.ar_dft_reference(a[0], a[1], wrp, wip)
         torch.cuda.synchronize()
-        if af.ar_dft.LAUNCHES != before + 1 or not bool(
+        if af.ar_dft.LAUNCHES != before[0] + 1 or not bool(
                 torch.isfinite(gr).all() and torch.isfinite(gi).all()):
             fail(f"ar_dft ({label}) did not launch once or gave non-finite "
                  f"values")
@@ -1978,32 +2036,60 @@ def phase_ar_dft(card):
             fail(f"ar_dft ({label}) disagrees with its plain version")
         if not terr > limit:
             fail(f"the G' limit does not reject TF32 products ({label})")
+        # the detect on the plain G', one series' pupil * mode
+        pm_t = torch.from_numpy(rng.random((1, P, P), dtype=np.float32)).to(
+            DEVICE)
+        dk = af.ar_detect(rr, ri, wr, wi, pm_t, laid=laid)
+        dp = af.ar_detect_reference(rr, ri, wrp, wip, pm_t[0])
+        torch.cuda.synchronize()
+        if af.ar_detect.LAUNCHES != before[1] + 1 or not bool(
+                torch.isfinite(dk).all()):
+            fail(f"ar_detect ({label}) did not launch once or gave "
+                 f"non-finite sums")
+        derr = float((dk - dp).abs().max())
+        dlimit = KERNEL_REL * float(dp.abs().max())
+        print(f"ar_detect {label}, {nj} pairs: max |kernel - plain| = "
+              f"{derr:.3e} (limit {dlimit:.3e}, {derr / dlimit:.3f} of it; "
+              f"max |sum| {float(dp.abs().max()):.3e})")
+        if not derr <= dlimit:
+            fail(f"ar_detect ({label}) disagrees with its plain version")
         reps = 20 if N <= 512 else 5
-        ms = cuda_ms(lambda: af.ar_dft(a[0], a[1], wr, wi), reps)
-        plain_ms = cuda_ms(lambda: af.ar_dft_reference(a[0], a[1], wrp, wip),
-                           reps)
-        ac, wc = torch.complex(a[0], a[1]), torch.complex(wrp, wip)
-        library_ms = cuda_ms(lambda: torch.matmul(ac.transpose(-2, -1), wc.T),
-                             reps)
-        af.ar_dft.LAUNCHES = before
-        # the work counts the pupil's own hi - lo px, as ar_bound does: the
-        # padded rows of W are zeros and add nothing to G'
         npup = hi - lo
-        flops = 8 * npup * N * N * nj
-        bound_ms, bound_by, _ = _bound(
-            flops, 4 * (2 * nj * N * N + 2 * npup * N + 2 * nj * N * npup))
-        res = {"pairs": nj, "max_abs_err": err, "ms": ms,
-               "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "tflops": flops / ms / 1e9}
-        out[N] = res
-        print(f"ar_dft {label}: {ms:.3f} ms ({res['tflops']:.1f} TFLOP/s of "
-              f"fp32-accurate products over {npup} px, 3xTF32 mma.sync), "
-              f"plain {plain_ms:.3f} ms, library (complex64 torch.matmul, TF32 "
-              f"off) {library_ms:.3f} ms, bound {bound_ms:.3f} ms "
-              f"({bound_ms / ms:.1%} of it; {bound_by}) per {nj} pairs "
-              f"({card})")
-        del a, gr, gi, rr, ri, tr, ti, ac, wc
+        ac, wc = torch.complex(a[0], a[1]), torch.complex(wrp, wip)
+        for name, fn, plain, lib_fn, flops, nbytes, err_ in (
+                ("ar_dft", lambda: af.ar_dft(a[0], a[1], wr, wi, laid=laid),
+                 lambda: af.ar_dft_reference(a[0], a[1], wrp, wip),
+                 lambda: torch.matmul(ac.transpose(-2, -1), wc.T),
+                 # the pupil's own px: W's padded rows add nothing to G'
+                 8 * npup * N * N * nj,
+                 4 * (2 * nj * N * N + 2 * npup * N + 2 * nj * N * npup),
+                 err),
+                ("ar_detect",
+                 lambda: af.ar_detect(rr, ri, wr, wi, pm_t, laid=laid),
+                 lambda: af.ar_detect_reference(rr, ri, wrp, wip, pm_t[0]),
+                 lambda: wrp @ rr - wip @ ri,
+                 4 * npup * npup * N * nj,
+                 4 * (2 * nj * N * npup + 2 * npup * N + npup * npup
+                      + 2 * nj), derr)):
+            ms = cuda_ms(fn, reps)
+            plain_ms = cuda_ms(plain, reps)
+            library_ms = cuda_ms(lib_fn, reps)
+            bound_ms, bound_by, _ = _bound(flops, nbytes)
+            res = {"pairs": nj, "max_abs_err": err_, "ms": ms,
+                   "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "tflops": flops / ms / 1e9}
+            out[name, N] = res
+            print(f"{name} {label}: {ms:.3f} ms ({res['tflops']:.1f} TFLOP/s "
+                  f"of fp32-accurate products over {npup} px, 3xTF32 "
+                  f"wgmma), plain {plain_ms:.3f} ms, library ("
+                  + ("complex64 torch.matmul" if name == "ar_dft" else
+                     "two real torch.matmul of Re(W G')")
+                  + f", TF32 off) {library_ms:.3f} ms, bound {bound_ms:.3f} "
+                  f"ms ({bound_ms / ms:.1%} of it; {bound_by}) per {nj} pairs"
+                  f" ({card})")
+        af.ar_dft.LAUNCHES, af.ar_detect.LAUNCHES = before
+        del a, gr, gi, rr, ri, tr, ti, ac, wc, dk, dp
     torch.cuda.empty_cache()
     return out
 
@@ -2798,9 +2884,11 @@ def main():
         card, counters)
     phase_wide_ar(card, counters, k4, k5, k6)
     dft = phase_ar_dft(card)
-    k4.update(ar_dft=dft[256], ar_dft_1024=dft[1024])
-    k5.update(ar_dft=dft[512])
-    k6.update(ar_dft=dft[256])
+    k4.update(ar_dft=dft["ar_dft", 256], ar_dft_1024=dft["ar_dft", 1024],
+              ar_detect=dft["ar_detect", 256],
+              ar_detect_1024=dft["ar_detect", 1024])
+    k5.update(ar_dft=dft["ar_dft", 512], ar_detect=dft["ar_detect", 512])
+    k6.update(ar_dft=dft["ar_dft", 256], ar_detect=dft["ar_detect", 256])
     comms_res = phase_comms(card, fade_series, fade_dt)
     rates_256["FastFSOC 16-QAM (K2 + modem)"] = [comms_res["fsoc_rate"]]
     ctx["k2"]["launches_comms"] = comms_res.pop("launches")

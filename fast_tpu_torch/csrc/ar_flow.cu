@@ -20,8 +20,8 @@
 //
 // so one step of one series costs 8 P N^2 + 4 P^2 N FLOP in the two
 // products (50 + 9 MFLOP at N=256, P=96) against ~12 L N^2 in the
-// recurrence (3 MFLOP at L=4): the products bound it. K4 and K5 are the
-// case B = 1 of the same passes.
+// recurrence (3 MFLOP at L=4). K4 and K5 are the case B = 1 of the same
+// passes.
 //
 // What the card changes. The TPU kernels walk time with a sequential grid
 // and keep the (2, B L N, N) state in VMEM. Here the recurrence is
@@ -37,108 +37,86 @@
 //   the stream, and every layer is added singly in layer order, so both
 //   give the same A bit for bit. K6 is the same pass with a grid axis of
 //   B series (the state series-major: (B, L, N, N)).
-// * ar_dft, the first product, on the tensor cores: one block of 8 warps
-//   per ((step, series), 128 columns of A, pupil column group). A pupil of
-//   up to 128 px (padded to P = 16 PJ) is one group; a wider one is cut as
-//   the detect pass of detect.cuh cuts it, T = ceil(P / 128) groups of
-//   width 16 ceil(P / 16 / T), the last ragged and masked. It writes G' in
-//   the layout of the iid kernels' G' (N x P per step and series).
-//   (ar_split_w splits W for it once per call.)
-// * ar_detect: one block per ((step, series), pupil tile) with each
-//   series' own pupil * mode. The iid kernels' detect pass (detect.cuh)
-//   without its imaginary half: the series is the real part of the
-//   complex screen. One tile (a pupil of up to 128 px) writes the step's
-//   two sums itself; T x T tiles write partial sums that ar_sum_tiles adds
-//   in tile order. Fixed-order reductions, no atomics, so a run is
-//   reproducible bit for bit on one card.
+// * ar_dft, the first product: the second pass of the iid kernels
+//   (detect.cuh, second_pass: 3xTF32 wgmma, the rows of a launch stacked
+//   in blocks of 64, B the laid W table streamed by bulk copies, A copied
+//   by cp.async) with A's rows taken from the layer sums: a (step,
+//   series) pair's rows are its N columns m of A (row stride N), so the
+//   pass's H^T = G'^T W^T is here G'[j][m][p] = sum_k A[j][k][m] W[p][k];
+//   warpgroup 0 writes Re G', 1 Im G', in the layout of the iid kernels'
+//   G' (N x P per pair, P contiguous).
+// * ar_detect: the same pass on G' (a pair's rows its P columns p2),
+//   real part only: two row groups a block of work, each consumer
+//   warpgroup forming Re H^T of its own 64 rows, so no warpgroup loads or
+//   splits rows it does not use and nothing forms Im H; then sincos, the
+//   weights pm_t of series j % B, per-(pair, 16 rows, slice) partial sums
+//   that sum_tiles adds in order. Fixed-order reductions, no atomics, so a
+//   run is reproducible bit for bit on one card.
 // A and G' go through device memory in tiles of `tile` steps of all B
 // series, which the wrapper sizes so that a tile has enough blocks for the
-// card and A and G' stay bounded (at most 134 MB of A, 2 GiB of G').
+// card and A and G' stay bounded (ops/ar_flow.py, tile_steps: 1024 pairs
+// at 256^2, at most 537 MB of A and 2 GiB of G').
 //
-// The first product on the tensor cores. It was 61% of K4's and K6's
-// device time as fp32 FMA on the CUDA cores (~23 TFLOP/s at 256^2 over
-// the pupil's 82 px, H100): each thread loaded 4 values of A and 2 PJ of
-// W from shared memory for 8 PJ FMA, so the issue of shared loads and FMA
-// set its pace, and every block of 32 columns staged all of W again. Now
-// it runs as warp-level mma.sync.m16n8k8 TF32 products in three passes
-// (3xTF32, the arithmetic of K2's pass 1, tf32x3.cuh): every operand
-// element x is split once into hi = tf32(x) and lo = tf32(x - hi), and
-// each 8-deep step adds a_lo b_hi + a_hi b_lo + a_hi b_hi. What the
-// design does about its costs:
-// * W is the same for every step and series of a call, so ar_split_w
-//   splits it once, into the order of the B fragments: one 16-byte shared
-//   load gives a lane the hi and lo of one n8 tile. Nothing in the loop
-//   splits W.
-// * A is read from device memory, raw, in 32-deep slices by cp.async, two
-//   buffers (the next slice lands while one is used). Each element of a
-//   slice is read by one warp, once, and split as its fragment is formed;
-//   the fragment then serves all 4 PJ n8 tiles of the group (Re G' and
-//   Im G'), 24 at P = 96: 144 mma a warp per 8-deep step against 24
-//   16-byte loads of W and 8 of A.
-// * 128 columns of A a block, 16 a warp, so W is staged a quarter as
-//   often per step as with 32; 256^2 tiles of 256 (step, series) pairs
-//   give 512 blocks of 8 warps, about four per SM.
-// * The tensor cores round their sums toward zero, so a sum kept in their
-//   accumulators shrinks coherently (K2's first design read 10x its
-//   limit). Each 8-deep step's six products of one output tile (the small
-//   terms first, then a_hi b_hi of re and im) are a sum of their own in
-//   fresh accumulators, added to the block's accumulators in fp32 (round
-//   to nearest). Nothing stays in the tensor cores' accumulators from one
-//   step to the next, which also keeps 4 registers an output tile, not
-//   K2's 8: 16 PJ accumulators a thread.
-// What bounds it now (H100, scripts/torch_ar_dft_variants.py: the stage
-// beside copies of itself with one part taken out): the shared loads of
-// W's fragments, then the mma. At 256^2 it takes 0.239 ms a tile of 256
-// (step, series) pairs (46 TFLOP/s of fp32-accurate products, counted
-// over the pupil's 82 px, not the padded 96; 49 inside K4), 0.103 with
-// one load of W a step for all tiles, 0.154 with one TF32 pass, 0.124
-// with FFMA in place of the mma; the split of A costs nothing measurable.
-// ptxas gives it 255 registers and spills 76-116 bytes (PJ = 6; 60-84 at
-// PJ = 7): the accumulators of all 2 PJ tiles fill the register file.
-// Each W fragment serves one A fragment, since a warp owns 16 columns; a
-// warp of 32 or 48 columns would halve the loads, but its accumulators
-// only fit with fewer pupil tiles a warp, whose A fragments several warps
-// would then split (A stored split in shared memory).
+// What bounds each pass (H100 80GB HBM3, 700 W; scripts/torch_ar_ab.py,
+// the passes timed in one profiled launch, and scripts/torch_ar_*_
+// variants.py, each beside copies of itself with one part taken out):
+// * ar_update, the random bits: one Philox4x32-10 call is 24 integer
+//   multiplies (20 IMAD.WIDE.U32; cuobjdump), 3.8e11 calls/s chained on
+//   the card. With a call every step (its first design) the pass took
+//   3.29 ms per 256 steps of K6's 16 series, 1.01 with a two-multiply
+//   hash in its place; one call for two steps takes it to 2.45 (the
+//   calls' own floor 1.41 ms). Drawing a pair's call a step early in
+//   every other warp, to even out the steps, read slower (2.99), as did
+//   8 layers a thread for K5 (3.04 against 2.66 ms at 4: fewer warps a
+//   SM).
+// * ar_dft, the work around the products: 0.80 ms per 1024 pairs at 256^2
+//   (55 TFLOP/s over the pupil's 82 px), 0.58 with no products at all,
+//   0.64 with one TF32 product a step; 2.32 ms per 64 pairs at 1024^2 with
+//   the 402 px pupil (93 TFLOP/s). Its mma.sync predecessor: 49 and 56.
+// * ar_detect: 0.25 ms per 1024 pairs at 256^2 (0.19 with no products),
+//   0.93 per 64 at 1024^2, where ptxas serializes its wgmma (C7511). With
+//   one row group a block of work, the Im warpgroup idle, it takes 0.26
+//   and 1.17 ms; as the full two-screen pass 0.32 and 1.36 (its fp32 FMA
+//   predecessor: 1.81 ms per 4096 pairs at 256^2 against 0.98 now).
 //
 // Rounding. The update runs for thousands of steps before its sum passes
 // through sin and cos, so it is written with __fmul_rn / __fadd_rn and the
 // file is built with -fmad=false: no product-sum is contracted into an FMA
-// except the explicit fmaf of the second DFT product. The plain torch
-// version (fast_tpu_torch/ops/ar_flow.py) runs the same operations in the
-// same order, so state and A agree with it bit for bit and only the
-// products differ (other roundings and sums in another order).
+// (the products' sums are the tensor cores'). The plain torch version
+// (fast_tpu_torch/ops/ar_flow.py) runs the same operations in the same
+// order, so state and A agree with it bit for bit and only the products
+// differ (other roundings and sums in another order).
 //
 // Random bits. Philox4x32-10 keyed by the 64-bit seed (k0 = low word,
-// k1 = high word). Counter of mode e = row * N + col of layer l of series
-// s at the absolute step t of the series:
-//   ctr = (e, (s0 + s) * L + l, t, 2);  bits1 = out[0] (real part),
-//   bits2 = out[1],
-// with s0 the call's series offset (0 unless the caller says). The
-// series-major row is the TPU kernel's row order, and makes series 0 of a
-// batch the single series of K4 from the same seed; the offset lets a
-// rank that holds series s0 .. s0 + B - 1 of a scan draw the noise those
-// series draw in one call over the whole scan (state rows stay local). The
-// absolute step makes a series cut into several calls the same series;
-// the last word 2 keeps these streams apart from K2's (0), K1's (1) and
-// K3's (3).
+// k1 = high word). One call serves a pair of steps: mode e = row * N +
+// col of layer l of series s draws, at the absolute step t of the series,
+//   ctr = (e, (s0 + s) * L + l, t / 2, 2);
+//   (bits1, bits2) = (out[0], out[1]) at an even t, (out[2], out[3]) at
+//   an odd t,
+// bits1 the real part's, with s0 the call's series offset (0 unless the
+// caller says). A call of the kernel that starts at an odd step draws the
+// pair's call and takes its second half, one that ends at an even step
+// its first half, so a series cut into calls at any step is the same
+// series. The series-major row is the TPU kernel's row order, and makes
+// series 0 of a batch the single series of K4 from the same seed; the
+// offset lets a rank that holds series s0 .. s0 + B - 1 of a scan draw the
+// noise those series draw in one call over the whole scan (state rows stay
+// local). The last word 2 keeps these streams apart from K2's (0), K1's
+// (1) and K3's (3).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "common.cuh"
 #include "detect.cuh"
-#include "tf32x3.cuh"
 
 namespace {
 
 using namespace fast;
 
-constexpr int kDK = 32;        // depth of one staged slice of ar_dft
-constexpr int kDM = 128;       // columns of A per ar_dft block, 16 a warp
-constexpr int kAS = kDM + 4;   // shared row stride of ar_dft's A slices
-
 // noise kinds
 constexpr int kNone = 0, kUniform = 1, kGauss = 2;
+constexpr int kMaxLB = 8;  // most layers a thread of ar_update holds
 
 // Advance LB layers of every mode of series s = blockIdx.y (of B =
 // gridDim.y) by nsteps steps and add them into A. st_*, ph_*, ns: (B, L,
@@ -159,6 +137,7 @@ __global__ void __launch_bounds__(kThreads)
   const int row0 = s * L + layer0;
   const int prow0 = (series0 + s) * L + layer0;
   float sr[LB], si[LB], pr[LB], pi[LB], nz[LB];
+  uint32_t hz[LB], hw[LB];  // words 2 and 3 of each layer's pair call
 #pragma unroll
   for (int l = 0; l < LB; ++l) {
     const size_t idx = static_cast<size_t>(row0 + l) * NN + e;
@@ -167,9 +146,14 @@ __global__ void __launch_bounds__(kThreads)
     pr[l] = ph_re[idx];
     pi[l] = ph_im[idx];
     nz[l] = kNoise != kNone ? ns[idx] : 0.0f;
+    hz[l] = hw[l] = 0u;
   }
   for (int t = 0; t < nsteps; ++t) {
     const size_t ai = (static_cast<size_t>(t) * B + s) * NN + e;
+    const uint32_t step = step0 + static_cast<uint32_t>(t);
+    const bool odd = (step & 1u) != 0u;
+    // an even step, or the call's first: its pair's Philox call is drawn
+    const bool draw = !odd || t == 0;
     float sum_r = 0.0f, sum_i = 0.0f;
     if (accumulate) {
       sum_r = a_re[ai];
@@ -180,16 +164,22 @@ __global__ void __launch_bounds__(kThreads)
       float nr = __fsub_rn(__fmul_rn(sr[l], pr[l]), __fmul_rn(si[l], pi[l]));
       float ni = __fadd_rn(__fmul_rn(sr[l], pi[l]), __fmul_rn(si[l], pr[l]));
       if (kNoise != kNone) {
-        const U4 v = philox4x32_10(static_cast<uint32_t>(e),
-                                   static_cast<uint32_t>(prow0 + l),
-                                   step0 + static_cast<uint32_t>(t), 2u, k0,
-                                   k1);
+        uint32_t b1 = hz[l], b2 = hw[l];
+        if (draw) {
+          const U4 v = philox4x32_10(static_cast<uint32_t>(e),
+                                     static_cast<uint32_t>(prow0 + l),
+                                     step >> 1, 2u, k0, k1);
+          b1 = odd ? v.z : v.x;
+          b2 = odd ? v.w : v.y;
+          hz[l] = v.z;
+          hw[l] = v.w;
+        }
         float z1, z2;
         if (kNoise == kUniform) {
-          z1 = mixed_uniform(v.x);
-          z2 = mixed_uniform(v.y);
+          z1 = mixed_uniform(b1);
+          z2 = mixed_uniform(b2);
         } else {
-          box_muller(v.x, v.y, &z1, &z2);
+          box_muller(b1, b2, &z1, &z2);
         }
         nr = __fadd_rn(nr, __fmul_rn(z1, nz[l]));
         ni = __fadd_rn(ni, __fmul_rn(z2, nz[l]));
@@ -210,292 +200,85 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// W split for ar_dft, once per call: for each pupil tile of 8 rows nt < P / 8
-// and 8-deep depth step ks < NK (the depth N zero padded to a multiple of
-// kDK), two runs of 32 lanes x 4 words, q = 0 for wr and 1 for wi; lane
-// (g, t) = (lane >> 2, lane & 3) holds the hi and lo of W[8 nt + g][8 ks +
-// 2t] and W[8 nt + g][8 ks + 2t + 1], in the order (hi, hi, lo, lo): one
-// 16-byte load of a warp's run gives every lane its B fragments, hi and
-// lo, and the warp reads 512 consecutive bytes. ws[((nt NK + ks) 2 + q)
-// 128 + 4 lane + v], one thread per (nt, ks, q, lane).
-__global__ void ar_split_w(const float* __restrict__ wr,
-                           const float* __restrict__ wi,
-                           uint4* __restrict__ ws, int N, int NK, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int lane = i & 31, q = (i >> 5) & 1;
-  const int ks = (i >> 6) % NK, nt = (i >> 6) / NK;
-  const int k = 8 * ks + 2 * (lane & 3);
-  const float* w = (q ? wi : wr) + static_cast<size_t>(8 * nt + (lane >> 2)) * N;
-  uint32_t h0, l0, h1, l1;
-  split(k < N ? w[k] : 0.0f, h0, l0);
-  split(k + 1 < N ? w[k + 1] : 0.0f, h1, l1);
-  ws[i] = make_uint4(h0, h1, l0, l1);
-}
-
-// Words of ar_dft's dynamic shared memory: two W slices (the group's 2 PJ
-// pupil tiles, kDK deep, re and im, hi and lo) and two slices of A (kDK
-// rows of kDM columns, re and im).
-__host__ __device__ constexpr int dft_w_words(int PJ) {
-  return 2 * PJ * (kDK / 8) * 256;
-}
-constexpr int kDftAWords = 2 * kDK * kAS;
-
-// G'[j][m][p] = sum_k A[j][k][m] W[p][k], complex, for j = (step, series),
-// on the tensor cores (3xTF32 mma.sync.m16n8k8). One block per (j, kDM =
-// 128 columns m of A, pupil column group blockIdx.z of width GW = 16 PJ);
-// warp w owns the 16 columns m0 + 16 w .. and every n8 tile of the group's
-// Re G' and Im G' (2 x 2 PJ tiles, 24 at P = 96), so each A fragment, split
-// once, serves all of them. The depth runs in slices of kDK, two buffers
-// of A (raw fp32, copied with cp.async) and of the pre-split W (ws, from
-// ar_split_w), the next slice copied while one is used. Rows of W past P
-// and depth past N are zeros; G' is written only below P. kOne: the group
-// is the whole pupil, P = 16 PJ, known to the compiler.
-template <int PJ, bool kOne>
-__global__ void __launch_bounds__(kThreads, 1)
-    ar_dft(const uint4* __restrict__ ws, const float* __restrict__ a_re,
+// G'[j][m][p] = sum_k A[j][k][m] W[p][k] (complex) of nj layer sums A
+// (a_re, a_im: nj x N x N) into g_re, g_im (nj x N x P): the second pass
+// with a pair's rows the N columns m of its A (R = N; vec: A copied in
+// 16-byte pieces), warpgroup 0 storing Re G', 1 Im G', all P columns (W's
+// padded rows give zeros), 8 bytes a store.
+template <int NCH, int TAIL>
+__global__ void __launch_bounds__(kDetThreads, 1)
+    ar_dft(const float* __restrict__ wpack, const float* __restrict__ a_re,
            const float* __restrict__ a_im, float* __restrict__ g_re,
-           float* __restrict__ g_im, int N, int P_rt) {
-  constexpr int NT = 2 * PJ;                 // n8 pupil tiles of a group
-  constexpr int KS = kDK / 8;                // 8-deep steps of a slice
-  constexpr int WW = dft_w_words(PJ);
-  extern __shared__ __align__(16) float smem[];
-  uint32_t* sw = reinterpret_cast<uint32_t*>(smem);  // 2 x WW
-  float* sa = smem + 2 * WW;                         // 2 x kDftAWords
-
-  const int P = kOne ? 16 * PJ : P_rt;
-  const int nt0 = kOne ? 0 : blockIdx.z * NT;  // the group's first tile
-  const int j = blockIdx.x, m0 = blockIdx.y * kDM;
-  const int NK = (N + kDK - 1) / kDK * KS;     // 8-deep steps, padded
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const float* ar = a_re + static_cast<size_t>(j) * N * N;
-  const float* ai = a_im + static_cast<size_t>(j) * N * N;
-  // rows of A 16-byte aligned: copy them in 16-byte pieces
-  const bool vec = (N & 3) == 0 &&
-                   ((reinterpret_cast<uintptr_t>(a_re) |
-                     reinterpret_cast<uintptr_t>(a_im)) & 15) == 0;
-
-  // slice s into buffer s & 1: the group's runs of ws (KS steps x 256
-  // words a tile, tiles past P as zeros), then kDK rows of A
-  const auto stage = [&](int s) {
-    uint32_t* wb = sw + (s & 1) * WW;
-    for (int e = tid; e < NT * KS * 64; e += kThreads) {
-      const int nt = e / (KS * 64), c = e - nt * (KS * 64);
-      const bool in = kOne || (nt0 + nt) * 8 < P;
-      const uint4* src = ws + (static_cast<size_t>(nt0 + nt) * NK + s * KS) *
-                                  64 + c;
-      cp_async(wb + 4 * e, in ? src : ws, in, true);
-    }
-    float* ab = sa + (s & 1) * kDftAWords;
-    stage_tile<kAS, kDM>(ab, ar, s * kDK, kDK, N, N, m0, vec);
-    stage_tile<kAS, kDM>(ab + kDK * kAS, ai, s * kDK, kDK, N, N, m0, vec);
-    cp_async_commit();
+           float* __restrict__ g_im, int nj, int N, int P, int nz, int vec) {
+  constexpr int PB = 64 * NCH + TAIL;
+  extern __shared__ __align__(128) float smem[];
+  const int tid = threadIdx.x, wg = (tid >> 7) & 1, lane = tid & 31;
+  const int nrows = nj * N;
+  const auto epi = [&](int r0, int zb, const auto& gb, const auto& gt) {
+    float* out = wg ? g_im : g_re;
+    const int row = r0 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+    for_each_ht<NCH, TAIL>(gb, gt, lane & 3, [&](int col, float v0, float v1,
+                                                 int h) {
+      const int p1 = zb * PB + col, m = row + 8 * h;
+      if (p1 >= P || m >= nrows) return;
+      *reinterpret_cast<float2*>(out + static_cast<size_t>(m) * P + p1) =
+          make_float2(v0, v1);
+    });
   };
-
-  float acc[2][NT][4];  // [0] Re G', [1] Im G'
-#pragma unroll
-  for (int c = 0; c < 2; ++c)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[c][nt][v] = 0.0f;
-
-  const int nsl = NK / KS;
-  stage(0);
-  for (int s = 0; s < nsl; ++s) {
-    if (s + 1 < nsl) {
-      stage(s + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // slice s visible to all
-    const uint32_t* wb = sw + (s & 1) * WW + 4 * lane;
-    const float* ab = sa + (s & 1) * kDftAWords + 16 * warp + g;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      // A fragments of re and im: columns m (the fragment's rows) g and
-      // g + 8 of the warp's 16, depths 2t (slots t) and 2t + 1 (slots
-      // t + 4), each element split once; nh, nl: -A_im, sign bits flipped
-      uint32_t ah[2][4], al[2][4], nh[4], nl[4];
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const float* a = ab + c * kDK * kAS + (8 * ks + 2 * t) * kAS;
-        split(a[0], ah[c][0], al[c][0]);
-        split(a[8], ah[c][1], al[c][1]);
-        split(a[kAS], ah[c][2], al[c][2]);
-        split(a[kAS + 8], ah[c][3], al[c][3]);
-      }
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        nh[v] = ah[1][v] ^ 0x80000000u;
-        nl[v] = al[1][v] ^ 0x80000000u;
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const uint4 r4 = *reinterpret_cast<const uint4*>(
-            wb + ((nt * KS + ks) * 2) * 128);
-        const uint4 i4 = *reinterpret_cast<const uint4*>(
-            wb + ((nt * KS + ks) * 2 + 1) * 128);
-        const uint32_t rh[2] = {r4.x, r4.y}, rl[2] = {r4.z, r4.w};
-        const uint32_t ih[2] = {i4.x, i4.y}, il[2] = {i4.z, i4.w};
-        // Re G' += Ar Wr - Ai Wi and Im G' += Ar Wi + Ai Wr: each step's
-        // products a sum of their own, the small terms first, then the
-        // large ones, added to acc in fp32
-        float d[4];
-        mma_tf32_new(d, al[0], rh);
-        mma_tf32(d, ah[0], rl);
-        mma_tf32(d, nl, ih);
-        mma_tf32(d, nh, il);
-        mma_tf32(d, ah[0], rh);
-        mma_tf32(d, nh, ih);
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[0][nt][v] += d[v];
-        mma_tf32_new(d, al[0], ih);
-        mma_tf32(d, ah[0], il);
-        mma_tf32(d, al[1], rh);
-        mma_tf32(d, ah[1], rl);
-        mma_tf32(d, ah[0], ih);
-        mma_tf32(d, ah[1], rh);
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[1][nt][v] += d[v];
-      }
-    }
-    __syncthreads();  // buffer s & 1 is refilled at s + 2
-  }
-  // fragment (column m = g | g + 8 of the warp's, pupil 2t, 2t + 1 of tile
-  // nt)
-#pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    float* gout = c ? g_im : g_re;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int p = (nt0 + nt) * 8 + 2 * t;
-      if (!kOne && p >= P) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + 16 * warp + g + 8 * h;
-        if (m >= N) continue;
-        *reinterpret_cast<float2*>(
-            gout + (static_cast<size_t>(j) * N + m) * P + p) =
-            make_float2(acc[c][nt][2 * h], acc[c][nt][2 * h + 1]);
-      }
-    }
-  }
+  second_pass<NCH, TAIL, 1>(smem, wpack, a_re, a_im, nj, N, N, P, nz,
+                            vec != 0, epi);
 }
 
-// The detect pass of detect.cuh for one real screen per (step, series) j =
-// blockIdx.x: h = Re(W G') (P x P, the transposed screen) on the (16 PJ x
-// 16 PJ) tile blockIdx.y of T x T, then sum(pm_t cos h), sum(pm_t sin h)
-// over the tile in a fixed order, with pm_t the pupil * mode of series j %
-// B. g_re/g_im: (nj, N, P); pm_t: (B, P, P); out: (nj, T * T, 2), the
-// tile's sums (the step's own where T = 1).
-template <int PJ, bool kOne>
-__global__ void __launch_bounds__(kThreads)
-    ar_detect(const float* __restrict__ wr, const float* __restrict__ wi,
+// The detect pass on the real part alone: for each pair j, Re H^T = Re(G'^T
+// W^T) (rows p2, columns p1; G' in g_re, g_im: nj x N x P), then
+// sum(pm_t cos), sum(pm_t sin) with pm_t (B, P, P) of series j % B, into
+// part (nj, P / 16, nz, 2): each warp's sums of its 16 rows over a slice.
+// Two row groups a block of work, each warpgroup its own.
+template <int NCH, int TAIL>
+__global__ void __launch_bounds__(kDetThreads, 1)
+    ar_detect(const float* __restrict__ wpack,
               const float* __restrict__ g_re, const float* __restrict__ g_im,
-              const float* __restrict__ pm_t, float* __restrict__ out, int N,
-              int P_rt, int T, int B) {
-  constexpr int TP = 16 * PJ;
-  constexpr int WS = TP + 1;
-  __shared__ float swr[kK2 * WS], swi[kK2 * WS];
-  __shared__ float sgr[kK2 * TP], sgi[kK2 * TP];
-  __shared__ float red[kThreads / 32][2];
-
-  const int P = kOne ? TP : P_rt;
-  const int j = blockIdx.x;
-  const int tile = kOne ? 0 : blockIdx.y;
-  const int r0 = kOne ? 0 : tile / T * TP, c0 = kOne ? 0 : tile % T * TP;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const float* gr = g_re + static_cast<size_t>(j) * N * P;
-  const float* gi = g_im + static_cast<size_t>(j) * N * P;
-  const float* pm = pm_t + static_cast<size_t>(j % B) * P * P;
-
-  float hr[PJ][PJ];
+              const float* __restrict__ pm_t, float* __restrict__ part,
+              int nj, int B, int N, int P, int nz) {
+  constexpr int PB = 64 * NCH + TAIL;
+  extern __shared__ __align__(128) float smem[];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const auto epi = [&](int r0, int zb, const auto& gb, const auto& gt) {
+    const int R = r0 + ((tid >> 5) & 3) * 16;  // the warp's rows
+    const int j = R / P, p2w = R - j * P;
+    if (j >= nj) return;  // the whole warp: rows past the last pair
+    const float* pm =
+        after_products(pm_t) + static_cast<size_t>(j % B) * P * P;
+    const int p2 = p2w + (lane >> 2);
+    float acc[2] = {0.0f, 0.0f};
+    for_each_ht<NCH, TAIL>(gb, gt, lane & 3, [&](int col, float v0, float v1,
+                                                 int h) {
+      const int p1 = zb * PB + col;
 #pragma unroll
-  for (int a = 0; a < PJ; ++a)
-#pragma unroll
-    for (int b = 0; b < PJ; ++b) hr[a][b] = 0.0f;
-
-  for (int kb = 0; kb < N; kb += kK2) {
-    __syncthreads();
-    for (int e = tid; e < TP * kK2; e += kThreads) {
-      const int p = e / kK2, kk = e - p * kK2;
-      const bool in = kb + kk < N && (kOne || r0 + p < P);
-      const size_t at = static_cast<size_t>(r0 + p) * N + kb + kk;
-      swr[kk * WS + p] = in ? wr[at] : 0.0f;
-      swi[kk * WS + p] = in ? wi[at] : 0.0f;
-    }
-    for (int e = tid; e < kK2 * TP; e += kThreads) {
-      const int kk = e / TP, pp = e - kk * TP;
-      const bool in = kb + kk < N && (kOne || c0 + pp < P);
-      const size_t at = static_cast<size_t>(kb + kk) * P + c0 + pp;
-      sgr[e] = in ? gr[at] : 0.0f;
-      sgi[e] = in ? gi[at] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int kk = 0; kk < kK2; ++kk) {
-      float ar[PJ], ai[PJ], br[PJ], bi[PJ];
-#pragma unroll
-      for (int a = 0; a < PJ; ++a) {
-        ar[a] = swr[kk * WS + ty + 16 * a];
-        ai[a] = swi[kk * WS + ty + 16 * a];
-        br[a] = sgr[kk * TP + tx + 16 * a];
-        bi[a] = sgi[kk * TP + tx + 16 * a];
+      for (int e = 0; e < 2; ++e) {
+        if (p1 + e >= P) continue;
+        const int idx = (p1 + e) * P + p2 + 8 * h;
+        float s, c;
+        sincos_cw(e ? v1 : v0, &s, &c);
+        const float w = pm[idx];
+        acc[0] = fmaf(w, c, acc[0]);
+        acc[1] = fmaf(w, s, acc[1]);
       }
+    });
 #pragma unroll
-      for (int a = 0; a < PJ; ++a)
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int b = 0; b < PJ; ++b) {
-          hr[a][b] = fmaf(ar[a], br[b], hr[a][b]);
-          hr[a][b] = fmaf(-ai[a], bi[b], hr[a][b]);
-        }
+      for (int off = 16; off > 0; off >>= 1)
+        acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
+    if (lane == 0) {
+      float* o =
+          part + ((static_cast<size_t>(j) * (P / 16) + p2w / 16) * nz + zb) * 2;
+      o[0] = acc[0];
+      o[1] = acc[1];
     }
-  }
-
-  float acc[2] = {0.f, 0.f};
-#pragma unroll
-  for (int a = 0; a < PJ; ++a)
-#pragma unroll
-    for (int b = 0; b < PJ; ++b) {
-      const int p1 = r0 + ty + 16 * a, p2 = c0 + tx + 16 * b;
-      if (!kOne && (p1 >= P || p2 >= P)) continue;
-      const float w = pm[p1 * P + p2];
-      float s, c;
-      sincos_cw(hr[a][b], &s, &c);
-      acc[0] = fmaf(w, c, acc[0]);
-      acc[1] = fmaf(w, s, acc[1]);
-    }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
-  if ((tid & 31) == 0) {
-    red[tid >> 5][0] = acc[0];
-    red[tid >> 5][1] = acc[1];
-  }
-  __syncthreads();
-  if (tid < 2) {
-    float s = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) s += red[w][tid];
-    out[(static_cast<size_t>(j) * gridDim.y + tile) * 2 + tid] = s;
-  }
-}
-
-// out[j][c] = sum over the tiles, in tile order, of part[j][tile][c].
-__global__ void ar_sum_tiles(const float* __restrict__ part,
-                             float* __restrict__ out, int n2, int ntiles) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n2) return;
-  const float* p = part + static_cast<size_t>(i >> 1) * ntiles * 2 + (i & 1);
-  float s = 0.0f;
-  for (int t = 0; t < ntiles; ++t) s += p[2 * t];
-  out[i] = s;
+  };
+  second_pass<NCH, TAIL, 2>(smem, wpack, g_re, g_im, nj, N, P, P, nz, true,
+                            epi);
 }
 
 struct UpdateArgs {
@@ -550,64 +333,69 @@ cudaError_t update_layers(int lb, int noise, const UpdateArgs& u) {
 #undef FAST_CASE
 }
 
-// W's split into ws, for every ar_dft launch of a call.
-cudaError_t split_w(int P, const float* wr, const float* wi, uint32_t* ws,
-                    int N, cudaStream_t stream) {
-  const int NK = (N + kDK - 1) / kDK * (kDK / 8);
-  const int n = P / 8 * NK * 64;
-  ar_split_w<<<(n + 255) / 256, 256, 0, stream>>>(
-      wr, wi, reinterpret_cast<uint4*>(ws), N, NK, n);
-  return cudaGetLastError();
-}
-
 // The first product of nj = (steps x B series) layer sums: G' into g_re,
-// g_im (nj, N, P), from ws as split_w leaves it.
-cudaError_t first_product(int P, int nj, const uint32_t* ws,
+// g_im (nj, N, P), from the laid W table wpack.
+cudaError_t first_product(int P, int nj, const float* wpack,
                           const float* a_re, const float* a_im, float* g_re,
                           float* g_im, int N, cudaStream_t stream) {
-  const PupilTiles t = pupil_tiles(P);
-  const dim3 gd(nj, (N + kDM - 1) / kDM, t.T);
+  const WSlices w = w_slices(P);
+  const dim3 grid = second_pass_grid(N, nj, w.nz);
+  const int vec = N % 4 == 0 && ((reinterpret_cast<uintptr_t>(a_re) |
+                                  reinterpret_cast<uintptr_t>(a_im)) &
+                                 15) == 0;
   cudaError_t err = cudaSuccess;
-#define FAST_DFT(PJ, ONE)                                                  \
-  {                                                                        \
-    const int smem = static_cast<int>(                                     \
-        sizeof(float) * (2 * dft_w_words(PJ) + 2 * kDftAWords));           \
-    auto* k_dft = ar_dft<PJ, ONE>;                                         \
-    err = cudaFuncSetAttribute(                                            \
-        k_dft, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);         \
-    if (err != cudaSuccess) return err;                                    \
-    k_dft<<<gd, kThreads, smem, stream>>>(                                 \
-        reinterpret_cast<const uint4*>(ws), a_re, a_im, g_re, g_im, N, P); \
+#define FAST_DFT(PB)                                                      \
+  case PB: {                                                              \
+    auto* k = ar_dft<PB / 64, PB % 64>;                                   \
+    err = cudaFuncSetAttribute(                                           \
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, detect_smem(PB)); \
+    if (err != cudaSuccess) return err;                                   \
+    k<<<grid, kDetThreads, detect_smem(PB), stream>>>(                    \
+        wpack, a_re, a_im, g_re, g_im, nj, N, P, w.nz, vec);              \
+    break;                                                                \
   }
-  FAST_TILE_SWITCH(t, FAST_DFT)
+  FAST_PB_SWITCH(w.PB, FAST_DFT)
 #undef FAST_DFT
   return cudaGetLastError();
 }
 
-// The two products and the detect pass of nj = (steps x B series) layer
-// sums: G' into g_re/g_im (nj, N, P), the sums into out (nj, 2), through
-// part (nj, T * T, 2) for a pupil over 128 px.
-cudaError_t products(int P, int nj, int B, const float* wr, const float* wi,
-                     const uint32_t* ws, const float* pm_t,
-                     const float* a_re, const float* a_im, float* g_re,
-                     float* g_im, float* part, float* out, int N,
-                     cudaStream_t stream) {
-  const PupilTiles t = pupil_tiles(P);
-  cudaError_t err =
-      first_product(P, nj, ws, a_re, a_im, g_re, g_im, N, stream);
-  if (err != cudaSuccess) return err;
-  const dim3 gt(nj, t.T * t.T);
-  float* sums = t.T == 1 ? out : part;
-#define FAST_DETECT(PJ, ONE)                         \
-  ar_detect<PJ, ONE><<<gt, kThreads, 0, stream>>>(   \
-      wr, wi, g_re, g_im, pm_t, sums, N, P, t.T, B)
-  FAST_TILE_SWITCH(t, FAST_DETECT)
+// The detect pass of nj = (steps x B series) pairs' G' (g_re, g_im: nj x
+// N x P): the sums into out (nj, 2), through part (nj, detect_parts(P),
+// 2).
+cudaError_t detect_real(int P, int nj, int B, const float* wpack,
+                        const float* g_re, const float* g_im,
+                        const float* pm_t, float* part, float* out, int N,
+                        cudaStream_t stream) {
+  const WSlices w = w_slices(P);
+  const dim3 grid = second_pass_grid(P, nj, w.nz, 2);
+  cudaError_t err = cudaSuccess;
+#define FAST_DETECT(PB)                                                      \
+  case PB: {                                                                 \
+    auto* k = ar_detect<PB / 64, PB % 64>;                                   \
+    err = cudaFuncSetAttribute(                                              \
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, detect_smem(PB, 2)); \
+    if (err != cudaSuccess) return err;                                      \
+    k<<<grid, kDetThreads, detect_smem(PB, 2), stream>>>(                    \
+        wpack, g_re, g_im, pm_t, part, nj, B, N, P, w.nz);                   \
+    break;                                                                   \
+  }
+  FAST_PB_SWITCH(w.PB, FAST_DETECT)
 #undef FAST_DETECT
   err = cudaGetLastError();
-  if (err != cudaSuccess || t.T == 1) return err;
-  ar_sum_tiles<<<(2 * nj + 255) / 256, 256, 0, stream>>>(part, out, 2 * nj,
-                                                         t.T * t.T);
+  if (err != cudaSuccess) return err;
+  sum_tiles<2><<<(2 * nj + 255) / 256, 256, 0, stream>>>(part, out, 2 * nj,
+                                                        detect_parts(P));
   return cudaGetLastError();
+}
+
+// Whether the products take nj pairs of an (N, N) grid at a padded pupil
+// P from these tables: rows of both passes below 2^31, the 16-byte
+// alignment of the bulk copies of W and of G'.
+bool products_take(int P, int nj, int N, const float* wpack,
+                   const float* g_re, const float* g_im) {
+  return nj > 0 && static_cast<long long>(nj) * N <= 0x7fffffffLL - 128 &&
+         static_cast<long long>(nj) * P <= 0x7fffffffLL - 128 &&
+         second_pass_takes(P, nj, N, wpack, g_re, g_im);
 }
 
 }  // namespace
@@ -616,35 +404,32 @@ cudaError_t products(int P, int nj, int B, const float* wr, const float* wi,
 // step0; series s draws the Philox rows of series series0 + s. Shapes:
 // st_re, st_im (B, L, N, N), the states, updated in place;
 // ph_re, ph_im (B, L, N, N); ns (B, L, N, N), read only with noise != 0;
-// wr, wi (P, N), shared; pm_t (B, P, P), each series' transposed pupil *
-// mode; scratch ws (P x (N rounded up to 32) x 4 words, W split for the
-// tensor cores, written first), a_re, a_im (tile * B, N, N), g_re, g_im
-// (tile * B, N, P) and, for a pupil over 128 px, part (tile * B, T * T, 2)
-// with T = ceil(P / 128) (else unused, may be null); out (nsteps, B, 2) =
-// (sum pm cos phi, sum pm sin phi) per step and series. lb: layers per
-// thread of the update pass, 1..8; lb >= L is K4's counterpart (every
-// layer in one pass), lb < L K5's (layer blocks in turn); B > 1 is K6's.
-// noise: 0 none, 1 'uniform', 2 'gauss'. P must be a multiple of 16.
-// Returns the cudaError_t of the launches (0 on success).
+// wpack, the laid W table of the padded (P, N) W (ops/synth_detect.py,
+// laid_w), shared; pm_t (B, P, P), each series' transposed pupil * mode;
+// scratch a_re, a_im (tile * B, N, N), g_re, g_im (tile * B, N, P) and part
+// (tile * B, detect_parts(P), 2); out (nsteps, B, 2) = (sum pm cos phi, sum
+// pm sin phi) per step and series. lb: layers per thread of the update
+// pass, 1..8; lb >= L is K4's counterpart (every layer in one pass), lb <
+// L K5's (layer blocks in turn); B > 1 is K6's. noise: 0 none, 1
+// 'uniform', 2 'gauss'. P must be a multiple of 16. Returns the
+// cudaError_t of the launches (0 on success).
 extern "C" int fast_ar_flow(uint32_t k0, uint32_t k1, uint32_t step0,
                             int nsteps, int tile, int B, int series0,
                             int L, int lb, int noise, float* st_re,
-                            float* st_im,
-                            const float* ph_re, const float* ph_im,
-                            const float* ns, const float* wr,
-                            const float* wi, const float* pm_t,
-                            uint32_t* ws, float* a_re, float* a_im,
-                            float* g_re, float* g_im, float* part,
-                            float* out, int N, int P, void* stream) {
-  if (N <= 0 || N > 32768 || !pass2_takes(P) || nsteps <= 0 || tile <= 0 ||
-      B <= 0 || B > 65535 || series0 < 0 || L <= 0 ||
+                            float* st_im, const float* ph_re,
+                            const float* ph_im, const float* ns,
+                            const float* wpack, const float* pm_t,
+                            float* a_re, float* a_im, float* g_re,
+                            float* g_im, float* part, float* out, int N,
+                            int P, void* stream) {
+  if (N <= 0 || N > 32768 || nsteps <= 0 || tile <= 0 || B <= 0 ||
+      B > 65535 || series0 < 0 || L <= 0 ||
       (static_cast<long long>(series0) + B) * L > 0x7fffffffLL || lb < 1 ||
-      lb > 8 || noise < 0 || noise > 2 || (noise != 0 && ns == nullptr) ||
-      (pupil_tiles(P).T > 1 && part == nullptr))
+      lb > kMaxLB || noise < 0 || noise > 2 || (noise != 0 && ns == nullptr) ||
+      part == nullptr || static_cast<long long>(tile) * B > 0x7fffffffLL ||
+      !products_take(P, tile * B, N, wpack, g_re, g_im))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = split_w(P, wr, wi, ws, N, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
   for (int t0 = 0; t0 < nsteps; t0 += tile) {
     const int nt = nsteps - t0 < tile ? nsteps - t0 : tile;
     for (int l0 = 0; l0 < L; l0 += lb) {
@@ -654,31 +439,46 @@ extern "C" int fast_ar_flow(uint32_t k0, uint32_t k1, uint32_t step0,
                             st_im,   ph_re,  ph_im,
                             ns,      a_re,   a_im,
                             N * N,   B,      st};
-      err = update_layers(L - l0 < lb ? L - l0 : lb, noise, u);
+      cudaError_t err = update_layers(L - l0 < lb ? L - l0 : lb, noise, u);
       if (err != cudaSuccess) return static_cast<int>(err);
     }
-    err = products(P, nt * B, B, wr, wi, ws, pm_t, a_re, a_im, g_re, g_im,
-                   part, out + static_cast<size_t>(t0) * B * 2, N, st);
+    cudaError_t err =
+        first_product(P, nt * B, wpack, a_re, a_im, g_re, g_im, N, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = detect_real(P, nt * B, B, wpack, g_re, g_im, pm_t, part,
+                      out + static_cast<size_t>(t0) * B * 2, N, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
 }
 
-// The first DFT product alone, as fast_ar_flow runs it: W split into ws,
-// then G' = A^T W^T of nj layer sums a_re, a_im (nj, N, N) into g_re,
-// g_im (nj, N, P). For timing the stage and holding it element by element
-// against its plain version. Other arguments as fast_ar_flow's.
-extern "C" int fast_ar_dft(int nj, const float* wr, const float* wi,
-                           const float* a_re, const float* a_im,
-                           uint32_t* ws, float* g_re, float* g_im, int N,
-                           int P, void* stream) {
-  if (N <= 0 || N > 32768 || !pass2_takes(P) || nj <= 0)
+// The first DFT product alone, as fast_ar_flow runs it: G' = A^T W^T of
+// nj layer sums a_re, a_im (nj, N, N) into g_re, g_im (nj, N, P), from
+// the laid W table wpack. For timing the pass and holding it element by
+// element against its plain version.
+extern "C" int fast_ar_dft(int nj, const float* wpack, const float* a_re,
+                           const float* a_im, float* g_re, float* g_im,
+                           int N, int P, void* stream) {
+  if (N <= 0 || N > 32768 || !products_take(P, nj, N, wpack, g_re, g_im))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = split_w(P, wr, wi, ws, N, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(
-      first_product(P, nj, ws, a_re, a_im, g_re, g_im, N, st));
+  return static_cast<int>(first_product(P, nj, wpack, a_re, a_im, g_re, g_im,
+                                        N, static_cast<cudaStream_t>(stream)));
+}
+
+// The detect pass alone, as fast_ar_flow runs it: the (nj, 2) sums of nj
+// pairs' G' (g_re, g_im: nj x N x P) with pm_t (B, P, P) of series j % B,
+// through part (nj, detect_parts(P), 2). For timing and holding against
+// its plain version.
+extern "C" int fast_ar_detect(int nj, int B, const float* wpack,
+                              const float* g_re, const float* g_im,
+                              const float* pm_t, float* part, float* out,
+                              int N, int P, void* stream) {
+  if (N <= 0 || N > 32768 || B <= 0 || part == nullptr ||
+      !products_take(P, nj, N, wpack, g_re, g_im))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(detect_real(P, nj, B, wpack, g_re, g_im, pm_t,
+                                      part, out, N,
+                                      static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* fast_error_string(int err) {

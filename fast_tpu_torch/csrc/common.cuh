@@ -10,7 +10,6 @@
 namespace fast {
 
 constexpr int kThreads = 256;
-constexpr int kK2 = 16;  // depth tile of the AR kernels' fp32 FMA detect
 
 constexpr float kS3 = 1.7320508075688772f;             // sqrt(3)
 constexpr float kS3Scale = 1.7320508075688772f * 1.1920928955078125e-07f;

@@ -1,6 +1,11 @@
 // The second pass of the iid kernels: the detect pass that K1, K2 and K3
 // end with and K7's screens pass, one tensor-core product on Hopper's
-// wgmma (sm_90a).
+// wgmma (sm_90a). The AR kernels (ar_flow.cu) run both their DFT products
+// on it too: a draw's rows have an extent and stride of their own (R;
+// the N columns of a layer sum for their first product, whose "H^T" is
+// their G'), and a block of work may hold two row groups of 64, each
+// consumer warpgroup forming the real part of its own (their real-only
+// detect).
 //
 // Both form, for each draw, the transposed screens from its G' (N x P,
 // real and imaginary parts, P contiguous, as pass 1 writes it):
@@ -74,46 +79,10 @@
 
 namespace fast {
 
-// The tiles of the pupil axis: T tiles of width 16 * PJ cover the padded
-// width P (a multiple of 16). The AR kernels' detect (ar_flow.cu) tiles the
-// pupil so; pass2_takes bounds P by it for every kernel.
-struct PupilTiles {
-  int T, PJ;
-};
-
-inline PupilTiles pupil_tiles(int P) {
-  const int T = (P + 127) / 128;
-  return {T, (P / 16 + T - 1) / T};
-}
-
-// The switch over the tile geometry t of a padded pupil: LAUNCH(PJ, ONE)
-// is the kernel launch of one case. One tile: PJ = P / 16; more tiles:
-// 16 PJ T >= P > 128 (T - 1), so PJ is 5 to 8.
-#define FAST_TILE_SWITCH(t, LAUNCH)   \
-  if ((t).T == 1) {                   \
-    switch ((t).PJ) {                 \
-      case 1: LAUNCH(1, true); break; \
-      case 2: LAUNCH(2, true); break; \
-      case 3: LAUNCH(3, true); break; \
-      case 4: LAUNCH(4, true); break; \
-      case 5: LAUNCH(5, true); break; \
-      case 6: LAUNCH(6, true); break; \
-      case 7: LAUNCH(7, true); break; \
-      case 8: LAUNCH(8, true); break; \
-      default: return cudaErrorInvalidValue; \
-    }                                 \
-  } else {                            \
-    switch ((t).PJ) {                 \
-      case 5: LAUNCH(5, false); break; \
-      case 6: LAUNCH(6, false); break; \
-      case 7: LAUNCH(7, false); break; \
-      case 8: LAUNCH(8, false); break; \
-      default: return cudaErrorInvalidValue; \
-    }                                 \
-  }
-
+// The pupils the second pass takes: padded to a multiple of 16, at most
+// 32640 px (255 tiles of 128).
 inline bool pass2_takes(int P) {
-  return P % 16 == 0 && P >= 16 && pupil_tiles(P).T <= 255;
+  return P % 16 == 0 && P >= 16 && P <= 255 * 128;
 }
 
 // ---- the laid W table's slices ----------------------------------------------
@@ -142,14 +111,26 @@ __host__ __device__ inline WSlices w_slices(int P) {
 
 // ---- the second pass on wgmma ------------------------------------------------
 
-constexpr int kDetRows = 64;    // stacked (draw, p2) rows a block
+constexpr int kDetRows = 64;    // stacked rows a warpgroup's block of work
 constexpr int kDetDepth = 64;   // depth of an A tile: 8 steps, 4 fold groups
-constexpr int kDetAS = kDetRows + 4;  // shared row stride of an A tile
-constexpr int kDetAPart = kDetDepth * kDetAS;  // words of Re or Im
-constexpr int kDetATile = 2 * kDetAPart;
 constexpr int kDetConsumers = 256;                  // two warpgroups
 constexpr int kDetThreads = kDetConsumers + 128;    // and the producer's
 constexpr int kDetAWarps = 3;   // producer warps that copy A
+
+// Row groups of a block of work. kRG = 1: the two consumer warpgroups
+// share one group of 64 rows, warpgroup 0 forming Re H^T and 1 Im H^T
+// (the iid passes, the AR kernels' first product). kRG = 2: 128 rows,
+// warpgroup w forming Re H^T of rows 64 w.. alone (the AR kernels' detect,
+// which needs no Im): each loads and splits only its own rows' A.
+// Shared row stride of an A tile: its rows and 4 (= 4 mod 32: the
+// fragment loads of a warp hit 32 banks); words of its Re or Im part.
+__host__ __device__ constexpr int det_as(int kRG) { return kDetRows * kRG + 4; }
+__host__ __device__ constexpr int det_apart(int kRG) {
+  return kDetDepth * det_as(kRG);
+}
+__host__ __device__ constexpr int det_atile(int kRG) {
+  return 2 * det_apart(kRG);
+}
 
 // By slice width PB (H100 80GB HBM3, 700 W; copies of the pass timed as
 // scripts/torch_detect_variants.py times them): W steps in the ring, 8 up
@@ -159,12 +140,13 @@ constexpr int kDetAWarps = 3;   // producer warps that copy A
 // (where a third squeezes L1, which the epilogue's pm_t loads use: 0.92
 // against 1.17 ms at 102^2); registers of a consumer and of a producer
 // thread (2 x 128 x c + 128 x p <= 65536), 232 and 40 up to 128 columns
-// (no spills), 240 and 24 above.
-__host__ __device__ constexpr int det_stages(int PB) {
-  return PB <= 128 ? 8 : 4;
+// (no spills), 240 and 24 above. Two row groups (A tiles twice as large)
+// keep two A tiles and 4 W steps, 3 above 128 columns, within the 227 KB.
+__host__ __device__ constexpr int det_stages(int PB, int kRG = 1) {
+  return kRG == 1 ? (PB <= 128 ? 8 : 4) : (PB <= 128 ? 4 : 3);
 }
-__host__ __device__ constexpr int det_atiles(int PB) {
-  return PB <= 128 ? 2 : 3;
+__host__ __device__ constexpr int det_atiles(int PB, int kRG = 1) {
+  return kRG == 1 && PB > 128 ? 3 : 2;
 }
 __host__ __device__ constexpr int det_consumer_regs(int PB) {
   return PB <= 128 ? 232 : 240;
@@ -173,28 +155,31 @@ __host__ __device__ constexpr int det_producer_regs(int PB) {
   return PB <= 128 ? 40 : 24;
 }
 
-// Bytes of the second pass's shared memory at slice width PB: the ring of
-// W steps (wr hi, lo, wi hi, lo over PB columns, 32 PB words each), the A
-// tiles and the mbarriers.
-__host__ __device__ constexpr int detect_smem(int PB) {
-  return 4 * (det_stages(PB) * 32 * PB + det_atiles(PB) * kDetATile) +
-         8 * (2 * det_stages(PB) + 2 * det_atiles(PB));
+// Bytes of the second pass's shared memory at slice width PB and kRG row
+// groups: the ring of W steps (wr hi, lo, wi hi, lo over PB columns, 32 PB
+// words each), the A tiles and the mbarriers.
+__host__ __device__ constexpr int detect_smem(int PB, int kRG = 1) {
+  return 4 * (det_stages(PB, kRG) * 32 * PB +
+              det_atiles(PB, kRG) * det_atile(kRG)) +
+         8 * (2 * det_stages(PB, kRG) + 2 * det_atiles(PB, kRG));
 }
 
-// An A tile of the second pass: G' rows [k][p2] of 64 depths, Re then Im,
-// at a row stride of kDetAS words.
+// An A tile of the second pass: rows [k][row] of 64 depths, Re then Im,
+// at a row stride of AS words; `a` points at the warpgroup's first row.
+template <int AS>
 struct KTile {
   const float* a;
 };
 
 // Its A fragment at 8-deep step `step` for the thread's rows r, r + 8 and
 // quad lane t (depths 2t and 2t + 1 in slots t and t + 4, as the laid
-// table's B), split and negated if neg. With the stride 68 (= 4 mod 16)
-// the 32 lanes of each of the four loads hit 32 banks.
-__device__ __forceinline__ Frag a_frag(const KTile& x, int part, int step,
+// table's B), split and negated if neg. With a stride of 4 mod 32 the 32
+// lanes of each of the four loads hit 32 banks.
+template <int AS>
+__device__ __forceinline__ Frag a_frag(const KTile<AS>& x, int part, int step,
                                        int r, int t, bool neg) {
-  const float* p = x.a + part * kDetAPart + (8 * step + 2 * t) * kDetAS + r;
-  return split_frag({p[0], p[8], p[kDetAS], p[kDetAS + 8]}, neg);
+  const float* p = x.a + part * kDetDepth * AS + (8 * step + 2 * t) * AS + r;
+  return split_frag({p[0], p[8], p[AS], p[AS + 8]}, neg);
 }
 
 // p, opaque to the compiler's code motion: loads through it stay after the
@@ -206,40 +191,54 @@ __device__ __forceinline__ const float* after_products(const float* p) {
   return p;
 }
 
-// The second pass's blocks: 64 stacked rows by one W slice each, block b
-// taking rows b / nz and slice b % nz.
-__host__ __device__ inline int second_pass_blocks(int P, int nbatch) {
-  return (nbatch * P + kDetRows - 1) / kDetRows * w_slices(P).nz;
+// The second pass's blocks of work: 64 kRG stacked rows (nbatch draws of
+// R rows each) by one W slice each, block b taking rows b / nz and slice
+// b % nz.
+__host__ __device__ inline int second_pass_blocks(int R, int nbatch, int nz,
+                                                  int kRG = 1) {
+  return (nbatch * R + kDetRows * kRG - 1) / (kDetRows * kRG) * nz;
 }
 
 // H^T = G'^T W^T, block after block: the block runs blocks blockIdx.x,
 // + gridDim.x, ... of the launch's second_pass_blocks, each the stacked
-// rows 64 rb.. of the launch's draws (G' in g_re, g_im: nbatch x N x P)
-// against slice zb of the laid W table (wpack: nz x N64 / 8 x 4 x 8 PB, N64
-// = N rounded up to 64). The producers stream every block's operands in
-// turn, running ahead into the next block's while the consumers end this
-// one. A consumer thread calls epi(rb, zb, gb, gt) after each block with,
-// in gb and gt, rows r and r + 8 of part wg of that block's H^T (wg =
-// threadIdx.x / 128, r = 16 (warp % 4) + lane / 4): columns 64 c + 8 i +
-// 2t and + 1 of chunk c in gb[c][4 i + 2 h] and [4 i + 2 h + 1] for row
-// r + 8 h, the tail's in gt alike (t = lane % 4).
-template <int NCH, int TAIL, class Epilogue>
+// rows of the launch's draws against slice zb of the laid W table (wpack:
+// nz x N64 / 8 x 4 x 8 PB, N64 = N rounded up to 64, nz = w_slices(P).nz
+// for the padded pupil P). A draw's rows are R rows of its G' (g_re,
+// g_im: nbatch x N x R, rows contiguous): R = P for the iid passes (G'
+// from pass 1), R = N for the AR kernels' first product (the layer sums
+// A, nbatch x N x N: then H^T is their G'). vec: R a
+// multiple of 4 and G' 16-byte aligned (A copied in 16-byte pieces, else
+// in 4-byte ones). The producers stream every block's operands in turn,
+// running ahead into the next block's while the consumers end this one. A
+// consumer thread calls epi(r0, zb, gb, gt) after each block with r0 the
+// first stacked row of its warpgroup's 64 and, in gb and gt, rows r and r
+// + 8 of part `part` (Re or Im) of those rows' H^T (r = 16 (warp % 4) +
+// lane / 4): columns 64 c + 8 i + 2t and + 1 of chunk c in gb[c][4 i + 2
+// h] and [4 i + 2 h + 1] for row r + 8 h, the tail's in gt alike (t = lane
+// % 4). part = the warpgroup (kRG = 1) or 0 (kRG = 2).
+template <int NCH, int TAIL, int kRG, class Epilogue>
 __device__ __forceinline__ void second_pass(
     float* smem, const float* __restrict__ wpack,
     const float* __restrict__ g_re, const float* __restrict__ g_im,
-    int nbatch, int N, int P, int nz, Epilogue epi) {
+    int nbatch, int N, int R, int P, int nz, bool vec, Epilogue epi) {
   constexpr int PB = 64 * NCH + TAIL;
-  constexpr int kStages = det_stages(PB);
-  constexpr int kATiles = det_atiles(PB);
+  constexpr int kStages = det_stages(PB, kRG);
+  constexpr int kATiles = det_atiles(PB, kRG);
+  constexpr int AS = det_as(kRG), APart = det_apart(kRG);
+  constexpr int ATile = det_atile(kRG);
+  constexpr int kRows = kDetRows * kRG;  // rows of a block of work
   constexpr int SW = 32 * PB;  // words of a W step
   float* as = smem + kStages * SW;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(as + kATiles * kDetATile);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(as + kATiles * ATile);
   const Ring<kStages> ring{smem, bars, bars + kStages, SW};
   uint64_t* afull = bars + 2 * kStages;  // A tile s landed
   uint64_t* aempty = afull + kATiles;    // A tile s read by the 8 warps
   const int tid = threadIdx.x;
   const int NC = (N + kDetDepth - 1) / kDetDepth;  // A tiles a block
-  const int nblk = second_pass_blocks(P, nbatch);
+  // nz recomputed from P, not the argument: with the argument ptxas
+  // serializes the wgmma of the slices over 128 px (C7511; the detect pass
+  // at 1024^2, 402 px, 12.1 against 10.4 ms on the H100)
+  const int nblk = (nbatch * R + kRows - 1) / kRows * w_slices(P).nz;
 
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -254,7 +253,7 @@ __device__ __forceinline__ void second_pass(
   }
   // what no copy writes (depths past N, rows past the last draw) must be
   // finite: it meets W's zero padding or a masked row
-  for (int e = tid; e < kATiles * kDetATile; e += kDetThreads) as[e] = 0.0f;
+  for (int e = tid; e < kATiles * ATile; e += kDetThreads) as[e] = 0.0f;
   __syncthreads();
 
   if (tid >= kDetConsumers) {
@@ -269,29 +268,32 @@ __device__ __forceinline__ void second_pass(
           ring.load(it, wz + static_cast<size_t>(q) * SW, 4 * SW);
       }
     } else if (pw >= 1) {
-      // A: 16-byte pieces by the three other warps; piece e of a tile is
-      // part e & 1, rows 4 ((e >> 1) & 15).. of the block, depth e >> 5.
-      // Each thread's arrival on the tile's full barrier waits for its
-      // pieces to land.
+      // A: pieces by the three other warps, 16 bytes (4 rows) with vec,
+      // else 4 (one row); piece e of a tile is part e & 1, the (e >> 1)-th
+      // piece of rows of depth e / (pieces a depth). Each thread's arrival
+      // on the tile's full barrier waits for its pieces to land.
       const int ta = tid - kDetConsumers - 32;
+      const int lw = vec ? 2 : 0;  // log2 of the rows of a piece
+      const int lper = (kRG == 1 ? 7 : 8) - lw;  // log2 of pieces a depth
       uint32_t at_tile = 0;
       for (int b = blockIdx.x; b < nblk; b += gridDim.x) {
-        const int R0 = b / nz * kDetRows;
-        const int rows = min(kDetRows, nbatch * P - R0);
+        const int R0 = b / nz * kRows;
+        const int rows = min(kRows, nbatch * R - R0);
         for (int c = 0; c < NC; ++c, ++at_tile) {
           const int s = at_tile % kATiles;
           mbar_wait(&aempty[s], ((at_tile / kATiles) & 1) ^ 1);
           const int kn = min(kDetDepth, N - c * kDetDepth);
-          float* dst = as + s * kDetATile;
-          for (int e = ta; e < 32 * kn; e += 32 * kDetAWarps) {
-            const int q = 4 * ((e >> 1) & 15), k = e >> 5;
+          float* dst = as + s * ATile;
+          for (int e = ta; e < (kn << lper); e += 32 * kDetAWarps) {
+            const int q = ((e >> 1) & ((kRows >> lw) - 1)) << lw;
+            const int k = e >> lper;
             if (q >= rows) continue;
-            const int j = (R0 + q) / P, p2 = R0 + q - j * P;
-            cp_async(dst + (e & 1) * kDetAPart + k * kDetAS + q,
+            const int j = (R0 + q) / R, p2 = R0 + q - j * R;
+            cp_async(dst + (e & 1) * APart + k * AS + q,
                      ((e & 1) ? g_im : g_re) +
-                         (static_cast<size_t>(j) * N + c * kDetDepth + k) * P +
+                         (static_cast<size_t>(j) * N + c * kDetDepth + k) * R +
                          p2,
-                     true, true);
+                     true, vec);
           }
           cp_async_mbar_arrive(&afull[s]);
         }
@@ -303,6 +305,8 @@ __device__ __forceinline__ void second_pass(
   setmaxnreg_inc<det_consumer_regs(PB)>();
   const int wg = tid >> 7, lane = tid & 31, t = lane & 3;
   const int r = ((tid >> 5) & 3) * 16 + (lane >> 2);
+  const int part = kRG == 1 ? wg : 0;
+  const int roff = kRG == 1 ? 0 : kDetRows * wg;  // the warpgroup's rows
   float gb[NCH > 0 ? NCH : 1][32], gt[(TAIL > 0 ? TAIL : 16) / 2];
   uint32_t it = 0, at_tile = 0;
   for (int b = blockIdx.x; b < nblk; b += gridDim.x) {
@@ -315,12 +319,12 @@ __device__ __forceinline__ void second_pass(
     for (int c = 0; c < NC; ++c, ++at_tile, it += 8) {
       const int s = at_tile % kATiles;
       mbar_wait(&afull[s], (at_tile / kATiles) & 1);
-      tile_products<NCH, TAIL>(gb, gt, KTile{as + s * kDetATile}, ring, it,
-                               wg, r, t, [](int) {});
+      tile_products<NCH, TAIL>(gb, gt, KTile<AS>{as + s * ATile + roff},
+                               ring, it, part, r, t, [](int) {});
       __syncwarp();
       if (lane == 0) mbar_arrive(&aempty[s]);
     }
-    epi(b / nz, b % nz, gb, gt);
+    epi(b / nz * kRows + roff, b % nz, gb, gt);
   }
 }
 
@@ -362,8 +366,8 @@ __global__ void __launch_bounds__(kDetThreads, 1)
   constexpr int PB = 64 * NCH + TAIL;
   extern __shared__ __align__(128) float smem[];
   const int tid = threadIdx.x, wg = (tid >> 7) & 1, lane = tid & 31;
-  const auto epi = [&](int rb, int zb, const auto& gb, const auto& gt) {
-    const int R = rb * kDetRows + ((tid >> 5) & 3) * 16;  // the warp's rows
+  const auto epi = [&](int r0, int zb, const auto& gb, const auto& gt) {
+    const int R = r0 + ((tid >> 5) & 3) * 16;  // the warp's rows
     const int j = R / P, p2w = R - j * P;
     if (j >= nbatch) return;  // the whole warp: rows past the last draw
     const float* pm = after_products(pm_t);
@@ -403,7 +407,8 @@ __global__ void __launch_bounds__(kDetThreads, 1)
       o[1] = acc[1];
     }
   };
-  second_pass<NCH, TAIL>(smem, wpack, g_re, g_im, nbatch, N, P, nz, epi);
+  second_pass<NCH, TAIL, 1>(smem, wpack, g_re, g_im, nbatch, N, P, P, nz,
+                           true, epi);
 }
 
 // The screens pass: blocks as the detect pass's; scr_re and scr_im
@@ -420,8 +425,8 @@ __global__ void __launch_bounds__(kDetThreads, 1)
   extern __shared__ __align__(128) float smem[];
   const int tid = threadIdx.x, wg = (tid >> 7) & 1, lane = tid & 31;
   const bool even = (npup & 1) == 0;  // column pairs 8-byte aligned
-  const auto epi = [&](int rb, int zb, const auto& gb, const auto& gt) {
-    const int R = rb * kDetRows + ((tid >> 5) & 3) * 16;
+  const auto epi = [&](int r0, int zb, const auto& gb, const auto& gt) {
+    const int R = r0 + ((tid >> 5) & 3) * 16;
     const int j = R / P, p2w = R - j * P;
     if (j >= nbatch) return;
     float* out =
@@ -440,17 +445,20 @@ __global__ void __launch_bounds__(kDetThreads, 1)
       }
     });
   };
-  second_pass<NCH, TAIL>(smem, wpack, g_re, g_im, nbatch, N, P, nz, epi);
+  second_pass<NCH, TAIL, 1>(smem, wpack, g_re, g_im, nbatch, N, P, P, nz,
+                           true, epi);
 }
 
-// out[j][c] = sum over the tiles, in tile order, of part[j][tile][c].
+// out[j][c] = sum over the tiles, in tile order, of part[j][tile][c], c <
+// NV: the detect pass's 4 sums, the AR kernels' 2.
+template <int NV>
 __global__ void sum_tiles(const float* __restrict__ part,
-                          float* __restrict__ out, int n4, int ntiles) {
+                          float* __restrict__ out, int n, int ntiles) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n4) return;
-  const float* p = part + static_cast<size_t>(i >> 2) * ntiles * 4 + (i & 3);
+  if (i >= n) return;
+  const float* p = part + static_cast<size_t>(i / NV) * ntiles * NV + i % NV;
   float s = 0.0f;
-  for (int t = 0; t < ntiles; ++t) s += p[4 * t];
+  for (int t = 0; t < ntiles; ++t) s += p[NV * t];
   out[i] = s;
 }
 
@@ -470,11 +478,11 @@ inline bool second_pass_takes(int P, int nbatch, int N, const float* wpack,
 
 // The second pass's grid: one persistent block a SM (a block takes one
 // SM's registers), at most one a block of work.
-inline dim3 second_pass_grid(int P, int nbatch) {
+inline dim3 second_pass_grid(int R, int nbatch, int nz, int kRG = 1) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int nblk = second_pass_blocks(P, nbatch);
+  const int nblk = second_pass_blocks(R, nbatch, nz, kRG);
   return dim3(nblk < sms ? nblk : sms);
 }
 
@@ -482,7 +490,7 @@ inline dim3 second_pass_grid(int P, int nbatch) {
 // into out (nbatch, 4), through part, a (nbatch, detect_parts(P), 4)
 // scratch. wpack: the laid W table (ops/synth_detect.py, laid_w). A
 // template, so that only the sources that launch it build its kernels
-// (ar_flow.cu includes this header for pupil_tiles).
+// (ar_flow.cu includes this header for second_pass).
 template <int kUnused = 0>
 cudaError_t launch_detect(int P, int nbatch, const float* wpack,
                           const float* g_re, const float* g_im,
@@ -491,7 +499,7 @@ cudaError_t launch_detect(int P, int nbatch, const float* wpack,
   if (!second_pass_takes(P, nbatch, N, wpack, g_re, g_im) || part == nullptr)
     return cudaErrorInvalidValue;
   const WSlices w = w_slices(P);
-  const dim3 grid = second_pass_grid(P, nbatch);
+  const dim3 grid = second_pass_grid(P, nbatch, w.nz);
   cudaError_t err = cudaSuccess;
 #define FAST_DETECT(PB)                                                     \
   case PB: {                                                                \
@@ -507,7 +515,7 @@ cudaError_t launch_detect(int P, int nbatch, const float* wpack,
 #undef FAST_DETECT
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  sum_tiles<<<(4 * nbatch + 255) / 256, 256, 0, stream>>>(
+  sum_tiles<4><<<(4 * nbatch + 255) / 256, 256, 0, stream>>>(
       part, out, 4 * nbatch, detect_parts(P));
   return cudaGetLastError();
 }
@@ -523,7 +531,7 @@ cudaError_t launch_screens(int P, int nbatch, const float* wpack,
       npup > P)
     return cudaErrorInvalidValue;
   const WSlices w = w_slices(P);
-  const dim3 grid = second_pass_grid(P, nbatch);
+  const dim3 grid = second_pass_grid(P, nbatch, w.nz);
   cudaError_t err = cudaSuccess;
 #define FAST_SCREENS(PB)                                                    \
   case PB: {                                                                \

@@ -1,6 +1,7 @@
 // Hopper's asynchronous tensor-core path, shared by the kernels that use
 // it (pass 1 of K2 and K7, synth_detect.cu; of K1, colfac_detect.cu; of
-// K3, colfac_split.cu; the detect and screens passes of detect.cuh):
+// K3, colfac_split.cu; the detect and screens passes of detect.cuh, which
+// the AR kernels' two products of ar_flow.cu also run):
 // warpgroup products (wgmma.mma_async, TF32, A from registers, B from
 // shared memory through a matrix descriptor), the 1-D bulk copies
 // (cp.async.bulk) that stage operands from device memory, the mbarriers

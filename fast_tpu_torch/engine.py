@@ -919,7 +919,7 @@ class Fast:
         for s, n in self._pieces(step0, nsteps):
             c, a = kernel(seed_noise, a, T["ph"], T.get("ns"), T["W"],
                           T["pm"], n, noise=self.params["TEMPORAL_NOISE"],
-                          step0=s)
+                          step0=s, laid=T.get("w_laid"))
             yield torch.complex(c[:, 0], c[:, 1]) * (dx ** 2 / norm)
 
     def _ar_fft_chunks(self, a, seed_noise, series=0, step0=0, nsteps=None):

@@ -57,10 +57,11 @@ def tables_from_numpy(arrays, device="cpu", dtype=torch.float32,
         and ``pm_t`` (P, P), zero padded as the kernels take them
         (:func:`~fast_tpu_torch.ops.synth_detect.pad_pupil`), and
         ``mix`` (N, N), all float32, for the synth-detect kernel; on the
-        card, ``w_laid``, the laid W table that the iid kernels' products
+        card, ``w_laid``, the laid W table that the kernels' products
         read (:func:`~fast_tpu_torch.ops.synth_detect.laid_w`: ``wr``,
-        ``wi`` and ``mix`` split and laid out once; on the CPU the plain
-        tables are the kernels' and there is none); and 0-d
+        ``wi`` and, for iid runs, ``mix`` split and laid out once; the AR
+        kernels' two products read it too; on the CPU the plain tables
+        are the kernels' and there is none); and 0-d
         float64 CPU tensors for the scalars, with ``pup_crop`` a (2,)
         int64 tensor. With ``L_colfac``: ``L`` (N, Npup, Npup) complex in
         the working type for ``SYNTH='colfac'`` and the colfac-detect
@@ -135,8 +136,8 @@ def _grid_tables(arrays, temporal, device, dtype):
              pup_crop=torch.as_tensor(np.asarray(g["pup_crop"], np.int64)))
     if not temporal:
         T["mix"] = _dev(mixing_matrix(W.shape[-1]), device)
-        if wr.device.type == "cuda":
-            T["w_laid"] = laid_w(wr, wi, T["mix"])
+    if wr.device.type == "cuda":
+        T["w_laid"] = laid_w(wr, wi, T.get("mix"))
     for k in ("df", "dx", "norm"):
         T[k] = torch.tensor(float(g[k]), dtype=torch.float64)
     if g["subharm_modes"] is not None:

@@ -19,27 +19,30 @@ screen is reduced to ``(sum pm cos phi, sum pm sin phi)``.
   :data:`FUSED_MAX_LAYERS` layers); the streamed one walks the layers in
   blocks that add into the layer sum in turn, for any number of layers.
   :func:`select` is the rule that picks between them, and the batched one
-  follows it for each of its series. Any pupil width: the kernels cut a
-  pupil over 128 px into the tiles of ``csrc/detect.cuh``. Their first
-  DFT product runs on the tensor cores (3xTF32); :func:`ar_dft` runs it
-  alone.
+  follows it for each of its series. Any pupil width. Both DFT products
+  run as the iid kernels' second pass (``csrc/detect.cuh``, 3xTF32
+  ``wgmma``) on the laid W table (``synth_detect.laid_w``, given as
+  ``laid=`` or laid out for the call); :func:`ar_dft` and
+  :func:`ar_detect` run each alone.
 * :func:`ar_flow_reference` and :func:`ar_flow_batch_reference` are the
   same functions in stock torch ops, step by step, from the same
-  Philox4x32-10 bits: counter ``(mode, (series0 + series) * L + layer,
-  absolute step, 2)``, key the 64-bit seed (series 0 of a batch is the
-  single series of K4; ``series0``, 0 unless the caller says, lets a rank
-  draw the noise of series ``series0 ..`` of a larger batch). Their
-  update uses the kernel's operations in the kernel's order (no fused
-  multiply-add), so state and layer sum agree with the kernel bit for bit
-  and only the two matrix products differ. ``bits`` replaces the
-  Philox bits (``"zero"``: all zero, what the Pallas interpreter's PRNG
-  yields).
+  Philox4x32-10 bits (:func:`ar_bits`), key the 64-bit seed (series 0 of
+  a batch is the single series of K4; ``series0``, 0 unless the caller
+  says, lets a rank draw the noise of series ``series0 ..`` of a larger
+  batch). Their update uses the kernel's operations in the kernel's order
+  (no fused multiply-add), so state and layer sum agree with the kernel
+  bit for bit and only the two matrix products differ. ``bits`` replaces
+  the Philox bits (``"zero"``: all zero, what the Pallas interpreter's
+  PRNG yields).
 
 Noise, as the TPU kernels: 'uniform' is ``i sqrt(3) 2^-23 - sqrt(3)`` on
 the top 24 bits of a word (unit variance), 'gauss' is Box-Muller with
-``u1 = i1 2^-24 + 2^-25``, ``u2 = i2 2^-24``. The counter holds the
-absolute step of the series (``step0`` + the step within the call), so a
-series cut into several calls is the same series.
+``u1 = i1 2^-24 + 2^-25``, ``u2 = i2 2^-24``. One Philox call serves two
+steps: counter ``(mode, (series0 + series) * L + layer, absolute step //
+2, 2)``, its words 0 and 1 the even step's two words, 2 and 3 the odd
+step's. The counter holds the absolute step of the series (``step0`` +
+the step within the call), so a series cut into several calls, at an
+even or an odd step, is the same series.
 """
 
 import ctypes
@@ -47,9 +50,10 @@ import ctypes
 import torch
 
 from . import _build
-from .synth_detect import (_G_BYTES, _REF_POINTS, _key, box_muller,
-                           pad_pupil, padded_pupil, philox4x32_10,
-                           pupil_tiles, raise_on, sincos, uniforms)
+from .synth_detect import (_G_BYTES, _REF_POINTS, _check_laid, _key,
+                           box_muller, detect_parts, laid_w, pad_pupil,
+                           padded_pupil, philox4x32_10, pupil_tiles,
+                           raise_on, sincos, uniforms)
 
 #: Most layers the fused kernel holds in one thread's registers.
 FUSED_MAX_LAYERS = 8
@@ -59,8 +63,9 @@ STREAM_LAYERS = 4
 MAX_STEPS = 4096
 _NOISE_CODE = {"uniform": 1, "gauss": 2}
 _N_MAX = 32768  # grid sides whose mode index fits the kernel's int
-_T_MAX = 255    # pupil tiles an axis (csrc/detect.cuh, pass2_takes)
+_T_MAX = 255    # pupil tiles of 128 px (csrc/detect.cuh, pass2_takes)
 _B_MAX = 65535  # series of one launch (a grid axis of the update pass)
+_TILE_PAIRS = 1024  # most (step, series) pairs of a tile
 
 
 def supports(N, P):
@@ -79,11 +84,14 @@ def select(nlayers):
 
 def tile_steps(N, P=128, nseries=1):
     """Steps per tile of the layer sum A and of G' in device memory, for
-    ``nseries`` series at an (N, N) grid and a padded pupil P: 256 (step,
+    ``nseries`` series at an (N, N) grid and a padded pupil P: 1024 (step,
     series) pairs for grids up to 256^2, fewer for larger ones (at most
-    2^24 grid points of A, 134 MB, and 2 GiB of G'), never under 16
-    pairs; then divided among the series, at least one step."""
-    pairs = max(16, min(256, (1 << 24) // (N * N)))
+    2^26 grid points of A, 537 MB, and 2 GiB of G'), never under 16
+    pairs; then divided among the series, at least one step. A tile's
+    pairs are the rows of the products' launches, which have to fill the
+    card's 132 SMs (64 pairs at 512^2 give the detect 48 blocks of
+    work)."""
+    pairs = max(16, min(_TILE_PAIRS, (1 << 26) // (N * N)))
     pairs = min(pairs, max(1, _G_BYTES // (8 * N * P)))
     return max(1, pairs // nseries)
 
@@ -98,8 +106,9 @@ def ar_bits(seed, step0, nsteps, L, N, device="cpu", layer0=0):
     int64 tensors of 32-bit values, shape (nsteps, L, N, N), for the
     absolute steps ``step0 .. step0 + nsteps - 1`` and the state rows
     ``layer0 .. layer0 + L - 1`` (row ``s * nlayers + l`` is layer l of
-    series s); counter ``(row * N + col, state row, step, 2)``, key the
-    64-bit ``seed``."""
+    series s); counter ``(row * N + col, state row, step // 2, 2)``, key
+    the 64-bit ``seed``: words 0 and 1 of the call at an even step, 2 and
+    3 at an odd one."""
     k0, k1 = _key(seed)
     e = torch.arange(N * N, dtype=torch.int64, device=device)[None, None, :]
     lay = torch.arange(layer0, layer0 + L, dtype=torch.int64,
@@ -107,8 +116,10 @@ def ar_bits(seed, step0, nsteps, L, N, device="cpu", layer0=0):
     s = torch.arange(step0, step0 + nsteps, dtype=torch.int64,
                      device=device)[:, None, None]
     two = torch.full((), 2, dtype=torch.int64, device=device)
-    x0, x1, _, _ = philox4x32_10(e, lay, s, two, k0, k1)
-    return x0.reshape(nsteps, L, N, N), x1.reshape(nsteps, L, N, N)
+    x0, x1, x2, x3 = philox4x32_10(e, lay, s >> 1, two, k0, k1)
+    odd = (s & 1).bool()
+    return (torch.where(odd, x2, x0).reshape(nsteps, L, N, N),
+            torch.where(odd, x3, x1).reshape(nsteps, L, N, N))
 
 
 def ar_noise(seed, step0, nsteps, L, N, noise="uniform", device="cpu",
@@ -215,17 +226,23 @@ def ar_dft_reference(ar, ai, wr, wi):
     return art @ wr.T - ait @ wi.T, art @ wi.T + ait @ wr.T
 
 
-def detect_real_reference(ar, ai, wr, wi, pm_t):
-    """The kernel's two products and its detect pass in stock torch ops:
-    from the layer sums ``ar + i ai`` (..., N, N), ``G' = A^T W^T`` (...,
-    N, P) (:func:`ar_dft_reference`), the transposed screen ``Re(W G')``
-    (..., P, P) and ``(sum pm_t cos, sum pm_t sin)``: (..., 2) float32,
-    with ``pm_t`` broadcast over the leading axes ((B, P, P) for B series
-    on the last one)."""
-    gr, gi = ar_dft_reference(ar, ai, wr, wi)
+def ar_detect_reference(gr, gi, wr, wi, pm_t):
+    """The kernel's detect pass in stock torch ops: from ``G'`` (``gr``,
+    ``gi``: (..., N, P)), the transposed screen ``Re(W G')`` (..., P, P)
+    and ``(sum pm_t cos, sum pm_t sin)``: (..., 2) float32, with ``pm_t``
+    broadcast over the leading axes ((B, P, P) for B series on the last
+    one)."""
     s, c = sincos(wr @ gr - wi @ gi)
     return torch.stack([(pm_t * c).sum((-2, -1)), (pm_t * s).sum((-2, -1))],
                        dim=-1)
+
+
+def detect_real_reference(ar, ai, wr, wi, pm_t):
+    """The kernel's two products and its detect pass in stock torch ops:
+    from the layer sums ``ar + i ai`` (..., N, N), ``G' = A^T W^T`` (...,
+    N, P) (:func:`ar_dft_reference`), then :func:`ar_detect_reference`."""
+    return ar_detect_reference(*ar_dft_reference(ar, ai, wr, wi), wr, wi,
+                               pm_t)
 
 
 def _reference(seed, st, ph2, ns, wr, wi, pm_t, nsteps, noise, step0, bits,
@@ -331,27 +348,30 @@ def _library():
     lib, info = _build.load_library("ar_flow")
     if not getattr(lib, "_fast_typed", False):
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-        lib.fast_ar_flow.argtypes = [u, u, u] + [i] * 7 + [p] * 15 \
+        lib.fast_ar_flow.argtypes = [u, u, u] + [i] * 7 + [p] * 13 \
             + [i, i, p]
         lib.fast_ar_flow.restype = i
-        lib.fast_ar_dft.argtypes = [i] + [p] * 7 + [i, i, p]
+        lib.fast_ar_dft.argtypes = [i] + [p] * 5 + [i, i, p]
         lib.fast_ar_dft.restype = i
+        lib.fast_ar_detect.argtypes = [i, i] + [p] * 6 + [i, i, p]
+        lib.fast_ar_detect.restype = i
         lib.fast_error_string.argtypes = [i]
         lib.fast_error_string.restype = ctypes.c_char_p
         lib._fast_typed = True
     return lib, info
 
 
-def _split_scratch(N, P, dev):
-    """The scratch in which the kernels split W for the tensor cores:
-    (P, N rounded up to 32, 4) int32 words (``csrc/ar_flow.cu``,
-    ``ar_split_w``)."""
-    return torch.empty((P, -(-N // 32) * 32, 4), dtype=torch.int32,
-                       device=dev)
+def _wpack(wr, wi, laid):
+    """The laid W table's ``wpack`` for the padded ``wr``, ``wi``:
+    ``laid``'s (checked against them) or laid out for the call."""
+    if laid is None:
+        return laid_w(wr, wi).wpack
+    _check_laid(laid, wr)
+    return laid.wpack
 
 
 def _ar_flow(wrapper, lb, seed, a0, ph, ns, W, pm, nsteps, noise, step0,
-             max_steps, batch=False, series0=0):
+             max_steps, batch=False, series0=0, laid=None):
     nsteps, step0, series0 = int(nsteps), int(step0), int(series0)
     if nsteps <= 0:
         raise ValueError("nsteps must be positive")
@@ -363,6 +383,8 @@ def _ar_flow(wrapper, lb, seed, a0, ph, ns, W, pm, nsteps, noise, step0,
         raise ValueError("step0 + nsteps must fit in 32 bits")
     k0, k1 = _key(seed)
     st, ph2, ns, wr, wi, pm_t = _pack(a0, ph, ns, W, pm, batch)
+    if laid is not None:
+        _check_laid(laid, wr)
     dev = st.device
     _, B, L, N, _ = st.shape
     if dev.type == "cpu":
@@ -380,15 +402,13 @@ def _ar_flow(wrapper, lb, seed, a0, ph, ns, W, pm, nsteps, noise, step0,
     else:
         lib, _ = _library()
         P = wr.shape[0]
-        T = pupil_tiles(P)
         per = min(nsteps, int(max_steps))
         tile = min(per, tile_steps(N, P, B))
-        ws = _split_scratch(N, P, dev)
+        wpack = _wpack(wr, wi, laid)
         a = torch.empty((2, tile * B, N, N), dtype=torch.float32, device=dev)
         g = torch.empty((2, tile * B, N, P), dtype=torch.float32, device=dev)
-        part = (None if T == 1 else
-                torch.empty((tile * B, T * T, 2), dtype=torch.float32,
-                            device=dev))
+        part = torch.empty((tile * B, detect_parts(P), 2),
+                           dtype=torch.float32, device=dev)
         out = torch.empty((nsteps, B, 2), dtype=torch.float32, device=dev)
         code = 0 if ns is None else _NOISE_CODE[noise]
         with torch.cuda.device(dev):
@@ -398,11 +418,9 @@ def _ar_flow(wrapper, lb, seed, a0, ph, ns, W, pm, nsteps, noise, step0,
                     k0, k1, step0 + t0, min(per, nsteps - t0), tile, B,
                     series0, L, lb, code, st[0].data_ptr(), st[1].data_ptr(),
                     ph2[0].data_ptr(), ph2[1].data_ptr(),
-                    None if ns is None else ns.data_ptr(), wr.data_ptr(),
-                    wi.data_ptr(), pm_t.data_ptr(), ws.data_ptr(),
-                    a[0].data_ptr(),
-                    a[1].data_ptr(), g[0].data_ptr(), g[1].data_ptr(),
-                    None if part is None else part.data_ptr(),
+                    None if ns is None else ns.data_ptr(), wpack.data_ptr(),
+                    pm_t.data_ptr(), a[0].data_ptr(), a[1].data_ptr(),
+                    g[0].data_ptr(), g[1].data_ptr(), part.data_ptr(),
                     out[t0:].data_ptr(), N, P, cs)
                 raise_on(lib, err, f"{wrapper.__name__} launch")
                 wrapper.LAUNCHES += 1
@@ -412,18 +430,20 @@ def _ar_flow(wrapper, lb, seed, a0, ph, ns, W, pm, nsteps, noise, step0,
 
 
 def ar_flow_fused(seed, a0, step_phasor_scaled, noise_scale, W, pupil_mode,
-                  nsteps, noise="uniform", step0=0, max_steps=MAX_STEPS):
+                  nsteps, noise="uniform", step0=0, max_steps=MAX_STEPS,
+                  laid=None):
     """K4: the whole coupling series with every layer of a mode advanced
     in one thread's registers; arguments and returns as
     :func:`ar_flow_reference`.
 
     On CUDA tensors this launches the kernel (three passes per time tile,
-    four for a pupil over 128 px, one launch per ``max_steps`` steps, the
-    n-th from the absolute step ``step0 + max_steps * n``) on the current
-    stream and counts each launch in ``ar_flow_fused.LAUNCHES``, or raises
-    for what it does not take (:func:`supports`, more than
-    :data:`FUSED_MAX_LAYERS` layers); on CPU tensors it runs the plain
-    version.
+    one launch per ``max_steps`` steps, the n-th from the absolute step
+    ``step0 + max_steps * n``) on the current stream and counts each
+    launch in ``ar_flow_fused.LAUNCHES``, or raises for what it does not
+    take (:func:`supports`, more than :data:`FUSED_MAX_LAYERS` layers); on
+    CPU tensors it runs the plain version. ``laid``: the
+    :class:`~fast_tpu_torch.ops.synth_detect.LaidW` of ``W`` (the
+    engine's ``tables["w_laid"]``), else W is laid out for the call.
     """
     L = a0.shape[0]
     if L > FUSED_MAX_LAYERS:
@@ -432,12 +452,13 @@ def ar_flow_fused(seed, a0, step_phasor_scaled, noise_scale, W, pupil_mode,
             f"per mode, got {L}; ar_flow_streamed takes any number")
     return _ar_flow(ar_flow_fused, L, seed, a0, step_phasor_scaled,
                     noise_scale, W, pupil_mode, nsteps, noise, step0,
-                    max_steps)
+                    max_steps, laid=laid)
 
 
 def ar_flow_streamed(seed, a0, step_phasor_scaled, noise_scale, W,
                      pupil_mode, nsteps, noise="uniform", step0=0,
-                     max_steps=MAX_STEPS, lb_layers=STREAM_LAYERS):
+                     max_steps=MAX_STEPS, lb_layers=STREAM_LAYERS,
+                     laid=None):
     """K5: the same series with the layers advanced in blocks of
     ``lb_layers`` (1 to 8), each block adding its layers into the layer sum
     in turn, for any number of layers; arguments and returns as
@@ -448,12 +469,12 @@ def ar_flow_streamed(seed, a0, step_phasor_scaled, noise_scale, W,
         raise ValueError(f"lb_layers must be 1..{FUSED_MAX_LAYERS}")
     return _ar_flow(ar_flow_streamed, lb, seed, a0, step_phasor_scaled,
                     noise_scale, W, pupil_mode, nsteps, noise, step0,
-                    max_steps)
+                    max_steps, laid=laid)
 
 
 def ar_flow_fused_batch(seed, a0, step_phasor_scaled, noise_scale, W,
                         pupil_modes, nsteps, noise="uniform", step0=0,
-                        max_steps=MAX_STEPS, series0=0):
+                        max_steps=MAX_STEPS, series0=0, laid=None):
     """K6: B independent series sharing ``W`` in one launch per
     ``max_steps`` steps; arguments and returns as
     :func:`ar_flow_batch_reference`.
@@ -467,13 +488,14 @@ def ar_flow_fused_batch(seed, a0, step_phasor_scaled, noise_scale, W,
     call on the whole batch draws for them. On
     CUDA tensors this launches the kernel on the current stream and counts
     each launch in ``ar_flow_fused_batch.LAUNCHES``, or raises; on CPU
-    tensors it runs the plain version.
+    tensors it runs the plain version. ``laid`` as
+    :func:`ar_flow_fused`'s.
     """
     L = a0.shape[1] if a0.ndim == 4 else 0
     lb = L if L <= FUSED_MAX_LAYERS else STREAM_LAYERS
     return _ar_flow(ar_flow_fused_batch, lb, seed, a0, step_phasor_scaled,
                     noise_scale, W, pupil_modes, nsteps, noise, step0,
-                    max_steps, batch=True, series0=series0)
+                    max_steps, batch=True, series0=series0, laid=laid)
 
 
 ar_flow_fused.LAUNCHES = 0
@@ -481,31 +503,44 @@ ar_flow_streamed.LAUNCHES = 0
 ar_flow_fused_batch.LAUNCHES = 0
 
 
-def ar_dft(a_re, a_im, wr, wi):
+def _pass_tables(wr, wi, what):
+    """``wr``, ``wi`` (npup, N) float32 padded to :func:`padded_pupil`."""
+    if wr.ndim != 2 or wr.shape != wi.shape:
+        raise ValueError(f"{what}: wr, wi must be (npup, N)")
+    return pad_pupil(wr.contiguous(), wi.contiguous(), None)[:2]
+
+
+def _check_f32(what, dev, **tensors):
+    for name, t in tensors.items():
+        if t.dtype != torch.float32 or t.device != dev:
+            raise ValueError(f"{what}: {name} must be float32 on {dev}")
+
+
+def ar_dft(a_re, a_im, wr, wi, laid=None):
     """The kernels' first product alone: ``G' = A^T W^T`` of nj layer sums
     ``a_re + i a_im`` (nj, N, N) float32 for a pupil ``wr + i wi`` (npup,
     N) float32; returns ``(gr, gi)``, (nj, N, P) float32 with the pupil
     axis padded to a multiple of 16 (padded columns are zero). For timing
-    the stage and holding it against :func:`ar_dft_reference` element by
+    the pass and holding it against :func:`ar_dft_reference` element by
     element.
 
-    On CUDA tensors this splits W and launches ``ar_dft`` of
-    ``csrc/ar_flow.cu`` (3xTF32 on the tensor cores; one launch, counted
-    in ``ar_dft.LAUNCHES``) on the current stream, or raises; on CPU
-    tensors it runs the plain version.
+    On CUDA tensors this launches ``ar_dft`` of ``csrc/ar_flow.cu`` (the
+    second pass of ``csrc/detect.cuh`` on the laid W table ``laid``, or W
+    laid out for the call; one launch, counted in ``ar_dft.LAUNCHES``) on
+    the current stream, or raises; on CPU tensors it runs the plain
+    version.
     """
     if (a_re.ndim != 3 or a_re.shape != a_im.shape
             or a_re.shape[-1] != a_re.shape[-2]):
         raise ValueError("a_re, a_im must be (nj, N, N)")
     nj, N = a_re.shape[0], a_re.shape[-1]
-    if wr.ndim != 2 or wr.shape != wi.shape or wr.shape[1] != N:
+    if wr.ndim != 2 or wr.shape[-1] != N:
         raise ValueError(f"wr, wi must be (npup, {N})")
-    f32 = torch.float32
-    for name, t in (("a_re", a_re), ("a_im", a_im), ("wr", wr), ("wi", wi)):
-        if t.dtype != f32 or t.device != a_re.device:
-            raise ValueError(f"{name} must be float32 on {a_re.device}")
-    wr, wi, _ = pad_pupil(wr.contiguous(), wi.contiguous(), None)
     dev = a_re.device
+    _check_f32("ar_dft", dev, a_re=a_re, a_im=a_im, wr=wr, wi=wi)
+    wr, wi = _pass_tables(wr, wi, "ar_dft")
+    if laid is not None:
+        _check_laid(laid, wr)
     if dev.type == "cpu":
         return ar_dft_reference(a_re, a_im, wr, wi)
     if dev.type != "cuda":
@@ -515,13 +550,12 @@ def ar_dft(a_re, a_im, wr, wi):
                          f"a pupil of at most {128 * _T_MAX} px")
     P = wr.shape[0]
     a_re, a_im = a_re.contiguous(), a_im.contiguous()
+    wpack = _wpack(wr, wi, laid)
     lib, _ = _library()
-    ws = _split_scratch(N, P, dev)
-    g = torch.empty((2, nj, N, P), dtype=f32, device=dev)
+    g = torch.empty((2, nj, N, P), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.fast_ar_dft(nj, wr.data_ptr(), wi.data_ptr(),
-                              a_re.data_ptr(), a_im.data_ptr(),
-                              ws.data_ptr(), g[0].data_ptr(),
+        err = lib.fast_ar_dft(nj, wpack.data_ptr(), a_re.data_ptr(),
+                              a_im.data_ptr(), g[0].data_ptr(),
                               g[1].data_ptr(), N, P,
                               torch.cuda.current_stream(dev).cuda_stream)
     raise_on(lib, err, "ar_dft launch")
@@ -529,4 +563,58 @@ def ar_dft(a_re, a_im, wr, wi):
     return g[0], g[1]
 
 
+def ar_detect(gr, gi, wr, wi, pm_t, laid=None):
+    """The kernels' detect pass alone: the (nj, 2) sums ``(sum pm_t cos
+    phi^T, sum pm_t sin phi^T)`` of ``phi^T = Re(W G')`` for nj pairs'
+    ``G'`` (``gr``, ``gi``: (nj, N, P) float32, P a multiple of 16, as
+    :func:`ar_dft` returns it), pair j weighted by ``pm_t[j % B]`` (``pm_t``:
+    (B, P, P) float32, transposed and padded; nj a multiple of B: steps of
+    B series); ``wr``, ``wi`` (npup, N). For timing the pass and holding
+    it against :func:`ar_detect_reference`.
+
+    On CUDA tensors this launches ``ar_detect`` of ``csrc/ar_flow.cu`` and
+    its ``sum_tiles`` (counted once in ``ar_detect.LAUNCHES``) on the
+    current stream, or raises; on CPU tensors it runs the plain version.
+    ``laid`` as :func:`ar_dft`'s.
+    """
+    if gr.ndim != 3 or gr.shape != gi.shape:
+        raise ValueError("gr, gi must be (nj, N, P)")
+    nj, N, P = gr.shape
+    dev = gr.device
+    _check_f32("ar_detect", dev, gr=gr, gi=gi, wr=wr, wi=wi, pm_t=pm_t)
+    wr, wi = _pass_tables(wr, wi, "ar_detect")
+    if tuple(wr.shape) != (P, N):
+        raise ValueError(f"ar_detect: W must pad to ({P}, {N})")
+    if pm_t.ndim != 3 or pm_t.shape[1:] != (P, P) or nj % pm_t.shape[0]:
+        raise ValueError(f"ar_detect: pm_t must be (B, {P}, {P}) with B "
+                         f"dividing {nj}")
+    if laid is not None:
+        _check_laid(laid, wr)
+    B = pm_t.shape[0]
+    if dev.type == "cpu":
+        return ar_detect_reference(gr.reshape(nj // B, B, N, P),
+                                   gi.reshape(nj // B, B, N, P), wr, wi,
+                                   pm_t).reshape(nj, 2)
+    if dev.type != "cuda":
+        raise ValueError(f"ar_detect runs on CPU or CUDA, not {dev}")
+    if not supports(N, P):
+        raise ValueError(f"ar_detect takes a grid of at most {_N_MAX} px "
+                         f"and a pupil of at most {128 * _T_MAX} px")
+    gr, gi, pm_t = gr.contiguous(), gi.contiguous(), pm_t.contiguous()
+    wpack = _wpack(wr, wi, laid)
+    lib, _ = _library()
+    part = torch.empty((nj, detect_parts(P), 2), dtype=torch.float32,
+                       device=dev)
+    out = torch.empty((nj, 2), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.fast_ar_detect(nj, B, wpack.data_ptr(), gr.data_ptr(),
+                                 gi.data_ptr(), pm_t.data_ptr(),
+                                 part.data_ptr(), out.data_ptr(), N, P,
+                                 torch.cuda.current_stream(dev).cuda_stream)
+    raise_on(lib, err, "ar_detect launch")
+    ar_detect.LAUNCHES += 1
+    return out
+
+
 ar_dft.LAUNCHES = 0
+ar_detect.LAUNCHES = 0

@@ -80,7 +80,7 @@ _M_STAGE = 4 * 2 * 64 * 8
 _U_CHUNK = 2 * 64 * _KU
 _X_TILE = 2 * 64 * 64
 _P_ALIGN = 16         # the kernel pads the pupil axis to this multiple
-_P_MAX = 128          # widest tile of the AR kernels' detect
+_P_MAX = 128          # px of a pupil tile (K2's envelope, the pupil bound)
                       # (csrc/detect.cuh); K1 takes no wider pupil
 
 
@@ -427,8 +427,9 @@ def draws_per_launch(N, P, nbatch=_MAX_DRAWS):
 
 
 def pupil_tiles(P):
-    """Tiles per axis of the AR kernels' detect at a padded pupil ``P``
-    (``pupil_tiles`` of ``csrc/detect.cuh``): one up to 128 px."""
+    """Tiles of 128 px that cover a padded pupil ``P``: the kernels take
+    pupils of up to 255 of them (``pass2_takes`` of ``csrc/detect.cuh``,
+    32640 px)."""
     return -(-P // _P_MAX)
 
 

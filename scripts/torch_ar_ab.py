@@ -16,10 +16,12 @@ per 256 steps; 'uniform' boiling, inputs from a numpy seed. Each kernel
 is timed whole with CUDA events, then run once under ``torch.profiler``,
 which gives its passes' device time (``ar_dft`` is read this way in every
 checkout: older ones have no entry for it alone); its rate counts the
-pupil's own px (82, 402), not the padded tile. Prints one line per
-measurement and the card's name and power limit.
+pupil's own px (82, 402), not the padded tile. A checkout whose wrappers
+take the laid W table (``laid=``) is given it, as the engine gives it.
+Prints one line per measurement and the card's name and power limit.
 """
 
+import inspect
 import json
 import os
 import subprocess
@@ -77,9 +79,17 @@ def measure(root):
         if B == 1:  # one series: no series axis
             args = [x if x.ndim == 2 else x[0] for x in args]
         fn = getattr(af, entry)
+        # the laid W table, as the engine passes it, where the checkout's
+        # wrappers take one
+        kw = {}
+        if "laid" in inspect.signature(fn).parameters:
+            from fast_tpu_torch.ops.synth_detect import laid_w, pad_pupil
+            wr, wi, _ = pad_pupil(args[3].real.contiguous(),
+                                  args[3].imag.contiguous(), None)
+            kw["laid"] = laid_w(wr, wi)
 
         def call():
-            return fn(1, *args, nsteps, noise="uniform")
+            return fn(1, *args, nsteps, noise="uniform", **kw)
 
         ms = cuda_ms(call, 5 if N <= 512 else 3)
         _, busy, per = device_breakdown(call)

@@ -73,10 +73,11 @@ def variants(name):
             r"if \(p1 \+ 1 < npup\) o\[1\] = v1;\s*\}",
             "o[0] = v0 + v1;", "no_epilogue"))}
     out["stages4"] = {"k.cu": out["base"]["k.cu"], "detect.cuh": replace_once(
-        det, r"return PB <= 128 \? 8 : 4;", "return 4;", "stages4")}
+        det, r"return kRG == 1 \? \(PB <= 128 \? 8 : 4\)",
+        "return kRG == 1 ? (4)", "stages4")}
     out["one_atile"] = {"k.cu": out["base"]["k.cu"],
                         "detect.cuh": replace_once(
-                            det, r"return PB <= 128 \? 2 : 3;",
+                            det, r"return kRG == 1 && PB > 128 \? 3 : 2;",
                             "return 1;", "one_atile")}
     out["no_persist"] = {"k.cu": out["base"]["k.cu"],
                          "detect.cuh": replace_once(

@@ -1,5 +1,6 @@
 """The harness that scripts/torch_pass1_variants.py,
-scripts/torch_colfac_variants.py and scripts/torch_ar_dft_variants.py
+scripts/torch_colfac_variants.py, scripts/torch_detect_variants.py,
+scripts/torch_ar_dft_variants.py and scripts/torch_ar_update_variants.py
 share: copies of one CUDA source of fast_tpu_torch (and of its headers),
 each with one piece of its code replaced, built by nvcc
 (one process each, all at once, with the package's flags and headers)
@@ -8,7 +9,7 @@ with CUDA events. A replacement that no longer finds the code it replaces
 stops the script with the variant's name, so an edit to a kernel never
 times a copy that was not changed.
 
-A module of helpers; run the two scripts above. scripts/torch_colfac_ab.py
+A module of helpers; run the scripts above. scripts/torch_colfac_ab.py
 times with its ``cuda_ms`` and reads the card with ``card``; importing it
 puts this checkout's root first on the path but imports nothing of the
 package, so a caller may put another checkout before it.
@@ -31,11 +32,6 @@ def read_source(name):
     """csrc/<name> (a source or a header) as text."""
     with open(os.path.join(CSRC, name)) as f:
         return f.read()
-
-
-def read_sources(name):
-    """(csrc/<name>.cu, csrc/tf32x3.cuh) as text."""
-    return read_source(f"{name}.cu"), read_source("tf32x3.cuh")
 
 
 def find_once(pattern, src, what):
@@ -127,10 +123,9 @@ def wgmma_variants(name):
 
 
 def build(out, todo, flags, entry, argtypes):
-    """Build {name: sources} into out/<name>/, one nvcc each, all at once;
-    sources are (kernel source, tf32x3.cuh source[, detect.cuh source]) or
-    {file name: text} with the kernel source as "k.cu", the headers not
-    given copied from csrc/. Returns {name: (the C function ``entry`` with
+    """Build {name: {file name: text}} into out/<name>/, one nvcc each,
+    all at once: the kernel source as "k.cu", the headers not given copied
+    from csrc/. Returns {name: (the C function ``entry`` with
     ``argtypes``, nvcc's log)}."""
     from fast_tpu_torch.ops import _build
     t0 = time.perf_counter()
@@ -138,8 +133,6 @@ def build(out, todo, flags, entry, argtypes):
     for name, srcs in todo.items():
         d = os.path.join(out, name)
         os.makedirs(d, exist_ok=True)
-        if not isinstance(srcs, dict):
-            srcs = dict(zip(("k.cu", "tf32x3.cuh", "detect.cuh"), srcs))
         files = {h: read_source(h) for h in HEADERS}
         files.update(srcs)
         for fname, text in files.items():

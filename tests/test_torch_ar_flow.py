@@ -12,12 +12,15 @@
   evaluation of the definition (1e-3 of the largest |sum|: float32
   recurrence over 8 steps and float32 products).
 * A series cut into calls is the same series, bit for bit (the counter
-  holds the absolute step).
+  holds the absolute step; one Philox call serves a pair of steps, and
+  ``ar_bits`` at an even and an odd step are its four words).
 * On the card, the kernels against the plain version from identical bits:
   state bit for bit, couplings within KERNEL_REL of the largest |sum|, at
-  pupils of up to 128 px and at 144 and 402 px; their first DFT product
-  alone (``ar_dft``, on the tensor cores) against the plain G' element by
-  element, within N 2^-24 max |G'|, at a 96 px and a 144 px pupil.
+  pupils of up to 128 px and at 144 and 402 px, K6 at 16 series from an
+  odd step, K5's layer blocks against each other, the laid W table
+  against the per-call one; their two DFT products alone (``ar_dft`` and
+  ``ar_detect``, the second pass of ``csrc/detect.cuh``) against their
+  plain versions, G' element by element within N 2^-24 max |G'|.
 
 The card-only cases run where JAX is not installed:
 
@@ -167,6 +170,28 @@ def test_fused_and_streamed_agree_and_count_nothing_on_cpu():
             af.ar_flow_streamed.LAUNCHES) == before
 
 
+@pytest.mark.parametrize("step", [6, 7])
+def test_one_philox_call_serves_a_pair_of_steps(step):
+    """ar_bits at an even step is words 0 and 1 of the call on counter
+    (mode, row, step // 2, 2), at the odd step after it words 2 and 3 of
+    the same call; a call from the odd step draws that call's second
+    half."""
+    from fast_tpu_torch.ops.synth_detect import _key, philox4x32_10
+    L, N = 2, 8
+    k0, k1 = _key(SEED)
+    e = torch.arange(N * N, dtype=torch.int64)[None, :]
+    row = torch.arange(L, dtype=torch.int64)[:, None]
+    words = philox4x32_10(e, row, torch.full((), step // 2),
+                          torch.full((), 2), k0, k1)
+    b1, b2 = af.ar_bits(SEED, step, 1, L, N)
+    lo = 2 * (step % 2)
+    assert torch.equal(b1[0].reshape(L, -1), words[lo].expand(L, -1))
+    assert torch.equal(b2[0].reshape(L, -1), words[lo + 1].expand(L, -1))
+    both = af.ar_bits(SEED, 6, 2, L, N)
+    assert torch.equal(both[0][step - 6], b1[0])
+    assert torch.equal(both[1][step - 6], b2[0])
+
+
 def test_noise_stream_is_the_kernels_noise():
     L, N = 2, 16
     z1, z2 = af.ar_noise(SEED, 3, 6, L, N, "gauss")
@@ -193,8 +218,9 @@ def test_the_rule_and_what_the_wrappers_refuse():
     # slice; 128 px was the limit before)
     assert af.supports(256, 82) and af.supports(1024, 402)
     assert not af.supports(1024, 40000) and not af.supports(40000, 82)
-    assert af.tile_steps(256) == 256 and af.tile_steps(512) == 64
-    assert af.tile_steps(256, 96, nseries=16) == 16
+    assert af.tile_steps(256) == 1024 and af.tile_steps(512) == 256
+    assert af.tile_steps(256, 96, nseries=16) == 64
+    assert af.tile_steps(1024, 416) == 64 and af.tile_steps(2048, 416) == 16
     t = tensors(ar_inputs(L=9, N=16, lo=4, hi=12))
     with pytest.raises(ValueError, match="ar_flow_streamed"):
         af.ar_flow_fused(1, *t, 2)
@@ -228,6 +254,33 @@ def test_first_product_alone_on_cpu_is_the_plain_version():
         af.ar_dft(a[0], a[1], wr[:, :16], wi[:, :16])
 
 
+def test_detect_alone_on_cpu_is_the_plain_version():
+    """ar_detect on CPU tensors: the plain detect of each pair's G' with
+    the pupil * mode of series j % B, no launch counted; it takes the laid
+    W table and refuses one of another W."""
+    from fast_tpu_torch.ops.synth_detect import laid_w, pad_pupil
+    rng = np.random.default_rng(15)
+    N, lo, hi, B, nt = 32, 4, 26, 3, 2
+    a = torch.from_numpy(rng.normal(size=(2, nt * B, N, N)).astype(
+        np.float32))
+    W = ts.pruned_ift2_matrix(N, lo, hi, dtype=np.complex64)
+    wr, wi = torch.from_numpy(W.real.copy()), torch.from_numpy(W.imag.copy())
+    pm = torch.from_numpy(rng.random((B, hi - lo, hi - lo)).astype(
+        np.float32))
+    wrp, wip, pm_t = pad_pupil(wr, wi, pm.transpose(-2, -1).contiguous())
+    gr, gi = af.ar_dft(a[0], a[1], wr, wi)
+    before = af.ar_detect.LAUNCHES
+    got = af.ar_detect(gr, gi, wr, wi, pm_t, laid=laid_w(wr, wi))
+    assert af.ar_detect.LAUNCHES == before and got.shape == (nt * B, 2)
+    ref = af.detect_real_reference(a[0].view(nt, B, N, N),
+                                   a[1].view(nt, B, N, N), wrp, wip, pm_t)
+    assert torch.equal(got, ref.reshape(nt * B, 2))
+    with pytest.raises(ValueError, match="dividing"):
+        af.ar_detect(gr[:5], gi[:5], wr, wi, pm_t)
+    with pytest.raises(ValueError, match="table of"):
+        af.ar_detect(gr, gi, wr, wi, pm_t, laid=laid_w(wr[:8], wi[:8]))
+
+
 # --------------------------------------------------------------------------
 # (f) on the card
 # --------------------------------------------------------------------------
@@ -243,8 +296,8 @@ def cuda_device():
 # (entry, L, N, lo, hi, steps, max_steps): two launches with the state
 # carried; a grid side that is no multiple of 32 with its pupil as wide as
 # the grid; more layers than the fused kernel holds (streamed only); a
-# 144 px pupil (two tiles of 80 px an axis, the second ragged) and the 4 m
-# link's 402 px pupil (four tiles of 112 px)
+# 144 px pupil (one W slice) and the 4 m link's 402 px pupil (two slices
+# of 208 px)
 KERNEL_CASES = [(d, *c) for d in ("fused", "streamed")
                 for c in [(3, 64, 20, 44, 300, 256), (2, 102, 0, 102, 40, 4096),
                           (3, 192, 24, 168, 40, 4096),
@@ -324,3 +377,109 @@ def test_first_product_matches_plain_on_card(cuda_device, case):
     top = max(float(rr.abs().max()), float(ri.abs().max()))
     err = max(float((gr - rr).abs().max()), float((gi - ri).abs().max()))
     assert err <= GPRIME_REL * N * 2.0 ** -24 * top
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(256, 87, 169, 37), (192, 24, 168, 7),
+                                  (1024, 311, 713, 5)],
+                         ids=lambda c: f"N{c[0]}P{c[2] - c[1]}")
+def test_detect_alone_matches_plain_on_card(cuda_device, case):
+    """ar_detect alone (the second pass, real part only, two row groups a
+    block of work) against its plain version on the same G', within
+    KERNEL_REL of the largest |sum|; two launches give the same bits and
+    the laid table the per-call one's. Pair counts leave the last block
+    of work part empty."""
+    from fast_tpu_torch.ops.synth_detect import laid_w, pad_pupil
+    N, lo, hi, nj = case
+    B = nj if nj < 16 else 1
+    rng = np.random.default_rng(16)
+    a = torch.from_numpy((rng.normal(size=(2, nj, N, N)) * 0.5 / N)
+                         .astype(np.float32)).to(cuda_device)
+    W = ts.pruned_ift2_matrix(N, lo, hi, dtype=np.complex64)
+    wr = torch.from_numpy(W.real.copy()).to(cuda_device)
+    wi = torch.from_numpy(W.imag.copy()).to(cuda_device)
+    pm = torch.from_numpy(rng.random((B, hi - lo, hi - lo)).astype(
+        np.float32)).to(cuda_device)
+    wrp, wip, pm_t = pad_pupil(wr, wi, pm.transpose(-2, -1).contiguous())
+    gr, gi = af.ar_dft_reference(a[0], a[1], wrp, wip)
+    laid = laid_w(wr, wi)
+    before = af.ar_detect.LAUNCHES
+    got = af.ar_detect(gr, gi, wr, wi, pm_t, laid=laid)
+    again = af.ar_detect(gr, gi, wr, wi, pm_t, laid=laid)
+    fresh = af.ar_detect(gr, gi, wr, wi, pm_t)
+    ref = af.ar_detect_reference(gr.view(-1, B, N, wrp.shape[0]),
+                                 gi.view(-1, B, N, wrp.shape[0]), wrp, wip,
+                                 pm_t).reshape(nj, 2)
+    torch.cuda.synchronize()
+    assert af.ar_detect.LAUNCHES == before + 3
+    assert got.shape == (nj, 2) and bool(torch.isfinite(got).all())
+    assert torch.equal(got, again) and torch.equal(got, fresh)
+    assert float((got - ref).abs().max()) <= KERNEL_REL * float(
+        ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise", ["uniform", "gauss"])
+def test_k6_at_16_series_from_an_odd_step_on_card(cuda_device, noise):
+    """K6 at the temporal orbit pass's 16 series, from the odd step 3, in
+    launches of 11 steps (each from another parity), against its plain
+    version: states bit for bit, sums within KERNEL_REL."""
+    rng = np.random.default_rng(17)
+    B, L, N, lo, hi = 16, 4, 64, 20, 44
+    one = [ar_inputs(L=L, N=N, lo=lo, hi=hi, seed=20 + s, boiling=True,
+                     alpha=0.99) for s in range(B)]
+    a0, ph, ns = (np.stack([x[i] for x in one]) for i in range(3))
+    W = one[0][3]
+    pm = rng.random((B, hi - lo, hi - lo)).astype(np.float32)
+    t = tensors((a0, ph, ns, W, pm), cuda_device)
+    kw = {"noise": noise, "step0": 3}
+    before = af.ar_flow_fused_batch.LAUNCHES
+    c, a = af.ar_flow_fused_batch(SEED, *t, 37, max_steps=11, **kw)
+    c_ref, a_ref = af.ar_flow_batch_reference(SEED, *t, 37, **kw)
+    torch.cuda.synchronize()
+    assert af.ar_flow_fused_batch.LAUNCHES == before + 4
+    assert c.shape == (37, B, 2) and bool(torch.isfinite(c).all())
+    assert torch.equal(a, a_ref)
+    assert float((c - c_ref).abs().max()) <= KERNEL_REL * float(
+        c_ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise", [None, "uniform", "gauss"])
+def test_streamed_layer_blocks_agree_on_card(cuda_device, noise):
+    """K5 at 16 layers in its default layer block against blocks of 1, 4
+    and 8 (the widest): the same layer sums (every layer added singly, in
+    layer order), so states and sums bit for bit."""
+    t = tensors(ar_inputs(L=16, N=64, seed=18, boiling=noise is not None,
+                          alpha=0.99), cuda_device)
+    kw = {"noise": noise or "uniform", "step0": 5}
+    cd_, ad = af.ar_flow_streamed(SEED, *t, 41, **kw)
+    for lb in (1, 4, 8):
+        cb, ab = af.ar_flow_streamed(SEED, *t, 41, lb_layers=lb, **kw)
+        assert torch.equal(cd_, cb) and torch.equal(ad, ab)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(192, 24, 168), (1024, 311, 713)],
+                         ids=lambda c: f"N{c[0]}P{c[2] - c[1]}")
+def test_k4_laid_table_is_the_per_call_table_on_card(cuda_device, case):
+    """K4 at a 144 px and a 402 px pupil (one and two W slices) from an
+    even step over an odd count of steps, on the engine's laid W table and
+    on the table laid out for the call: the same bits, and within
+    KERNEL_REL of the plain version."""
+    from fast_tpu_torch.ops.synth_detect import laid_w, pad_pupil
+    N, lo, hi = case
+    t = tensors(ar_inputs(L=3, N=N, lo=lo, hi=hi, seed=19, boiling=True,
+                          alpha=0.99, scale=0.5 / N, ns_scale=0.07 / N),
+                cuda_device)
+    W = t[3]
+    wr, wi, _ = pad_pupil(W.real.contiguous(), W.imag.contiguous(), None)
+    kw = {"noise": "uniform", "step0": 4}
+    c, a = af.ar_flow_fused(SEED, *t, 9, laid=laid_w(wr, wi), **kw)
+    cf, af_ = af.ar_flow_fused(SEED, *t, 9, **kw)
+    c_ref, a_ref = af.ar_flow_reference(SEED, *t, 9, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(c, cf) and torch.equal(a, af_)
+    assert torch.equal(a, a_ref)
+    assert float((c - c_ref).abs().max()) <= KERNEL_REL * float(
+        c_ref.abs().max())

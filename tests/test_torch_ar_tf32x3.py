@@ -1,18 +1,21 @@
-"""The arithmetic of the AR kernels' first DFT product (``ar_dft`` of
-``csrc/ar_flow.cu``, on the tensor cores) emulated on the CPU.
+"""The arithmetic of the AR kernels' two products (``ar_dft`` and
+``ar_detect`` of ``csrc/ar_flow.cu``, both the second pass of
+``csrc/detect.cuh`` on ``wgmma``) emulated on the CPU.
 
-``G'[m][p] = sum_k A[k][m] W[p][k]`` (complex) as the kernel computes it:
-W split once into ``hi = tf32(w)`` and ``lo = tf32(w - hi)``, each element
-of the layer sum A split the same way, both rounded as ``cvt.rna.tf32.f32``
-rounds (to nearest, ties away from zero, on the 13 low mantissa bits).
-Each 8-deep step of each output is a chain of six TF32 products in fresh
-accumulators, the small terms first (``a_lo b_hi``, ``a_hi b_lo`` of the
-two complex terms), then the two ``a_hi b_hi``; every product of the
-chain adds 8 exact products to the chain's sum and rounds the result
-toward zero, as the tensor cores do; the step's sum is then added to the
-output in fp32, rounded to nearest. Everything else is the plain
-version's float32 (``ops/ar_flow.ar_dft_reference`` replaced by the
-emulation).
+``G'[m][p] = sum_k A[k][m] W[p][k]`` (complex) and ``Re H^T = Re(G'^T
+W^T)`` as the pass computes them: every operand element split once into
+``hi = tf32(x)`` and ``lo = tf32(x - hi)``, rounded as ``cvt.rna.tf32.f32``
+rounds (to nearest, ties away from zero, on the 13 low mantissa bits);
+per fold group of two 8-deep steps a fresh accumulator, rounded toward
+zero after every 8-deep product as the tensor cores round (the small
+terms ``a_lo b_hi``, ``a_hi b_lo`` of each complex term step by step
+first, then the ``a_hi b_hi``), added to an fp32 sum (the emulator of
+``tests/test_torch_detect_wgmma.py``, ``h_t``); the detect's terms summed
+per 16 rows and W slice, those partial sums then in order, as
+``sum_tiles`` adds them (``kernel_sums``), with the pupil * mode of the
+pair's series. Everything else is the plain version's float32
+(``ops/ar_flow.ar_dft_reference`` and ``ar_detect_reference`` replaced by
+the emulation).
 
 This settles, without a card, that the products keep the limits the card
 tests hold the AR kernels to: the couplings of a small AR run within
@@ -28,50 +31,27 @@ import torch
 from fast_tpu_torch.ops import ar_flow as af
 from test_torch_ar_flow import (GPRIME_REL, KERNEL_REL, SEED, ar_inputs,
                                 tensors)
-from test_torch_tf32x3 import tf32
+from test_torch_detect_wgmma import h_t, kernel_sums
+from test_torch_tf32x3 import rz32
 
 torch.set_num_threads(1)
 
 
-def rz32(x):
-    """float64 ``x`` to float32, rounded toward zero."""
-    y = x.to(torch.float32)
-    over = y.to(torch.float64).abs() > x.abs()
-    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
-
-
-def split(x):
-    hi = tf32(x)
-    return hi, tf32(x - hi)
-
-
 def ar_dft_emulated(ar, ai, wr, wi, passes=3):
-    """G' = A^T W^T of layer sums (..., N, N) with the kernel's products
-    (``passes=3``), or with one TF32 pass (``passes=1``: hi hi only)."""
-    lead, N = ar.shape[:-2], ar.shape[-1]
-    f64 = torch.float64
-    # the A operand of the products is A^T: (m, k)
-    a = [x.reshape(-1, N, N).transpose(-2, -1) for x in (ar, ai)]
-    (arh, arl), (aih, ail) = split(a[0]), split(a[1])
-    (wrh, wrl), (wih, wil) = split(wr.T), split(wi.T)  # (k, p)
-    out = []
-    for terms in (  # Re G' = Ar Wr - Ai Wi, Im G' = Ar Wi + Ai Wr
-            [(arl, wrh, 1), (arh, wrl, 1), (ail, wih, -1), (aih, wil, -1),
-             (arh, wrh, 1), (aih, wih, -1)],
-            [(arl, wih, 1), (arh, wil, 1), (ail, wrh, 1), (aih, wrl, 1),
-             (arh, wih, 1), (aih, wrh, 1)]):
-        if passes == 1:
-            terms = terms[4:]
-        acc = torch.zeros(a[0].shape[:-1] + (wr.shape[0],),
-                          dtype=torch.float32)
-        for k0 in range(0, N, 8):
-            d = torch.zeros_like(acc)
-            for x, w, sign in terms:
-                d = rz32(d.to(f64) + sign * (x[..., k0:k0 + 8].to(f64)
-                                             @ w[k0:k0 + 8].to(f64)))
-            acc = acc + d
-        out.append(acc.reshape(lead + acc.shape[-2:]))
-    return tuple(out)
+    """G' = A^T W^T of layer sums (..., N, N) with the pass's products
+    (``passes=3``), or with one TF32 pass (``passes=1``: hi hi only): the
+    second pass with A's rows [k][m], ``h_t`` of the layer sums."""
+    return h_t(ar, ai, wr, wi, passes)
+
+
+def ar_detect_emulated(gr, gi, wr, wi, pm_t, passes=3):
+    """The detect pass of pairs' G' (..., B, N, P) with the pass's products
+    and order of sums: (..., B, 2), pair (t, s) weighted by ``pm_t[s]``
+    (B, P, P)."""
+    lead, (N, P) = gr.shape[:-2], gr.shape[-2:]
+    hr = h_t(gr.reshape(-1, N, P), gi.reshape(-1, N, P), wr, wi, passes)[0]
+    pm = pm_t.expand(lead + pm_t.shape[-2:]).reshape(-1, P, P)
+    return kernel_sums(hr, hr, pm)[:, :2].reshape(lead + (2,))
 
 
 # (N, pupil rows lo..hi, layers, steps): 64^2 with a 24 px pupil (padded
@@ -81,7 +61,7 @@ _CACHE = {}
 
 
 def readings(case, noise, monkeypatch):
-    """The plain run's couplings and the couplings with the first product
+    """The plain run's couplings and the couplings with both products
     emulated at three TF32 passes and at one."""
     key = (case, noise)
     if key not in _CACHE:
@@ -96,6 +76,9 @@ def readings(case, noise, monkeypatch):
                 m.setattr(af, "ar_dft_reference",
                           lambda ar, ai, wr, wi, p=passes:
                           ar_dft_emulated(ar, ai, wr, wi, p))
+                m.setattr(af, "ar_detect_reference",
+                          lambda gr, gi, wr, wi, pm_t, p=passes:
+                          ar_detect_emulated(gr, gi, wr, wi, pm_t, p))
                 out[passes] = af.ar_flow_reference(SEED, *t, nsteps,
                                                    noise=noise)[0]
         _CACHE[key] = out

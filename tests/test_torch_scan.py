@@ -423,9 +423,9 @@ def definition_numpy(a0, ph, ns, W, pm, nsteps, z):
 
 
 def test_plain_at_a_144px_pupil_against_numpy():
-    """K4's and K6's plain versions with a pupil of 144 px (two tiles of
-    80 px an axis on the card) on a 160^2 grid, against float64 numpy on
-    the same uniform Philox noise."""
+    """K4's and K6's plain versions with a pupil of 144 px (one W slice of
+    144 px on the card) on a 160^2 grid, against float64 numpy on the same
+    uniform Philox noise."""
     nsteps, L, N = 4, 2, 160
     inp = k6_inputs(B=2, L=L, N=N, lo=8, hi=152, seed=4, boiling=True)
     c6, a6 = af.ar_flow_fused_batch(SEED, *tensors(inp), nsteps)
@@ -449,8 +449,8 @@ def test_plain_at_a_144px_pupil_against_numpy():
 
 def test_engine_ar_route_at_a_130px_pupil_matches_jax():
     """A 1.28 m telescope at DX = 0.01 m: a 130 px pupil on a 144^2 grid
-    through the AR route (the plain K4 here, K4 over two pupil tiles on
-    the card) against ``fast_tpu.Fast``."""
+    through the AR route (the plain K4 here, K4 on the card) against
+    ``fast_tpu.Fast``."""
     import fast_tpu
     o = dict(AR, NPXLS=144, DX=0.01, D_GROUND=1.28, DSUBAP=0.16, NITER=64,
              NCHUNKS=2)
@@ -476,7 +476,7 @@ def cuda_device():
 
 # (B, L, N, lo, hi, steps, max_steps): two launches with the states
 # carried; more layers than one thread holds (layer blocks); a 144 px pupil
-# (two ragged tiles an axis); the 4 m link's 402 px pupil (four tiles)
+# (one W slice); the 4 m link's 402 px pupil (two slices of 208 px)
 K6_CASES = [(3, 3, 64, 20, 44, 300, 256), (2, 10, 64, 20, 44, 40, 4096),
             (2, 2, 192, 24, 168, 40, 4096), (2, 2, 1024, 311, 713, 6, 4096)]
 
