@@ -183,14 +183,38 @@ Phases, in order; any failure exits non-zero before the result line:
    loaded L and its ``run()`` bit for bit the saving init's; (d) the seven
    example twins (``examples/torch_*.py``) at their written sizes, started
    together, each of which must exit 0 and print its JAX example's column
-   headers. Every other phase runs with ``FAST_TPU_TABLE_CACHE=0``.
+   headers. Every other phase runs with ``FAST_TPU_TABLE_CACHE=0``;
+18. ``PRECISION`` (``phase_precision``, run after 14 and before 15: the
+   profiler sessions of 16 and 17 leave it without device records): the
+   config's default,
+   'default', runs every kernel product in one TF32 pass (the main paths
+   of the phases above: each slice, wide, temporal and orbit run checks
+   that every kernel it launched was its one-pass instantiation, by the
+   wrappers' ``LAUNCHES_BY_PASSES``; the kernel-against-plain checks
+   above call the wrappers at their default, 'highest', 3xTF32, with the
+   limits they had); then each kernel at 'default' against its plain
+   version at 'default', pass by pass on the same inputs (pass 1, the
+   detect pass or K7's screens pass on that pass's own G', the AR
+   kernels' two products on the same layer sums and G'; K2 and K1 at the
+   flagships' shapes, K3, K7 and K2 at the 4 m link's): a pass on the
+   same float32 operands within its 3xTF32 limit, a pass or a kernel on
+   float32 work done otherwise (pass 1 of K2 and K7, Box-Muller noise,
+   the kernels whole) within ``ONE_PASS_MAX`` and ``ONE_PASS_RMS`` of
+   the TF32 distance |plain('default') - plain('highest')|
+   (``tests/test_torch_tf32x3.py``), K4, K5 and K6 with their final
+   states bit for bit; each kernel timed at 'highest' and 'default' in
+   turns beside its one-pass bound; last each main path's series at
+   'default' (256^2 K2, 512^2 K1, 1024^2 K3 and K7, the temporal K4 and
+   K5 series) against a run at 'highest' from another seed, which must
+   launch only 3xTF32 instantiations: iid as the slices against 'matmul'
+   and a KS test (p > 1e-3), temporal at the effective sample count and
+   KS on the thinned series. Each kernel's entry gains ``default``.
 
 The last lines are the card, one JSON object of per-kernel numbers (each
 with its launches on the mesh phase, ``launches_mesh``: (a)'s and each of
-(b)'s ranks; then the comms, mesh and tools phases' numbers) and one of
-the run's device. The flagship config is the
-AO-corrected 0.8 m
-uplink at 1550 nm through a 4-layer HV57/Bufton profile, at DX=0.01 m:
+(b)'s ranks; then the comms, mesh and tools phases' numbers and each main
+path's launches by TF32 passes) and one of the run's device. The flagship
+config is the AO-corrected 0.8 m uplink at 1550 nm through a 4-layer HV57/Bufton profile, at DX=0.01 m:
 a 256^2 grid (``__graft_entry__.py``) and the same link at 512^2; the
 temporal mode runs it at DT = 1 ms, and through a 16-layer profile at
 512^2; the wide-pupil link is the same uplink from a 4 m telescope with
@@ -311,7 +335,34 @@ AR_JUMP_FACTOR = 2.0
 # cores, three TF32 passes (3xTF32) at 495 TFLOP/s; device memory
 PEAK_FP32 = 67e12          # FLOP/s
 PEAK_MMA = 495e12 / 3      # FLOP/s of fp32-accurate matrix products
+PEAK_TF32 = 495e12         # FLOP/s of one TF32 pass (PRECISION='default')
 PEAK_BYTES = 3.35e12       # B/s
+# a kernel at PRECISION='default' (one TF32 pass) against its plain version
+# at 'default' (tests/test_torch_tf32x3.py states both limits): a pass whose
+# float32 operands are the plain version's bit for bit keeps the 3xTF32
+# limits (KERNEL_REL, GPRIME_REL, 2N 2^-24 max |phi|); one whose operands
+# come out of float32 work done otherwise (pass 1 of K2 and K7, Box-Muller
+# noise, a whole kernel's second product on its own G') is held in units
+# of the TF32 distance |plain('default') - plain('highest')|: its max and
+# its rms
+ONE_PASS_MAX = 1.0
+ONE_PASS_RMS = 0.25
+# the precision phase's shapes: (N, pupil rows lo..hi) of K2 and K1 (with
+# the draws of a check), of the 4 m link's kernels (draws of a check, of a
+# timed launch), of the AR products ((step, series) pairs) and of K4, K5
+# and K6 whole ((N, lo, hi, layers, series), steps of a check, timed)
+PREC_IID = ((256, 87, 169), (512, 215, 297))
+PREC_IID_DRAWS = 64
+PREC_WIDE = (1024, 311, 713, 16, 630)
+PREC_AR_PRODUCTS = ((256, 87, 169, 1024, ("K4", "K6")),
+                    (512, 215, 297, 256, ("K5",)),
+                    (1024, 311, 713, 64, ("K4",)))
+PREC_AR_WHOLE = (("K4", (256, 87, 169, 4, 1), 300, NTIME),
+                 ("K5", (512, 215, 297, 16, 1), 64, 256),
+                 ("K6", (256, 87, 169, 4, NSAMP), 64, 256))
+# the main paths' series at the config's PRECISION ('default'), by kernel,
+# for the precision phase's checks in distribution against 'highest'
+SERIES = {}
 
 
 def fail(msg):
@@ -390,7 +441,39 @@ def launches_of(fn, counter):
     return out, counter.LAUNCHES
 
 
-def k2_bound(N, P, nbatch, mixed):
+def by_passes():
+    """Every kernel's launches so far by pass count, {K1..K7: {1: n, 3:
+    n}}: the wrappers' ``LAUNCHES_BY_PASSES``."""
+    from fast_tpu_torch.ops import kernel_wrappers
+    return {k: dict(w.LAUNCHES_BY_PASSES)
+            for k, w in kernel_wrappers().items()}
+
+
+# each main path's launches by pass count, {label: {kernel: (one, three)}}
+MAIN_PASSES = {}
+
+
+def check_passes(before, precision, label):
+    """The launches of every kernel since ``before`` (:func:`by_passes`),
+    which must all be of the TF32 pass count of ``precision`` (one at
+    'default', three at 'high' and 'highest'); prints and keeps them
+    (``MAIN_PASSES``)."""
+    from fast_tpu_torch.ops.synth_detect import passes
+    want = passes(precision)
+    now = by_passes()
+    delta = {k: tuple(now[k][n] - before[k][n] for n in (1, 3)) for k in now}
+    ran = {k: v for k, v in delta.items() if any(v)}
+    print(f"{label}: PRECISION={precision!r}, launches by TF32 passes (one, "
+          f"three): " + (", ".join(f"{k} {v}" for k, v in ran.items())
+                         or "none"))
+    if any(v[0 if want == 3 else 1] for v in ran.values()):
+        fail(f"{label}: a kernel launched at another pass count than "
+             f"PRECISION={precision!r}'s {want}")
+    MAIN_PASSES[label] = ran
+    return ran
+
+
+def k2_bound(N, P, nbatch, mixed, peak=PEAK_MMA):
     """K2's least time in ms for ``nbatch`` draws at an (N, N) grid and a
     P px pupil: 4N^3 mixing FLOPs ('mixed'), 8N^2 P for G' and 8P^2 N for
     H per draw, matrix products at the fp32-accurate tensor-core rate, or
@@ -399,10 +482,10 @@ def k2_bound(N, P, nbatch, mixed):
                       + 8 * P * P * N)
     nbytes = 4 * (N * N * (2 if mixed else 1) + 2 * P * N + P * P
                   + 4 * nbatch)
-    return _bound(flops, nbytes)
+    return _bound(flops, nbytes, peak=peak)
 
 
-def k1_bound(N, P, nbatch, mixed):
+def k1_bound(N, P, nbatch, mixed, peak=PEAK_MMA):
     """K1's least time in ms: per draw and column a (1 x K) @ (K x 2P)
     factor product (K = 2 * 128 noise rows for 'mixed', 2P for 'gauss')
     and 8P^2 N for the column contraction, matrix products at the
@@ -411,10 +494,10 @@ def k1_bound(N, P, nbatch, mixed):
     K = 2 * (128 if mixed else P)
     flops = nbatch * (N * 2 * K * 2 * P + 8 * P * P * N)
     nbytes = 4 * (N * K * 2 * P + 2 * P * N + P * P + 4 * nbatch)
-    return _bound(flops, nbytes)
+    return _bound(flops, nbytes, peak=peak)
 
 
-def k3_bound(N, P, nbatch, mixed):
+def k3_bound(N, P, nbatch, mixed, peak=PEAK_MMA):
     """K3's least time in ms: per draw and column the complex (1 x Kq) @
     (Kq x P) factor product as four real ones (Kq = the pupil rounded up
     to 128 lanes for 'mixed', P for 'gauss') and 8P^2 N for the column
@@ -423,20 +506,20 @@ def k3_bound(N, P, nbatch, mixed):
     Kq = -(-P // 128) * 128 if mixed else P
     flops = nbatch * (N * 2 * Kq * 2 * P * 2 + 8 * P * P * N)
     nbytes = 4 * (N * Kq * 2 * P + 2 * P * N + P * P + 4 * nbatch)
-    return _bound(flops, nbytes)
+    return _bound(flops, nbytes, peak=peak)
 
 
-def k7_bound(N, P, nbatch):
+def k7_bound(N, P, nbatch, peak=PEAK_MMA):
     """K7's least time in ms: K2's count with Box-Muller noise, 8N^2 P for
     G' and 8P^2 N for the screens per draw, matrix products at the
     fp32-accurate tensor-core rate; or sqrt(PSD) and W in and two P x P
     screens out per draw at the memory rate."""
     flops = nbatch * (8 * N * N * P + 8 * P * P * N)
     nbytes = 4 * (N * N + 2 * P * N + 2 * P * P * nbatch)
-    return _bound(flops, nbytes)
+    return _bound(flops, nbytes, peak=peak)
 
 
-def ar_bound(L, N, P, nsteps, boiling, nseries=1):
+def ar_bound(L, N, P, nsteps, boiling, nseries=1, peak=PEAK_MMA):
     """K4's, K5's and (for ``nseries`` series) K6's least time in ms for
     ``nsteps`` steps of L layers at an (N, N) grid and a P px pupil: per
     step and series 8PN^2 FLOPs for G' and 4P^2 N for the real screen,
@@ -449,14 +532,15 @@ def ar_bound(L, N, P, nsteps, boiling, nseries=1):
     elementwise = nseries * nsteps * (16 if boiling else 8) * L * N * N
     nbytes = 4 * (nseries * ((7 if boiling else 6) * L * N * N + P * P
                              + 2 * nsteps) + 2 * P * N)
-    return _bound(flops, nbytes, elementwise)
+    return _bound(flops, nbytes, elementwise, peak)
 
 
-def _bound(flops, nbytes, elementwise=0):
-    """(ms, what bounds it, FLOPs): matrix-product FLOPs at PEAK_MMA and
-    elementwise ones at PEAK_FP32, one after the other, or the bytes at
-    PEAK_BYTES, whichever takes longer."""
-    t_ops = flops / PEAK_MMA + elementwise / PEAK_FP32
+def _bound(flops, nbytes, elementwise=0, peak=PEAK_MMA):
+    """(ms, what bounds it, FLOPs): matrix-product FLOPs at ``peak``
+    (PEAK_MMA, fp32-accurate; PEAK_TF32 for one TF32 pass) and elementwise
+    ones at PEAK_FP32, one after the other, or the bytes at PEAK_BYTES,
+    whichever takes longer."""
+    t_ops = flops / peak + elementwise / PEAK_FP32
     t_bytes = nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes",
@@ -494,8 +578,16 @@ _ENTRY = re.compile(r"(synth_pass1|colfac_pass1|split_pass1|detect_pass|"
 def _describe(name, a):
     """What one compiled pass is, or None for those not printed: the
     passes at the flagships' padded pupil (P=96, one W slice) and at the 4
-    m link's (P=416 in two slices of 208 px), and the AR update at 4 layers
-    a thread and at the streamed kernel's default block."""
+    m link's (P=416 in two slices of 208 px), each at one TF32 pass and at
+    three (the last template argument), and the AR update at 4 layers a
+    thread and at the streamed kernel's default block."""
+    what = _describe_shape(name, a)
+    if what and name != "ar_update":
+        what += f", {a[-1]} TF32 pass{'es' if a[-1] > 1 else ''}"
+    return what
+
+
+def _describe_shape(name, a):
     noise = ("gauss", "mixed")
     if name == "synth_pass1" and 64 * a[2] + a[3] in (16 * PJ, 208):
         pb = 64 * a[2] + a[3]
@@ -531,6 +623,12 @@ def phase_build():
                              for k, v in infos.items()) + ")")
     for name, info in infos.items():
         what = None
+        serial = sorted({e.group(1) + "<" + ", ".join(re.findall(
+            r"L[bi](\d+)E", e.group(2))) + ">"
+            for e in (_ENTRY.search(ln) for ln in info.log.splitlines()
+                      if "C7511" in ln) if e})
+        print(f"  ptxas {name}: wgmma serialized (C7511) in "
+              + (", ".join(serial) or "none"))
         for line in info.log.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
@@ -863,10 +961,10 @@ def phase_k1(sim):
     res = {"max_abs_err": 0.0}
     for noise in ("mixed", "gauss"):
         mixed = noise == "mixed"
-        # the plain version's table, and the kernel's laid out from it (the
-        # engine's own for 'mixed')
+        # the plain version's table, and the kernel's laid out from it for
+        # three TF32 passes (the engine's holds one at PRECISION='default')
         S = cd.pack_tables(T["L"], mixed=mixed)
-        laid = T["S_colfac"] if mixed else cd.lay_tables(S)
+        laid = cd.lay_tables(S)
         args = (SEED, S, T["wr"], T["wi"], T["pm_t"], NDRAWS)
         kargs = (SEED, laid) + args[2:]
         kw = {"mixed": mixed, "stream": 3}
@@ -902,12 +1000,12 @@ def si_standard_error(r, blocks=16):
                  / np.sqrt(blocks))
 
 
-def agree(r_k, r_p, what, name="kernel", short=False):
+def agree(r_k, r_p, what, name="kernel", short=False, other="matmul"):
     """Mean within MEAN_SIGMAS combined standard errors, scintillation
     index within SI_REL; prints both. ``short``: a run too short for
     SI_REL holds the index to SI_SIGMAS combined standard errors instead,
-    where that is the wider of the two."""
-    for who, r in ((name, r_k), ("matmul", r_p)):
+    where that is the wider of the two. ``other`` names ``r_p``'s path."""
+    for who, r in ((name, r_k), (other, r_p)):
         if r.ndim != 1 or not np.isfinite(r).all():
             fail(f"{what}: {who} path output is not finite of shape (n,)")
     se = np.hypot(r_k.std() / np.sqrt(r_k.size), r_p.std() / np.sqrt(r_p.size))
@@ -921,11 +1019,11 @@ def agree(r_k, r_p, what, name="kernel", short=False):
             why = (f"{SI_SIGMAS:.0f} combined standard errors, one being "
                    f"{si_se / si_p:.1%} of the index at {r_k.size} and "
                    f"{r_p.size} realizations: wider than {SI_REL:.0%}")
-    print(f"{what}: mean normalised power {name} {r_k.mean():.6f}, matmul "
+    print(f"{what}: mean normalised power {name} {r_k.mean():.6f}, {other} "
           f"{r_p.mean():.6f} ({dmean / se:.2f} combined SE); scintillation "
-          f"index {name} {si_k:.5f}, matmul {si_p:.5f} (limit {why})")
+          f"index {name} {si_k:.5f}, {other} {si_p:.5f} (limit {why})")
     if not dmean <= MEAN_SIGMAS * se:
-        fail(f"{what}: mean power of the {name} path disagrees with matmul")
+        fail(f"{what}: mean power of the {name} path disagrees with {other}")
     if not abs(si_k - si_p) <= si_tol:
         fail(f"{what}: scintillation index of the {name} path disagrees")
 
@@ -939,7 +1037,9 @@ def slice_run(sim, kernel, counter, other, label):
     at 0; fails unless it launched ``kernel`` and not ``other``. Returns
     (series, launches, seconds)."""
     other.LAUNCHES = 0
+    before = by_passes()
     (res, secs), launches = launches_of(lambda: timed_run(sim), counter)
+    check_passes(before, sim._precision, label)
     r = series(res)
     print(f"{label}: {sim.Niter} realizations in {secs:.3f} s (first run), "
           f"{launches} {kernel} launches, {other.LAUNCHES} of the other "
@@ -1164,7 +1264,9 @@ def temporal_run(sim, kernel, counter, others, label):
     integrated autocorrelation time)."""
     for o in others:
         o.LAUNCHES = 0
+    before = by_passes()
     (res, secs), launches = launches_of(lambda: timed_run(sim), counter)
+    check_passes(before, sim._precision, label)
     r = series(res)
     other = sum(o.LAUNCHES for o in others)
     if r.shape != (sim.Niter,) or not np.isfinite(r).all():
@@ -1214,6 +1316,7 @@ def phase_temporal(ctx):
     K6 = af.ar_flow_fused_batch
     r_t, k4["launches"], tau = temporal_run(
         sim_t, "K4", K4, (K1, K2, K5, K6), "temporal slice 256^2")
+    SERIES["K4"] = r_t
     r_iid = ctx["r_iid"]
     n_eff = r_t.size / tau
     se = np.hypot(r_t.std() / np.sqrt(n_eff),
@@ -1230,7 +1333,7 @@ def phase_temporal(ctx):
         fail("temporal slice: the mean power disagrees with the iid run")
     if not pval > KS_PVALUE:
         fail("temporal slice: the marginal disagrees with the iid run (KS)")
-    _, k5["launches"], _ = temporal_run(
+    SERIES["K5"], k5["launches"], _ = temporal_run(
         sim_t16, "K5", K5, (K1, K2, K4, K6), "temporal 512^2, 16 layers")
 
     # the kernel route against the exact route from one seed, with boiling
@@ -1251,11 +1354,380 @@ def phase_temporal(ctx):
     return k4, k5, (sim_t, sim_t16, sim_tf)
 
 
-def random_link(N, lo, hi, seed=5, phase_rms=1.5):
+# ---------------------------------------------------------------------------
+# PRECISION: one TF32 pass at 'default'
+# ---------------------------------------------------------------------------
+
+
+def _many(x):
+    return (x,) if torch.is_tensor(x) else tuple(x)
+
+
+def one_pass(what, got, plain1, plain3):
+    """``got`` (a kernel or a pass at PRECISION='default') against its
+    plain version at 'default' (``plain1``) in units of the TF32 distance,
+    |plain1 - plain3| with ``plain3`` the plain version at 'highest': the
+    max within ONE_PASS_MAX of the distance's max, the rms within
+    ONE_PASS_RMS of its rms (tensors, or tuples of them). A kernel that ran
+    three passes reads about 1 in both. Returns the two readings."""
+    got, plain1, plain3 = _many(got), _many(plain1), _many(plain3)
+    if not all(bool(torch.isfinite(g).all()) for g in got):
+        fail(f"{what} at PRECISION='default' is not finite")
+
+    def norms(a, b):
+        d = torch.cat([(x - y).double().reshape(-1) for x, y in zip(a, b)])
+        return float(d.abs().max()), float(d.pow(2).mean().sqrt())
+
+    (mk, rk), (mt, rt) = norms(got, plain1), norms(plain1, plain3)
+    print(f"{what} at 'default': max |kernel - plain| {mk:.3e}, rms "
+          f"{rk:.3e}; the TF32 distance |plain('default') - "
+          f"plain('highest')|: max {mt:.3e}, rms {rt:.3e}; {mk / mt:.3f} and "
+          f"{rk / rt:.4f} of it (limits {ONE_PASS_MAX}, {ONE_PASS_RMS})")
+    if not (mk <= ONE_PASS_MAX * mt and rk <= ONE_PASS_RMS * rt):
+        fail(f"{what} at PRECISION='default' disagrees with its plain "
+             f"version")
+    return mk / mt, rk / rt
+
+
+def same_operands(what, got, plain1, limit, unit):
+    """``got``, a pass at PRECISION='default' on the same float32 operands
+    as its plain version, against the plain version at 'default': the
+    3xTF32 limit ``limit`` (``unit`` names it) holds, since both round the
+    same values to TF32 and sum in another order. Returns the reading."""
+    got, plain1 = _many(got), _many(plain1)
+    err = max(float((x - y).abs().max()) for x, y in zip(got, plain1))
+    print(f"{what} at 'default', on the same operands: max |kernel - "
+          f"plain| {err:.3e} (limit {limit:.3e} = {unit}; {err / limit:.3f} "
+          f"of it)")
+    if not err <= limit:
+        fail(f"{what} at PRECISION='default' disagrees with its plain "
+             f"version")
+    return err / limit
+
+
+def in_turns(fn, reps):
+    """``fn(precision)``'s device ms at 'highest' and 'default' in turns
+    (highest, default, default, highest) on this card: {precision: [ms,
+    ms]}."""
+    out = {"highest": [], "default": []}
+    for prec in ("highest", "default", "default", "highest"):
+        out[prec].append(cuda_ms(lambda: fn(prec), reps))
+    return out
+
+
+def timed_both(res, label, fn, reps, bound):
+    """The kernel ``fn(precision)`` at both precisions in turns and its
+    one-pass bound (``bound``: a ``*_bound`` at PEAK_TF32); kept in
+    ``res["default"]``. Its passes' times at each precision:
+    scripts/torch_detect_ab.py and torch_ar_ab.py."""
+    t = in_turns(fn, reps)
+    b = bound[0]
+    print(f"{label}: 3xTF32 " + ", ".join(f"{x:.3f}" for x in t["highest"])
+          + " ms, one TF32 pass " + ", ".join(f"{x:.3f}" for x in
+                                              t["default"])
+          + f" ms in turns; one-pass bound {b:.3f} ms")
+    res.setdefault("default", {}).update(
+        ms=float(np.mean(t["default"])), ms_turns=t["default"],
+        ms_highest_turns=t["highest"], bound_ms=b, bound_by=bound[1],
+        shape=label)
+
+
+def _restore_counts(saved):
+    for w, (n, by) in saved.items():
+        w.LAUNCHES, w.LAUNCHES_BY_PASSES = n, by
+
+
+def phase_precision(card, res):
+    """Every kernel at PRECISION='default' (one TF32 pass) against its
+    plain version at 'default', pass by pass on the same inputs (the
+    limits of ``one_pass`` and ``same_operands``), each kernel's time at
+    both precisions in turns; then each main path at 'default' (its
+    series from the slices) against a run at 'highest' from another seed,
+    in distribution. ``res``: the kernels' result dicts by K1..K7, which
+    gain a 'default' entry. The launches here do not count."""
+    from fast_tpu_torch.ops import ar_flow as af
+    from fast_tpu_torch.ops import colfac_detect as cd
+    from fast_tpu_torch.ops import kernel_wrappers
+    from fast_tpu_torch.ops import synth_detect as sd
+    t_phase = time.perf_counter()
+    saved = {w: (w.LAUNCHES, dict(w.LAUNCHES_BY_PASSES)) for w in (
+        *kernel_wrappers().values(), sd.synth_pass1, sd.screens_pass,
+        cd.colfac_pass1, cd.split_pass1, cd.detect_pass, af.ar_dft,
+        af.ar_detect)}
+    D, H = "default", "highest"
+    g_unit = "GPRIME_REL N 2^-24 max |G'|"
+
+    def gprime_limit(N, g):
+        return GPRIME_REL * N * 2.0 ** -24 * max(float(x.abs().max())
+                                                  for x in g)
+
+    # K2 and K1 at the flagships' shapes: pass 1, the detect pass on its G'
+    # and the kernel whole
+    for i, (N, lo, hi) in enumerate(PREC_IID):
+        T = random_link(N, lo, hi, split=False)
+        wr, wi, pm_t = T["wr"], T["wi"], T["pm_t"]
+        laid = sd.laid_w(wr, wi, T["mix"], precision=D)
+        nb, lab = PREC_IID_DRAWS, f"{N}^2, P={hi - lo}"
+        r = res["K2" if i == 0 else "K1"].setdefault("default", {})
+        for mixed in (True, False):
+            noise = "mixed" if mixed else "gauss"
+            if i == 0:
+                mix = T["mix"] if mixed else None
+                kw = dict(mix=mix, laid=laid)
+
+                def p1(prec, kw=kw, n=nb):
+                    return sd.synth_pass1(SEED, T["s_t"], wr, wi, n,
+                                          precision=prec, **kw)
+
+                def ref1(prec, mix=mix):
+                    return sd.synth_pass1_reference(
+                        SEED, T["s_t"], wr, wi, nb, mix=mix, precision=prec)
+                who = "K2"
+            else:
+                S = cd.pack_tables(T["L"], mixed=mixed)
+                tabs = {p: cd.lay_tables(S, sd.passes(p)) for p in (D, H)}
+
+                def p1(prec, tabs=tabs, mixed=mixed, n=nb):
+                    return cd.colfac_pass1(SEED, tabs[prec], n, mixed=mixed,
+                                           stream=3, precision=prec)
+
+                def ref1(prec, S=S, mixed=mixed):
+                    return cd.colfac_pass1_reference(
+                        SEED, S, nb, mixed=mixed, stream=3, precision=prec)
+                who = "K1"
+            g, p = p1(D), ref1(D)
+            if who == "K1" and mixed:  # the noise bits, not float32 work
+                r["pass1_" + noise] = same_operands(
+                    f"K1 pass 1 {noise} {lab}", g, p, gprime_limit(N, p),
+                    g_unit)
+            else:
+                r["pass1_" + noise] = one_pass(f"{who} pass 1 {noise} {lab}",
+                                               g, p, ref1(H))
+            d = cd.detect_pass(*g, wr, wi, pm_t, laid=laid, precision=D)
+            p = sd.detect_reference(*g, wr, wi, pm_t, precision=D)
+            r["detect_" + noise] = same_operands(
+                f"{who}'s detect pass {noise} {lab} (its own G')", d, p,
+                KERNEL_REL * float(p.abs().max()), "KERNEL_REL max |sum|")
+            del g, d, p
+        # the kernel whole, 'mixed' (the default noise)
+        if i == 0:
+            args = (SEED, T["s_t"], wr, wi, pm_t)
+
+            def whole(prec, n=nb):
+                return sd.synth_detect(*args, n, mix=T["mix"], laid=laid,
+                                       precision=prec)
+            ref = [sd.synth_detect_reference(*args, nb, mix=T["mix"],
+                                             precision=p) for p in (D, H)]
+            bound = k2_bound(N, hi - lo, NTIME, True, PEAK_TF32)
+        else:
+            tabs = {p: cd.lay_tables(cd.pack_tables(T["L"]), sd.passes(p))
+                    for p in (D, H)}
+            S = cd.pack_tables(T["L"])
+
+            def whole(prec, n=nb, tabs=tabs):
+                return cd.colfac_detect(SEED, tabs[prec], wr, wi, pm_t, n,
+                                        mixed=True, stream=3, laid=laid,
+                                        precision=prec)
+            ref = [cd.colfac_detect_reference(SEED, S, wr, wi, pm_t, nb,
+                                              mixed=True, stream=3,
+                                              precision=p) for p in (D, H)]
+            bound = k1_bound(N, hi - lo, NTIME, True, PEAK_TF32)
+        who = "K2" if i == 0 else "K1"
+        r["whole"] = one_pass(f"{who} whole, mixed {lab}", whole(D), *ref)
+        timed_both(res[who], f"{who} {lab}, mixed, {NTIME} draws",
+                   lambda prec: whole(prec, NTIME), 5, bound)
+        del T, laid, ref
+        torch.cuda.empty_cache()
+
+    # K3, K7 and K2 at the 4 m link's 1024^2 and 402 px (416 padded)
+    N, lo, hi, nb, per = PREC_WIDE
+    T = random_link(N, lo, hi, card_factors=True)
+    wr, wi, pm_t, lab = T["wr"], T["wi"], T["pm_t"], f"{N}^2, P={hi - lo}"
+    laid = sd.laid_w(wr, wi, T["mix"], precision=D)
+    tab = T["T_colfac"]
+    tabs = {p: cd.lay_tables_split(tab, sd.passes(p)) for p in (D, H)}
+    r3 = res["K3"].setdefault("default", {})
+    g = cd.split_pass1(SEED, tabs[D], nb, mixed=True, stream=3, precision=D)
+    p = cd.split_pass1_reference(SEED, tab, nb, mixed=True, stream=3,
+                                 precision=D)
+    r3["pass1_mixed"] = same_operands(f"K3 pass 1 mixed {lab}", g, p,
+                                      gprime_limit(N, p), g_unit)
+    d = cd.detect_pass(*g, wr, wi, pm_t, laid=laid, precision=D)
+    q = sd.detect_reference(*g, wr, wi, pm_t, precision=D)
+    r3["detect_mixed"] = same_operands(
+        f"K3's detect pass mixed {lab} (its own G')", d, q,
+        KERNEL_REL * float(q.abs().max()), "KERNEL_REL max |sum|")
+    del g, p, d, q
+    r7 = res["K7"].setdefault("default", {})
+    g = sd.synth_pass1(SEED, T["s_t"], wr, wi, nb, stream=2, laid=laid,
+                       precision=D)
+    r7["pass1"] = one_pass(f"K7 pass 1 (Box-Muller) {lab}", g, *(
+        sd.synth_pass1_reference(SEED, T["s_t"], wr, wi, nb, stream=2,
+                                 precision=p) for p in (D, H)))
+    s = sd.screens_pass(*g, wr, wi, hi - lo, laid=laid, precision=D)
+    q = sd.screens_pass_reference(*g, wr, wi, hi - lo, precision=D)
+    r7["screens"] = same_operands(
+        f"K7's screens pass {lab} (its own G')", s, q,
+        2 * N * 2.0 ** -24 * float(q.abs().max()), "2N 2^-24 max |phi|")
+    del g, s, q
+    r2 = res["K2"].setdefault("default", {})
+    g = sd.synth_pass1(SEED, T["s_t"], wr, wi, nb, mix=T["mix"], laid=laid,
+                       precision=D)
+    r2["pass1_mixed_1024"] = one_pass(f"K2 pass 1 mixed {lab}", g, *(
+        sd.synth_pass1_reference(SEED, T["s_t"], wr, wi, nb, mix=T["mix"],
+                                 precision=p) for p in (D, H)))
+    del g
+    torch.cuda.empty_cache()
+    timed_both(res["K3"], f"K3 {lab}, mixed, {per} draws",
+               lambda prec: cd.colfac_detect_split(
+                   SEED, tabs[prec], wr, wi, pm_t, per, mixed=True,
+                   stream=3, laid=laid, precision=prec), 3,
+               k3_bound(N, hi - lo, per, True, PEAK_TF32))
+    del tabs
+    torch.cuda.empty_cache()
+    timed_both(res["K7"], f"K7 {lab}, {per} draws",
+               lambda prec: sd.synth_screens(
+                   SEED, T["s_t"], wr, wi, per, npup=hi - lo, laid=laid,
+                   precision=prec), 3, k7_bound(N, hi - lo, per, PEAK_TF32))
+    k2w = {}
+    timed_both(k2w, f"K2 {lab}, mixed, {per} draws",
+               lambda prec: sd.synth_detect(
+                   SEED, T["s_t"], wr, wi, pm_t, per, mix=T["mix"],
+                   laid=laid, precision=prec), 1,
+               k2_bound(N, hi - lo, per, True, PEAK_TF32))
+    r2["at_1024"] = k2w["default"]
+    del T, laid, tab
+    torch.cuda.empty_cache()
+
+    # the AR kernels' two products on the same inputs, at K4's and K6's
+    # tile of 1024 pairs at 256^2, K5's 256 at 512^2 and 64 at 1024^2
+    g_ar = torch.Generator(device=DEVICE).manual_seed(17)
+    for N, lo, hi, nj, keys in PREC_AR_PRODUCTS:
+        W = ar_random(N, lo, hi, 1, 1)[3]
+        wr, wi = W.real.contiguous(), W.imag.contiguous()
+        laid = sd.laid_w(*sd.pad_pupil(wr, wi, None)[:2], precision=D)
+        a = torch.randn((2, nj, N, N), device=DEVICE, generator=g_ar) / N
+        pm = torch.rand((1, laid.shape[0], laid.shape[0]), device=DEVICE,
+                        generator=g_ar)
+        pr, pi = laid.wr, laid.wi
+        g = af.ar_dft(a[0], a[1], wr, wi, laid=laid, precision=D)
+        p = af.ar_dft_reference(a[0], a[1], pr, pi, precision=D)
+        e1 = same_operands(f"ar_dft {N}^2, P={hi - lo}, {nj} pairs", g, p,
+                           gprime_limit(N, p), g_unit)
+        d = af.ar_detect(*g, wr, wi, pm, laid=laid, precision=D)
+        q = af.ar_detect_reference(*g, pr, pi, pm, precision=D)
+        e2 = same_operands(f"ar_detect {N}^2, P={hi - lo}, {nj} pairs (the "
+                           f"same G')", d, q,
+                           KERNEL_REL * float(q.abs().max()),
+                           "KERNEL_REL max |sum|")
+        for k in keys:
+            res[k].setdefault("default", {})[f"ar_products_{N}"] = (e1, e2)
+        del a, g, p, d, q
+        torch.cuda.empty_cache()
+
+    # K4, K5 and K6 whole: the final states bit for bit, the couplings in
+    # units of the TF32 distance
+    fns = {"K4": af.ar_flow_fused, "K5": af.ar_flow_streamed,
+           "K6": af.ar_flow_fused_batch}
+    for key, (N, lo, hi, L, B), nsteps, tsteps in PREC_AR_WHOLE:
+        fn = fns[key]
+        inp = ar_random(N, lo, hi, L, B)
+        if B == 1:  # one series: no series axis
+            inp = tuple(x[0] if x.ndim > 2 else x for x in inp)
+        W = inp[3]
+        laid = sd.laid_w(*sd.pad_pupil(W.real.contiguous(),
+                                       W.imag.contiguous(), None)[:2],
+                         precision=D)
+        plain = af.ar_flow_batch_reference if B > 1 else af.ar_flow_reference
+        ck, ak = fn(SEED, *inp, nsteps, laid=laid, precision=D)
+        (c1, a1), (c3, _) = (plain(SEED, *inp, nsteps, precision=p)
+                             for p in (D, H))
+        serr = float((ak - a1).abs().max())
+        print(f"{key} at 'default', {nsteps} steps: final state against the "
+              f"plain version's {serr:.3e} (limit 0)")
+        if serr != 0.0:
+            fail(f"{key} at PRECISION='default': the final state differs "
+                 f"from the plain version's")
+        res[key].setdefault("default", {})["whole"] = one_pass(
+            f"{key} whole {N}^2, {L} layers, {B} series", ck, c1, c3)
+        timed_both(res[key], f"{key} {N}^2, {L} layers, {B} series, "
+                   f"{tsteps} steps", lambda prec: fn(
+                       SEED, *inp, tsteps, laid=laid, precision=prec),
+                   3, ar_bound(L, N, hi - lo, tsteps, True, B, PEAK_TF32))
+        del inp, laid, ck, ak, c1, a1, c3
+        torch.cuda.empty_cache()
+    _restore_counts(saved)
+    precision_runs(card, res)
+    print(f"precision phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def precision_runs(card, res):
+    """Each main path's series at PRECISION='default' (kept by the slices
+    in SERIES) against a run at 'highest' from another seed, which must
+    launch only 3xTF32 instantiations: iid in distribution as the slices
+    against 'matmul' (mean within 5 combined SE, the scintillation index
+    within 5% or 5 SE) and a two-sample KS test (p > KS_PVALUE); temporal
+    series as the temporal slice against the iid run (the mean within 5
+    SE at the effective count, KS on the series thinned beyond twice the
+    integrated autocorrelation time)."""
+    from scipy.stats import ks_2samp
+    from fast_tpu_torch import Fast
+
+    def wide(**kw):
+        return flagship(**WIDE, NCHUNKS=4, SEED=103, PRECISION="highest",
+                        NITER=NITER_W_SMALL, **kw)
+
+    runs = (
+        ("K2", flagship(SEED=101, PRECISION="highest"), False),
+        ("K1", flagship(NPXLS=512, SEED=102, PRECISION="highest"), False),
+        ("K3 1024^2", wide(SYNTH="pallas_colfac"), True),
+        ("K7 1024^2", wide(SYNTH="pallas"), True),
+        ("K4", temporal(SEED=104, PRECISION="highest"), None),
+        ("K5", temporal(16, NPXLS=512, NITER=NITER_T16, NCHUNKS=2, SEED=105,
+                        PRECISION="highest"), None))
+    for key, params, short in runs:
+        sim = Fast(params, device=DEVICE)
+        before = by_passes()
+        r_h = series(sim.run())
+        ran = check_passes(before, "highest", f"{key} at 'highest'")
+        if not ran.get(key.split()[0], (0, 0))[1]:
+            fail(f"{key} at 'highest' did not launch its kernel")
+        r_d = SERIES[key]
+        what = f"{key}: PRECISION='default' (main path) against 'highest'"
+        if short is not None:
+            agree(r_d, r_h, what, "default", short=short, other="highest")
+            pval = float(ks_2samp(r_d, r_h).pvalue)
+            n_eff = None
+        else:
+            taus = [acf_time(x)[0] for x in (r_d, r_h)]
+            n_eff = [x.size / t for x, t in zip((r_d, r_h), taus)]
+            se = np.hypot(r_d.std() / np.sqrt(n_eff[0]),
+                          r_h.std() / np.sqrt(n_eff[1]))
+            dmean = abs(r_d.mean() - r_h.mean())
+            step = int(np.ceil(2 * max(taus)))
+            pval = float(ks_2samp(r_d[::step], r_h[::step]).pvalue)
+            print(f"{what}: mean normalised power {r_d.mean():.6f} against "
+                  f"{r_h.mean():.6f} ({dmean / se:.2f} SE at "
+                  f"{n_eff[0]:.0f} and {n_eff[1]:.0f} effective samples)")
+            if not dmean <= MEAN_SIGMAS * se:
+                fail(f"{what}: the mean power disagrees")
+        print(f"{what}: KS p = {pval:.4f} (limit {KS_PVALUE})")
+        if not pval > KS_PVALUE:
+            fail(f"{what}: the distributions disagree (KS)")
+        res[key.split()[0]].setdefault("default", {})[
+            "against_highest_ks_p" + ("_1024" if "1024" in key else "")] = pval
+        del sim
+        torch.cuda.empty_cache()
+
+
+def random_link(N, lo, hi, seed=5, phase_rms=1.5, split=True,
+                card_factors=False):
     """Tables of a made-up link from a numpy seed, on the card: K2's and
     K7's (``s_t``, ``wr``, ``wi``, ``pm_t``, ``mix``, ``pm``) with a PSD
-    scaled to screens of ``phase_rms`` rad rms, and K3's 'mixed' table from
-    random factors of the same scale."""
+    scaled to screens of ``phase_rms`` rad rms, random factors ``L`` of
+    the same scale (``card_factors``: drawn on the card from the seed, for
+    the 1024^2 link's 1.3 GB) and, with ``split``, K3's 'mixed' table from
+    them."""
     from fast_tpu_torch import synthesis
     from fast_tpu_torch.ops import colfac_detect as cd
     from fast_tpu_torch.ops import synth_detect as sd
@@ -1265,17 +1737,26 @@ def random_link(N, lo, hi, seed=5, phase_rms=1.5):
     df = phase_rms / float(np.sqrt((sqrt_ps.astype(np.float64) ** 2).sum()))
     W = synthesis.pruned_ift2_matrix(N, lo, hi, dtype=np.complex64)
     pm = rng.random((npup, npup)).astype(np.float32)
-    L = (rng.normal(size=(N, npup, npup))
-         + 1j * rng.normal(size=(N, npup, npup)))
-    L = (L * phase_rms / np.sqrt(2 * npup * N)).astype(np.complex64)
 
     def dev(a):
         return torch.from_numpy(np.array(a, order="C")).to(DEVICE)
 
+    scale = phase_rms / np.sqrt(2 * npup * N)
+    if card_factors:
+        g = torch.Generator(device=DEVICE).manual_seed(seed)
+        L = torch.complex(*torch.randn((2, N, npup, npup), device=DEVICE,
+                                       generator=g)) * scale
+    else:
+        L = (rng.normal(size=(N, npup, npup))
+             + 1j * rng.normal(size=(N, npup, npup)))
+        L = dev((L * scale).astype(np.complex64))
+
     wr, wi, pm_t = sd.pad_pupil(dev(W.real), dev(W.imag), dev(pm.T))
-    return dict(s_t=dev(sqrt_ps.T * np.float32(df)), wr=wr, wi=wi, pm_t=pm_t,
-                pm=dev(pm), mix=dev(sd.mixing_matrix(N)),
-                T_colfac=cd.pack_tables_split(dev(L), mixed=True))
+    T = dict(s_t=dev(sqrt_ps.T * np.float32(df)), wr=wr, wi=wi, pm_t=pm_t,
+             pm=dev(pm), mix=dev(sd.mixing_matrix(N)), L=L)
+    if split:
+        T["T_colfac"] = cd.pack_tables_split(T["L"], mixed=True)
+    return T
 
 
 def check_screens(T, npup, ndraws, label):
@@ -1338,8 +1819,10 @@ def wide_run(sim, kernel, counters, label):
     (series, launches)."""
     for c in counters.values():
         c.LAUNCHES = 0
+    before = by_passes()
     res, secs = timed_run(sim)
     torch.cuda.synchronize()
+    check_passes(before, sim._precision, label)
     counts = {k: c.LAUNCHES for k, c in counters.items()}
     r = series(res)
     print(f"{label}: {sim.Niter} realizations in {secs:.3f} s (first run), "
@@ -1407,9 +1890,9 @@ def phase_wide(card):
         tf32_control("K2", sd.synth_detect_reference, base, kw, cp,
                      f"{noise} {label}", n=64)
         # the plain version's table, and the kernel's laid out from it
-        # (the engine's own for 'mixed')
+        # for three TF32 passes (the engine's holds one at 'default')
         tab = cd.pack_tables_split(T["L"], mixed=mixed)
-        laid = T["T_colfac"] if mixed else cd.lay_tables_split(tab)
+        laid = cd.lay_tables_split(tab)
         args3 = (SEED, tab) + base[2:]
         kargs3 = (SEED, laid) + base[2:]
         kw3 = {"mixed": mixed, "stream": 3}
@@ -1495,6 +1978,7 @@ def phase_wide(card):
         r, res[key] = wide_run(sim, name, counters,
                                f"wide slice, SYNTH={sim.params['SYNTH']!r}")
         agree(r, r_m, f"wide slice {label}", name, short=True)
+        SERIES[name + " 1024^2"] = r
     wide_rates = rates([("K2", sim_2), ("K3", sim_3), ("K7", sim_7),
                         ("matmul", sim_m), ("matmul", sim_m), ("K7", sim_7),
                         ("K3", sim_3), ("K2", sim_2)], card, "1024^2, 4 m")
@@ -1720,7 +2204,9 @@ def _phase_orbit(card, counters, mesh):
 
     # the iid pass: K2 (the sweep's default on the card) and 'matmul'
     zero()
+    before = by_passes()
     sims, res, wall = iid_pass(None, 12, mesh)
+    check_passes(before, sims[0]._precision, "iid orbit pass")
     n_iid = counts(counters)
     print(f"iid orbit pass: {NSAMP} samples x {NITER_OI} realizations in "
           f"{wall:.3f} s (first; sweep_assemble "
@@ -1756,7 +2242,9 @@ def _phase_orbit(card, counters, mesh):
     got = series(s.run(progress=True))
     # the temporal pass: K6
     zero()
+    before = by_passes()
     osims, ores, owall = temporal_pass(NSAMP, NITER_OT, 14, mesh)
+    check_passes(before, osims[0]._precision, "temporal orbit pass")
     n_t = counts(counters)
     print(f"temporal orbit pass: {NSAMP} samples x {NITER_OT} steps in "
           f"{owall:.3f} s (first, the {NSAMP} Fast() inside), launches "
@@ -1782,19 +2270,26 @@ def _phase_orbit(card, counters, mesh):
         fail("run(progress=True) differs from run()")
 
     # the K6 route against the scan's SYNTH='fft' route on 4 samples of
-    # the same pass (its samples 0, 5, 10 and 15), and the lag-1
+    # the same pass (its samples 0, 5, 10 and 15), from one seed, at
+    # PRECISION='highest' (3xTF32: the same series to FFT_RTOL) and, read
+    # only, at 'default' (one TF32 pass: its rounding of phases of tens of
+    # radians at these zeniths moves the power by percents); and the lag-1
     # autocorrelations of that exact route against the pass's
-    rk = temporal_pass(4, NITER_OT_FFT, 9, mesh)[1]
+    rk = temporal_pass(4, NITER_OT_FFT, 9, mesh, PRECISION="highest")[1]
+    rk1 = temporal_pass(4, NITER_OT_FFT, 9, mesh)[1]
     rf = temporal_pass(4, NITER_OT_FFT, 9, mesh, SYNTH="fft")[1]
-    d, d_all = (max(float(np.abs(series(a)[:n] / series(b)[:n] - 1).max())
-                    for a, b in zip(rk, rf)) for n in (1024, NITER_OT_FFT))
-    print(f"temporal orbit scan, K6 route against the SYNTH='fft' route, "
-          f"4 samples from one seed: max relative difference {d:.3e} over "
-          f"the first 1024 steps (limit {FFT_RTOL}), {d_all:.3e} over "
-          f"{NITER_OT_FFT}")
+    d, d_all, d1 = (max(float(np.abs(series(a)[:n] / series(b)[:n] - 1).max())
+                        for a, b in zip(x, rf))
+                    for x, n in ((rk, 1024), (rk, NITER_OT_FFT),
+                                 (rk1, 1024)))
+    print(f"temporal orbit scan, K6 route (PRECISION='highest') against the "
+          f"SYNTH='fft' route, 4 samples from one seed: max relative "
+          f"difference {d:.3e} over the first 1024 steps (limit {FFT_RTOL}), "
+          f"{d_all:.3e} over {NITER_OT_FFT}; at 'default' {d1:.3e} over the "
+          f"first 1024 (one TF32 pass, not held to the limit)")
     if not d <= FFT_RTOL:
         fail("the K6 route disagrees with the scan's SYNTH='fft' route")
-    lag_f, lag_k = ([acf_time(series(r))[1] for r in x] for x in (rf, rk))
+    lag_f, lag_k = ([acf_time(series(r))[1] for r in x] for x in (rf, rk1))
     lag_p = [lags[i] for i in np.linspace(0, NSAMP - 1, 4).astype(int)]
     floor = min(lag_f) - ACF_ORBIT_TOL
     print(f"lag-1 autocorrelation on the pass's samples 0, 5, 10, 15: exact "
@@ -2750,6 +3245,7 @@ def phase_slices():
 
     # 256^2: the K2 path
     r_k, k2["launches"], _ = slice_run(sim_k, "K2", K2, K1, "slice 256^2")
+    SERIES["K2"] = r_k
     sim_p = Fast(flagship(SYNTH="matmul"), device=DEVICE)
     r_p = series(timed_run(sim_p)[0])
     agree(r_k, r_p, "slice 256^2", "K2")
@@ -2760,6 +3256,7 @@ def phase_slices():
 
     # 512^2: the K1 path
     r_c, k1["launches"], _ = slice_run(sim_c, "K1", K1, K2, "slice 512^2")
+    SERIES["K1"] = r_c
     sim_cm = Fast(flagship(NPXLS=512, SYNTH="matmul", NITER=NITER_SMALL,
                            NCHUNKS=16), device=DEVICE)
     agree(r_c, series(timed_run(sim_cm)[0]), "slice 512^2", "K1")
@@ -2889,6 +3386,10 @@ def main():
               ar_detect_1024=dft["ar_detect", 1024])
     k5.update(ar_dft=dft["ar_dft", 512], ar_detect=dft["ar_detect", 512])
     k6.update(ar_dft=dft["ar_dft", 256], ar_detect=dft["ar_detect", 256])
+    # before the mesh and tools phases, whose profiler sessions leave the
+    # profiler without device records in this process
+    phase_precision(card, {"K1": ctx["k1"], "K2": ctx["k2"], "K3": k3,
+                           "K4": k4, "K5": k5, "K6": k6, "K7": k7})
     comms_res = phase_comms(card, fade_series, fade_dt)
     rates_256["FastFSOC 16-QAM (K2 + modem)"] = [comms_res["fsoc_rate"]]
     ctx["k2"]["launches_comms"] = comms_res.pop("launches")
@@ -2932,6 +3433,8 @@ def main():
              "synth_screens": "K7"}
     for entry in line["kernels"]:
         entry["launches_mesh"] = mesh_launches[names[entry["name"]]]
+    # each main path's launches by TF32 passes (one, three), by kernel
+    line["launches_by_passes"] = MAIN_PASSES
     line["seconds"] = time.perf_counter() - t_start
     print(card)
     print(json.dumps(line))

@@ -87,13 +87,16 @@ TPU_DEFAULTS = {
                             # DFT in stock torch ops) | 'colfac'
                             # (column-factored noise in stock torch ops) |
                             # 'fft' (batched ifft2)
-    "PRECISION": "default", # accepted; every value means fp32-accurate
-                            # products on the card: 3xTF32 on the tensor
-                            # cores in both passes of K1, K2, K3 and K7 and
-                            # in the AR kernels' first DFT product, fp32
-                            # FMA in the AR kernels' other passes (a
-                            # TF32/bf16 meaning of 'default' is still to
-                            # come)
+    "PRECISION": "default", # products of the synthesis paths on the card:
+                            # 'default' one TF32 pass (10-bit mantissa; the
+                            # JAX package's is one bf16 pass) in every
+                            # kernel product and TF32 cuBLAS on the stock
+                            # paths | 'high' | 'highest' (3xTF32 in the
+                            # kernels, fp32-accurate, and full fp32 on the
+                            # stock paths; 'high' promotes to 'highest' as
+                            # in the JAX package's kernels). A run on the
+                            # CPU computes fp32 at every value, as the JAX
+                            # package's CPU dots do (PASSES)
     "TEMPORAL_SYNTH": "auto",  # temporal mode: 'screens' (large per-layer
                             # screens sampled along the wind, the grid
                             # grown to the series) | 'ar' (AR(1) in Fourier
@@ -112,6 +115,11 @@ TPU_DEFAULTS = {
                             # (unit-variance uniforms) | 'gauss'
                             # (Box-Muller), on every AR route
 }
+
+
+#: The ``PRECISION`` values and the TF32 passes of every kernel product on
+#: the card at each (``fast_tpu.ops.pallas_synth._PRECISIONS``' keys).
+PASSES = {"default": 1, "high": 3, "highest": 3}
 
 
 class ConfigParser:
@@ -153,3 +161,6 @@ class ConfigParser:
                 self.config[key] = val
         for key, val in TPU_DEFAULTS.items():
             self.config.setdefault(key, val)
+        if self.config["PRECISION"] not in PASSES:
+            raise ValueError(f"PRECISION must be one of {sorted(PASSES)}, "
+                             f"got {self.config['PRECISION']!r}")

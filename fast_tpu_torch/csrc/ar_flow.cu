@@ -38,7 +38,8 @@
 //   give the same A bit for bit. K6 is the same pass with a grid axis of
 //   B series (the state series-major: (B, L, N, N)).
 // * ar_dft, the first product: the second pass of the iid kernels
-//   (detect.cuh, second_pass: 3xTF32 wgmma, the rows of a launch stacked
+//   (detect.cuh, second_pass: wgmma in three TF32 passes, or one at
+//   PRECISION='default' (wgmma.cuh), the rows of a launch stacked
 //   in blocks of 64, B the laid W table streamed by bulk copies, A copied
 //   by cp.async) with A's rows taken from the layer sums: a (step,
 //   series) pair's rows are its N columns m of A (row stride N), so the
@@ -204,8 +205,8 @@ __global__ void __launch_bounds__(kThreads)
 // (a_re, a_im: nj x N x N) into g_re, g_im (nj x N x P): the second pass
 // with a pair's rows the N columns m of its A (R = N; vec: A copied in
 // 16-byte pieces), warpgroup 0 storing Re G', 1 Im G', all P columns (W's
-// padded rows give zeros), 8 bytes a store.
-template <int NCH, int TAIL>
+// padded rows give zeros), 8 bytes a store; kPasses TF32 passes.
+template <int NCH, int TAIL, int kPasses>
 __global__ void __launch_bounds__(kDetThreads, 1)
     ar_dft(const float* __restrict__ wpack, const float* __restrict__ a_re,
            const float* __restrict__ a_im, float* __restrict__ g_re,
@@ -225,16 +226,17 @@ __global__ void __launch_bounds__(kDetThreads, 1)
           make_float2(v0, v1);
     });
   };
-  second_pass<NCH, TAIL, 1>(smem, wpack, a_re, a_im, nj, N, N, P, nz,
-                            vec != 0, epi);
+  second_pass<NCH, TAIL, 1, kPasses>(smem, wpack, a_re, a_im, nj, N, N, P,
+                                     nz, vec != 0, epi);
 }
 
 // The detect pass on the real part alone: for each pair j, Re H^T = Re(G'^T
 // W^T) (rows p2, columns p1; G' in g_re, g_im: nj x N x P), then
 // sum(pm_t cos), sum(pm_t sin) with pm_t (B, P, P) of series j % B, into
 // part (nj, P / 16, nz, 2): each warp's sums of its 16 rows over a slice.
-// Two row groups a block of work, each warpgroup its own.
-template <int NCH, int TAIL>
+// Two row groups a block of work, each warpgroup its own; kPasses TF32
+// passes.
+template <int NCH, int TAIL, int kPasses>
 __global__ void __launch_bounds__(kDetThreads, 1)
     ar_detect(const float* __restrict__ wpack,
               const float* __restrict__ g_re, const float* __restrict__ g_im,
@@ -277,8 +279,8 @@ __global__ void __launch_bounds__(kDetThreads, 1)
       o[1] = acc[1];
     }
   };
-  second_pass<NCH, TAIL, 2>(smem, wpack, g_re, g_im, nj, N, P, P, nz, true,
-                            epi);
+  second_pass<NCH, TAIL, 2, kPasses>(smem, wpack, g_re, g_im, nj, N, P, P, nz,
+                                     true, epi);
 }
 
 struct UpdateArgs {
@@ -334,8 +336,8 @@ cudaError_t update_layers(int lb, int noise, const UpdateArgs& u) {
 }
 
 // The first product of nj = (steps x B series) layer sums: G' into g_re,
-// g_im (nj, N, P), from the laid W table wpack.
-cudaError_t first_product(int P, int nj, const float* wpack,
+// g_im (nj, N, P), from the laid W table wpack, in `passes` TF32 passes.
+cudaError_t first_product(int passes, int P, int nj, const float* wpack,
                           const float* a_re, const float* a_im, float* g_re,
                           float* g_im, int N, cudaStream_t stream) {
   const WSlices w = w_slices(P);
@@ -343,45 +345,49 @@ cudaError_t first_product(int P, int nj, const float* wpack,
   const int vec = N % 4 == 0 && ((reinterpret_cast<uintptr_t>(a_re) |
                                   reinterpret_cast<uintptr_t>(a_im)) &
                                  15) == 0;
-  cudaError_t err = cudaSuccess;
+  return by_passes(passes, [&](auto kp) {
+    constexpr int kPasses = decltype(kp)::value;
 #define FAST_DFT(PB)                                                      \
   case PB: {                                                              \
-    auto* k = ar_dft<PB / 64, PB % 64>;                                   \
-    err = cudaFuncSetAttribute(                                           \
-        k, cudaFuncAttributeMaxDynamicSharedMemorySize, detect_smem(PB)); \
-    if (err != cudaSuccess) return err;                                   \
-    k<<<grid, kDetThreads, detect_smem(PB), stream>>>(                    \
-        wpack, a_re, a_im, g_re, g_im, nj, N, P, w.nz, vec);              \
-    break;                                                                \
+    auto* k = ar_dft<PB / 64, PB % 64, kPasses>;                          \
+    constexpr int smem = detect_smem(PB, 1, kPasses);                     \
+    const cudaError_t e = cudaFuncSetAttribute(                           \
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);            \
+    if (e != cudaSuccess) return e;                                       \
+    k<<<grid, kDetThreads, smem, stream>>>(wpack, a_re, a_im, g_re, g_im, \
+                                           nj, N, P, w.nz, vec);          \
+    return cudaGetLastError();                                            \
   }
-  FAST_PB_SWITCH(w.PB, FAST_DFT)
+    FAST_PB_SWITCH(w.PB, FAST_DFT)
 #undef FAST_DFT
-  return cudaGetLastError();
+  });
 }
 
 // The detect pass of nj = (steps x B series) pairs' G' (g_re, g_im: nj x
 // N x P): the sums into out (nj, 2), through part (nj, detect_parts(P),
-// 2).
-cudaError_t detect_real(int P, int nj, int B, const float* wpack,
+// 2), in `passes` TF32 passes.
+cudaError_t detect_real(int passes, int P, int nj, int B, const float* wpack,
                         const float* g_re, const float* g_im,
                         const float* pm_t, float* part, float* out, int N,
                         cudaStream_t stream) {
   const WSlices w = w_slices(P);
   const dim3 grid = second_pass_grid(P, nj, w.nz, 2);
-  cudaError_t err = cudaSuccess;
+  const cudaError_t err = by_passes(passes, [&](auto kp) {
+    constexpr int kPasses = decltype(kp)::value;
 #define FAST_DETECT(PB)                                                      \
   case PB: {                                                                 \
-    auto* k = ar_detect<PB / 64, PB % 64>;                                   \
-    err = cudaFuncSetAttribute(                                              \
-        k, cudaFuncAttributeMaxDynamicSharedMemorySize, detect_smem(PB, 2)); \
-    if (err != cudaSuccess) return err;                                      \
-    k<<<grid, kDetThreads, detect_smem(PB, 2), stream>>>(                    \
-        wpack, g_re, g_im, pm_t, part, nj, B, N, P, w.nz);                   \
-    break;                                                                   \
+    auto* k = ar_detect<PB / 64, PB % 64, kPasses>;                          \
+    constexpr int smem = detect_smem(PB, 2, kPasses);                        \
+    const cudaError_t e = cudaFuncSetAttribute(                              \
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);               \
+    if (e != cudaSuccess) return e;                                          \
+    k<<<grid, kDetThreads, smem, stream>>>(wpack, g_re, g_im, pm_t, part,    \
+                                           nj, B, N, P, w.nz);               \
+    return cudaGetLastError();                                               \
   }
-  FAST_PB_SWITCH(w.PB, FAST_DETECT)
+    FAST_PB_SWITCH(w.PB, FAST_DETECT)
 #undef FAST_DETECT
-  err = cudaGetLastError();
+  });
   if (err != cudaSuccess) return err;
   sum_tiles<2><<<(2 * nj + 255) / 256, 256, 0, stream>>>(part, out, 2 * nj,
                                                         detect_parts(P));
@@ -405,7 +411,8 @@ bool products_take(int P, int nj, int N, const float* wpack,
 // st_re, st_im (B, L, N, N), the states, updated in place;
 // ph_re, ph_im (B, L, N, N); ns (B, L, N, N), read only with noise != 0;
 // wpack, the laid W table of the padded (P, N) W (ops/synth_detect.py,
-// laid_w), shared; pm_t (B, P, P), each series' transposed pupil * mode;
+// laid_w), shared, laid out for `passes` TF32 passes (1 or 3) of both
+// products; pm_t (B, P, P), each series' transposed pupil * mode;
 // scratch a_re, a_im (tile * B, N, N), g_re, g_im (tile * B, N, P) and part
 // (tile * B, detect_parts(P), 2); out (nsteps, B, 2) = (sum pm cos phi, sum
 // pm sin phi) per step and series. lb: layers per thread of the update
@@ -421,11 +428,12 @@ extern "C" int fast_ar_flow(uint32_t k0, uint32_t k1, uint32_t step0,
                             const float* wpack, const float* pm_t,
                             float* a_re, float* a_im, float* g_re,
                             float* g_im, float* part, float* out, int N,
-                            int P, void* stream) {
+                            int P, int passes, void* stream) {
   if (N <= 0 || N > 32768 || nsteps <= 0 || tile <= 0 || B <= 0 ||
       B > 65535 || series0 < 0 || L <= 0 ||
       (static_cast<long long>(series0) + B) * L > 0x7fffffffLL || lb < 1 ||
       lb > kMaxLB || noise < 0 || noise > 2 || (noise != 0 && ns == nullptr) ||
+      (passes != 1 && passes != 3) ||
       part == nullptr || static_cast<long long>(tile) * B > 0x7fffffffLL ||
       !products_take(P, tile * B, N, wpack, g_re, g_im))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -442,10 +450,10 @@ extern "C" int fast_ar_flow(uint32_t k0, uint32_t k1, uint32_t step0,
       cudaError_t err = update_layers(L - l0 < lb ? L - l0 : lb, noise, u);
       if (err != cudaSuccess) return static_cast<int>(err);
     }
-    cudaError_t err =
-        first_product(P, nt * B, wpack, a_re, a_im, g_re, g_im, N, st);
+    cudaError_t err = first_product(passes, P, nt * B, wpack, a_re, a_im,
+                                    g_re, g_im, N, st);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = detect_real(P, nt * B, B, wpack, g_re, g_im, pm_t, part,
+    err = detect_real(passes, P, nt * B, B, wpack, g_re, g_im, pm_t, part,
                       out + static_cast<size_t>(t0) * B * 2, N, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -458,11 +466,12 @@ extern "C" int fast_ar_flow(uint32_t k0, uint32_t k1, uint32_t step0,
 // element against its plain version.
 extern "C" int fast_ar_dft(int nj, const float* wpack, const float* a_re,
                            const float* a_im, float* g_re, float* g_im,
-                           int N, int P, void* stream) {
+                           int N, int P, int passes, void* stream) {
   if (N <= 0 || N > 32768 || !products_take(P, nj, N, wpack, g_re, g_im))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(first_product(P, nj, wpack, a_re, a_im, g_re, g_im,
-                                        N, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(first_product(passes, P, nj, wpack, a_re, a_im,
+                                        g_re, g_im, N,
+                                        static_cast<cudaStream_t>(stream)));
 }
 
 // The detect pass alone, as fast_ar_flow runs it: the (nj, 2) sums of nj
@@ -472,12 +481,12 @@ extern "C" int fast_ar_dft(int nj, const float* wpack, const float* a_re,
 extern "C" int fast_ar_detect(int nj, int B, const float* wpack,
                               const float* g_re, const float* g_im,
                               const float* pm_t, float* part, float* out,
-                              int N, int P, void* stream) {
+                              int N, int P, int passes, void* stream) {
   if (N <= 0 || N > 32768 || B <= 0 || part == nullptr ||
       !products_take(P, nj, N, wpack, g_re, g_im))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(detect_real(P, nj, B, wpack, g_re, g_im, pm_t,
-                                      part, out, N,
+  return static_cast<int>(detect_real(passes, P, nj, B, wpack, g_re, g_im,
+                                      pm_t, part, out, N,
                                       static_cast<cudaStream_t>(stream)));
 }
 

@@ -41,11 +41,12 @@
 //
 // Pass 1 runs on Hopper's warpgroup products (wgmma.mma_async m64nNk8
 // TF32, wgmma.cuh), and so does the detect pass (detect.cuh, the draws
-// stacked along wgmma's 64 rows), both in three TF32 passes (3xTF32): every
-// operand element x is split into hi = tf32(x) and lo = tf32(x - hi), and
-// each 8-deep step computes a_lo b_hi + a_hi b_lo (the small terms) and
-// a_hi b_hi; hi + lo carries 22 of fp32's 24 bits. Every PRECISION value
-// means this arithmetic.
+// stacked along wgmma's 64 rows), both in three TF32 passes (3xTF32) at
+// PRECISION 'high' and 'highest': every operand element x is split into
+// hi = tf32(x) and lo = tf32(x - hi), and each 8-deep step computes a_lo
+// b_hi + a_hi b_lo (the small terms) and a_hi b_hi; hi + lo carries 22 of
+// fp32's 24 bits. At 'default' both are one TF32 pass, a_hi b_hi, from
+// tables laid out with their hi planes alone (wgmma.cuh).
 //
 // Pass 1, the design:
 // * B pre-split and pre-laid, once per configuration. wgmma takes a 32-bit
@@ -131,23 +132,25 @@ constexpr int kLanes = 128;      // Philox lanes per column
 constexpr int kKS = 32;          // the depth is a multiple of kKS rows
 
 // Words of a ring stage at a padded pupil of 16 PJ px: a fold group's two
-// 8-deep steps of S_m, hi and lo, over its 2P = 32 PJ columns
-// (lay_tables of ops/colfac_detect.py lays the table out in these).
-__host__ __device__ constexpr int pass1_stage_words(int PJ) {
-  return 2 * 2 * 8 * 32 * PJ;
+// 8-deep steps of S_m, hi and lo (hi alone at one pass), over its 2P = 32
+// PJ columns (lay_tables of ops/colfac_detect.py lays the table out in
+// these).
+__host__ __device__ constexpr int pass1_stage_words(int PJ, int kPasses) {
+  return 2 * b_planes(kPasses) * 8 * 32 * PJ;
 }
 
 // Bytes of pass 1's shared memory: the ring and its mbarriers.
 // _pass1_smem of ops/colfac_detect.py mirrors it.
-__host__ __device__ constexpr int pass1_smem(int PJ) {
-  return 4 * kStages * pass1_stage_words(PJ) + 8 * 2 * kStages;
+__host__ __device__ constexpr int pass1_smem(int PJ, int kPasses) {
+  return 4 * kStages * pass1_stage_words(PJ, kPasses) + 8 * 2 * kStages;
 }
 
 // Pass 1: one block per (128 draws, kCols columns m), warpgroup w taking
 // draws 64 w .. + 63 of the block by all 2P output columns of S_m (Re and
 // Im of each pixel), the columns one after another; one producer thread
-// streams the columns' fold groups through the ring. Writes G'[j, m, :].
-template <bool kMixed, int PJ>
+// streams the columns' fold groups through the ring. Products in kPasses
+// TF32 passes from a table laid out for them. Writes G'[j, m, :].
+template <bool kMixed, int PJ, int kPasses>
 __global__ void __launch_bounds__(kPass1Threads, 1)
     colfac_pass1(uint32_t k0, uint32_t k1, uint32_t stream, int draw0,
                  int nbatch, const float* __restrict__ S,
@@ -159,7 +162,8 @@ __global__ void __launch_bounds__(kPass1Threads, 1)
   constexpr int TAIL = C % 64;     // and a tail of 32 (or none)
   constexpr int TW = TAIL > 0 ? TAIL : 16;  // the tail's wgmma width
   constexpr int NU = NCH + (TAIL > 0 ? 1 : 0);
-  constexpr int SW = pass1_stage_words(PJ);
+  constexpr int SW = pass1_stage_words(PJ, kPasses);
+  constexpr int kPl = b_planes(kPasses);
   constexpr bool kTwo = PJ <= 6;   // two chunks in flight
   extern __shared__ __align__(128) float smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kStages * SW);
@@ -214,7 +218,7 @@ __global__ void __launch_bounds__(kPass1Threads, 1)
           box_muller(w.x, w.y, &z[v][0], &z[v][1]);
         }
       }
-    a = split_frag({z[0][0], z[1][0], z[0][1], z[1][1]}, false);
+    a = split_frag<kPasses>({z[0][0], z[1][0], z[0][1], z[1][1]}, false);
   };
 
   float gb[NCH > 0 ? NCH : 1][32], gt[TW / 2];
@@ -240,13 +244,14 @@ __global__ void __launch_bounds__(kPass1Threads, 1)
       uint64_t bh[1][2], bl[1][2];
 #pragma unroll
       for (int s = 0; s < 2; ++s) {
-        bh[0][s] = b_desc(st + (2 * s) * C * 8 + 64 * u * 8);
-        bl[0][s] = b_desc(st + (2 * s + 1) * C * 8 + 64 * u * 8);
+        bh[0][s] = b_desc(st + (kPl * s) * C * 8 + 64 * u * 8);
+        bl[0][s] = b_desc(st + (kPl * s + 1) * C * 8 + 64 * u * 8);
       }
       if (u < NCH)
-        mma3_group<64, 1>(dd, a, bh, bl);
+        mma_group<64, 1, kPasses>(dd, a, bh, bl);
       else
-        mma3_group<TW, 1>(reinterpret_cast<float(&)[TW / 2]>(dd), a, bh, bl);
+        mma_group<TW, 1, kPasses>(reinterpret_cast<float(&)[TW / 2]>(dd), a,
+                                  bh, bl);
     };
     const auto land = [&](int u, float (&dd)[32], bool pending) {
       auto& dt = reinterpret_cast<float(&)[TW / 2]>(dd);
@@ -312,12 +317,12 @@ __global__ void __launch_bounds__(kPass1Threads, 1)
   }
 }
 
-template <bool kMixed, int PJ>
+template <bool kMixed, int PJ, int kPasses>
 cudaError_t launch_pass1(uint32_t k0, uint32_t k1, uint32_t stream_id,
                          int draw0, int nbatch, const float* S, float* g_re,
                          float* g_im, int N, int K, cudaStream_t stream) {
-  constexpr int smem = pass1_smem(PJ);
-  auto* k_pass1 = colfac_pass1<kMixed, PJ>;
+  constexpr int smem = pass1_smem(PJ, kPasses);
+  auto* k_pass1 = colfac_pass1<kMixed, PJ, kPasses>;
   cudaError_t err = cudaFuncSetAttribute(
       k_pass1, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -328,31 +333,35 @@ cudaError_t launch_pass1(uint32_t k0, uint32_t k1, uint32_t stream_id,
   return cudaGetLastError();
 }
 
-// Pass 1 at a padded pupil P of at most 128 px.
-cudaError_t pass1(int P, bool mixed, uint32_t k0, uint32_t k1,
+// Pass 1 at a padded pupil P of at most 128 px, in `passes` TF32 passes.
+cudaError_t pass1(int passes, int P, bool mixed, uint32_t k0, uint32_t k1,
                   uint32_t stream_id, int draw0, int nbatch, const float* S,
                   float* g_re, float* g_im, int N, int K,
                   cudaStream_t stream) {
+  return by_passes(passes, [&](auto kp) {
+    constexpr int kP = decltype(kp)::value;
 #define FAST_CASE(PJ)                                                       \
   case PJ:                                                                  \
-    return mixed ? launch_pass1<true, PJ>(k0, k1, stream_id, draw0, nbatch, \
-                                          S, g_re, g_im, N, K, stream)      \
-                 : launch_pass1<false, PJ>(k0, k1, stream_id, draw0,        \
-                                           nbatch, S, g_re, g_im, N, K,     \
-                                           stream);
-  switch (P / 16) {
-    FAST_CASE(1)
-    FAST_CASE(2)
-    FAST_CASE(3)
-    FAST_CASE(4)
-    FAST_CASE(5)
-    FAST_CASE(6)
-    FAST_CASE(7)
-    FAST_CASE(8)
-    default:
-      return cudaErrorInvalidValue;
-  }
+    return mixed ? launch_pass1<true, PJ, kP>(k0, k1, stream_id, draw0,     \
+                                              nbatch, S, g_re, g_im, N, K,  \
+                                              stream)                       \
+                 : launch_pass1<false, PJ, kP>(k0, k1, stream_id, draw0,    \
+                                               nbatch, S, g_re, g_im, N, K, \
+                                               stream);
+    switch (P / 16) {
+      FAST_CASE(1)
+      FAST_CASE(2)
+      FAST_CASE(3)
+      FAST_CASE(4)
+      FAST_CASE(5)
+      FAST_CASE(6)
+      FAST_CASE(7)
+      FAST_CASE(8)
+      default:
+        return cudaErrorInvalidValue;
+    }
 #undef FAST_CASE
+  });
 }
 
 bool takes(int N, int P, int nbatch, int K, int mixed) {
@@ -364,30 +373,32 @@ bool takes(int N, int P, int nbatch, int K, int mixed) {
 }  // namespace
 
 // Shapes: S (N, K / 8, 2, 16 P), the factor table of K rows split and laid
-// out for pass 1 (ops/colfac_detect.py, lay_tables); wpack (1, N64 / 8, 4,
-// 8 P), the laid W table of the detect pass (ops/synth_detect.py, laid_w);
+// out for pass 1 (ops/colfac_detect.py, lay_tables; (N, K / 8, 1, 16 P),
+// hi alone, at one pass); wpack (1, N64 / 8, 4 or 2, 8 P), the laid W
+// table of the detect pass (ops/synth_detect.py, laid_w);
 // pm_t (P, P); sh_t nullptr or (nbatch, 2, P, P) transposed subharmonic
 // screens; g_re, g_im scratch (nbatch, N, P); part scratch (nbatch, P /
 // 16, 4), the detect pass's partial sums; out (nbatch, 4) = (sum pm cos
 // h1, sum pm sin h1, sum pm cos h2, sum pm sin h2). P is a multiple of 16
 // and at most 128; K is 256 for 'mixed' noise (mixed != 0), else a
-// multiple of 32 up to 256. Returns the cudaError_t of the launches (0 on
-// success).
+// multiple of 32 up to 256. passes: the TF32 passes of every product, 1
+// or 3, which S and wpack are laid out for. Returns the cudaError_t of the
+// launches (0 on success).
 extern "C" int fast_colfac_detect(uint32_t k0, uint32_t k1,
                                   uint32_t stream_id, int draw0, int nbatch,
                                   const float* S, const float* wpack,
                                   const float* pm_t, const float* sh_t,
                                   float* g_re, float* g_im, float* part,
                                   float* out, int N, int P, int K, int mixed,
-                                  void* stream) {
+                                  int passes, void* stream) {
   if (!takes(N, P, nbatch, K, mixed))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = pass1(P, mixed != 0, k0, k1, stream_id, draw0,
-                                nbatch, S, g_re, g_im, N, K, st);
+  const cudaError_t err = pass1(passes, P, mixed != 0, k0, k1, stream_id,
+                                draw0, nbatch, S, g_re, g_im, N, K, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_detect(P, nbatch, wpack, g_re, g_im, pm_t,
-                                        sh_t, part, out, N, st));
+  return static_cast<int>(launch_detect(passes, P, nbatch, wpack, g_re, g_im,
+                                        pm_t, sh_t, part, out, N, st));
 }
 
 // Pass 1 alone: G' of nbatch draws into g_re, g_im (nbatch, N, P), as
@@ -397,11 +408,11 @@ extern "C" int fast_colfac_detect(uint32_t k0, uint32_t k1,
 extern "C" int fast_colfac_pass1(uint32_t k0, uint32_t k1, uint32_t stream_id,
                                  int draw0, int nbatch, const float* S,
                                  float* g_re, float* g_im, int N, int P,
-                                 int K, int mixed, void* stream) {
+                                 int K, int mixed, int passes, void* stream) {
   if (!takes(N, P, nbatch, K, mixed))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(pass1(P, mixed != 0, k0, k1, stream_id, draw0,
-                                nbatch, S, g_re, g_im, N, K,
+  return static_cast<int>(pass1(passes, P, mixed != 0, k0, k1, stream_id,
+                                draw0, nbatch, S, g_re, g_im, N, K,
                                 static_cast<cudaStream_t>(stream)));
 }
 
@@ -414,9 +425,9 @@ extern "C" int fast_detect_pass(int nbatch, const float* wpack,
                                 const float* g_re, const float* g_im,
                                 const float* pm_t, const float* sh_t,
                                 float* part, float* out, int N, int P,
-                                void* stream) {
-  return static_cast<int>(launch_detect(P, nbatch, wpack, g_re, g_im, pm_t,
-                                        sh_t, part, out, N,
+                                int passes, void* stream) {
+  return static_cast<int>(launch_detect(passes, P, nbatch, wpack, g_re, g_im,
+                                        pm_t, sh_t, part, out, N,
                                         static_cast<cudaStream_t>(stream)));
 }
 

@@ -34,10 +34,11 @@
 //   four real products are formed here from the one copy.
 // * Products, on the tensor cores: pass 1 on Hopper's warpgroup products
 //   (wgmma.mma_async m64nNk8 TF32, wgmma.cuh), three TF32 passes each
-//   (3xTF32, tf32x3.cuh), as in K1 and in K2's pass 1, in fold groups of
-//   two 8-deep steps added to fp32 sums; the detect pass the same way
-//   (detect.cuh). The complex product is four real ones, the sign of -z_i
-//   flipped in its A fragment (exactly).
+//   (3xTF32, tf32x3.cuh) at PRECISION 'high' and 'highest', one at
+//   'default' (from the table's hi planes alone), as in K1 and in K2's
+//   pass 1, in fold groups of two 8-deep steps added to fp32 sums; the
+//   detect pass the same way (detect.cuh). The complex product is four
+//   real ones, the sign of -z_i flipped in its A fragment (exactly).
 //
 // Pass 1, the design: the shape of K2's pass 1 (synth_detect.cu), with the
 // noise in place of X' and the column's factor table in place of W^T.
@@ -120,20 +121,24 @@ SplitGeom split_geom(int P) {
   return {(P / 16 + nz - 1) / nz * 16, nz, nz <= kMaxCluster ? nz : 1};
 }
 
-// Words of a ring stage: an 8-deep step of B_r and B_i, hi and lo, over PB
-// px.
-__host__ __device__ constexpr int pass1_stage_words(int PB) { return 32 * PB; }
+// Words of a ring stage: an 8-deep step of B_r and B_i, hi and lo (hi
+// alone at one pass), over PB px.
+__host__ __device__ constexpr int pass1_stage_words(int PB, int kPasses) {
+  return 16 * b_planes(kPasses) * PB;
+}
 
 // Bytes of pass 1's shared memory: the ring, two x tiles and the
 // mbarriers. _split_smem of ops/colfac_detect.py mirrors it.
-__host__ __device__ constexpr int pass1_smem(int PB) {
-  return 4 * (kStages * pass1_stage_words(PB) + 2 * kXTile) + 8 * kBars;
+__host__ __device__ constexpr int pass1_smem(int PB, int kPasses) {
+  return 4 * (kStages * pass1_stage_words(PB, kPasses) + 2 * kXTile) +
+         8 * kBars;
 }
 
 // Pass 1: one block per (slice zb of PB = 64 NCH + TAIL px, 64 draws,
 // column m); the nz blocks of a (draws, column) a cluster of cs blocks
-// that draw the noise between them. Writes G'[j, m, zb PB ..].
-template <bool kMixed, int NCH, int TAIL>
+// that draw the noise between them. Products in kPasses TF32 passes from
+// a table laid out for them. Writes G'[j, m, zb PB ..].
+template <bool kMixed, int NCH, int TAIL, int kPasses>
 __global__ void __launch_bounds__(kPass1Threads, 1)
     split_pass1(uint32_t k0, uint32_t k1, uint32_t stream, int draw0,
                 int nbatch, const float* __restrict__ tab,
@@ -141,7 +146,7 @@ __global__ void __launch_bounds__(kPass1Threads, 1)
                 int P, int Kq, int LW) {
   constexpr int PB = 64 * NCH + TAIL;
   constexpr int TW = TAIL > 0 ? TAIL : 16;  // the tail's wgmma width
-  constexpr int SW = pass1_stage_words(PB);
+  constexpr int SW = pass1_stage_words(PB, kPasses);
   extern __shared__ __align__(128) float smem[];
   float* xs = smem + kStages * SW;  // two x tiles
   uint64_t* bars = reinterpret_cast<uint64_t*>(xs + 2 * kXTile);
@@ -254,7 +259,7 @@ __global__ void __launch_bounds__(kPass1Threads, 1)
   for (int c = 0; c < NC; ++c) {
     const bool more = c + 1 < NC;
     mbar_wait_cluster(&xfull[c & 1], (c >> 1) & 1);
-    tile_products<NCH, TAIL>(
+    tile_products<NCH, TAIL, kPasses>(
         gb, gt, xs + (c & 1) * kXTile, ring, 8 * c, wg, r, t, [&](int h) {
           if (!kOverlap || !more) return;
           // every block has read tile c - 1 from the slot
@@ -299,13 +304,13 @@ __global__ void __launch_bounds__(kPass1Threads, 1)
   cluster_sync();
 }
 
-template <bool kMixed, int NCH, int TAIL>
+template <bool kMixed, int NCH, int TAIL, int kPasses>
 cudaError_t launch_pass1(const SplitGeom& geo, uint32_t k0, uint32_t k1,
                          uint32_t stream_id, int draw0, int nbatch,
                          const float* tab, float* g_re, float* g_im, int N,
                          int Kq, int P, int LW, cudaStream_t stream) {
-  constexpr int smem = pass1_smem(64 * NCH + TAIL);
-  auto* k_pass1 = split_pass1<kMixed, NCH, TAIL>;
+  constexpr int smem = pass1_smem(64 * NCH + TAIL, kPasses);
+  auto* k_pass1 = split_pass1<kMixed, NCH, TAIL, kPasses>;
   cudaError_t err = cudaFuncSetAttribute(
       k_pass1, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -325,16 +330,16 @@ cudaError_t launch_pass1(const SplitGeom& geo, uint32_t k0, uint32_t k1,
                             tab, g_re, g_im, N, P, Kq, LW);
 }
 
-template <bool kMixed>
+template <bool kMixed, int kPasses>
 cudaError_t launch(uint32_t k0, uint32_t k1, uint32_t stream_id, int draw0,
                    int nbatch, const float* tab, float* g_re, float* g_im,
                    int N, int Kq, int P, int LW, cudaStream_t stream) {
   const SplitGeom geo = split_geom(P);
-#define FAST_CASE(PB)                                                       \
-  case PB:                                                                  \
-    return launch_pass1<kMixed, PB / 64, PB % 64>(geo, k0, k1, stream_id,   \
-                                                  draw0, nbatch, tab, g_re, \
-                                                  g_im, N, Kq, P, LW, stream);
+#define FAST_CASE(PB)                                                     \
+  case PB:                                                                \
+    return launch_pass1<kMixed, PB / 64, PB % 64, kPasses>(               \
+        geo, k0, k1, stream_id, draw0, nbatch, tab, g_re, g_im, N, Kq, P, \
+        LW, stream);
   switch (geo.PB) {
     FAST_CASE(16)
     FAST_CASE(32)
@@ -362,20 +367,24 @@ bool takes(int N, int P, int nbatch, int Kq, int LW) {
          static_cast<uint64_t>(N) * static_cast<uint64_t>(LW) <= 0xFFFFFFFFull;
 }
 
-cudaError_t pass1(uint32_t k0, uint32_t k1, uint32_t stream_id, int draw0,
-                  int nbatch, const float* tab, float* g_re, float* g_im,
-                  int N, int P, int Kq, int LW, int mixed,
+cudaError_t pass1(int passes, uint32_t k0, uint32_t k1, uint32_t stream_id,
+                  int draw0, int nbatch, const float* tab, float* g_re,
+                  float* g_im, int N, int P, int Kq, int LW, int mixed,
                   cudaStream_t stream) {
-  return mixed ? launch<true>(k0, k1, stream_id, draw0, nbatch, tab, g_re,
-                              g_im, N, Kq, P, LW, stream)
-               : launch<false>(k0, k1, stream_id, draw0, nbatch, tab, g_re,
-                               g_im, N, Kq, P, LW, stream);
+  return by_passes(passes, [&](auto kp) {
+    constexpr int kP = decltype(kp)::value;
+    return mixed ? launch<true, kP>(k0, k1, stream_id, draw0, nbatch, tab,
+                                    g_re, g_im, N, Kq, P, LW, stream)
+                 : launch<false, kP>(k0, k1, stream_id, draw0, nbatch, tab,
+                                     g_re, g_im, N, Kq, P, LW, stream);
+  });
 }
 
 }  // namespace
 
 // Shapes: tab (N, nz, Kq64 / 8, 4, 8 PB), the factor table of Kq lanes
-// split and laid out for pass 1 (ops/colfac_detect.py, lay_tables_split:
+// split and laid out for pass 1 ((N, nz, Kq64 / 8, 2, 8 PB), hi alone, at
+// one pass; ops/colfac_detect.py, lay_tables_split:
 // nz slices of PB px as split_geom(P) cuts them, the lanes padded to
 // Kq64, a multiple of 64); wpack, the laid W table of the detect pass
 // (ops/synth_detect.py, laid_w); pm_t (P, P); sh_t nullptr or (nbatch, 2,
@@ -384,21 +393,24 @@ cudaError_t pass1(uint32_t k0, uint32_t k1, uint32_t stream_id, int draw0,
 // sums; out (nbatch, 4) = (sum pm cos h1, sum pm sin h1, sum pm cos h2,
 // sum pm sin h2). P is a multiple of 16; Kq, the noise lanes a column, is
 // a multiple of 16, at most LW, the lane stride of the Philox counter.
-// Returns the cudaError_t of the launches (0 on success).
+// passes: the TF32 passes of every product, 1 or 3, which tab and wpack
+// are laid out for. Returns the cudaError_t of the launches (0 on
+// success).
 extern "C" int fast_colfac_split(uint32_t k0, uint32_t k1, uint32_t stream_id,
                                  int draw0, int nbatch, const float* tab,
                                  const float* wpack, const float* pm_t,
                                  const float* sh_t, float* g_re, float* g_im,
                                  float* part, float* out, int N, int P,
-                                 int Kq, int LW, int mixed, void* stream) {
+                                 int Kq, int LW, int mixed, int passes,
+                                 void* stream) {
   if (!takes(N, P, nbatch, Kq, LW))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = pass1(k0, k1, stream_id, draw0, nbatch, tab, g_re,
-                                g_im, N, P, Kq, LW, mixed, st);
+  const cudaError_t err = pass1(passes, k0, k1, stream_id, draw0, nbatch,
+                                tab, g_re, g_im, N, P, Kq, LW, mixed, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_detect(P, nbatch, wpack, g_re, g_im, pm_t,
-                                        sh_t, part, out, N, st));
+  return static_cast<int>(launch_detect(passes, P, nbatch, wpack, g_re, g_im,
+                                        pm_t, sh_t, part, out, N, st));
 }
 
 // Pass 1 alone: G' of nbatch draws into g_re, g_im (nbatch, N, P), as
@@ -408,11 +420,12 @@ extern "C" int fast_colfac_split(uint32_t k0, uint32_t k1, uint32_t stream_id,
 extern "C" int fast_split_pass1(uint32_t k0, uint32_t k1, uint32_t stream_id,
                                 int draw0, int nbatch, const float* tab,
                                 float* g_re, float* g_im, int N, int P,
-                                int Kq, int LW, int mixed, void* stream) {
+                                int Kq, int LW, int mixed, int passes,
+                                void* stream) {
   if (!takes(N, P, nbatch, Kq, LW))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(pass1(k0, k1, stream_id, draw0, nbatch, tab, g_re,
-                                g_im, N, P, Kq, LW, mixed,
+  return static_cast<int>(pass1(passes, k0, k1, stream_id, draw0, nbatch,
+                                tab, g_re, g_im, N, P, Kq, LW, mixed,
                                 static_cast<cudaStream_t>(stream)));
 }
 

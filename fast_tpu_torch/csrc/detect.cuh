@@ -42,11 +42,12 @@
 //   part and run of one draw's rows (a first version) made the A supply
 //   the bound: 2.03 against 1.25 ms at 256^2, its requests a few hundred
 //   bytes each.
-// * Sums: 3xTF32 in fold groups of two 8-deep steps, each a fresh
-//   accumulator (the small terms first, then a_hi b_hi) added to an fp32
-//   sum: the tensor cores round toward zero (synth_detect.cu), so nothing
-//   long stays in their accumulators. The products are tile_products of
-//   wgmma.cuh, pass 1's.
+// * Sums: kPasses TF32 passes (wgmma.cuh: 3xTF32, or one pass at
+//   PRECISION='default', from W's hi plane alone) in fold groups of two
+//   8-deep steps, each a fresh accumulator (the small terms first, then
+//   a_hi b_hi) added to an fp32 sum: the tensor cores round toward zero
+//   (synth_detect.cu), so nothing long stays in their accumulators. The
+//   products are tile_products of wgmma.cuh, pass 1's.
 // * Epilogues. Each accumulator element is H^T[p2][p1]. Detect: add sh_t,
 //   sincos_cw (common.cuh), weight by pm_t[p1 P + p2]; each thread sums its
 //   terms, a warp its lanes by shuffles, and lane 0 writes the warp's two
@@ -142,8 +143,12 @@ __host__ __device__ constexpr int det_atile(int kRG) {
 // thread (2 x 128 x c + 128 x p <= 65536), 232 and 40 up to 128 columns
 // (no spills), 240 and 24 above. Two row groups (A tiles twice as large)
 // keep two A tiles and 4 W steps, 3 above 128 columns, within the 227 KB.
-__host__ __device__ constexpr int det_stages(int PB, int kRG = 1) {
-  return kRG == 1 ? (PB <= 128 ? 8 : 4) : (PB <= 128 ? 4 : 3);
+// At one pass a W step is half the bytes and its products a third of the
+// time, so the ring holds twice the steps in the same shared memory.
+__host__ __device__ constexpr int det_stages(int PB, int kRG = 1,
+                                             int kPasses = 3) {
+  return (kRG == 1 ? (PB <= 128 ? 8 : 4) : (PB <= 128 ? 4 : 3)) *
+         (kPasses == 1 ? 2 : 1);
 }
 __host__ __device__ constexpr int det_atiles(int PB, int kRG = 1) {
   return kRG == 1 && PB > 128 ? 3 : 2;
@@ -155,13 +160,19 @@ __host__ __device__ constexpr int det_producer_regs(int PB) {
   return PB <= 128 ? 40 : 24;
 }
 
-// Bytes of the second pass's shared memory at slice width PB and kRG row
-// groups: the ring of W steps (wr hi, lo, wi hi, lo over PB columns, 32 PB
-// words each), the A tiles and the mbarriers.
-__host__ __device__ constexpr int detect_smem(int PB, int kRG = 1) {
-  return 4 * (det_stages(PB, kRG) * 32 * PB +
+// Words of a W step of the ring: wr hi, lo, wi hi, lo over PB columns (3
+// passes), wr hi, wi hi (1).
+__host__ __device__ constexpr int det_step_words(int PB, int kPasses) {
+  return 16 * b_planes(kPasses) * PB;
+}
+
+// Bytes of the second pass's shared memory at slice width PB, kRG row
+// groups and kPasses: the ring of W steps, the A tiles and the mbarriers.
+__host__ __device__ constexpr int detect_smem(int PB, int kRG = 1,
+                                              int kPasses = 3) {
+  return 4 * (det_stages(PB, kRG, kPasses) * det_step_words(PB, kPasses) +
               det_atiles(PB, kRG) * det_atile(kRG)) +
-         8 * (2 * det_stages(PB, kRG) + 2 * det_atiles(PB, kRG));
+         8 * (2 * det_stages(PB, kRG, kPasses) + 2 * det_atiles(PB, kRG));
 }
 
 // An A tile of the second pass: rows [k][row] of 64 depths, Re then Im,
@@ -173,13 +184,13 @@ struct KTile {
 
 // Its A fragment at 8-deep step `step` for the thread's rows r, r + 8 and
 // quad lane t (depths 2t and 2t + 1 in slots t and t + 4, as the laid
-// table's B), split and negated if neg. With a stride of 4 mod 32 the 32
-// lanes of each of the four loads hit 32 banks.
-template <int AS>
+// table's B), split (split_frag) and negated if neg. With a stride of 4
+// mod 32 the 32 lanes of each of the four loads hit 32 banks.
+template <int kPasses, int AS>
 __device__ __forceinline__ Frag a_frag(const KTile<AS>& x, int part, int step,
                                        int r, int t, bool neg) {
   const float* p = x.a + part * kDetDepth * AS + (8 * step + 2 * t) * AS + r;
-  return split_frag({p[0], p[8], p[AS], p[AS + 8]}, neg);
+  return split_frag<kPasses>({p[0], p[8], p[AS], p[AS + 8]}, neg);
 }
 
 // p, opaque to the compiler's code motion: loads through it stay after the
@@ -206,9 +217,11 @@ __host__ __device__ inline int second_pass_blocks(int R, int nbatch, int nz,
 // for the padded pupil P). A draw's rows are R rows of its G' (g_re,
 // g_im: nbatch x N x R, rows contiguous): R = P for the iid passes (G'
 // from pass 1), R = N for the AR kernels' first product (the layer sums
-// A, nbatch x N x N: then H^T is their G'). vec: R a
-// multiple of 4 and G' 16-byte aligned (A copied in 16-byte pieces, else
-// in 4-byte ones). The producers stream every block's operands in turn,
+// A, nbatch x N x N: then H^T is their G'). The products take kPasses
+// TF32 passes, from a wpack laid out for them (4 planes a step, hi and
+// lo, or 2, hi alone, at one pass). vec: R a multiple of 4 and G' 16-byte
+// aligned (A copied in 16-byte pieces, else in 4-byte ones). The
+// producers stream every block's operands in turn,
 // running ahead into the next block's while the consumers end this one. A
 // consumer thread calls epi(r0, zb, gb, gt) after each block with r0 the
 // first stacked row of its warpgroup's 64 and, in gb and gt, rows r and r
@@ -216,18 +229,18 @@ __host__ __device__ inline int second_pass_blocks(int R, int nbatch, int nz,
 // lane / 4): columns 64 c + 8 i + 2t and + 1 of chunk c in gb[c][4 i + 2
 // h] and [4 i + 2 h + 1] for row r + 8 h, the tail's in gt alike (t = lane
 // % 4). part = the warpgroup (kRG = 1) or 0 (kRG = 2).
-template <int NCH, int TAIL, int kRG, class Epilogue>
+template <int NCH, int TAIL, int kRG, int kPasses, class Epilogue>
 __device__ __forceinline__ void second_pass(
     float* smem, const float* __restrict__ wpack,
     const float* __restrict__ g_re, const float* __restrict__ g_im,
     int nbatch, int N, int R, int P, int nz, bool vec, Epilogue epi) {
   constexpr int PB = 64 * NCH + TAIL;
-  constexpr int kStages = det_stages(PB, kRG);
+  constexpr int kStages = det_stages(PB, kRG, kPasses);
   constexpr int kATiles = det_atiles(PB, kRG);
   constexpr int AS = det_as(kRG), APart = det_apart(kRG);
   constexpr int ATile = det_atile(kRG);
   constexpr int kRows = kDetRows * kRG;  // rows of a block of work
-  constexpr int SW = 32 * PB;  // words of a W step
+  constexpr int SW = det_step_words(PB, kPasses);  // words of a W step
   float* as = smem + kStages * SW;
   uint64_t* bars = reinterpret_cast<uint64_t*>(as + kATiles * ATile);
   const Ring<kStages> ring{smem, bars, bars + kStages, SW};
@@ -319,8 +332,9 @@ __device__ __forceinline__ void second_pass(
     for (int c = 0; c < NC; ++c, ++at_tile, it += 8) {
       const int s = at_tile % kATiles;
       mbar_wait(&afull[s], (at_tile / kATiles) & 1);
-      tile_products<NCH, TAIL>(gb, gt, KTile<AS>{as + s * ATile + roff},
-                               ring, it, part, r, t, [](int) {});
+      tile_products<NCH, TAIL, kPasses>(
+          gb, gt, KTile<AS>{as + s * ATile + roff}, ring, it, part, r, t,
+          [](int) {});
       __syncwarp();
       if (lane == 0) mbar_arrive(&aempty[s]);
     }
@@ -355,7 +369,7 @@ __device__ __forceinline__ void for_each_ht(
 // bytes of dynamic shared memory. pm_t (P, P); sh_t nullptr or (nbatch, 2,
 // P, P), the transposed real and imaginary subharmonic screens; part
 // (nbatch, P / 16, nz, 4): each warp's sums of its 16 rows over a slice.
-template <int NCH, int TAIL>
+template <int NCH, int TAIL, int kPasses>
 __global__ void __launch_bounds__(kDetThreads, 1)
     detect_pass(const float* __restrict__ wpack,
                 const float* __restrict__ g_re,
@@ -407,14 +421,14 @@ __global__ void __launch_bounds__(kDetThreads, 1)
       o[1] = acc[1];
     }
   };
-  second_pass<NCH, TAIL, 1>(smem, wpack, g_re, g_im, nbatch, N, P, P, nz,
-                           true, epi);
+  second_pass<NCH, TAIL, 1, kPasses>(smem, wpack, g_re, g_im, nbatch, N, P,
+                                     P, nz, true, epi);
 }
 
 // The screens pass: blocks as the detect pass's; scr_re and scr_im
 // (nbatch, npup, npup) un-padded, un-transposed screens, scr[j][p2][p1] =
 // H[p1][p2] = H^T[p2][p1].
-template <int NCH, int TAIL>
+template <int NCH, int TAIL, int kPasses>
 __global__ void __launch_bounds__(kDetThreads, 1)
     screens_pass(const float* __restrict__ wpack,
                  const float* __restrict__ g_re,
@@ -445,8 +459,8 @@ __global__ void __launch_bounds__(kDetThreads, 1)
       }
     });
   };
-  second_pass<NCH, TAIL, 1>(smem, wpack, g_re, g_im, nbatch, N, P, P, nz,
-                           true, epi);
+  second_pass<NCH, TAIL, 1, kPasses>(smem, wpack, g_re, g_im, nbatch, N, P,
+                                     P, nz, true, epi);
 }
 
 // out[j][c] = sum over the tiles, in tile order, of part[j][tile][c], c <
@@ -488,11 +502,12 @@ inline dim3 second_pass_grid(int R, int nbatch, int nz, int kRG = 1) {
 
 // Launch the detect pass for a padded pupil P: the sums of nbatch draws
 // into out (nbatch, 4), through part, a (nbatch, detect_parts(P), 4)
-// scratch. wpack: the laid W table (ops/synth_detect.py, laid_w). A
-// template, so that only the sources that launch it build its kernels
-// (ar_flow.cu includes this header for second_pass).
+// scratch, in `passes` TF32 passes (1 or 3). wpack: the laid W table of
+// that pass count (ops/synth_detect.py, laid_w). A template, so that only
+// the sources that launch it build its kernels (ar_flow.cu includes this
+// header for second_pass).
 template <int kUnused = 0>
-cudaError_t launch_detect(int P, int nbatch, const float* wpack,
+cudaError_t launch_detect(int passes, int P, int nbatch, const float* wpack,
                           const float* g_re, const float* g_im,
                           const float* pm_t, const float* sh_t, float* part,
                           float* out, int N, cudaStream_t stream) {
@@ -500,20 +515,22 @@ cudaError_t launch_detect(int P, int nbatch, const float* wpack,
     return cudaErrorInvalidValue;
   const WSlices w = w_slices(P);
   const dim3 grid = second_pass_grid(P, nbatch, w.nz);
-  cudaError_t err = cudaSuccess;
+  const cudaError_t err = by_passes(passes, [&](auto kp) {
+    constexpr int kPasses = decltype(kp)::value;
 #define FAST_DETECT(PB)                                                     \
   case PB: {                                                                \
-    auto* k = detect_pass<PB / 64, PB % 64>;                                \
-    err = cudaFuncSetAttribute(                                             \
-        k, cudaFuncAttributeMaxDynamicSharedMemorySize, detect_smem(PB));   \
-    if (err != cudaSuccess) return err;                                     \
-    k<<<grid, kDetThreads, detect_smem(PB), stream>>>(                      \
-        wpack, g_re, g_im, pm_t, sh_t, part, nbatch, N, P, w.nz);           \
-    break;                                                                  \
+    auto* k = detect_pass<PB / 64, PB % 64, kPasses>;                       \
+    constexpr int smem = detect_smem(PB, 1, kPasses);                       \
+    const cudaError_t e = cudaFuncSetAttribute(                             \
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);              \
+    if (e != cudaSuccess) return e;                                         \
+    k<<<grid, kDetThreads, smem, stream>>>(wpack, g_re, g_im, pm_t, sh_t,   \
+                                           part, nbatch, N, P, w.nz);       \
+    return cudaGetLastError();                                              \
   }
-  FAST_PB_SWITCH(w.PB, FAST_DETECT)
+    FAST_PB_SWITCH(w.PB, FAST_DETECT)
 #undef FAST_DETECT
-  err = cudaGetLastError();
+  });
   if (err != cudaSuccess) return err;
   sum_tiles<4><<<(4 * nbatch + 255) / 256, 256, 0, stream>>>(
       part, out, 4 * nbatch, detect_parts(P));
@@ -521,9 +538,10 @@ cudaError_t launch_detect(int P, int nbatch, const float* wpack,
 }
 
 // Launch the screens pass for a padded pupil P: the screens of nbatch
-// draws into scr_re and scr_im (nbatch, npup, npup), npup <= P.
+// draws into scr_re and scr_im (nbatch, npup, npup), npup <= P, in
+// `passes` TF32 passes.
 template <int kUnused = 0>
-cudaError_t launch_screens(int P, int nbatch, const float* wpack,
+cudaError_t launch_screens(int passes, int P, int nbatch, const float* wpack,
                            const float* g_re, const float* g_im,
                            float* scr_re, float* scr_im, int N, int npup,
                            cudaStream_t stream) {
@@ -532,20 +550,23 @@ cudaError_t launch_screens(int P, int nbatch, const float* wpack,
     return cudaErrorInvalidValue;
   const WSlices w = w_slices(P);
   const dim3 grid = second_pass_grid(P, nbatch, w.nz);
-  cudaError_t err = cudaSuccess;
+  return by_passes(passes, [&](auto kp) {
+    constexpr int kPasses = decltype(kp)::value;
 #define FAST_SCREENS(PB)                                                    \
   case PB: {                                                                \
-    auto* k = screens_pass<PB / 64, PB % 64>;                               \
-    err = cudaFuncSetAttribute(                                             \
-        k, cudaFuncAttributeMaxDynamicSharedMemorySize, detect_smem(PB));   \
-    if (err != cudaSuccess) return err;                                     \
-    k<<<grid, kDetThreads, detect_smem(PB), stream>>>(                      \
-        wpack, g_re, g_im, scr_re, scr_im, nbatch, N, P, w.nz, npup);       \
-    break;                                                                  \
+    auto* k = screens_pass<PB / 64, PB % 64, kPasses>;                      \
+    constexpr int smem = detect_smem(PB, 1, kPasses);                       \
+    const cudaError_t e = cudaFuncSetAttribute(                             \
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);              \
+    if (e != cudaSuccess) return e;                                         \
+    k<<<grid, kDetThreads, smem, stream>>>(wpack, g_re, g_im, scr_re,       \
+                                           scr_im, nbatch, N, P, w.nz,      \
+                                           npup);                           \
+    return cudaGetLastError();                                              \
   }
-  FAST_PB_SWITCH(w.PB, FAST_SCREENS)
+    FAST_PB_SWITCH(w.PB, FAST_SCREENS)
 #undef FAST_SCREENS
-  return cudaGetLastError();
+  });
 }
 
 }  // namespace fast

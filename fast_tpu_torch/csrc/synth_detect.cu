@@ -30,12 +30,14 @@
 //
 // Pass 1 on the tensor cores. Both of its products run as Hopper's
 // warpgroup products, wgmma.mma_async m64nNk8 TF32 (wgmma.cuh), each in
-// three passes (3xTF32): every operand element x is split once into hi =
-// tf32(x) and lo = tf32(x - hi), rounded as cvt.rna.tf32.f32 rounds
-// (nearest, ties away), and each 8-deep step computes a_lo b_hi + a_hi b_lo
-// (the small terms) and a_hi b_hi. hi + lo carries 22 of fp32's 24 bits
-// and the dropped lo lo term is below fp32's rounding. Every PRECISION
-// value means this arithmetic.
+// three passes (3xTF32) at PRECISION 'high' and 'highest': every operand
+// element x is split once into hi = tf32(x) and lo = tf32(x - hi), rounded
+// as cvt.rna.tf32.f32 rounds (nearest, ties away), and each 8-deep step
+// computes a_lo b_hi + a_hi b_lo (the small terms) and a_hi b_hi. hi + lo
+// carries 22 of fp32's 24 bits and the dropped lo lo term is below fp32's
+// rounding. At 'default' each product is one TF32 pass, a_hi b_hi, from
+// tables laid out with their hi planes alone (the JAX package's 'default'
+// is one bf16 pass). The C entries take the pass count, 1 or 3.
 //
 // Sums. The tensor cores round their sums toward zero, so a sum kept in
 // their accumulators shrinks by about half an ulp a step, the same way for
@@ -156,15 +158,28 @@ constexpr int kConsumers = 256;                  // two warpgroups
 constexpr int kPass1Threads = kConsumers + 128;  // and the producer's
 constexpr int kConsumerRegs = 240;  // registers a thread: 2 x 128 x 240 +
 constexpr int kProducerRegs = 24;   // 128 x 24 <= 65536
-constexpr int kMStage = 4 * 2 * kZC * 8;  // words of a mixing slice: 4 steps
-                                          // x {hi, lo} x 64 columns x 8
 constexpr int kUChunk = 2 * kRows * kKU;  // words of a chunk of uniforms
 constexpr int kSmemLimit = 232448;        // bytes of shared memory a block
 
-// Words of one ring slot: a W stage (one 8-deep step of wr and wi, hi and
-// lo, PB columns) or, with 'mixed' noise, a slice of the mixing matrix.
-__host__ __device__ constexpr int pass1_slot_words(bool mixed, int PB) {
-  return (mixed && kMStage > 32 * PB) ? kMStage : 32 * PB;
+// Words of a mixing slice: 4 steps x {hi, lo} (or {hi} at one pass) x 64
+// columns x 8.
+__host__ __device__ constexpr int mix_stage_words(int kPasses) {
+  return 4 * b_planes(kPasses) * kZC * 8;
+}
+
+// Words of a W stage: one 8-deep step of wr and wi, hi and lo (or hi at
+// one pass), over PB columns.
+__host__ __device__ constexpr int w_stage_words(int PB, int kPasses) {
+  return 16 * b_planes(kPasses) * PB;
+}
+
+// Words of one ring slot: a W stage or, with 'mixed' noise, a slice of
+// the mixing matrix, whichever is larger.
+__host__ __device__ constexpr int pass1_slot_words(bool mixed, int PB,
+                                                   int kPasses) {
+  return (mixed && mix_stage_words(kPasses) > w_stage_words(PB, kPasses))
+             ? mix_stage_words(kPasses)
+             : w_stage_words(PB, kPasses);
 }
 
 // x tiles a block holds: one with 'mixed' noise, two with 'gauss' (the
@@ -180,8 +195,8 @@ constexpr int kBars = 2 * kStages + 4;  // the ring's and the x slots'
 // uniforms ('mixed') and the mbarriers. _smem_bytes of
 // fast_tpu_torch/ops/synth_detect.py mirrors it.
 __host__ __device__ constexpr int pass1_smem(bool mixed, int PB, int nbuf,
-                                             bool pair) {
-  return 4 * (kStages * pass1_slot_words(mixed, PB) +
+                                             bool pair, int kPasses) {
+  return 4 * (kStages * pass1_slot_words(mixed, PB, kPasses) +
               pass1_x_tiles(mixed, pair) * kXTile +
               (mixed ? nbuf * kUChunk : 0)) +
          8 * kBars;
@@ -189,9 +204,9 @@ __host__ __device__ constexpr int pass1_smem(bool mixed, int PB, int nbuf,
 
 // Chunks of uniforms a block keeps: all of them (made once, in its first
 // column tile) where they fit, else two, remade for every column tile.
-int pass1_u_chunks(int N, int PB, bool pair) {
+int pass1_u_chunks(int N, int PB, bool pair, int kPasses) {
   const int nkc = (N + kKU - 1) / kKU;
-  return pass1_smem(true, PB, nkc, pair) <= kSmemLimit ? nkc : 2;
+  return pass1_smem(true, PB, nkc, pair, kPasses) <= kSmemLimit ? nkc : 2;
 }
 
 // ---- the noise -------------------------------------------------------------
@@ -265,8 +280,9 @@ __device__ __forceinline__ void make_gauss(float* x, int i0, int row0,
 // mixing product and then part w of G' (0 Re, 1 Im) for the slice; one
 // thread of the producer warpgroup streams the B stages in the consumers'
 // order. kPair: the block and the other slice's block of the same rows
-// are a cluster and make every other column tile's x for both. Writes G'.
-template <bool kMixed, bool kPair, int NCH, int TAIL>
+// are a cluster and make every other column tile's x for both. Products
+// in kPasses TF32 passes from tables laid out for them. Writes G'.
+template <bool kMixed, bool kPair, int NCH, int TAIL, int kPasses>
 __global__ void __launch_bounds__(kPass1Threads, 1)
     synth_pass1(uint32_t k0, uint32_t k1, uint32_t stream, int draw0,
                 const float* __restrict__ s_t,
@@ -275,8 +291,11 @@ __global__ void __launch_bounds__(kPass1Threads, 1)
                 float* __restrict__ g_im, int N, int P, int nbuf) {
   constexpr int PB = 64 * NCH + TAIL;
   constexpr int TW = TAIL > 0 ? TAIL : 16;  // the tail's wgmma width
+  constexpr int kPl = b_planes(kPasses);
+  constexpr int kMStage = mix_stage_words(kPasses);
+  constexpr int kWStage = w_stage_words(PB, kPasses);
   extern __shared__ __align__(128) float smem[];
-  const int slot_words = pass1_slot_words(kMixed, PB);
+  const int slot_words = pass1_slot_words(kMixed, PB, kPasses);
   float* xs = smem + kStages * slot_words;          // x tiles
   float* us = xs + pass1_x_tiles(kMixed, kPair) * kXTile;  // uniforms
   uint64_t* bars = reinterpret_cast<uint64_t*>(
@@ -320,7 +339,7 @@ __global__ void __launch_bounds__(kPass1Threads, 1)
     // round's tiles
     setmaxnreg_dec<kProducerRegs>();
     if (tid == kConsumers) {
-      const float* wz = wpack + static_cast<size_t>(zb) * NC * 8 * 32 * PB;
+      const float* wz = wpack + static_cast<size_t>(zb) * NC * 8 * kWStage;
       uint32_t it = 0;
       for (int c0 = 0; c0 < NC; c0 += cstep) {
         const int c = c0 + rank;
@@ -331,8 +350,8 @@ __global__ void __launch_bounds__(kPass1Threads, 1)
                       4 * kMStage);
         for (int cc = c0; cc < min(c0 + cstep, NC); ++cc)
           for (int q = 0; q < 8; ++q)
-            ring.load(it++, wz + static_cast<size_t>(cc * 8 + q) * 32 * PB,
-                      4 * 32 * PB);
+            ring.load(it++, wz + static_cast<size_t>(cc * 8 + q) * kWStage,
+                      4 * kWStage);
       }
     }
     if (kPair) cluster_sync();  // no block leaves while its peer may write
@@ -354,7 +373,8 @@ __global__ void __launch_bounds__(kPass1Threads, 1)
   // G' += x W^T over the x tile at `x`, stages it.. of the ring
   // (wgmma.cuh): Re G' = xr wr^T - xi wi^T, Im G' = xr wi^T + xi wr^T
   const auto gprime = [&](const float* x, uint32_t it, auto between) {
-    tile_products<NCH, TAIL>(gb, gt, x, ring, it, wg, r, t, between);
+    tile_products<NCH, TAIL, kPasses>(gb, gt, x, ring, it, wg, r, t,
+                                      between);
   };
 
   uint32_t it = 0;
@@ -384,12 +404,12 @@ __global__ void __launch_bounds__(kPass1Threads, 1)
 #pragma unroll
           for (int s = 0; s < 2; ++s) {
             const int step = 2 * h + s;
-            a[0][s] = load_frag(uc + wg * kRows * kKU, r, 4 * step + t, kKU,
-                                false);
-            bh[0][s] = b_desc(ms + (2 * step) * kZC * 8);
-            bl[0][s] = b_desc(ms + (2 * step + 1) * kZC * 8);
+            a[0][s] = load_frag<kPasses>(uc + wg * kRows * kKU, r,
+                                         4 * step + t, kKU, false);
+            bh[0][s] = b_desc(ms + (kPl * step) * kZC * 8);
+            bl[0][s] = b_desc(ms + (kPl * step + 1) * kZC * 8);
           }
-          mma3_group<64, 1>(d, a, bh, bl);
+          mma_group<64, 1, kPasses>(d, a, bh, bl);
         };
         // both fold groups of a chunk in flight: group 1 is issued before
         // group 0 is folded
@@ -516,17 +536,17 @@ struct Pass1Args {
   int draw0, nbatch;
   const float *s_t, *wpack, *mpack;
   float *g_re, *g_im;
-  int N, P;
+  int N, P, passes;
   cudaStream_t stream;
 };
 
-template <bool kMixed, bool kPair, int NCH, int TAIL>
+template <bool kMixed, bool kPair, int NCH, int TAIL, int kPasses>
 cudaError_t launch_pass1(const Pass1Args& a, int nz) {
   constexpr int PB = 64 * NCH + TAIL;
-  const int nbuf = kMixed ? pass1_u_chunks(a.N, PB, kPair) : 0;
-  const int smem = pass1_smem(kMixed, PB, nbuf, kPair);
+  const int nbuf = kMixed ? pass1_u_chunks(a.N, PB, kPair, kPasses) : 0;
+  const int smem = pass1_smem(kMixed, PB, nbuf, kPair, kPasses);
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
-  auto* k_pass1 = synth_pass1<kMixed, kPair, NCH, TAIL>;
+  auto* k_pass1 = synth_pass1<kMixed, kPair, NCH, TAIL, kPasses>;
   cudaError_t err = cudaFuncSetAttribute(
       k_pass1, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -552,12 +572,12 @@ cudaError_t launch_pass1(const Pass1Args& a, int nz) {
 // 'mixed' noise over two pupil slices (nz = 2, slices of 112 to 208 px)
 // runs as pairs: the two slices' blocks of a draw's rows, a cluster of
 // two, make the noise once between them.
-template <bool kMixed>
+template <bool kMixed, int kPasses>
 cudaError_t dispatch_pass1(const Pass1Args& a) {
   const WSlices g = w_slices(a.P);
 #define FAST_CASE(PAIR, PB) \
   case PB:                  \
-    return launch_pass1<kMixed, PAIR, PB / 64, PB % 64>(a, g.nz);
+    return launch_pass1<kMixed, PAIR, PB / 64, PB % 64, kPasses>(a, g.nz);
   if constexpr (kMixed) {
     if (g.nz == 2) {
       switch (g.PB) {
@@ -596,7 +616,11 @@ cudaError_t pass1(const Pass1Args& a) {
       a.wpack == nullptr || w_slices(a.P).nz > 65535 ||
       (a.N + kRows - 1) / kRows > 65535)
     return cudaErrorInvalidValue;
-  return a.mpack ? dispatch_pass1<true>(a) : dispatch_pass1<false>(a);
+  return by_passes(a.passes, [&](auto kp) {
+    constexpr int kPasses = decltype(kp)::value;
+    return a.mpack ? dispatch_pass1<true, kPasses>(a)
+                   : dispatch_pass1<false, kPasses>(a);
+  });
 }
 
 __global__ void sincos_kernel(const float* __restrict__ phi,
@@ -616,20 +640,22 @@ __global__ void sincos_kernel(const float* __restrict__ phi,
 // sin h2); part: scratch (nbatch, P / 16 x nz, 4), the detect pass's
 // partial sums (detect_parts). mpack == nullptr selects 'gauss' noise.
 // sh_t: nullptr, or (nbatch, 2, P, P) transposed subharmonic screens added
-// to (Re H, Im H) before the detector. P must be a multiple of 16. Returns
-// the cudaError_t of the launches (0 on success).
+// to (Re H, Im H) before the detector. P must be a multiple of 16. passes:
+// the TF32 passes of every product, 1 or 3, which wpack and mpack are laid
+// out for. Returns the cudaError_t of the launches (0 on success).
 extern "C" int fast_synth_detect(uint32_t k0, uint32_t k1, uint32_t stream_id,
                                  int draw0, int nbatch, const float* s_t,
                                  const float* pm_t, const float* wpack,
                                  const float* mpack, const float* sh_t,
                                  float* g_re, float* g_im, float* part,
-                                 float* out, int N, int P, void* stream) {
+                                 float* out, int N, int P, int passes,
+                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = pass1({k0, k1, stream_id, draw0, nbatch, s_t, wpack,
-                           mpack, g_re, g_im, N, P, st});
+                           mpack, g_re, g_im, N, P, passes, st});
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_detect(P, nbatch, wpack, g_re, g_im, pm_t,
-                                        sh_t, part, out, N, st));
+  return static_cast<int>(launch_detect(passes, P, nbatch, wpack, g_re, g_im,
+                                        pm_t, sh_t, part, out, N, st));
 }
 
 // Pass 1 alone: G' = X' W^T of nbatch draws into g_re, g_im (nbatch, N,
@@ -640,9 +666,9 @@ extern "C" int fast_synth_pass1(uint32_t k0, uint32_t k1, uint32_t stream_id,
                                 int draw0, int nbatch, const float* s_t,
                                 const float* wpack, const float* mpack,
                                 float* g_re, float* g_im, int N, int P,
-                                void* stream) {
+                                int passes, void* stream) {
   return static_cast<int>(pass1({k0, k1, stream_id, draw0, nbatch, s_t,
-                                 wpack, mpack, g_re, g_im, N, P,
+                                 wpack, mpack, g_re, g_im, N, P, passes,
                                  static_cast<cudaStream_t>(stream)}));
 }
 
@@ -653,13 +679,14 @@ extern "C" int fast_synth_screens(uint32_t k0, uint32_t k1, uint32_t stream_id,
                                   int draw0, int nbatch, const float* s_t,
                                   const float* wpack, float* g_re,
                                   float* g_im, float* scr_re, float* scr_im,
-                                  int N, int P, int npup, void* stream) {
+                                  int N, int P, int npup, int passes,
+                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = pass1({k0, k1, stream_id, draw0, nbatch, s_t, wpack,
-                           nullptr, g_re, g_im, N, P, st});
+                           nullptr, g_re, g_im, N, P, passes, st});
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_screens(P, nbatch, wpack, g_re, g_im,
-                                         scr_re, scr_im, N, npup, st));
+  return static_cast<int>(launch_screens(passes, P, nbatch, wpack, g_re,
+                                         g_im, scr_re, scr_im, N, npup, st));
 }
 
 // K7's screens pass alone: the screens (nbatch, npup, npup) of nbatch
@@ -669,9 +696,9 @@ extern "C" int fast_synth_screens(uint32_t k0, uint32_t k1, uint32_t stream_id,
 extern "C" int fast_screens_pass(int nbatch, const float* wpack,
                                  const float* g_re, const float* g_im,
                                  float* scr_re, float* scr_im, int N, int P,
-                                 int npup, void* stream) {
-  return static_cast<int>(launch_screens(P, nbatch, wpack, g_re, g_im,
-                                         scr_re, scr_im, N, npup,
+                                 int npup, int passes, void* stream) {
+  return static_cast<int>(launch_screens(passes, P, nbatch, wpack, g_re,
+                                         g_im, scr_re, scr_im, N, npup,
                                          static_cast<cudaStream_t>(stream)));
 }
 

@@ -8,7 +8,8 @@
 // K3 (colfac_split.cu), the iid kernels' second pass and the AR kernels'
 // two products (detect.cuh, ar_flow.cu), with B split once by the wrapper
 // and staged by bulk copies on mbarriers, A split in registers, and fold
-// groups of two 8-deep steps added in fp32. Moving them off mma.sync took
+// groups of two 8-deep steps added in fp32 (at PRECISION='default' one
+// TF32 pass: both operands rounded once, wgmma.cuh). Moving them off mma.sync took
 // K2's 256^2 'mixed' pass from 16.5 to 7.4 ms a 4096 draws, K7's 1024^2 G'
 // from 134.9 to 33.8 ms a 630 (scripts/torch_pass1_ab.py), K1's 512^2 pass
 // from 5.87 to 3.59 ms a 4096 and K3's 1024^2 'mixed' pass from 29.7-29.9

@@ -6,9 +6,19 @@
 // shared memory through a matrix descriptor), the 1-D bulk copies
 // (cp.async.bulk) that stage operands from device memory, the mbarriers
 // the copies complete on, thread-block clusters, and the pieces the passes
-// build from them (the ring of B stages, the fold groups of 3xTF32
+// build from them (the ring of B stages, the fold groups of TF32
 // products, the products over a 64-deep tile of A). sm_90a only: wgmma
 // does not exist for plain sm_90.
+//
+// Passes. Every product runs in kPasses TF32 passes, a template argument
+// that the kernels' C entries take at run time (by_passes) from the
+// PRECISION of the caller: 3 (3xTF32, 'high' and 'highest') splits each
+// operand element into hi = tf32(x) and lo = tf32(x - hi) and sums
+// a_lo b_hi + a_hi b_lo + a_hi b_hi, fp32-accurate; 1 ('default', the
+// JAX package's single bf16 pass, here on TF32's 10-bit mantissa) rounds
+// each element once to TF32 and sums a_hi b_hi. A B operand is laid out
+// with its hi and lo planes (3 passes) or its hi plane alone (1): half
+// the bytes a ring stage.
 //
 // B's layout in shared memory ("core matrices", no swizzle). wgmma reads
 // a K-major B of an 8-deep step and n columns as 8 x 16-byte core
@@ -27,9 +37,28 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "tf32x3.cuh"
 
 namespace fast {
+
+// ---- the pass count ---------------------------------------------------------
+
+// TF32 planes of a B operand a step lays out: hi and lo (3 passes) or hi
+// alone (1).
+__host__ __device__ constexpr int b_planes(int kPasses) {
+  return kPasses == 1 ? 1 : 2;
+}
+
+// f(std::integral_constant<int, kPasses>{}) for a pass count taken at run
+// time: 1 or 3, else cudaErrorInvalidValue (no other count is built).
+template <class F>
+cudaError_t by_passes(int passes, F f) {
+  if (passes == 1) return f(std::integral_constant<int, 1>{});
+  if (passes == 3) return f(std::integral_constant<int, 3>{});
+  return cudaErrorInvalidValue;
+}
 
 // ---- wgmma ----------------------------------------------------------------
 
@@ -343,65 +372,79 @@ __device__ __forceinline__ int swz(int r, int f, int words) {
   return r * words + 2 * (f ^ ((r & 3) << 2));
 }
 
-// One A operand of an 8-deep step, split: hi and lo fragments.
+// One A operand of an 8-deep step: hi and lo fragments (lo unused, and
+// left to the compiler to drop, at one pass).
 struct Frag {
   uint32_t h[4], l[4];
 };
 
-// The split of four A values, negated (exactly: the sign bits) if neg.
+// Four A values, negated (exactly: the sign bits) if neg: split into hi
+// and lo (3 passes) or rounded once to TF32 (1).
+template <int kPasses>
 __device__ __forceinline__ Frag split_frag(const float (&x)[4], bool neg) {
   const uint32_t s = neg ? 0x80000000u : 0u;
   Frag a;
 #pragma unroll
   for (int v = 0; v < 4; ++v) {
-    split(x[v], a.h[v], a.l[v]);
-    a.h[v] ^= s;
-    a.l[v] ^= s;
+    if constexpr (kPasses == 1) {
+      a.h[v] = to_tf32(x[v]) ^ s;
+      a.l[v] = 0u;
+    } else {
+      split(x[v], a.h[v], a.l[v]);
+      a.h[v] ^= s;
+      a.l[v] ^= s;
+    }
   }
   return a;
 }
 
 // The A fragment of a warp's rows g and g + 8 at float pair f of a
-// shared tile (rows of `words` words), split into hi and lo, negated if
+// shared tile (rows of `words` words), split (split_frag), negated if
 // neg. Depth slots t and t + 4 hold the pair's two values, depths 2t and
 // 2t + 1 of the step: the tables' slot order.
+template <int kPasses>
 __device__ __forceinline__ Frag load_frag(const float* tile, int r, int f,
                                           int words, bool neg) {
   const float2 v0 = *reinterpret_cast<const float2*>(tile + swz(r, f, words));
   const float2 v1 =
       *reinterpret_cast<const float2*>(tile + swz(r + 8, f, words));
-  return split_frag({v0.x, v1.x, v0.y, v1.y}, neg);
+  return split_frag<kPasses>({v0.x, v1.x, v0.y, v1.y}, neg);
 }
 
 // d = the sum over a fold group's two 8-deep steps and NT terms of a b, in
-// a fresh accumulator: the small terms a_lo b_hi + a_hi b_lo of every step
-// first, then the a_hi b_hi, each wgmma adding 8 products to the tensor
-// cores' sum; then commit. bh, bl: descriptors of the B steps' hi and lo.
-template <int N, int NT>
-__device__ __forceinline__ void mma3_group(float (&d)[N / 2],
-                                           Frag (&a)[NT][2],
-                                           const uint64_t (&bh)[NT][2],
-                                           const uint64_t (&bl)[NT][2]) {
+// a fresh accumulator, each wgmma adding 8 products to the tensor cores'
+// sum; then commit. 3 passes: the small terms a_lo b_hi + a_hi b_lo of
+// every step first, then the a_hi b_hi; 1: the a_hi b_hi alone. bh, bl:
+// descriptors of the B steps' hi and lo (bl unused at one pass).
+template <int N, int NT, int kPasses>
+__device__ __forceinline__ void mma_group(float (&d)[N / 2],
+                                          Frag (&a)[NT][2],
+                                          const uint64_t (&bh)[NT][2],
+                                          const uint64_t (&bl)[NT][2]) {
 #pragma unroll
   for (int q = 0; q < NT; ++q)
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
       fence_regs(a[q][s].h);
-      fence_regs(a[q][s].l);
+      if constexpr (kPasses != 1) fence_regs(a[q][s].l);
     }
   fence_regs(d);
   wgmma_fence();
+  if constexpr (kPasses != 1) {
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int q = 0; q < NT; ++q) {
+        wgmma_tf32<N>(d, a[q][s].l, bh[q][s], s + q);
+        wgmma_tf32<N>(d, a[q][s].h, bl[q][s], 1);
+      }
+  }
 #pragma unroll
   for (int s = 0; s < 2; ++s)
 #pragma unroll
-    for (int q = 0; q < NT; ++q) {
-      wgmma_tf32<N>(d, a[q][s].l, bh[q][s], s + q);
-      wgmma_tf32<N>(d, a[q][s].h, bl[q][s], 1);
-    }
-#pragma unroll
-  for (int s = 0; s < 2; ++s)
-#pragma unroll
-    for (int q = 0; q < NT; ++q) wgmma_tf32<N>(d, a[q][s].h, bh[q][s], 1);
+    for (int q = 0; q < NT; ++q)
+      wgmma_tf32<N>(d, a[q][s].h, bh[q][s],
+                    kPasses == 1 ? s + q : 1);
   wgmma_commit();
 }
 
@@ -426,17 +469,19 @@ constexpr int kXTile = 2 * kXRows * kXDepth;
 // 8-deep step `step` for the thread's rows r, r + 8 and quad lane t, split
 // and negated if neg. tile_products takes its A through this; a tile of
 // another layout brings an overload of its own (detect.cuh, KTile).
+template <int kPasses>
 __device__ __forceinline__ Frag a_frag(const float* x, int part, int step,
                                        int r, int t, bool neg) {
-  return load_frag(x + part * kXRows * kXDepth, r, 4 * step + t, kXDepth,
-                   neg);
+  return load_frag<kPasses>(x + part * kXRows * kXDepth, r, 4 * step + t,
+                            kXDepth, neg);
 }
 
 // The complex product G' += x B of one A tile `x` (an x tile, or any tile
-// with an a_frag overload) against 8 stages of
-// the ring from `it` on, one 8-deep step each: B_r hi, B_r lo, B_i hi,
-// B_i lo over PB = 64 NCH + TAIL columns (8 PB words each, the core-matrix
-// layout). Consumer warpgroup wg makes part wg of G': 0 (Re) takes x_r B_r
+// with an a_frag overload) against 8 stages of the ring from `it` on, one
+// 8-deep step each: B_r hi, B_r lo, B_i hi, B_i lo (3 passes) or B_r hi,
+// B_i hi (1) over PB = 64 NCH + TAIL columns (8 PB words each, the
+// core-matrix layout), in kPasses TF32 passes. Consumer warpgroup wg makes
+// part wg of G': 0 (Re) takes x_r B_r
 // and -x_i B_i (the sign flipped in the A fragment, exactly), 1 (Im) x_r
 // B_i and x_i B_r; the thread's rows are r and r + 8. In 4 fold groups of
 // 2 steps, over the columns in chunks of 64 and the tail, two chunks in
@@ -444,7 +489,8 @@ __device__ __forceinline__ Frag a_frag(const float* x, int part, int step,
 // `between(h)` runs while group h's first chunk is in flight. Every group
 // has landed when it returns: ptxas cannot follow a group in flight
 // around a loop (it then serializes every wgmma, warning C7514).
-template <int NCH, int TAIL, int kStages, class ATile, class Between>
+template <int NCH, int TAIL, int kPasses, int kStages, class ATile,
+          class Between>
 __device__ __forceinline__ void tile_products(
     float (&gb)[NCH > 0 ? NCH : 1][32],
     float (&gt)[(TAIL > 0 ? TAIL : 16) / 2], ATile x,
@@ -453,6 +499,7 @@ __device__ __forceinline__ void tile_products(
   constexpr int PB = 64 * NCH + TAIL;
   constexpr int TW = TAIL > 0 ? TAIL : 16;  // the tail's wgmma width
   constexpr int NU = NCH + (TAIL > 0 ? 1 : 0);
+  constexpr int kPl = b_planes(kPasses);
 #pragma unroll 1
   for (int h = 0; h < 4; ++h) {
     Frag a[2][2];
@@ -460,8 +507,8 @@ __device__ __forceinline__ void tile_products(
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
       st[s] = ring.take(it + 2 * h + s);
-      a[0][s] = a_frag(x, 0, 2 * h + s, r, t, false);
-      a[1][s] = a_frag(x, 1, 2 * h + s, r, t, wg == 0);
+      a[0][s] = a_frag<kPasses>(x, 0, 2 * h + s, r, t, false);
+      a[1][s] = a_frag<kPasses>(x, 1, 2 * h + s, r, t, wg == 0);
     }
     // term 0 with B_r (Re) or B_i (Im), term 1 with B_i (Re) or B_r (Im)
     const auto descs = [&](int col, uint64_t (&bh)[2][2],
@@ -470,7 +517,8 @@ __device__ __forceinline__ void tile_products(
       for (int s = 0; s < 2; ++s)
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
-          const float* tab = st[s] + ((q ^ wg) ? 2 : 0) * PB * 8 + col * 8;
+          const float* tab =
+              st[s] + ((q ^ wg) ? kPl : 0) * PB * 8 + col * 8;
           bh[q][s] = b_desc(tab);
           bl[q][s] = b_desc(tab + PB * 8);
         }
@@ -480,9 +528,10 @@ __device__ __forceinline__ void tile_products(
       uint64_t bh[2][2], bl[2][2];
       descs(64 * u, bh, bl);
       if (u < NCH)
-        mma3_group<64, 2>(dd, a, bh, bl);
+        mma_group<64, 2, kPasses>(dd, a, bh, bl);
       else
-        mma3_group<TW, 2>(reinterpret_cast<float(&)[TW / 2]>(dd), a, bh, bl);
+        mma_group<TW, 2, kPasses>(reinterpret_cast<float(&)[TW / 2]>(dd), a,
+                                  bh, bl);
     };
     const auto land = [&](int u, float (&dd)[32], bool more) {
       auto& dt = reinterpret_cast<float(&)[TW / 2]>(dd);

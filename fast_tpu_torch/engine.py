@@ -20,7 +20,11 @@ The iid Monte Carlo path and the temporal (frozen-flow) mode of
   the CPU they run their plain torch versions. ``'matmul'``, ``'colfac'``
   and ``'fft'`` are the stock-op paths. ``SUBHARM=True`` adds the
   low-order subharmonic screens on every path, inside the detect pass of
-  K1, K2 and K3, and to K7's screens.
+  K1, K2 and K3, and to K7's screens. ``PRECISION`` sets the products of
+  every path on the card: at 'default' one TF32 pass in each kernel
+  product and TF32 cuBLAS on the stock paths, at 'high' and 'highest'
+  3xTF32 in the kernels and full fp32 on the stock paths; a run on the
+  CPU computes fp32 at every value, as the JAX package's CPU dots do.
 * **Temporal mode** (``TEMPORAL=True``): a time series instead of iid
   draws, with a log-amplitude series coloured by the temporal PSD.
   ``TEMPORAL_SYNTH='screens'`` draws one large screen per layer (the grid
@@ -60,7 +64,7 @@ from .ops.integrate import (integrate_path,  # noqa: F401
                             integrate_powerspectrum)
 from .ops.rng import complex_normal, draw_seed, make_generator
 from .ops import colfac_detect as cd
-from .ops.synth_detect import (pack_subharm, supports, synth_detect,
+from .ops.synth_detect import (pack_subharm, passes, supports, synth_detect,
                                synth_screens)
 from . import synthesis
 from .utils import diskcache, fits
@@ -110,7 +114,7 @@ def _resolve_device(device):
     return dev
 
 
-def resolve_synth(synth, dtype, device, N, P, noise):
+def resolve_synth(synth, dtype, device, N, P):
     """The synthesis path of a run.
 
     'auto' is 'fft' for float64 runs (the exact path); for float32 runs on
@@ -118,10 +122,10 @@ def resolve_synth(synth, dtype, device, N, P, noise):
     N >= 512 with a pupil of at most 128 px (the JAX package's rule) and
     the synth-detect kernel, 'pallas_fused', elsewhere. No pupil width is
     refused: pinned 'pallas_colfac' runs K1 up to 128 px and K3 above
-    (:func:`~fast_tpu_torch.ops.colfac_detect.colfac_layout`). On a CUDA
-    device 'pallas_fused' raises here, rather than at the first chunk,
-    for the one shape K2 does not take ('mixed' noise on a grid over
-    2304 px at a 128 px pupil); on the CPU it runs the kernel's plain
+    (:func:`~fast_tpu_torch.ops.colfac_detect.colfac_layout`). K2 takes
+    any grid side with either noise; on a CUDA device 'pallas_fused'
+    raises here, rather than at the first chunk, for a pupil over the
+    32640 px its tiles cover; on the CPU it runs the kernel's plain
     version, which takes every shape.
     """
     if synth == "auto":
@@ -132,60 +136,71 @@ def resolve_synth(synth, dtype, device, N, P, noise):
         else:
             synth = "pallas_fused"
     if (synth == "pallas_fused" and device.type == "cuda"
-            and not supports(N, P, mixed=noise == "mixed")):
+            and not supports(N, P)):
         raise ValueError(
             f"the synth-detect kernel (SYNTH='pallas_fused', what 'auto' "
-            f"picks for float32) takes, with MC_NOISE='mixed', a grid of at "
-            f"most 2304 px at a 128 px pupil; got NPXLS={N}, a {P} px "
-            f"pupil. SYNTH='matmul' runs the stock-op path")
+            f"picks for float32) takes a pupil of at most 32640 px; got "
+            f"NPXLS={N}, a {P} px pupil. SYNTH='matmul' runs the stock-op "
+            f"path")
     return synth
 
 
+def run_precision(precision, device):
+    """The ``PRECISION`` that a run's products take on ``device``: the
+    config value on a CUDA device (validated: ``ops.synth_detect.passes``
+    raises on an unknown one), 'highest' elsewhere. The JAX package's CPU
+    dots are native fp32 whatever the key says, and a CPU run of the port
+    computes fp32 at every value alike, so its result does not depend on
+    the key."""
+    passes(precision)
+    return precision if device.type == "cuda" else "highest"
+
+
 def chunk_couplings(T, synth, nbatch, *, noise="mixed", seed=0, stream=0,
-                    generator=None, sh=None):
+                    generator=None, sh=None, precision="highest"):
     """Complex pupil couplings of one chunk: ``2 * nbatch`` screens.
 
-    ``T`` are the device tables of :func:`tables_from_numpy`. The kernel
-    paths, 'pallas_fused', 'pallas_colfac' and 'pallas', draw from their
-    Philox keyed by ``seed`` with counter word ``stream``; 'matmul',
-    'colfac' and 'fft' draw from ``generator``. 'pallas' draws Box-Muller
-    noise whatever ``noise`` says, as the TPU kernel does. ``sh`` are
-    optional (nbatch, Npup, Npup) complex subharmonic screens, added to
-    the screens of every path. Returns the couplings scaled by
-    ``dx^2 / norm``, before the log-amplitude factor.
+    ``T`` are the device tables of :func:`tables_from_numpy` (laid out at
+    ``precision``). The kernel paths, 'pallas_fused', 'pallas_colfac' and
+    'pallas', draw from their Philox keyed by ``seed`` with counter word
+    ``stream``; 'matmul', 'colfac' and 'fft' draw from ``generator``.
+    'pallas' draws Box-Muller noise whatever ``noise`` says, as the TPU
+    kernel does. Every path's products take ``precision``, the run's
+    (:func:`run_precision`). ``sh`` are optional (nbatch, Npup, Npup)
+    complex subharmonic screens, added to the screens of every path.
+    Returns the couplings scaled by ``dx^2 / norm``, before the
+    log-amplitude factor.
     """
     dx, norm = float(T["dx"]), float(T["norm"])
     if synth in ("pallas_fused", "pallas_colfac"):
         sh_t = None if sh is None else pack_subharm(sh, T["wr"].shape[0])
         mixed = noise == "mixed"
-        laid = T.get("w_laid")
+        kw = dict(stream=stream, sh_t=sh_t, laid=T.get("w_laid"),
+                  precision=precision)
         if synth == "pallas_fused":
             c = synth_detect(seed, T["s_t"], T["wr"], T["wi"], T["pm_t"],
-                             nbatch, mix=T["mix"] if mixed else None,
-                             stream=stream, sh_t=sh_t, laid=laid)
+                             nbatch, mix=T["mix"] if mixed else None, **kw)
         elif "T_colfac" in T:
             c = cd.colfac_detect_split(seed, T["T_colfac"], T["wr"], T["wi"],
-                                       T["pm_t"], nbatch, mixed=mixed,
-                                       stream=stream, sh_t=sh_t, laid=laid)
+                                       T["pm_t"], nbatch, mixed=mixed, **kw)
         else:
             c = cd.colfac_detect(seed, T["S_colfac"], T["wr"], T["wi"],
-                                 T["pm_t"], nbatch, mixed=mixed,
-                                 stream=stream, sh_t=sh_t, laid=laid)
+                                 T["pm_t"], nbatch, mixed=mixed, **kw)
         return torch.complex(c[:, 0], c[:, 1]) * (dx ** 2 / norm)
     df = float(T["df"])
     if synth == "pallas":
         phs = synth_screens(seed, T["s_t"], T["wr"], T["wi"], nbatch,
                             npup=T["pm"].shape[0], stream=stream,
-                            laid=T.get("w_laid"))
+                            laid=T.get("w_laid"), precision=precision)
         if sh is not None:
             phs = phs + synthesis.double_screens(sh)
         return synthesis.detector_coupling(phs, T["pm"], dx, norm)
     if synth == "matmul":
         scr = synthesis.synthesize_screens_pruned(
-            generator, T["sqrt_psd"], df, nbatch, T["W"])
+            generator, T["sqrt_psd"], df, nbatch, T["W"], precision)
     elif synth == "colfac":
         scr = synthesis.synthesize_screens_colfac(generator, T["L"], T["W"],
-                                                  nbatch)
+                                                  nbatch, precision)
     elif synth == "fft":
         lo, hi = (int(v) for v in T["pup_crop"])
         scr = synthesis.synthesize_screens_complex(
@@ -220,6 +235,8 @@ class Fast:
         if p["SYNTH"] not in _PORTED:
             raise ValueError(f"unknown SYNTH {p['SYNTH']!r}")
 
+        # the precision of the run's products (fp32 on the CPU)
+        self._precision = run_precision(p["PRECISION"], self.device)
         if self.Niter % self.Nchunks != 0:
             raise ValueError("NCHUNKS must divide NITER without remainder")
         self.Niter_per_chunk = self.Niter // self.Nchunks
@@ -240,8 +257,7 @@ class Fast:
             self._resolve_temporal_route()
         else:
             self._synth = resolve_synth(p["SYNTH"], self.dtype, self.device,
-                                        self.Npxls, self.Npxls_pup,
-                                        p["MC_NOISE"])
+                                        self.Npxls, self.Npxls_pup)
         with self.profile.stage("init_masks"):
             self.init_ao_params()
         with self.profile.stage("init_pupils"):
@@ -633,7 +649,8 @@ class Fast:
         column factors of the colfac paths and the subharmonic tables."""
         self.tables = tables_from_numpy(self._table_arrays(),
                                         device=self.device, dtype=self.dtype,
-                                        noise=self.params["MC_NOISE"])
+                                        noise=self.params["MC_NOISE"],
+                                        precision=self._precision)
 
     def _table_arrays(self, column_factors=True):
         """The host arrays of :func:`tables_from_numpy` for this
@@ -834,7 +851,8 @@ class Fast:
                 if self.subharmonics else None)
             yield chunk_couplings(T, self._synth, B // 2,
                                   noise=self.params["MC_NOISE"], seed=seed_mc,
-                                  stream=i, generator=dev_gen, sh=sh)
+                                  stream=i, generator=dev_gen, sh=sh,
+                                  precision=self._precision)
 
     def _pieces(self, step0=0, nsteps=None):
         """``(first step, steps)`` of each chunk of the steps ``step0 ..
@@ -919,7 +937,8 @@ class Fast:
         for s, n in self._pieces(step0, nsteps):
             c, a = kernel(seed_noise, a, T["ph"], T.get("ns"), T["W"],
                           T["pm"], n, noise=self.params["TEMPORAL_NOISE"],
-                          step0=s, laid=T.get("w_laid"))
+                          step0=s, laid=T.get("w_laid"),
+                          precision=self._precision)
             yield torch.complex(c[:, 0], c[:, 1]) * (dx ** 2 / norm)
 
     def _ar_fft_chunks(self, a, seed_noise, series=0, step0=0, nsteps=None):

@@ -22,7 +22,7 @@ KEYS = ("powerspec", "pupil_mode", "W_pruned", "df", "dx", "norm",
 
 
 def tables_from_numpy(arrays, device="cpu", dtype=torch.float32,
-                      noise="mixed"):
+                      noise="mixed", precision="highest"):
     """Device tables of one configuration.
 
     Args:
@@ -49,6 +49,9 @@ def tables_from_numpy(arrays, device="cpu", dtype=torch.float32,
         dtype: working type of the plain paths (float32 or float64).
         noise: the colfac kernel's noise, 'mixed' or 'gauss', which its
             packed factor table depends on.
+        precision: the ``PRECISION`` of the kernels' products, whose TF32
+            passes the card's laid tables are laid out for (the run's:
+            ``engine.run_precision``).
 
     Returns:
         dict of tensors on ``device``: ``sqrt_psd`` (N, N), ``pm`` (Npup,
@@ -85,8 +88,8 @@ def tables_from_numpy(arrays, device="cpu", dtype=torch.float32,
     """
     _check(arrays)
     temporal = arrays.get("powerspec_per_layer") is not None
-    return {**_grid_tables(arrays, temporal, device, dtype),
-            **_own_tables(arrays, device, dtype, noise)}
+    return {**_grid_tables(arrays, temporal, device, dtype, precision),
+            **_own_tables(arrays, device, dtype, noise, precision)}
 
 
 #: The arrays a sample may not vary: the tables made from them are the
@@ -120,7 +123,7 @@ def _dev(a, device):
     return torch.from_numpy(np.array(a, order="C")).to(device)
 
 
-def _grid_tables(arrays, temporal, device, dtype):
+def _grid_tables(arrays, temporal, device, dtype, precision):
     """The tables of the grid and the pupil, from :data:`GRID_KEYS` only."""
     g = {k: arrays.get(k) for k in GRID_KEYS}
     np_dt, np_cdt = _dtypes(dtype)
@@ -137,7 +140,7 @@ def _grid_tables(arrays, temporal, device, dtype):
     if not temporal:
         T["mix"] = _dev(mixing_matrix(W.shape[-1]), device)
     if wr.device.type == "cuda":
-        T["w_laid"] = laid_w(wr, wi, T.get("mix"))
+        T["w_laid"] = laid_w(wr, wi, T.get("mix"), precision)
     for k in ("df", "dx", "norm"):
         T[k] = torch.tensor(float(g[k]), dtype=torch.float64)
     if g["subharm_modes"] is not None:
@@ -147,7 +150,7 @@ def _grid_tables(arrays, temporal, device, dtype):
     return T
 
 
-def _own_tables(arrays, device, dtype, noise):
+def _own_tables(arrays, device, dtype, noise, precision):
     """The tables of one configuration's atmosphere and link: every table
     but the grid's."""
     np_dt, np_cdt = _dtypes(dtype)
@@ -167,7 +170,7 @@ def _own_tables(arrays, device, dtype, noise):
         T["L"] = L
         split = colfac_layout(L.shape[1]) == "split"
         T["T_colfac" if split else "S_colfac"] = kernel_table(
-            L, mixed=noise == "mixed")
+            L, mixed=noise == "mixed", precision=precision)
     if arrays.get("powerspec_subharm") is not None:
         T["sqrt_psd_sh"] = dev(np.sqrt(arrays["powerspec_subharm"])
                                .astype(np_dt))
@@ -188,7 +191,7 @@ def _own_tables(arrays, device, dtype, noise):
 
 
 def sample_tables(arrays, samples, device="cpu", dtype=torch.float32,
-                  noise="mixed"):
+                  noise="mixed", precision="highest"):
     """Device tables of each sample of a sweep or a parameter scan.
 
     Args:
@@ -200,7 +203,7 @@ def sample_tables(arrays, samples, device="cpu", dtype=torch.float32,
             orbit pass varies are ``powerspec``, ``logamp_var``,
             ``diffraction_limit``, ``L_colfac`` and ``powerspec_subharm``.
             None of :data:`GRID_KEYS`.
-        device, dtype, noise: as :func:`tables_from_numpy`.
+        device, dtype, noise, precision: as :func:`tables_from_numpy`.
 
     Returns:
         list of table dicts, one per sample; the tables of the grid and the
@@ -218,10 +221,11 @@ def sample_tables(arrays, samples, device="cpu", dtype=torch.float32,
     n = counts.pop()
     _check(arrays)
     grid = _grid_tables(arrays, arrays.get("powerspec_per_layer") is not None
-                        or "powerspec_per_layer" in samples, device, dtype)
+                        or "powerspec_per_layer" in samples, device, dtype,
+                        precision)
     return [{**grid, **_own_tables({**arrays,
                                     **{k: v[i] for k, v in samples.items()}},
-                                   device, dtype, noise)}
+                                   device, dtype, noise, precision)}
             for i in range(n)]
 
 

@@ -20,10 +20,12 @@ screen is reduced to ``(sum pm cos phi, sum pm sin phi)``.
   blocks that add into the layer sum in turn, for any number of layers.
   :func:`select` is the rule that picks between them, and the batched one
   follows it for each of its series. Any pupil width. Both DFT products
-  run as the iid kernels' second pass (``csrc/detect.cuh``, 3xTF32
-  ``wgmma``) on the laid W table (``synth_detect.laid_w``, given as
-  ``laid=`` or laid out for the call); :func:`ar_dft` and
-  :func:`ar_detect` run each alone.
+  run as the iid kernels' second pass (``csrc/detect.cuh``, ``wgmma`` in
+  the TF32 passes of ``precision``: three at 'high' and 'highest', one at
+  'default', ``synth_detect.PASSES``) on the laid W table
+  (``synth_detect.laid_w``, given as ``laid=`` or laid out for the call);
+  :func:`ar_dft` and :func:`ar_detect` run each alone. The update is the
+  same at every precision.
 * :func:`ar_flow_reference` and :func:`ar_flow_batch_reference` are the
   same functions in stock torch ops, step by step, from the same
   Philox4x32-10 bits (:func:`ar_bits`), key the 64-bit seed (series 0 of
@@ -31,7 +33,8 @@ screen is reduced to ``(sum pm cos phi, sum pm sin phi)``.
   says, lets a rank draw the noise of series ``series0 ..`` of a larger
   batch). Their update uses the kernel's operations in the kernel's order
   (no fused multiply-add), so state and layer sum agree with the kernel
-  bit for bit and only the two matrix products differ. ``bits`` replaces
+  bit for bit and only the two matrix products differ; those take
+  ``precision`` as the kernels' do (``synth_detect.mm``). ``bits`` replaces
   the Philox bits (``"zero"``: all zero, what the Pallas interpreter's
   PRNG yields).
 
@@ -51,9 +54,10 @@ import torch
 
 from . import _build
 from .synth_detect import (_G_BYTES, _REF_POINTS, _check_laid, _key,
-                           box_muller, detect_parts, laid_w, pad_pupil,
-                           padded_pupil, philox4x32_10, pupil_tiles,
-                           raise_on, sincos, uniforms)
+                           box_muller, count, counters, detect_parts, laid_w,
+                           mm, pad_pupil, padded_pupil, passes,
+                           philox4x32_10, pupil_tiles, raise_on, sincos,
+                           uniforms)
 
 #: Most layers the fused kernel holds in one thread's registers.
 FUSED_MAX_LAYERS = 8
@@ -218,35 +222,37 @@ def _pack(a0, ph, ns, W, pm, batch=False):
     return st, ph2, ns32, wr, wi, pm_t.contiguous()
 
 
-def ar_dft_reference(ar, ai, wr, wi):
+def ar_dft_reference(ar, ai, wr, wi, precision="highest"):
     """The kernel's first product in stock torch ops: from the layer sums
     ``ar + i ai`` (..., N, N), ``G' = A^T W^T``, ``(gr, gi)`` (..., N, P)
-    for the P rows of ``wr``, ``wi``."""
+    for the P rows of ``wr``, ``wi``; the products at ``precision``."""
     art, ait = ar.transpose(-2, -1), ai.transpose(-2, -1)
-    return art @ wr.T - ait @ wi.T, art @ wi.T + ait @ wr.T
+    wrt, wit = wr.T, wi.T
+    return (mm(art, wrt, precision) - mm(ait, wit, precision),
+            mm(art, wit, precision) + mm(ait, wrt, precision))
 
 
-def ar_detect_reference(gr, gi, wr, wi, pm_t):
+def ar_detect_reference(gr, gi, wr, wi, pm_t, precision="highest"):
     """The kernel's detect pass in stock torch ops: from ``G'`` (``gr``,
     ``gi``: (..., N, P)), the transposed screen ``Re(W G')`` (..., P, P)
     and ``(sum pm_t cos, sum pm_t sin)``: (..., 2) float32, with ``pm_t``
     broadcast over the leading axes ((B, P, P) for B series on the last
-    one)."""
-    s, c = sincos(wr @ gr - wi @ gi)
+    one); the products at ``precision``."""
+    s, c = sincos(mm(wr, gr, precision) - mm(wi, gi, precision))
     return torch.stack([(pm_t * c).sum((-2, -1)), (pm_t * s).sum((-2, -1))],
                        dim=-1)
 
 
-def detect_real_reference(ar, ai, wr, wi, pm_t):
+def detect_real_reference(ar, ai, wr, wi, pm_t, precision="highest"):
     """The kernel's two products and its detect pass in stock torch ops:
     from the layer sums ``ar + i ai`` (..., N, N), ``G' = A^T W^T`` (...,
     N, P) (:func:`ar_dft_reference`), then :func:`ar_detect_reference`."""
-    return ar_detect_reference(*ar_dft_reference(ar, ai, wr, wi), wr, wi,
-                               pm_t)
+    return ar_detect_reference(*ar_dft_reference(ar, ai, wr, wi, precision),
+                               wr, wi, pm_t, precision)
 
 
 def _reference(seed, st, ph2, ns, wr, wi, pm_t, nsteps, noise, step0, bits,
-               series0=0):
+               series0=0, precision="highest"):
     """The plain version on packed arguments; ``st`` (2, B, L, N, N) is
     advanced in place, series s drawing the Philox rows of series
     ``series0 + s``. Returns the (nsteps, B, 2) sums."""
@@ -280,14 +286,15 @@ def _reference(seed, st, ph2, ns, wr, wi, pm_t, nsteps, noise, step0, bits,
                 sum_r = sum_r + sr[:, lay]
                 sum_i = sum_i + si[:, lay]
             A[0, t], A[1, t] = sum_r, sum_i
-        parts.append(detect_real_reference(A[0], A[1], wr, wi, pm_t))
+        parts.append(detect_real_reference(A[0], A[1], wr, wi, pm_t,
+                                           precision))
     st[0], st[1] = sr, si
     return torch.cat(parts)
 
 
 def ar_flow_reference(seed, a0, step_phasor_scaled, noise_scale, W,
                       pupil_mode, nsteps, noise="uniform", step0=0,
-                      bits=None):
+                      bits=None, precision="highest"):
     """K4 and K5 in stock torch ops (see the module docstring).
 
     Args:
@@ -303,6 +310,8 @@ def ar_flow_reference(seed, a0, step_phasor_scaled, noise_scale, W,
         step0: absolute step of the first step (the Philox counter).
         bits: None, ``"zero"``, or ``(b1, b2)`` integer tensors (nsteps, L,
             N, N) of 32-bit values in place of the Philox bits.
+        precision: the ``PRECISION`` of the two products
+            (``synth_detect.PASSES``).
 
     Returns:
         ``(couplings, a_final)``: (nsteps, 2) float32 unnormalised
@@ -311,13 +320,13 @@ def ar_flow_reference(seed, a0, step_phasor_scaled, noise_scale, W,
     st, ph2, ns, wr, wi, pm_t = _pack(a0, step_phasor_scaled, noise_scale, W,
                                       pupil_mode)
     out = _reference(seed, st, ph2, ns, wr, wi, pm_t, int(nsteps), noise,
-                     int(step0), bits)
+                     int(step0), bits, precision=precision)
     return out[:, 0], torch.complex(st[0, 0], st[1, 0])
 
 
 def ar_flow_batch_reference(seed, a0, step_phasor_scaled, noise_scale, W,
                             pupil_modes, nsteps, noise="uniform", step0=0,
-                            bits=None, series0=0):
+                            bits=None, series0=0, precision="highest"):
     """K6 in stock torch ops: :func:`ar_flow_reference` for B series at
     once, series s drawing the rows ``(series0 + s) * L ..`` of the Philox
     counter.
@@ -335,7 +344,7 @@ def ar_flow_batch_reference(seed, a0, step_phasor_scaled, noise_scale, W,
     st, ph2, ns, wr, wi, pm_t = _pack(a0, step_phasor_scaled, noise_scale, W,
                                       pupil_modes, batch=True)
     out = _reference(seed, st, ph2, ns, wr, wi, pm_t, int(nsteps), noise,
-                     int(step0), bits, int(series0))
+                     int(step0), bits, int(series0), precision)
     return out, torch.complex(st[0], st[1])
 
 
@@ -349,11 +358,11 @@ def _library():
     if not getattr(lib, "_fast_typed", False):
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
         lib.fast_ar_flow.argtypes = [u, u, u] + [i] * 7 + [p] * 13 \
-            + [i, i, p]
+            + [i, i, i, p]
         lib.fast_ar_flow.restype = i
-        lib.fast_ar_dft.argtypes = [i] + [p] * 5 + [i, i, p]
+        lib.fast_ar_dft.argtypes = [i] + [p] * 5 + [i, i, i, p]
         lib.fast_ar_dft.restype = i
-        lib.fast_ar_detect.argtypes = [i, i] + [p] * 6 + [i, i, p]
+        lib.fast_ar_detect.argtypes = [i, i] + [p] * 6 + [i, i, i, p]
         lib.fast_ar_detect.restype = i
         lib.fast_error_string.argtypes = [i]
         lib.fast_error_string.restype = ctypes.c_char_p
@@ -361,18 +370,21 @@ def _library():
     return lib, info
 
 
-def _wpack(wr, wi, laid):
-    """The laid W table's ``wpack`` for the padded ``wr``, ``wi``:
-    ``laid``'s (checked against them) or laid out for the call."""
+def _wpack(wr, wi, laid, npass):
+    """The laid W table's ``wpack`` of ``npass`` TF32 passes for the padded
+    ``wr``, ``wi``: ``laid``'s (checked against them) or laid out for the
+    call."""
     if laid is None:
-        return laid_w(wr, wi).wpack
+        laid = laid_w(wr, wi)
     _check_laid(laid, wr)
-    return laid.wpack
+    return laid.tables(npass)[0]
 
 
 def _ar_flow(wrapper, lb, seed, a0, ph, ns, W, pm, nsteps, noise, step0,
-             max_steps, batch=False, series0=0, laid=None):
+             max_steps, batch=False, series0=0, laid=None,
+             precision="highest"):
     nsteps, step0, series0 = int(nsteps), int(step0), int(series0)
+    npass = passes(precision)
     if nsteps <= 0:
         raise ValueError("nsteps must be positive")
     if series0 < 0:
@@ -389,7 +401,7 @@ def _ar_flow(wrapper, lb, seed, a0, ph, ns, W, pm, nsteps, noise, step0,
     _, B, L, N, _ = st.shape
     if dev.type == "cpu":
         out = _reference(seed, st, ph2, ns, wr, wi, pm_t, nsteps, noise,
-                         step0, None, series0)
+                         step0, None, series0, precision)
     elif dev.type != "cuda":
         raise ValueError(f"the AR flow kernels run on CPU or CUDA, not {dev}")
     elif (not supports(N, W.shape[0]) or B > _B_MAX
@@ -404,7 +416,7 @@ def _ar_flow(wrapper, lb, seed, a0, ph, ns, W, pm, nsteps, noise, step0,
         P = wr.shape[0]
         per = min(nsteps, int(max_steps))
         tile = min(per, tile_steps(N, P, B))
-        wpack = _wpack(wr, wi, laid)
+        wpack = _wpack(wr, wi, laid, npass)
         a = torch.empty((2, tile * B, N, N), dtype=torch.float32, device=dev)
         g = torch.empty((2, tile * B, N, P), dtype=torch.float32, device=dev)
         part = torch.empty((tile * B, detect_parts(P), 2),
@@ -421,9 +433,9 @@ def _ar_flow(wrapper, lb, seed, a0, ph, ns, W, pm, nsteps, noise, step0,
                     None if ns is None else ns.data_ptr(), wpack.data_ptr(),
                     pm_t.data_ptr(), a[0].data_ptr(), a[1].data_ptr(),
                     g[0].data_ptr(), g[1].data_ptr(), part.data_ptr(),
-                    out[t0:].data_ptr(), N, P, cs)
+                    out[t0:].data_ptr(), N, P, npass, cs)
                 raise_on(lib, err, f"{wrapper.__name__} launch")
-                wrapper.LAUNCHES += 1
+                count(wrapper, npass)
     if batch:
         return out, torch.complex(st[0], st[1])
     return out[:, 0], torch.complex(st[0, 0], st[1, 0])
@@ -431,7 +443,7 @@ def _ar_flow(wrapper, lb, seed, a0, ph, ns, W, pm, nsteps, noise, step0,
 
 def ar_flow_fused(seed, a0, step_phasor_scaled, noise_scale, W, pupil_mode,
                   nsteps, noise="uniform", step0=0, max_steps=MAX_STEPS,
-                  laid=None):
+                  laid=None, precision="highest"):
     """K4: the whole coupling series with every layer of a mode advanced
     in one thread's registers; arguments and returns as
     :func:`ar_flow_reference`.
@@ -439,11 +451,12 @@ def ar_flow_fused(seed, a0, step_phasor_scaled, noise_scale, W, pupil_mode,
     On CUDA tensors this launches the kernel (three passes per time tile,
     one launch per ``max_steps`` steps, the n-th from the absolute step
     ``step0 + max_steps * n``) on the current stream and counts each
-    launch in ``ar_flow_fused.LAUNCHES``, or raises for what it does not
-    take (:func:`supports`, more than :data:`FUSED_MAX_LAYERS` layers); on
-    CPU tensors it runs the plain version. ``laid``: the
-    :class:`~fast_tpu_torch.ops.synth_detect.LaidW` of ``W`` (the
-    engine's ``tables["w_laid"]``), else W is laid out for the call.
+    launch in ``ar_flow_fused.LAUNCHES`` and ``LAUNCHES_BY_PASSES``, or
+    raises for what it does not take (:func:`supports`, more than
+    :data:`FUSED_MAX_LAYERS` layers); on CPU tensors it runs the plain
+    version. Both products at ``precision`` (``synth_detect.PASSES``).
+    ``laid``: the :class:`~fast_tpu_torch.ops.synth_detect.LaidW` of ``W``
+    (the engine's ``tables["w_laid"]``), else W is laid out for the call.
     """
     L = a0.shape[0]
     if L > FUSED_MAX_LAYERS:
@@ -452,13 +465,13 @@ def ar_flow_fused(seed, a0, step_phasor_scaled, noise_scale, W, pupil_mode,
             f"per mode, got {L}; ar_flow_streamed takes any number")
     return _ar_flow(ar_flow_fused, L, seed, a0, step_phasor_scaled,
                     noise_scale, W, pupil_mode, nsteps, noise, step0,
-                    max_steps, laid=laid)
+                    max_steps, laid=laid, precision=precision)
 
 
 def ar_flow_streamed(seed, a0, step_phasor_scaled, noise_scale, W,
                      pupil_mode, nsteps, noise="uniform", step0=0,
                      max_steps=MAX_STEPS, lb_layers=STREAM_LAYERS,
-                     laid=None):
+                     laid=None, precision="highest"):
     """K5: the same series with the layers advanced in blocks of
     ``lb_layers`` (1 to 8), each block adding its layers into the layer sum
     in turn, for any number of layers; arguments and returns as
@@ -469,12 +482,13 @@ def ar_flow_streamed(seed, a0, step_phasor_scaled, noise_scale, W,
         raise ValueError(f"lb_layers must be 1..{FUSED_MAX_LAYERS}")
     return _ar_flow(ar_flow_streamed, lb, seed, a0, step_phasor_scaled,
                     noise_scale, W, pupil_mode, nsteps, noise, step0,
-                    max_steps, laid=laid)
+                    max_steps, laid=laid, precision=precision)
 
 
 def ar_flow_fused_batch(seed, a0, step_phasor_scaled, noise_scale, W,
                         pupil_modes, nsteps, noise="uniform", step0=0,
-                        max_steps=MAX_STEPS, series0=0, laid=None):
+                        max_steps=MAX_STEPS, series0=0, laid=None,
+                        precision="highest"):
     """K6: B independent series sharing ``W`` in one launch per
     ``max_steps`` steps; arguments and returns as
     :func:`ar_flow_batch_reference`.
@@ -495,12 +509,13 @@ def ar_flow_fused_batch(seed, a0, step_phasor_scaled, noise_scale, W,
     lb = L if L <= FUSED_MAX_LAYERS else STREAM_LAYERS
     return _ar_flow(ar_flow_fused_batch, lb, seed, a0, step_phasor_scaled,
                     noise_scale, W, pupil_modes, nsteps, noise, step0,
-                    max_steps, batch=True, series0=series0, laid=laid)
+                    max_steps, batch=True, series0=series0, laid=laid,
+                    precision=precision)
 
 
-ar_flow_fused.LAUNCHES = 0
-ar_flow_streamed.LAUNCHES = 0
-ar_flow_fused_batch.LAUNCHES = 0
+counters(ar_flow_fused)
+counters(ar_flow_streamed)
+counters(ar_flow_fused_batch)
 
 
 def _pass_tables(wr, wi, what):
@@ -516,7 +531,7 @@ def _check_f32(what, dev, **tensors):
             raise ValueError(f"{what}: {name} must be float32 on {dev}")
 
 
-def ar_dft(a_re, a_im, wr, wi, laid=None):
+def ar_dft(a_re, a_im, wr, wi, laid=None, precision="highest"):
     """The kernels' first product alone: ``G' = A^T W^T`` of nj layer sums
     ``a_re + i a_im`` (nj, N, N) float32 for a pupil ``wr + i wi`` (npup,
     N) float32; returns ``(gr, gi)``, (nj, N, P) float32 with the pupil
@@ -526,9 +541,9 @@ def ar_dft(a_re, a_im, wr, wi, laid=None):
 
     On CUDA tensors this launches ``ar_dft`` of ``csrc/ar_flow.cu`` (the
     second pass of ``csrc/detect.cuh`` on the laid W table ``laid``, or W
-    laid out for the call; one launch, counted in ``ar_dft.LAUNCHES``) on
-    the current stream, or raises; on CPU tensors it runs the plain
-    version.
+    laid out for the call; one launch, counted in ``ar_dft.LAUNCHES`` and
+    ``LAUNCHES_BY_PASSES``) on the current stream, or raises; on CPU
+    tensors it runs the plain version; both at ``precision``.
     """
     if (a_re.ndim != 3 or a_re.shape != a_im.shape
             or a_re.shape[-1] != a_re.shape[-2]):
@@ -539,10 +554,11 @@ def ar_dft(a_re, a_im, wr, wi, laid=None):
     dev = a_re.device
     _check_f32("ar_dft", dev, a_re=a_re, a_im=a_im, wr=wr, wi=wi)
     wr, wi = _pass_tables(wr, wi, "ar_dft")
+    npass = passes(precision)
     if laid is not None:
         _check_laid(laid, wr)
     if dev.type == "cpu":
-        return ar_dft_reference(a_re, a_im, wr, wi)
+        return ar_dft_reference(a_re, a_im, wr, wi, precision)
     if dev.type != "cuda":
         raise ValueError(f"ar_dft runs on CPU or CUDA, not {dev}")
     if not supports(N, wr.shape[0]):
@@ -550,20 +566,20 @@ def ar_dft(a_re, a_im, wr, wi, laid=None):
                          f"a pupil of at most {128 * _T_MAX} px")
     P = wr.shape[0]
     a_re, a_im = a_re.contiguous(), a_im.contiguous()
-    wpack = _wpack(wr, wi, laid)
+    wpack = _wpack(wr, wi, laid, npass)
     lib, _ = _library()
     g = torch.empty((2, nj, N, P), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.fast_ar_dft(nj, wpack.data_ptr(), a_re.data_ptr(),
                               a_im.data_ptr(), g[0].data_ptr(),
-                              g[1].data_ptr(), N, P,
+                              g[1].data_ptr(), N, P, npass,
                               torch.cuda.current_stream(dev).cuda_stream)
     raise_on(lib, err, "ar_dft launch")
-    ar_dft.LAUNCHES += 1
+    count(ar_dft, npass)
     return g[0], g[1]
 
 
-def ar_detect(gr, gi, wr, wi, pm_t, laid=None):
+def ar_detect(gr, gi, wr, wi, pm_t, laid=None, precision="highest"):
     """The kernels' detect pass alone: the (nj, 2) sums ``(sum pm_t cos
     phi^T, sum pm_t sin phi^T)`` of ``phi^T = Re(W G')`` for nj pairs'
     ``G'`` (``gr``, ``gi``: (nj, N, P) float32, P a multiple of 16, as
@@ -573,9 +589,10 @@ def ar_detect(gr, gi, wr, wi, pm_t, laid=None):
     it against :func:`ar_detect_reference`.
 
     On CUDA tensors this launches ``ar_detect`` of ``csrc/ar_flow.cu`` and
-    its ``sum_tiles`` (counted once in ``ar_detect.LAUNCHES``) on the
-    current stream, or raises; on CPU tensors it runs the plain version.
-    ``laid`` as :func:`ar_dft`'s.
+    its ``sum_tiles`` (counted once in ``ar_detect.LAUNCHES`` and
+    ``LAUNCHES_BY_PASSES``) on the current stream, or raises; on CPU
+    tensors it runs the plain version; both at ``precision``. ``laid`` as
+    :func:`ar_dft`'s.
     """
     if gr.ndim != 3 or gr.shape != gi.shape:
         raise ValueError("gr, gi must be (nj, N, P)")
@@ -588,20 +605,21 @@ def ar_detect(gr, gi, wr, wi, pm_t, laid=None):
     if pm_t.ndim != 3 or pm_t.shape[1:] != (P, P) or nj % pm_t.shape[0]:
         raise ValueError(f"ar_detect: pm_t must be (B, {P}, {P}) with B "
                          f"dividing {nj}")
+    npass = passes(precision)
     if laid is not None:
         _check_laid(laid, wr)
     B = pm_t.shape[0]
     if dev.type == "cpu":
         return ar_detect_reference(gr.reshape(nj // B, B, N, P),
                                    gi.reshape(nj // B, B, N, P), wr, wi,
-                                   pm_t).reshape(nj, 2)
+                                   pm_t, precision).reshape(nj, 2)
     if dev.type != "cuda":
         raise ValueError(f"ar_detect runs on CPU or CUDA, not {dev}")
     if not supports(N, P):
         raise ValueError(f"ar_detect takes a grid of at most {_N_MAX} px "
                          f"and a pupil of at most {128 * _T_MAX} px")
     gr, gi, pm_t = gr.contiguous(), gi.contiguous(), pm_t.contiguous()
-    wpack = _wpack(wr, wi, laid)
+    wpack = _wpack(wr, wi, laid, npass)
     lib, _ = _library()
     part = torch.empty((nj, detect_parts(P), 2), dtype=torch.float32,
                        device=dev)
@@ -609,12 +627,12 @@ def ar_detect(gr, gi, wr, wi, pm_t, laid=None):
     with torch.cuda.device(dev):
         err = lib.fast_ar_detect(nj, B, wpack.data_ptr(), gr.data_ptr(),
                                  gi.data_ptr(), pm_t.data_ptr(),
-                                 part.data_ptr(), out.data_ptr(), N, P,
+                                 part.data_ptr(), out.data_ptr(), N, P, npass,
                                  torch.cuda.current_stream(dev).cuda_stream)
     raise_on(lib, err, "ar_detect launch")
-    ar_detect.LAUNCHES += 1
+    count(ar_detect, npass)
     return out
 
 
-ar_dft.LAUNCHES = 0
-ar_detect.LAUNCHES = 0
+counters(ar_dft)
+counters(ar_detect)

@@ -35,13 +35,17 @@ output layout.
   :func:`split_pass1_reference`), and :func:`detect_pass` (the detect pass
   that K1, K2 and K3 share, ``csrc/detect.cuh``, against
   :func:`~fast_tpu_torch.ops.synth_detect.detect_reference`). Each counts
-  its launches in its own ``LAUNCHES``. Both kernels run both products on
-  the tensor cores in 3xTF32 on Hopper's ``wgmma``: pass 1 from tables
-  split and laid out once (:func:`lay_tables`, :func:`lay_tables_split`,
-  :class:`LaidTable`; :func:`laid_table` builds one from ``L``,
-  :func:`kernel_table` the engine's), the detect pass from the laid W
-  table (:class:`~fast_tpu_torch.ops.synth_detect.LaidW`, ``laid=``; laid
-  out for the call without it).
+  its launches in its own ``LAUNCHES`` (and ``LAUNCHES_BY_PASSES``). Both
+  kernels run both products on the tensor cores on Hopper's ``wgmma``, in
+  the TF32 passes of ``precision`` (``synth_detect.PASSES``: three at
+  'high' and 'highest', one at 'default'): pass 1 from tables split and
+  laid out once per pass count (:func:`lay_tables`,
+  :func:`lay_tables_split`, :class:`LaidTable`; :func:`laid_table` builds
+  one from ``L``, :func:`kernel_table` the engine's), the detect pass
+  from the laid W table (:class:`~fast_tpu_torch.ops.synth_detect.LaidW`,
+  ``laid=``; laid out for the call without it). The plain versions take
+  ``precision`` too and round their products' operands as the kernels
+  do.
 
 Mixing width: 'mixed' noise mixes 128 uniforms per component per column
 in K1, as the TPU kernel does over its 128-lane tile, and ``LW`` in K3,
@@ -55,12 +59,12 @@ import numpy as np
 import torch
 
 from . import _build
-from .synth_detect import (_P_MAX, _PB_MAX, _REF_POINTS, _check_laid,
-                           _hi_lo, _key, _pack, _w_tables, box_muller,
-                           check_subharm, check_tables, detect_parts,
-                           detect_reference, draws_per_launch, mixing_matrix,
-                           padded_pupil, philox4x32_10, pupil_tiles, raise_on,
-                           uniforms)
+from .synth_detect import (_P_MAX, _PB_MAX, _REF_POINTS, _check_laid, _key,
+                           _pack, _planes, _planes_of, _w_tables, box_muller,
+                           check_subharm, check_tables, count, counters,
+                           detect_parts, detect_reference, draws_per_launch,
+                           mixing_matrix, mm, padded_pupil, passes,
+                           philox4x32_10, pupil_tiles, raise_on, uniforms)
 
 LANES = 128  # Philox lanes per column; 'mixed' noise mixes all of them
 _STAGES_K1 = 6   # fold groups in K1's ring of B stages
@@ -121,13 +125,16 @@ def pack_tables(L, mixed=True):
 
 class LaidTable:
     """A factor table as the card's pass 1 reads it: ``data``, the table
-    split into TF32 hi and lo parts and laid out in ``wgmma``'s
-    core-matrix order (:func:`lay_tables`, :func:`lay_tables_split`), and
-    ``shape``, the (N, K or Kq, P, 2) shape of the table it was laid from.
-    The kernel wrappers take it in place of that table on the card."""
+    split into its TF32 planes for products of ``passes`` passes (hi and
+    lo at three, hi alone at one) and laid out in ``wgmma``'s core-matrix
+    order (:func:`lay_tables`, :func:`lay_tables_split`), and ``shape``,
+    the (N, K or Kq, P, 2) shape of the table it was laid from. The kernel
+    wrappers take it in place of that table on the card, at a precision
+    of its pass count."""
 
-    def __init__(self, data, shape, split):
+    def __init__(self, data, shape, split, passes=3):
         self.data, self.shape, self.split = data, torch.Size(shape), split
+        self.passes = passes
 
     @property
     def device(self):
@@ -151,25 +158,28 @@ def _core_steps(b):
     return t.permute(perm).reshape(*lead, K // 8, 8 * n)
 
 
-def lay_tables(S):
-    """K1's table ``S`` (:func:`pack_tables`) as its pass 1 reads it: a
-    :class:`LaidTable` of (N, K / 8, 2, 16 P) float32, per column and
-    8-deep step of the K rows S_m's TF32 hi, then lo part (hi + lo carries
-    22 of the 24 bits), over the 2P output columns in ``wgmma``'s
-    core-matrix order, the columns of each 8 px block as 8 Re, then 8 Im
-    (``csrc/colfac_detect.cu``). On ``S``'s device, in stock torch ops."""
+def lay_tables(S, passes=3):
+    """K1's table ``S`` (:func:`pack_tables`) as its pass 1 reads it at
+    ``passes`` TF32 passes: a :class:`LaidTable` of (N, K / 8, 2, 16 P)
+    float32 (three passes), per column and 8-deep step of the K rows S_m's
+    TF32 hi, then lo part (hi + lo carries 22 of the 24 bits), or (N, K /
+    8, 1, 16 P) (one pass), its hi part alone, over the 2P output columns
+    in ``wgmma``'s core-matrix order, the columns of each 8 px block as 8
+    Re, then 8 Im (``csrc/colfac_detect.cu``). On ``S``'s device, in stock
+    torch ops."""
     N, K, P, _ = S.shape
     B = S.reshape(N, K, P // 8, 8, 2).transpose(-1, -2).reshape(N, K, 2 * P)
-    hi, lo = _hi_lo(B)
-    data = torch.stack([_core_steps(hi), _core_steps(lo)], dim=2)
-    return LaidTable(data.contiguous(), S.shape, split=False)
+    data = torch.stack([_core_steps(x) for x in _planes(B, passes)], dim=2)
+    return LaidTable(data.contiguous(), S.shape, split=False, passes=passes)
 
 
-def _pass1_smem(P):
-    """Bytes of K1's pass-1 shared memory at a padded pupil ``P``
-    (``pass1_smem`` of ``csrc/colfac_detect.cu``): a ring of 6 fold groups,
-    two 8-deep steps of hi and lo over 2P columns each, and 12 mbarriers."""
-    return 4 * _STAGES_K1 * 2 * 2 * 8 * 2 * P + 8 * 2 * _STAGES_K1
+def _pass1_smem(P, passes=3):
+    """Bytes of K1's pass-1 shared memory at a padded pupil ``P`` and
+    ``passes`` TF32 passes (``pass1_smem`` of ``csrc/colfac_detect.cu``): a
+    ring of 6 fold groups, two 8-deep steps of the TF32 planes over 2P
+    columns each, and 12 mbarriers."""
+    return (4 * _STAGES_K1 * 2 * _planes_of(passes) * 8 * 2 * P
+            + 8 * 2 * _STAGES_K1)
 
 
 def colfac_bits(seed, nbatch, N, lanes, stream=0, device="cpu", draw0=0,
@@ -191,9 +201,11 @@ def colfac_bits(seed, nbatch, N, lanes, stream=0, device="cpu", draw0=0,
     return x0.reshape(nbatch, N, lanes), x1.reshape(nbatch, N, lanes)
 
 
-def _colfac_gprime(seed, S, nbatch, mixed, stream, draw0, bits):
+def _colfac_gprime(seed, S, nbatch, mixed, stream, draw0, bits,
+                   precision="highest"):
     """K1's pass 1 in stock torch ops, in pieces of bounded size: yields
-    ``(d0, gr, gi)``, the ``G'`` (nb, N, P) of draws ``d0 ..``."""
+    ``(d0, gr, gi)``, the ``G'`` (nb, N, P) of draws ``d0 ..``, the
+    product at ``precision``."""
     N, K, P, _ = S.shape
     lanes = K // 2
     St = S.reshape(N, K, 2 * P)
@@ -208,13 +220,15 @@ def _colfac_gprime(seed, S, nbatch, mixed, stream, draw0, bits):
         z = (torch.stack([uniforms(b[0]), uniforms(b[1])], dim=-1) if mixed
              else torch.stack(box_muller(*b), dim=-1))
         # (m, nb, K) @ (m, K, 2P): every column's noise times its factor
-        g = (z.reshape(nb, N, K).transpose(0, 1) @ St).transpose(0, 1)
+        g = mm(z.reshape(nb, N, K).transpose(0, 1), St,
+               precision).transpose(0, 1)
         g = g.reshape(nb, N, P, 2)
         yield d0, g[..., 0], g[..., 1]
 
 
 def colfac_detect_reference(seed, S, wr, wi, pm_t, nbatch, mixed=True,
-                            stream=0, draw0=0, bits=None, sh_t=None):
+                            stream=0, draw0=0, bits=None, sh_t=None,
+                            precision="highest"):
     """K1 in stock torch ops (see the module docstring).
 
     Args:
@@ -229,6 +243,8 @@ def colfac_detect_reference(seed, S, wr, wi, pm_t, nbatch, mixed=True,
         bits: optional ``(b1, b2)`` integer tensors (nbatch, N, K // 2) of
             32-bit values in place of the Philox bits.
         sh_t: optional (nbatch, 2, P, P) transposed subharmonic screens.
+        precision: the ``PRECISION`` of every product
+            (``synth_detect.PASSES``).
 
     Returns:
         (2 * nbatch, 2) float32 tensor, the layout of K2's.
@@ -236,9 +252,9 @@ def colfac_detect_reference(seed, S, wr, wi, pm_t, nbatch, mixed=True,
     return _pack(torch.cat([
         detect_reference(gr, gi, wr, wi, pm_t,
                          None if sh_t is None
-                         else sh_t[d0:d0 + gr.shape[0]])
+                         else sh_t[d0:d0 + gr.shape[0]], precision)
         for d0, gr, gi in _colfac_gprime(seed, S, nbatch, mixed, stream,
-                                         draw0, bits)]))
+                                         draw0, bits, precision)]))
 
 
 def _library():
@@ -246,12 +262,12 @@ def _library():
     if not getattr(lib, "_fast_typed", False):
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
         lib.fast_colfac_detect.argtypes = [u, u, u, i, i, p, p, p, p, p, p, p,
-                                           p, i, i, i, i, p]
+                                           p, i, i, i, i, i, p]
         lib.fast_colfac_detect.restype = i
         lib.fast_colfac_pass1.argtypes = [u, u, u, i, i, p, p, p, i, i, i, i,
-                                          p]
+                                          i, p]
         lib.fast_colfac_pass1.restype = i
-        lib.fast_detect_pass.argtypes = [i, p, p, p, p, p, p, p, i, i, p]
+        lib.fast_detect_pass.argtypes = [i, p, p, p, p, p, p, p, i, i, i, p]
         lib.fast_detect_pass.restype = i
         lib.fast_error_string.argtypes = [i]
         lib.fast_error_string.restype = ctypes.c_char_p
@@ -268,21 +284,29 @@ def _data(S, split):
         raise ValueError(f"a table laid out for {'K1' if split else 'K3'} "
                          f"passed to {'K3' if split else 'K1'}")
     N, K, P, _ = S.shape
+    planes = _planes_of(S.passes)
     if split:
         PB, nz, _ = _split_geom(P)
-        want = (N, nz, -(-K // 64) * 8, 4, 8 * PB)
+        want = (N, nz, -(-K // 64) * 8, 2 * planes, 8 * PB)
     else:
-        want = (N, K // 8, 2, 16 * P)
+        want = (N, K // 8, planes, 16 * P)
     if tuple(S.data.shape) != want:
         raise ValueError(f"a LaidTable of {tuple(S.shape)} must hold {want}, "
                          f"got {tuple(S.data.shape)}")
     return S.data
 
 
-def _laid(S, what):
-    """``S`` as its pass 1 reads it on the card: a :class:`LaidTable`, or
-    the plain table laid out anew for this call (``what`` does it)."""
-    return S if isinstance(S, LaidTable) else what(S)
+def _laid(S, what, npass):
+    """``S`` as its pass 1 reads it on the card at ``npass`` TF32 passes: a
+    :class:`LaidTable` of that pass count, or the plain table laid out anew
+    for this call (``what`` does it)."""
+    if not isinstance(S, LaidTable):
+        return what(S, npass)
+    if S.passes != npass:
+        raise ValueError(f"a table laid out for {S.passes} TF32 pass(es) "
+                         f"given to a launch of {npass}: lay it out at the "
+                         f"launch's precision")
+    return S
 
 
 def _plain(S, what):
@@ -329,7 +353,7 @@ def _check_stream(stream):
 
 
 def colfac_detect(seed, S, wr, wi, pm_t, nbatch, mixed=True, stream=0,
-                  sh_t=None, laid=None):
+                  sh_t=None, laid=None, precision="highest"):
     """K1 on ``nbatch`` complex draws; arguments as
     :func:`colfac_detect_reference`.
 
@@ -338,13 +362,16 @@ def colfac_detect(seed, S, wr, wi, pm_t, nbatch, mixed=True, stream=0,
     launch from the draw index it starts at) on the current stream and
     counts each launch in ``colfac_detect.LAUNCHES``, or raises for a
     shape it does not take (:func:`supports`); on CPU tensors it runs the
-    plain version. On the card ``S`` may be the :class:`LaidTable` of
-    :func:`lay_tables` (the engine's, laid out once per configuration); a
-    plain ``S`` is laid out anew for the call. ``laid``: the
+    plain version. Both at ``precision`` (``synth_detect.PASSES``); the
+    launches also count in ``LAUNCHES_BY_PASSES``. On the card ``S`` may
+    be the :class:`LaidTable` of :func:`lay_tables` at that precision's
+    pass count (the engine's, laid out once per configuration); a plain
+    ``S`` is laid out anew for the call. ``laid``: the
     :class:`~fast_tpu_torch.ops.synth_detect.LaidW` of ``wr``, ``wi`` that
     the detect pass reads (the engine's), else laid out for the call.
     """
     N, K, P = _check(S, wr, wi, pm_t, nbatch, mixed)
+    npass = passes(precision)
     if laid is not None:
         _check_laid(laid, wr)
     dev = S.device
@@ -352,12 +379,13 @@ def colfac_detect(seed, S, wr, wi, pm_t, nbatch, mixed=True, stream=0,
     if dev.type == "cpu":
         _plain(S, "colfac_detect")
         return colfac_detect_reference(seed, S, wr, wi, pm_t, nbatch,
-                                       mixed=mixed, stream=stream, sh_t=sh_t)
+                                       mixed=mixed, stream=stream, sh_t=sh_t,
+                                       precision=precision)
     if dev.type != "cuda":
         raise ValueError(f"colfac_detect runs on CPU or CUDA, not {dev}")
     _check_launch(N, P, stream)
-    S = _laid(S, lay_tables).data
-    wpack, _ = _w_tables(wr, wi, None, laid)
+    S = _laid(S, lay_tables, npass).data
+    wpack, _ = _w_tables(wr, wi, None, laid, npass)
     k0, k1 = _key(seed)
     lib, _ = _library()
     nbatch = int(nbatch)
@@ -375,25 +403,29 @@ def colfac_detect(seed, S, wr, wi, pm_t, nbatch, mixed=True, stream=0,
                 pm_t.data_ptr(),
                 None if sh_t is None else sh_t[d0].data_ptr(),
                 g[0].data_ptr(), g[1].data_ptr(), part.data_ptr(),
-                out[d0:d0 + nb].data_ptr(), N, P, K, int(bool(mixed)), cs)
+                out[d0:d0 + nb].data_ptr(), N, P, K, int(bool(mixed)), npass,
+                cs)
             raise_on(lib, err, "colfac_detect launch")
-            colfac_detect.LAUNCHES += 1
+            count(colfac_detect, npass)
     return _pack(out)
 
 
-colfac_detect.LAUNCHES = 0
+counters(colfac_detect)
 
 
-def colfac_pass1_reference(seed, S, nbatch, mixed=True, stream=0, draw0=0):
+def colfac_pass1_reference(seed, S, nbatch, mixed=True, stream=0, draw0=0,
+                           precision="highest"):
     """Pass 1 of K1 in stock torch ops: ``(gr, gi)``, the real and
     imaginary parts of ``G'``, (nbatch, N, P) float32; arguments as
     :func:`colfac_detect_reference`."""
-    parts = list(_colfac_gprime(seed, S, nbatch, mixed, stream, draw0, None))
+    parts = list(_colfac_gprime(seed, S, nbatch, mixed, stream, draw0, None,
+                                precision))
     return (torch.cat([gr for _, gr, _ in parts]),
             torch.cat([gi for _, _, gi in parts]))
 
 
-def colfac_pass1(seed, S, nbatch, mixed=True, stream=0, draw0=0):
+def colfac_pass1(seed, S, nbatch, mixed=True, stream=0, draw0=0,
+                 precision="highest"):
     """Pass 1 of K1 alone: ``(gr, gi)``, (nbatch, N, P) float32, the
     ``G'`` that :func:`colfac_detect` detects. For timing the pass and
     holding it against :func:`colfac_pass1_reference` element by element.
@@ -401,20 +433,22 @@ def colfac_pass1(seed, S, nbatch, mixed=True, stream=0, draw0=0):
     On CUDA tensors this launches pass 1 of ``csrc/colfac_detect.cu``
     (launches of :func:`~fast_tpu_torch.ops.synth_detect.draws_per_launch`
     draws, counted in ``colfac_pass1.LAUNCHES``) on the current stream, or
-    raises; on CPU tensors it runs the plain version. ``S`` as
-    :func:`colfac_detect` takes it.
+    raises; on CPU tensors it runs the plain version; both at
+    ``precision``. ``S`` as :func:`colfac_detect` takes it.
     """
     N, K, P = _check_table(S, mixed)
     check_tables({"S": (_data(S, False), None)}, nbatch)
+    npass = passes(precision)
     dev = S.device
     if dev.type == "cpu":
         _plain(S, "colfac_pass1")
         return colfac_pass1_reference(seed, S, nbatch, mixed=mixed,
-                                      stream=stream, draw0=draw0)
+                                      stream=stream, draw0=draw0,
+                                      precision=precision)
     if dev.type != "cuda":
         raise ValueError(f"colfac_pass1 runs on CPU or CUDA, not {dev}")
     _check_launch(N, P, stream)
-    S = _laid(S, lay_tables).data
+    S = _laid(S, lay_tables, npass).data
     k0, k1 = _key(seed)
     lib, _ = _library()
     nbatch = int(nbatch)
@@ -427,16 +461,17 @@ def colfac_pass1(seed, S, nbatch, mixed=True, stream=0, draw0=0):
             err = lib.fast_colfac_pass1(
                 k0, k1, int(stream), int(draw0) + d0, nb, S.data_ptr(),
                 g[0, d0].data_ptr(), g[1, d0].data_ptr(), N, P, K,
-                int(bool(mixed)), cs)
+                int(bool(mixed)), npass, cs)
             raise_on(lib, err, "colfac_pass1 launch")
-            colfac_pass1.LAUNCHES += 1
+            count(colfac_pass1, npass)
     return g[0], g[1]
 
 
-colfac_pass1.LAUNCHES = 0
+counters(colfac_pass1)
 
 
-def detect_pass(gr, gi, wr, wi, pm_t, sh_t=None, laid=None):
+def detect_pass(gr, gi, wr, wi, pm_t, sh_t=None, laid=None,
+                precision="highest"):
     """The detect pass of K1, K2 and K3 alone: the sums (nbatch, 4) of
     :func:`~fast_tpu_torch.ops.synth_detect.detect_reference` from each
     draw's ``G'`` (``gr``, ``gi``: (nbatch, N, P), P a multiple of 16, as
@@ -445,8 +480,9 @@ def detect_pass(gr, gi, wr, wi, pm_t, sh_t=None, laid=None):
 
     On CUDA tensors this launches ``detect_pass`` of ``csrc/detect.cuh``
     (one launch of the given draws, then ``sum_tiles``, counted in
-    ``detect_pass.LAUNCHES``) on the current stream, or raises; on CPU
-    tensors it runs the plain version. ``laid``: the
+    ``detect_pass.LAUNCHES`` and ``LAUNCHES_BY_PASSES``) on the current
+    stream, or raises; on CPU tensors it runs the plain version; both at
+    ``precision``. ``laid``: the
     :class:`~fast_tpu_torch.ops.synth_detect.LaidW` of ``wr``, ``wi``, else
     laid out for the call.
     """
@@ -458,16 +494,17 @@ def detect_pass(gr, gi, wr, wi, pm_t, sh_t=None, laid=None):
                   "pm_t": (pm_t, (P, P))}, nbatch)
     dev = gr.device
     check_subharm(sh_t, nbatch, P, dev)
+    npass = passes(precision)
     if laid is not None:
         _check_laid(laid, wr)
     if dev.type == "cpu":
-        return detect_reference(gr, gi, wr, wi, pm_t, sh_t)
+        return detect_reference(gr, gi, wr, wi, pm_t, sh_t, precision)
     if dev.type != "cuda":
         raise ValueError(f"detect_pass runs on CPU or CUDA, not {dev}")
     if P % 16 or pupil_tiles(P) > 255:
         raise ValueError(f"the detect pass takes a pupil padded to a "
                          f"multiple of 16 px; got P={P}")
-    wpack, _ = _w_tables(wr, wi, None, laid)
+    wpack, _ = _w_tables(wr, wi, None, laid, npass)
     lib, _ = _library()
     out = torch.empty((nbatch, 4), dtype=torch.float32, device=dev)
     part = torch.empty((nbatch, detect_parts(P), 4), dtype=torch.float32,
@@ -477,13 +514,14 @@ def detect_pass(gr, gi, wr, wi, pm_t, sh_t=None, laid=None):
             nbatch, wpack.data_ptr(), gr.data_ptr(),
             gi.data_ptr(), pm_t.data_ptr(),
             None if sh_t is None else sh_t.data_ptr(), part.data_ptr(),
-            out.data_ptr(), N, P, torch.cuda.current_stream(dev).cuda_stream)
+            out.data_ptr(), N, P, npass,
+            torch.cuda.current_stream(dev).cuda_stream)
     raise_on(lib, err, "detect_pass launch")
-    detect_pass.LAUNCHES += 1
+    count(detect_pass, npass)
     return out
 
 
-detect_pass.LAUNCHES = 0
+counters(detect_pass)
 
 
 # ---------------------------------------------------------------------------
@@ -545,72 +583,78 @@ def _split_geom(P):
     return -(-(P // 16) // nz) * 16, nz, nz if nz <= _MAX_CLUSTER else 1
 
 
-def _split_smem(P):
-    """Bytes of K3's pass-1 shared memory at a padded pupil ``P``
-    (``pass1_smem`` of ``csrc/colfac_split.cu``): a ring of 4 steps of
-    B_r and B_i, hi and lo, over PB px; two x tiles of noise; 12
-    mbarriers."""
+def _split_smem(P, passes=3):
+    """Bytes of K3's pass-1 shared memory at a padded pupil ``P`` and
+    ``passes`` TF32 passes (``pass1_smem`` of ``csrc/colfac_split.cu``): a
+    ring of 4 steps of B_r and B_i, each its TF32 planes, over PB px; two
+    x tiles of noise; 12 mbarriers."""
     PB = _split_geom(P)[0]
-    return 4 * (_STAGES_K3 * 32 * PB + 2 * _X_TILE) + 8 * (2 * _STAGES_K3 + 4)
+    return (4 * (_STAGES_K3 * 16 * _planes_of(passes) * PB + 2 * _X_TILE)
+            + 8 * (2 * _STAGES_K3 + 4))
 
 
-def _lay_split(T):
+def _lay_split(T, passes=3):
     """:func:`lay_tables_split`'s data of the columns of ``T``."""
     n, Kq, P, _ = T.shape
     PB, nz, _ = _split_geom(P)
     k64 = -(-Kq // 64) * 64
     t = torch.nn.functional.pad(T, (0, 0, 0, nz * PB - P, 0, k64 - Kq))
     t = t.reshape(n, k64, nz, PB, 2).permute(0, 4, 2, 1, 3)
-    hi, lo = _hi_lo(t)
+    planes = _planes(t, passes)
     return torch.stack([_core_steps(x[:, i]) for i in (0, 1)
-                        for x in (hi, lo)], dim=3)
+                        for x in planes], dim=3)
 
 
-def lay_tables_split(T):
+def lay_tables_split(T, passes=3):
     """K3's table ``T`` (:func:`pack_tables_split`) as its pass 1 reads
-    it: a :class:`LaidTable` of (N, nz, Kq64 / 8, 4, 8 PB) float32: per
+    it at ``passes`` TF32 passes: a :class:`LaidTable` of (N, nz, Kq64 /
+    8, 4, 8 PB) float32 (three passes; (..., 2, 8 PB) at one): per
     column, pupil slice of PB px (:func:`_split_geom`) and 8-deep step of
     the Kq lanes (padded with zeros to Kq64, a multiple of 64), B_r's
-    TF32 hi and lo parts, then B_i's, over the slice in ``wgmma``'s
-    core-matrix order (``csrc/colfac_split.cu``). On ``T``'s device, 64
-    columns at a time."""
-    parts = [_lay_split(T[m0:m0 + 64]) for m0 in range(0, T.shape[0], 64)]
-    return LaidTable(torch.cat(parts).contiguous(), T.shape, split=True)
+    TF32 hi and lo parts (hi alone at one pass), then B_i's, over the
+    slice in ``wgmma``'s core-matrix order (``csrc/colfac_split.cu``). On
+    ``T``'s device, 64 columns at a time."""
+    parts = [_lay_split(T[m0:m0 + 64], passes)
+             for m0 in range(0, T.shape[0], 64)]
+    return LaidTable(torch.cat(parts).contiguous(), T.shape, split=True,
+                     passes=passes)
 
 
-def laid_table(L, mixed=True):
+def laid_table(L, mixed=True, passes=3):
     """The :class:`LaidTable` of the factors ``L`` (N, npup, npup) on
-    ``L``'s device: K1's or K3's by :func:`colfac_layout`, K3's laid from
-    :func:`pack_tables_split`'s columns 64 at a time, so that the unsplit
-    table never exists whole."""
+    ``L``'s device for products of ``passes`` TF32 passes: K1's or K3's by
+    :func:`colfac_layout`, K3's laid from :func:`pack_tables_split`'s
+    columns 64 at a time, so that the unsplit table never exists whole."""
     if colfac_layout(L.shape[1]) != "split":
-        return lay_tables(pack_tables(L, mixed=mixed))
+        return lay_tables(pack_tables(L, mixed=mixed), passes)
     N, npup, _ = L.shape
     P = padded_pupil(npup)
     Kq = lane_width(npup) if mixed else P
     PB, nz, _ = _split_geom(P)
-    data = torch.empty((N, nz, -(-Kq // 64) * 8, 4, 8 * PB),
-                       dtype=torch.float32, device=L.device)
+    data = torch.empty((N, nz, -(-Kq // 64) * 8, 2 * _planes_of(passes),
+                        8 * PB), dtype=torch.float32, device=L.device)
     for m0, part in _split_columns(L, mixed):
-        data[m0:m0 + part.shape[0]] = _lay_split(part)
-    return LaidTable(data, (N, Kq, P, 2), split=True)
+        data[m0:m0 + part.shape[0]] = _lay_split(part, passes)
+    return LaidTable(data, (N, Kq, P, 2), split=True, passes=passes)
 
 
-def kernel_table(L, mixed=True):
+def kernel_table(L, mixed=True, precision="highest"):
     """The colfac kernel's table of the factors ``L`` on ``L``'s device, as
     the engine keeps it: on the card the :class:`LaidTable` its pass 1
-    reads (:func:`laid_table`, built once per configuration), on the CPU
-    the table the plain version takes (:func:`pack_tables`,
-    :func:`pack_tables_split`)."""
+    reads at ``precision`` (:func:`laid_table`, built once per
+    configuration and precision), on the CPU the table the plain version
+    takes (:func:`pack_tables`, :func:`pack_tables_split`)."""
     if L.device.type == "cuda":
-        return laid_table(L, mixed)
+        return laid_table(L, mixed, passes(precision))
     split = colfac_layout(L.shape[1]) == "split"
     return (pack_tables_split if split else pack_tables)(L, mixed=mixed)
 
 
-def _split_gprime(seed, T, nbatch, mixed, stream, draw0, bits, LW):
+def _split_gprime(seed, T, nbatch, mixed, stream, draw0, bits, LW,
+                  precision="highest"):
     """K3's pass 1 in stock torch ops, in pieces of bounded size: yields
-    ``(d0, gr, gi)``, the ``G'`` (nb, N, P) of draws ``d0 ..``."""
+    ``(d0, gr, gi)``, the ``G'`` (nb, N, P) of draws ``d0 ..``, the
+    products at ``precision``."""
     N, Kq, P, _ = T.shape
     tr, ti = T[..., 0].contiguous(), T[..., 1].contiguous()
     per = max(1, _REF_POINTS // (N * Kq))
@@ -625,12 +669,15 @@ def _split_gprime(seed, T, nbatch, mixed, stream, draw0, bits, LW):
                   else box_muller(*b))
         # (m, nb, Kq) @ (m, Kq, P): every column's noise times its factor
         zr, zi = zr.transpose(0, 1), zi.transpose(0, 1)
-        yield (d0, (zr @ tr - zi @ ti).transpose(0, 1),
-               (zr @ ti + zi @ tr).transpose(0, 1))
+        yield (d0, (mm(zr, tr, precision)
+                    - mm(zi, ti, precision)).transpose(0, 1),
+               (mm(zr, ti, precision)
+                + mm(zi, tr, precision)).transpose(0, 1))
 
 
 def colfac_split_reference(seed, T, wr, wi, pm_t, nbatch, mixed=True,
-                           stream=0, draw0=0, bits=None, sh_t=None, LW=None):
+                           stream=0, draw0=0, bits=None, sh_t=None, LW=None,
+                           precision="highest"):
     """K3 in stock torch ops (see the module docstring).
 
     Args: as :func:`colfac_detect_reference`, with ``T`` (N, Kq, P, 2) of
@@ -645,9 +692,9 @@ def colfac_split_reference(seed, T, wr, wi, pm_t, nbatch, mixed=True,
     return _pack(torch.cat([
         detect_reference(gr, gi, wr, wi, pm_t,
                          None if sh_t is None
-                         else sh_t[d0:d0 + gr.shape[0]])
+                         else sh_t[d0:d0 + gr.shape[0]], precision)
         for d0, gr, gi in _split_gprime(seed, T, nbatch, mixed, stream,
-                                        draw0, bits, LW)]))
+                                        draw0, bits, LW, precision)]))
 
 
 def _library_split():
@@ -655,10 +702,10 @@ def _library_split():
     if not getattr(lib, "_fast_typed", False):
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
         lib.fast_colfac_split.argtypes = [u, u, u, i, i, p, p, p, p, p, p, p,
-                                          p, i, i, i, i, i, p]
+                                          p, i, i, i, i, i, i, p]
         lib.fast_colfac_split.restype = i
         lib.fast_split_pass1.argtypes = [u, u, u, i, i, p, p, p, i, i, i, i,
-                                         i, p]
+                                         i, i, p]
         lib.fast_split_pass1.restype = i
         lib.fast_error_string.argtypes = [i]
         lib.fast_error_string.restype = ctypes.c_char_p
@@ -689,18 +736,21 @@ def _check_split(T, wr, wi, pm_t, nbatch, LW):
 
 
 def colfac_detect_split(seed, T, wr, wi, pm_t, nbatch, mixed=True, stream=0,
-                        sh_t=None, LW=None, laid=None):
+                        sh_t=None, LW=None, laid=None, precision="highest"):
     """K3 on ``nbatch`` complex draws; arguments as
     :func:`colfac_split_reference`.
 
     On CUDA tensors this launches the kernel (launches as
     :func:`colfac_detect`'s) on the current stream and counts each launch
-    in ``colfac_detect_split.LAUNCHES``, or raises; on CPU tensors it runs
-    the plain version. On the card ``T`` may be the :class:`LaidTable` of
-    :func:`lay_tables_split` or :func:`laid_table`; a plain ``T`` is laid
-    out anew for the call. ``laid`` as :func:`colfac_detect`'s.
+    in ``colfac_detect_split.LAUNCHES`` and ``LAUNCHES_BY_PASSES``, or
+    raises; on CPU tensors it runs the plain version; both at
+    ``precision``. On the card ``T`` may be the :class:`LaidTable` of
+    :func:`lay_tables_split` or :func:`laid_table` at that precision's
+    pass count; a plain ``T`` is laid out anew for the call. ``laid`` as
+    :func:`colfac_detect`'s.
     """
     N, Kq, P, LW = _check_split(T, wr, wi, pm_t, nbatch, LW)
+    npass = passes(precision)
     if laid is not None:
         _check_laid(laid, wr)
     dev = T.device
@@ -709,12 +759,12 @@ def colfac_detect_split(seed, T, wr, wi, pm_t, nbatch, mixed=True, stream=0,
         _plain(T, "colfac_detect_split")
         return colfac_split_reference(seed, T, wr, wi, pm_t, nbatch,
                                       mixed=mixed, stream=stream, sh_t=sh_t,
-                                      LW=LW)
+                                      LW=LW, precision=precision)
     if dev.type != "cuda":
         raise ValueError(f"colfac_detect_split runs on CPU or CUDA, not {dev}")
     _check_stream(stream)
-    T = _laid(T, lay_tables_split).data
-    wpack, _ = _w_tables(wr, wi, None, laid)
+    T = _laid(T, lay_tables_split, npass).data
+    wpack, _ = _w_tables(wr, wi, None, laid, npass)
     k0, k1 = _key(seed)
     lib, _ = _library_split()
     nbatch = int(nbatch)
@@ -733,27 +783,28 @@ def colfac_detect_split(seed, T, wr, wi, pm_t, nbatch, mixed=True, stream=0,
                 None if sh_t is None else sh_t[d0].data_ptr(),
                 g[0].data_ptr(), g[1].data_ptr(), part.data_ptr(),
                 out[d0:d0 + nb].data_ptr(), N, P, Kq, LW, int(bool(mixed)),
-                cs)
+                npass, cs)
             raise_on(lib, err, "colfac_detect_split launch")
-            colfac_detect_split.LAUNCHES += 1
+            count(colfac_detect_split, npass)
     return _pack(out)
 
 
-colfac_detect_split.LAUNCHES = 0
+counters(colfac_detect_split)
 
 
 def split_pass1_reference(seed, T, nbatch, mixed=True, stream=0, draw0=0,
-                          LW=None):
+                          LW=None, precision="highest"):
     """Pass 1 of K3 in stock torch ops: ``(gr, gi)``, (nbatch, N, P)
     float32; arguments as :func:`colfac_split_reference`."""
     LW = lane_width(T.shape[1]) if LW is None else int(LW)
     parts = list(_split_gprime(seed, T, nbatch, mixed, stream, draw0, None,
-                               LW))
+                               LW, precision))
     return (torch.cat([gr for _, gr, _ in parts]),
             torch.cat([gi for _, _, gi in parts]))
 
 
-def split_pass1(seed, T, nbatch, mixed=True, stream=0, draw0=0, LW=None):
+def split_pass1(seed, T, nbatch, mixed=True, stream=0, draw0=0, LW=None,
+                precision="highest"):
     """Pass 1 of K3 alone: ``(gr, gi)``, (nbatch, N, P) float32, the
     ``G'`` that :func:`colfac_detect_split` detects. For timing the pass and
     holding it against :func:`split_pass1_reference` element by element.
@@ -761,20 +812,22 @@ def split_pass1(seed, T, nbatch, mixed=True, stream=0, draw0=0, LW=None):
     On CUDA tensors this launches pass 1 of ``csrc/colfac_split.cu``
     (launches of :func:`~fast_tpu_torch.ops.synth_detect.draws_per_launch`
     draws, counted in ``split_pass1.LAUNCHES``) on the current stream, or
-    raises; on CPU tensors it runs the plain version. ``T`` as
-    :func:`colfac_detect_split` takes it.
+    raises; on CPU tensors it runs the plain version; both at
+    ``precision``. ``T`` as :func:`colfac_detect_split` takes it.
     """
     N, Kq, P, LW = _check_split_table(T, LW)
     check_tables({"T": (_data(T, True), None)}, nbatch)
+    npass = passes(precision)
     dev = T.device
     if dev.type == "cpu":
         _plain(T, "split_pass1")
         return split_pass1_reference(seed, T, nbatch, mixed=mixed,
-                                     stream=stream, draw0=draw0, LW=LW)
+                                     stream=stream, draw0=draw0, LW=LW,
+                                     precision=precision)
     if dev.type != "cuda":
         raise ValueError(f"split_pass1 runs on CPU or CUDA, not {dev}")
     _check_stream(stream)
-    T = _laid(T, lay_tables_split).data
+    T = _laid(T, lay_tables_split, npass).data
     k0, k1 = _key(seed)
     lib, _ = _library_split()
     nbatch = int(nbatch)
@@ -787,10 +840,10 @@ def split_pass1(seed, T, nbatch, mixed=True, stream=0, draw0=0, LW=None):
             err = lib.fast_split_pass1(
                 k0, k1, int(stream), int(draw0) + d0, nb, T.data_ptr(),
                 g[0, d0].data_ptr(), g[1, d0].data_ptr(), N, P, Kq, LW,
-                int(bool(mixed)), cs)
+                int(bool(mixed)), npass, cs)
             raise_on(lib, err, "split_pass1 launch")
-            split_pass1.LAUNCHES += 1
+            count(split_pass1, npass)
     return g[0], g[1]
 
 
-split_pass1.LAUNCHES = 0
+counters(split_pass1)

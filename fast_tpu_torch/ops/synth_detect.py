@@ -22,18 +22,25 @@ exactly K7's screens of the same seed.
   pass alone (``W G'`` written out as screens), the twin of
   :func:`~fast_tpu_torch.ops.colfac_detect.detect_pass`.
 
-Any pupil width: the kernels tile the pupil axis (``csrc/detect.cuh``), so
-only 'mixed' noise on a grid over 2304 px (at a 128 px pupil) is refused.
-The Philox counter's last word keeps the kernels' streams of one seed
-apart: 0 for K2 and K7, 1 for K1
+Any grid side and any pupil width: the kernels tile the pupil axis
+(``csrc/detect.cuh``). The Philox counter's last word keeps the kernels'
+streams of one seed apart: 0 for K2 and K7, 1 for K1
 (:mod:`~fast_tpu_torch.ops.colfac_detect`), 2 for the AR kernels
 (:mod:`~fast_tpu_torch.ops.ar_flow`), 3 for K3. Both passes of K2 and K7
-run their products on the tensor cores as three TF32 products (3xTF32,
-Hopper's ``wgmma``) against the laid W table (:class:`LaidW`,
-:func:`laid_w`: split and laid out once per configuration, the engine's;
-a wrapper given plain ``wr``, ``wi`` lays them out for the call), which
-the detect pass of K1 and K3 reads too; :func:`synth_pass1` runs pass 1
-alone.
+run their products on the tensor cores (Hopper's ``wgmma``) against the
+laid W table (:class:`LaidW`, :func:`laid_w`: split and laid out once per
+configuration and pass count, the engine's; a wrapper given plain ``wr``,
+``wi`` lays them out for the call), which the detect pass of K1 and K3
+reads too; :func:`synth_pass1` runs pass 1 alone.
+
+Precision: every wrapper and plain version takes ``precision``, the
+``PRECISION`` config value (:data:`PASSES`). 'high' and 'highest' (the
+wrappers' default) run every product as three TF32 products (3xTF32,
+fp32-accurate); 'default' runs each as one TF32 product, its operands
+rounded to TF32 once, as the JAX package's 'default' is one bf16 pass.
+The plain versions round their products' operands the same way
+(:func:`mm`), so that a kernel and its plain version agree at either
+precision.
 
 Output layout, as the TPU kernel's: ``(2 * nbatch, 2)`` float32, rows
 ``0..nbatch-1`` the screens from the real parts and rows
@@ -54,6 +61,7 @@ import functools
 import numpy as np
 import torch
 
+from ..conf import PASSES
 from . import _build
 
 _MASK32 = 0xFFFFFFFF
@@ -71,17 +79,36 @@ _REF_POINTS = 1 << 25
 _SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block can use
 # pass 1 (csrc/synth_detect.cu): the widest pupil slice of a block; the
 # depth of a chunk of uniforms and of a staged slice of the mixing matrix;
-# the words of such a slice (4 steps x {hi, lo} x 64 columns x 8), of a
-# chunk of both components' uniforms (64 rows x 32) and of an x tile (Re
+# the words of a TF32 plane of such a slice (4 steps x 64 columns x 8), of
+# a chunk of both components' uniforms (64 rows x 32) and of an x tile (Re
 # and Im, 64 x 64)
 _PB_MAX = 208
 _KU = 32
-_M_STAGE = 4 * 2 * 64 * 8
+_M_PLANE = 4 * 64 * 8
 _U_CHUNK = 2 * 64 * _KU
 _X_TILE = 2 * 64 * 64
 _P_ALIGN = 16         # the kernel pads the pupil axis to this multiple
-_P_MAX = 128          # px of a pupil tile (K2's envelope, the pupil bound)
-                      # (csrc/detect.cuh); K1 takes no wider pupil
+_P_MAX = 128          # px of a pupil tile (csrc/detect.cuh); K1 takes no
+                      # wider pupil
+
+def passes(precision):
+    """The TF32 passes of every kernel product at ``precision``, a
+    :data:`PASSES` key; any other value raises."""
+    try:
+        return PASSES[precision]
+    except (KeyError, TypeError):
+        raise ValueError(f"precision must be one of {sorted(PASSES)}, got "
+                         f"{precision!r}") from None
+
+
+def mm(a, b, precision):
+    """``a @ b`` with both operands as the kernels' products take them at
+    ``precision``: rounded to TF32 (as ``cvt.rna.tf32.f32`` rounds) at one
+    pass, else as they are; summed in float32. Every product of the plain
+    versions."""
+    if passes(precision) == 1:
+        a, b = _tf32(a), _tf32(b)
+    return a @ b
 
 
 # ---------------------------------------------------------------------------
@@ -215,14 +242,15 @@ def _pack(out):
                         torch.cat([out[:, 1], out[:, 3]])], dim=-1)
 
 
-def detect_reference(gr, gi, wr, wi, pm_t, sh_t=None):
+def detect_reference(gr, gi, wr, wi, pm_t, sh_t=None, precision="highest"):
     """The detect pass that ends both kernels, in stock torch ops: the
     transposed screens ``H = W G'`` of each draw from its ``G'`` (``gr``,
     ``gi``: (nb, N, P)), plus the transposed subharmonic screens ``sh_t``
     ((nb, 2, P, P)) if given, then ``(sum pm_t cos, sum pm_t sin)`` of
-    ``Re H`` and ``Im H``: (nb, 4) float32."""
-    h1 = wr @ gr - wi @ gi
-    h2 = wr @ gi + wi @ gr
+    ``Re H`` and ``Im H``: (nb, 4) float32; the products at
+    ``precision`` (:func:`mm`)."""
+    h1 = mm(wr, gr, precision) - mm(wi, gi, precision)
+    h2 = mm(wr, gi, precision) + mm(wi, gr, precision)
     if sh_t is not None:
         h1 = h1 + sh_t[:, 0]
         h2 = h2 + sh_t[:, 1]
@@ -233,9 +261,11 @@ def detect_reference(gr, gi, wr, wi, pm_t, sh_t=None):
                        dim=-1)
 
 
-def _gprime_reference(seed, s_t, wr, wi, nbatch, mix, stream, draw0, bits):
+def _gprime_reference(seed, s_t, wr, wi, nbatch, mix, stream, draw0, bits,
+                      precision="highest"):
     """Pass 1 in stock torch ops, in pieces of bounded size: yields
-    ``(d0, gr, gi)``, the ``G' = X' W^T`` (nb, N, P) of draws ``d0 ..``."""
+    ``(d0, gr, gi)``, the ``G' = X' W^T`` (nb, N, P) of draws ``d0 ..``,
+    both products at ``precision``."""
     N = s_t.shape[-1]
     per = max(1, _REF_POINTS // (N * N))
     for d0 in range(0, int(nbatch), per):
@@ -246,16 +276,20 @@ def _gprime_reference(seed, s_t, wr, wi, nbatch, mix, stream, draw0, bits):
         else:
             b = (bits[0][d0:d0 + nb], bits[1][d0:d0 + nb])
         if mix is not None:
-            z1, z2 = uniforms(b[0]) @ mix, uniforms(b[1]) @ mix
+            z1 = mm(uniforms(b[0]), mix, precision)
+            z2 = mm(uniforms(b[1]), mix, precision)
         else:
             z1, z2 = box_muller(*b)
         xr = z1 * s_t
         xi = z2 * s_t
-        yield d0, xr @ wr.T - xi @ wi.T, xr @ wi.T + xi @ wr.T
+        wrt, wit = wr.T, wi.T
+        yield (d0, mm(xr, wrt, precision) - mm(xi, wit, precision),
+               mm(xr, wit, precision) + mm(xi, wrt, precision))
 
 
 def synth_detect_reference(seed, s_t, wr, wi, pm_t, nbatch, mix=None,
-                           stream=0, draw0=0, bits=None, sh_t=None):
+                           stream=0, draw0=0, bits=None, sh_t=None,
+                           precision="highest"):
     """K2 in stock torch ops (see the module docstring).
 
     Args:
@@ -273,20 +307,23 @@ def synth_detect_reference(seed, s_t, wr, wi, pm_t, nbatch, mix=None,
             32-bit values in place of the Philox bits.
         sh_t: optional (nbatch, 2, P, P) float32 transposed subharmonic
             screens (:func:`pack_subharm`).
+        precision: the ``PRECISION`` of every product (:data:`PASSES`):
+            'default' rounds their operands to TF32 (:func:`mm`).
 
     Returns:
         (2 * nbatch, 2) float32 tensor.
     """
     parts = [detect_reference(gr, gi, wr, wi, pm_t,
                               None if sh_t is None
-                              else sh_t[d0:d0 + gr.shape[0]])
+                              else sh_t[d0:d0 + gr.shape[0]], precision)
              for d0, gr, gi in _gprime_reference(seed, s_t, wr, wi, nbatch,
-                                                 mix, stream, draw0, bits)]
+                                                 mix, stream, draw0, bits,
+                                                 precision)]
     return _pack(torch.cat(parts))
 
 
 def synth_screens_reference(seed, s_t, wr, wi, nbatch, npup=None, stream=0,
-                            draw0=0, bits=None):
+                            draw0=0, bits=None, precision="highest"):
     """K7 in stock torch ops: the phase screens ``Re, Im (W X W^T)`` of
     ``nbatch`` complex draws of Box-Muller noise, K2's 'gauss' draws of
     the same seed, stream and draw index.
@@ -299,12 +336,15 @@ def synth_screens_reference(seed, s_t, wr, wi, nbatch, npup=None, stream=0,
         first, un-transposed (``fast_tpu.ops.pallas_synth.fused_synthesis``).
     """
     npup = wr.shape[0] if npup is None else int(npup)
-    re, im = [], []
-    for _, gr, gi in _gprime_reference(seed, s_t, wr[:npup], wi[:npup],
-                                       nbatch, None, stream, draw0, bits):
-        re.append((wr[:npup] @ gr - wi[:npup] @ gi).transpose(-2, -1))
-        im.append((wr[:npup] @ gi + wi[:npup] @ gr).transpose(-2, -1))
-    return torch.cat(re + im).contiguous()
+    scr = [screens_pass_reference(gr, gi, wr[:npup], wi[:npup],
+                                  precision=precision)
+           for _, gr, gi in _gprime_reference(seed, s_t, wr[:npup],
+                                              wi[:npup], nbatch, None,
+                                              stream, draw0, bits,
+                                              precision)]
+    n = [x.shape[0] // 2 for x in scr]
+    return torch.cat([x[:k] for x, k in zip(scr, n)]
+                     + [x[k:] for x, k in zip(scr, n)]).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -370,21 +410,23 @@ def _pass1_geom(P):
     return -(-(P // 16) // nz) * 16, nz
 
 
-def _smem_bytes(N, P, mixed):
-    """Dynamic shared memory of pass 1 (``pass1_smem`` of the CUDA
-    source): a ring of 4 B stages (one 8-deep step of W's four split
-    tables over the block's PB columns, or with 'mixed' noise a 32-deep
-    slice of the mixing matrix, whichever is larger); the x tiles of 64
-    rows x 64 columns, Re and Im (one with 'mixed' noise, two with 'gauss'
-    and for 'mixed' over two pupil slices, whose blocks make every other
-    tile for both); with 'mixed' noise the 32-column chunks of both
-    components' uniforms of the block's 64 rows, all of the grid's where
-    they fit, else two; 12 mbarriers."""
+def _smem_bytes(N, P, mixed, passes=3):
+    """Dynamic shared memory of pass 1 at ``passes`` TF32 passes
+    (``pass1_smem`` of the CUDA source): a ring of 4 B stages (one 8-deep
+    step of wr and wi, each as its TF32 planes, over the block's PB
+    columns, or with 'mixed' noise a 32-deep slice of the mixing matrix,
+    whichever is larger); the x tiles of 64 rows x 64 columns, Re and Im
+    (one with 'mixed' noise, two with 'gauss' and for 'mixed' over two
+    pupil slices, whose blocks make every other tile for both); with
+    'mixed' noise the 32-column chunks of both components' uniforms of the
+    block's 64 rows, all of the grid's where they fit, else two; 12
+    mbarriers."""
     PB, nz = _pass1_geom(padded_pupil(P))
     xtiles = 1 if mixed and nz != 2 else 2
+    planes = _planes_of(passes)
 
     def words(nbuf):
-        slot = max(_M_STAGE if mixed else 0, 32 * PB)
+        slot = planes * max(_M_PLANE if mixed else 0, 16 * PB)
         return (4 * slot + xtiles * _X_TILE
                 + (nbuf * _U_CHUNK if mixed else 0))
 
@@ -393,31 +435,13 @@ def _smem_bytes(N, P, mixed):
     return 4 * words(nbuf) + 96
 
 
-def _mixed_envelope(N, P):
-    """Whether the port takes 'mixed' noise on an (N, N) grid with a P px
-    pupil: the grids its first kernel took, whose shared memory held 16
-    grid rows of uniforms (N up to 2304 at a 128 px pupil). The kernel has
-    no such limit any more; the envelope keeps what ``Fast`` accepts as
-    it was."""
-    P = padded_pupil(P)
-    if P <= _P_MAX:
-        gw = P
-    else:  # 4 column groups a block, up to 512 px
-        per = -(-(P // 16) // -(-P // 512))
-        gw = 16 * -(-per // 4)
-    tile = max(4 * gw * 36, 3 * 64 * 68)
-    return 4 * (tile + 2 * 16 * 68 + 16 * (-(-N // 64) * 64 + 4)) \
-        <= _SMEM_LIMIT
-
-
-def supports(N, P, mixed=True):
+def supports(N, P):
     """Whether the kernel takes an (N, N) grid with a P-pixel pupil: any
-    N and any pupil width with 'gauss' noise; with 'mixed' noise the
-    port's envelope (:func:`_mixed_envelope`: N up to 2304 at a 128 px
-    pupil)."""
-    if N <= 0 or P <= 0:
-        return False
-    return not mixed or _mixed_envelope(N, P)
+    positive N and any pupil the tiles of ``csrc/detect.cuh`` cover (up to
+    32640 px), with either noise; pass 1 keeps two chunks of 'mixed'
+    uniforms where all of a grid's do not fit, so no grid side is too
+    large for its shared memory."""
+    return N > 0 and P > 0 and pupil_tiles(padded_pupil(P)) <= 255
 
 
 def draws_per_launch(N, P, nbatch=_MAX_DRAWS):
@@ -468,92 +492,136 @@ def _hi_lo(b):
     return hi, _tf32(b - hi)
 
 
-def pass1_tables(wr, wi, mix=None):
-    """The kernels' tables (``wpack``, ``mpack``), each operand split once
-    into TF32 hi and lo parts and laid out as its B stages land in shared
-    memory, one contiguous block a stage (:func:`laid_w` keeps them):
+def _planes_of(passes):
+    """TF32 planes of a laid B operand at ``passes`` TF32 passes:
+    ``b_planes`` of ``csrc/wgmma.cuh``."""
+    return 1 if passes == 1 else 2
+
+
+def _planes(b, passes):
+    """The TF32 planes of a B operand that products of ``passes`` passes
+    read: ``(hi, lo)`` (:func:`_hi_lo`) or ``(hi,)``."""
+    return _hi_lo(b) if passes != 1 else (_tf32(b),)
+
+
+def pass1_tables(wr, wi, mix=None, passes=3):
+    """The kernels' tables (``wpack``, ``mpack``) for products of
+    ``passes`` TF32 passes, each operand split once into its TF32 planes
+    (hi and lo at three passes, hi alone at one) and laid out as its B
+    stages land in shared memory, one contiguous block a stage
+    (:func:`laid_w` keeps them):
 
     * ``wpack``: for each of the nz slices of PB pupil columns
       (:func:`_pass1_geom` of the padded pupil, rows of ``wr`` past it
       zero) and each 8-deep step of the depth N (padded to a multiple of
-      64), the step's ``wr^T`` hi, lo and ``wi^T`` hi, lo: (nz, N64 / 8,
-      4, 8 PB);
+      64), the step's ``wr^T`` planes, then ``wi^T``'s: (nz, N64 / 8, 4,
+      8 PB) at three passes (hi, lo, hi, lo), (nz, N64 / 8, 2, 8 PB) at one;
     * ``mpack`` ('mixed' noise, else None): for each 64-column tile of
       ``mix`` and each 32-deep slice of its depth (N padded to a multiple
-      of 32), the slice's 4 steps, hi then lo: (N64 / 64, N32 / 32, 4, 2,
-      512).
+      of 32), the slice's 4 steps, each its planes: (N64 / 64, N32 / 32, 4,
+      2 or 1, 512).
 
     ``wpack`` is ``W^T``, the B of both passes: pass 1's ``G' = X' W^T``
     and the second pass's ``H^T = G'^T W^T`` (``csrc/detect.cuh``).
     ``wr``, ``wi``: (P, N) with P a multiple of 16 (:func:`pad_pupil`);
     ``mix``: (N, N). On the tables' device, in stock torch ops.
     """
-    return _w_table(wr, wi), None if mix is None else _mix_table(mix)
+    return (_w_table(wr, wi, passes),
+            None if mix is None else _mix_table(mix, passes))
 
 
-def _w_table(wr, wi):
+def _w_table(wr, wi, passes=3):
     """:func:`pass1_tables`' ``wpack``."""
     P, N = wr.shape
     PB, nz = _pass1_geom(P)
     n64 = -(-N // 64) * 64
     w = torch.nn.functional.pad(torch.stack([wr, wi]),
                                 (0, n64 - N, 0, nz * PB - P))
-    pieces = [_core_layout(x.T, PB) for part in w for x in _hi_lo(part)]
+    pieces = [_core_layout(x.T, PB) for part in w
+              for x in _planes(part, passes)]
     return torch.stack(pieces, dim=2).contiguous()
 
 
-def _mix_table(mix):
+def _mix_table(mix, passes=3):
     """:func:`pass1_tables`' ``mpack``."""
     N = mix.shape[0]
     n64, n32 = -(-N // 64) * 64, -(-N // _KU) * _KU
     m = torch.nn.functional.pad(mix, (0, n64 - N, 0, n32 - N))
     tiles = [_core_layout(x, 64).reshape(n64 // 64, n32 // _KU, 4, 512)
-             for x in _hi_lo(m)]
+             for x in _planes(m, passes)]
     return torch.stack(tiles, dim=3).contiguous()
 
 
 class LaidW:
     """The laid W table: ``W^T`` (and the mixing matrix) as the card's
-    kernels read them, :func:`pass1_tables`' ``wpack`` and ``mpack`` (None
-    without a mixing matrix), laid out from the padded (P, N) ``wr``,
-    ``wi`` of ``shape``. Pass 1 of K2 and K7, the detect pass of K1, K2
-    and K3 and K7's screens pass read it; the wrappers take it as
+    kernels read them, :func:`pass1_tables`' ``wpack`` and ``mpack`` of
+    each pass count, from the padded (P, N) ``wr``, ``wi`` (and ``mix``,
+    or None) it keeps. :func:`laid_w` lays out the tables of ``passes``,
+    the pass count it is built for (``wpack``, ``mpack``), at once;
+    :meth:`tables` those of another at their first use, then keeps them.
+    Pass 1 of K2 and K7, the detect pass of K1, K2 and K3, K7's screens
+    pass and the AR kernels' products read it; the wrappers take it as
     ``laid=`` beside the plain ``wr``, ``wi``."""
 
-    def __init__(self, wpack, mpack, shape):
-        self.wpack, self.mpack, self.shape = wpack, mpack, torch.Size(shape)
+    def __init__(self, wr, wi, mix=None, passes=3):
+        self.wr, self.wi, self.mix, self.passes = wr, wi, mix, passes
+        self.shape = wr.shape
+        self._tables = {}
+
+    @property
+    def wpack(self):
+        return self.tables(self.passes, mix=False)[0]
+
+    @property
+    def mpack(self):
+        return self.tables(self.passes)[1]
+
+    def tables(self, passes, mix=True):
+        """``(wpack, mpack)`` of products of ``passes`` TF32 passes;
+        ``mpack`` None without a mixing matrix or with ``mix=False``."""
+        if passes not in self._tables:
+            self._tables[passes] = [_w_table(self.wr, self.wi, passes), None]
+        t = self._tables[passes]
+        if mix and self.mix is not None and t[1] is None:
+            t[1] = _mix_table(self.mix, passes)
+        return t[0], t[1] if mix else None
 
     @property
     def device(self):
-        return self.wpack.device
+        return self.wr.device
 
     @property
     def nbytes(self):
-        return sum(t.numel() * t.element_size()
-                   for t in (self.wpack, self.mpack) if t is not None)
+        return sum(x.numel() * x.element_size()
+                   for t in self._tables.values() for x in t
+                   if x is not None)
 
 
-def laid_w(wr, wi, mix=None):
+def laid_w(wr, wi, mix=None, precision="highest"):
     """The :class:`LaidW` of ``wr``, ``wi`` (P, N; padded to
     :func:`padded_pupil` first) and, if given, the mixing matrix ``mix``
-    (N, N), on their device: built once per configuration by the engine
+    (N, N), on their device, with the tables of ``precision``'s pass count
+    laid out: built once per configuration by the engine
     (``interop.tables_from_numpy``) on the card. About 6.8 MB of ``wpack``
-    at N = 1024 with a 416 px padded pupil, 8.4 MB of ``mpack``."""
+    at N = 1024 with a 416 px padded pupil and 8.4 MB of ``mpack`` at
+    three passes, half that at one."""
     wr, wi, _ = pad_pupil(wr, wi, None)
-    return LaidW(*pass1_tables(wr, wi, mix), wr.shape)
+    laid = LaidW(wr, wi, mix, passes(precision))
+    laid.tables(laid.passes)
+    return laid
 
 
-def _w_tables(wr, wi, mix, laid):
-    """``(wpack, mpack)`` of a launch on the padded ``wr``, ``wi``:
-    ``laid``'s (its ``mpack`` laid out here if ``mix`` is given and it has
-    none) or laid out anew for the call."""
+def _w_tables(wr, wi, mix, laid, passes=3):
+    """``(wpack, mpack)`` of a launch of ``passes`` TF32 passes on the
+    padded ``wr``, ``wi``: ``laid``'s (with the mixing matrix ``mix``, if
+    given) or laid out anew for the call."""
     if laid is None:
-        return pass1_tables(wr, wi, mix)
+        return pass1_tables(wr, wi, mix, passes)
     _check_laid(laid, wr)
-    mpack = laid.mpack
+    wpack, mpack = laid.tables(passes, mix=mix is not None)
     if mix is not None and mpack is None:
-        mpack = _mix_table(mix)
-    return laid.wpack, mpack if mix is not None else None
+        mpack = _mix_table(mix, passes)
+    return wpack, mpack
 
 
 def _check_laid(laid, wr):
@@ -575,15 +643,15 @@ def _library():
     if not getattr(lib, "_fast_typed", False):
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
         lib.fast_synth_detect.argtypes = [u, u, u, i, i, p, p, p, p, p, p, p,
-                                          p, p, i, i, p]
+                                          p, p, i, i, i, p]
         lib.fast_synth_detect.restype = i
         lib.fast_synth_screens.argtypes = [u, u, u, i, i, p, p, p, p, p, p,
-                                           i, i, i, p]
+                                           i, i, i, i, p]
         lib.fast_synth_screens.restype = i
-        lib.fast_screens_pass.argtypes = [i, p, p, p, p, p, i, i, i, p]
+        lib.fast_screens_pass.argtypes = [i, p, p, p, p, p, i, i, i, i, p]
         lib.fast_screens_pass.restype = i
         lib.fast_synth_pass1.argtypes = [u, u, u, i, i, p, p, p, p, p, i, i,
-                                         p]
+                                         i, p]
         lib.fast_synth_pass1.restype = i
         lib.fast_sincos.argtypes = [p, p, p, i, p]
         lib.fast_sincos.restype = i
@@ -640,10 +708,9 @@ def _check(s_t, wr, wi, pm_t, nbatch, mix):
 def _launch_args(s_t, wr, wi, nbatch, mix, stream, what):
     """Checks shared by the kernels' launches; returns N."""
     N = s_t.shape[0]
-    if not supports(N, wr.shape[0], mix is not None):
+    if not supports(N, wr.shape[0]):
         raise ValueError(
-            f"the {what} kernel takes 'mixed' noise within the port's "
-            f"envelope (a grid of at most 2304 px at a 128 px pupil); got "
+            f"the {what} kernel takes a pupil of at most 32640 px; got "
             f"N={N}, P={wr.shape[0]}")
     if not 0 <= int(stream) < 2 ** 32:
         raise ValueError("stream must fit in 32 bits")
@@ -651,33 +718,36 @@ def _launch_args(s_t, wr, wi, nbatch, mix, stream, what):
 
 
 def synth_detect(seed, s_t, wr, wi, pm_t, nbatch, mix=None, stream=0,
-                 sh_t=None, laid=None):
+                 sh_t=None, laid=None, precision="highest"):
     """K2 on ``nbatch`` complex draws; arguments as
     :func:`synth_detect_reference`.
 
     On CUDA tensors this launches the kernel (two passes per launch of
     :func:`draws_per_launch` draws, each launch from the draw index it
-    starts at) on the current stream and counts each launch in
-    ``synth_detect.LAUNCHES``, or raises for a shape it does not take
-    (:func:`supports`); on CPU tensors it runs the plain version.
-    ``sh_t`` is padded as ``wr`` is. ``laid``: the :class:`LaidW` of
-    ``wr``, ``wi`` (and ``mix``), the engine's; without it the kernel's
-    tables are laid out for the call.
+    starts at) on the current stream, its products in the TF32 passes of
+    ``precision`` (:data:`PASSES`), and counts each launch in
+    ``synth_detect.LAUNCHES`` and in ``LAUNCHES_BY_PASSES``, or raises for
+    a shape it does not take (:func:`supports`); on CPU tensors it runs
+    the plain version at ``precision``. ``sh_t`` is padded as ``wr`` is.
+    ``laid``: the :class:`LaidW` of ``wr``, ``wi`` (and ``mix``), the
+    engine's; without it the kernel's tables are laid out for the call.
     """
     N, P = _check(s_t, wr, wi, pm_t, nbatch, mix)
+    npass = passes(precision)
     if laid is not None:
         _check_laid(laid, wr)
     dev = s_t.device
     if dev.type == "cpu":
         return synth_detect_reference(seed, s_t, wr, wi, pm_t, nbatch,
-                                      mix=mix, stream=stream, sh_t=sh_t)
+                                      mix=mix, stream=stream, sh_t=sh_t,
+                                      precision=precision)
     if dev.type != "cuda":
         raise ValueError(f"synth_detect runs on CPU or CUDA, not {dev}")
     N = _launch_args(s_t, wr, wi, nbatch, mix, stream, "synth-detect")
     k0, k1 = _key(seed)
     wr, wi, pm_t = pad_pupil(wr, wi, pm_t)
     Pp = wr.shape[0]
-    wpack, mpack = _w_tables(wr, wi, mix, laid)
+    wpack, mpack = _w_tables(wr, wi, mix, laid, npass)
     check_subharm(sh_t, nbatch, Pp, dev)
     lib, _ = _library()
     nbatch = int(nbatch)
@@ -696,43 +766,59 @@ def synth_detect(seed, s_t, wr, wi, pm_t, nbatch, mix=None, stream=0,
                 None if mpack is None else mpack.data_ptr(),
                 None if sh_t is None else sh_t[d0].data_ptr(),
                 g[0].data_ptr(), g[1].data_ptr(), part.data_ptr(),
-                out[d0:d0 + nb].data_ptr(), N, Pp, cs)
+                out[d0:d0 + nb].data_ptr(), N, Pp, npass, cs)
             raise_on(lib, err, "synth_detect launch")
-            synth_detect.LAUNCHES += 1
+            count(synth_detect, npass)
     return _pack(out)
 
 
-synth_detect.LAUNCHES = 0
+def count(wrapper, npass):
+    """One launch of ``wrapper``'s kernel at ``npass`` TF32 passes: adds
+    one to ``wrapper.LAUNCHES`` and to ``wrapper.LAUNCHES_BY_PASSES[npass]``,
+    the count of that instantiation."""
+    wrapper.LAUNCHES += 1
+    wrapper.LAUNCHES_BY_PASSES[npass] += 1
+
+
+def counters(wrapper):
+    """Give ``wrapper`` its launch counts, all 0: ``LAUNCHES`` and
+    ``LAUNCHES_BY_PASSES`` (by pass count, 1 and 3)."""
+    wrapper.LAUNCHES = 0
+    wrapper.LAUNCHES_BY_PASSES = {1: 0, 3: 0}
+
+
+counters(synth_detect)
 
 
 def synth_screens(seed, s_t, wr, wi, nbatch, npup=None, stream=0,
-                  laid=None):
+                  laid=None, precision="highest"):
     """K7 on ``nbatch`` complex draws: (2 * nbatch, npup, npup) float32
     screens; arguments as :func:`synth_screens_reference`.
 
     On CUDA tensors this launches the kernel (K2's pass 1 with Box-Muller
-    noise, then the screens pass; launches as :func:`synth_detect`'s) on
-    the current stream and counts each launch in
-    ``synth_screens.LAUNCHES``; on CPU tensors it runs the plain version.
-    ``laid`` as :func:`synth_detect`'s.
+    noise, then the screens pass; launches as :func:`synth_detect`'s, at
+    ``precision``) on the current stream and counts each launch in
+    ``synth_screens.LAUNCHES`` and ``LAUNCHES_BY_PASSES``; on CPU tensors
+    it runs the plain version. ``laid`` as :func:`synth_detect`'s.
     """
     npup = wr.shape[0] if npup is None else int(npup)
     if not 0 < npup <= wr.shape[0]:
         raise ValueError(f"npup must be in 1..{wr.shape[0]}, got {npup}")
     _check(s_t, wr, wi, None, nbatch, None)
+    npass = passes(precision)
     if laid is not None:
         _check_laid(laid, wr)
     dev = s_t.device
     if dev.type == "cpu":
         return synth_screens_reference(seed, s_t, wr, wi, nbatch, npup=npup,
-                                       stream=stream)
+                                       stream=stream, precision=precision)
     if dev.type != "cuda":
         raise ValueError(f"synth_screens runs on CPU or CUDA, not {dev}")
     N = _launch_args(s_t, wr, wi, nbatch, None, stream, "synth-screens")
     k0, k1 = _key(seed)
     wr, wi, _ = pad_pupil(wr, wi, None)
     Pp = wr.shape[0]
-    wpack, _ = _w_tables(wr, wi, None, laid)
+    wpack, _ = _w_tables(wr, wi, None, laid, npass)
     lib, _ = _library()
     nbatch = int(nbatch)
     scr = torch.empty((2, nbatch, npup, npup), dtype=torch.float32,
@@ -747,29 +833,30 @@ def synth_screens(seed, s_t, wr, wi, nbatch, npup=None, stream=0,
                 k0, k1, int(stream), d0, nb, s_t.data_ptr(),
                 wpack.data_ptr(), g[0].data_ptr(), g[1].data_ptr(),
                 scr[0, d0].data_ptr(), scr[1, d0].data_ptr(), N, Pp, npup,
-                cs)
+                npass, cs)
             raise_on(lib, err, "synth_screens launch")
-            synth_screens.LAUNCHES += 1
+            count(synth_screens, npass)
     return scr.reshape(2 * nbatch, npup, npup)
 
 
-synth_screens.LAUNCHES = 0
+counters(synth_screens)
 
 
-def screens_pass_reference(gr, gi, wr, wi, npup=None):
+def screens_pass_reference(gr, gi, wr, wi, npup=None, precision="highest"):
     """K7's screens pass in stock torch ops: the screens ``Re, Im (W
     G')^T`` of each draw's ``G'`` (``gr``, ``gi``: (nbatch, N, P)) cropped
     to ``npup`` px (default the rows of ``wr``): (2 * nbatch, npup, npup)
-    float32, real parts first, as :func:`synth_screens_reference`."""
+    float32, real parts first, as :func:`synth_screens_reference`; the
+    products at ``precision``."""
     npup = wr.shape[0] if npup is None else int(npup)
     wr, wi = wr[:npup], wi[:npup]
     gr, gi = gr[..., :npup], gi[..., :npup]
-    re = (wr @ gr - wi @ gi).transpose(-2, -1)
-    im = (wr @ gi + wi @ gr).transpose(-2, -1)
+    re = (mm(wr, gr, precision) - mm(wi, gi, precision)).transpose(-2, -1)
+    im = (mm(wr, gi, precision) + mm(wi, gr, precision)).transpose(-2, -1)
     return torch.cat([re, im]).contiguous()
 
 
-def screens_pass(gr, gi, wr, wi, npup=None, laid=None):
+def screens_pass(gr, gi, wr, wi, npup=None, laid=None, precision="highest"):
     """K7's screens pass alone: the screens (2 * nbatch, npup, npup) of
     :func:`screens_pass_reference` from each draw's ``G'`` (``gr``,
     ``gi``: (nbatch, N, P), P a multiple of 16, as :func:`synth_pass1`
@@ -777,9 +864,10 @@ def screens_pass(gr, gi, wr, wi, npup=None, laid=None):
     element by element against that plain version.
 
     On CUDA tensors this launches ``screens_pass`` of ``csrc/detect.cuh``
-    (one launch of the given draws, counted in ``screens_pass.LAUNCHES``)
-    on the current stream, or raises; on CPU tensors it runs the plain
-    version. ``laid`` as :func:`synth_detect`'s.
+    (one launch of the given draws at ``precision``, counted in
+    ``screens_pass.LAUNCHES`` and ``LAUNCHES_BY_PASSES``) on the current
+    stream, or raises; on CPU tensors it runs the plain version. ``laid``
+    as :func:`synth_detect`'s.
     """
     if gr.ndim != 3:
         raise ValueError(f"gr must be (nbatch, N, P), got {tuple(gr.shape)}")
@@ -789,46 +877,47 @@ def screens_pass(gr, gi, wr, wi, npup=None, laid=None):
         raise ValueError(f"npup must be in 1..{P}, got {npup}")
     check_tables({"gr": (gr, None), "gi": (gi, (nbatch, N, P)),
                   "wr": (wr, (P, N)), "wi": (wi, (P, N))}, nbatch)
+    npass = passes(precision)
     if laid is not None:
         _check_laid(laid, wr)
     dev = gr.device
     if dev.type == "cpu":
-        return screens_pass_reference(gr, gi, wr, wi, npup)
+        return screens_pass_reference(gr, gi, wr, wi, npup, precision)
     if dev.type != "cuda":
         raise ValueError(f"screens_pass runs on CPU or CUDA, not {dev}")
     if P % _P_ALIGN or pupil_tiles(P) > 255:
         raise ValueError(f"the screens pass takes a pupil padded to a "
                          f"multiple of 16 px; got P={P}")
-    wpack, _ = _w_tables(wr, wi, None, laid)
+    wpack, _ = _w_tables(wr, wi, None, laid, npass)
     lib, _ = _library()
     scr = torch.empty((2, nbatch, npup, npup), dtype=torch.float32,
                       device=dev)
     with torch.cuda.device(dev):
         err = lib.fast_screens_pass(
             nbatch, wpack.data_ptr(), gr.data_ptr(), gi.data_ptr(),
-            scr[0].data_ptr(), scr[1].data_ptr(), N, P, npup,
+            scr[0].data_ptr(), scr[1].data_ptr(), N, P, npup, npass,
             torch.cuda.current_stream(dev).cuda_stream)
     raise_on(lib, err, "screens_pass launch")
-    screens_pass.LAUNCHES += 1
+    count(screens_pass, npass)
     return scr.reshape(2 * nbatch, npup, npup)
 
 
-screens_pass.LAUNCHES = 0
+counters(screens_pass)
 
 
 def synth_pass1_reference(seed, s_t, wr, wi, nbatch, mix=None, stream=0,
-                          draw0=0):
+                          draw0=0, precision="highest"):
     """Pass 1 of K2 and K7 in stock torch ops: ``(gr, gi)``, the real and
     imaginary parts of ``G' = X' W^T``, (nbatch, N, P) float32 for the P
     rows of ``wr``; arguments as :func:`synth_detect_reference`."""
     parts = list(_gprime_reference(seed, s_t, wr, wi, nbatch, mix, stream,
-                                   draw0, None))
+                                   draw0, None, precision))
     return (torch.cat([gr for _, gr, _ in parts]),
             torch.cat([gi for _, _, gi in parts]))
 
 
 def synth_pass1(seed, s_t, wr, wi, nbatch, mix=None, stream=0, draw0=0,
-                laid=None):
+                laid=None, precision="highest"):
     """Pass 1 of K2 ('mixed' noise with ``mix``) or of K7 and K2 'gauss'
     (``mix=None``) alone: ``(gr, gi)``, (nbatch, N, P) float32 with the
     pupil axis padded to :func:`padded_pupil` (padded columns are zero).
@@ -836,24 +925,27 @@ def synth_pass1(seed, s_t, wr, wi, nbatch, mix=None, stream=0, draw0=0,
     :func:`synth_pass1_reference` element by element.
 
     On CUDA tensors this launches pass 1 of ``csrc/synth_detect.cu``
-    (launches of :func:`draws_per_launch` draws, counted in
-    ``synth_pass1.LAUNCHES``) on the current stream, or raises; on CPU
-    tensors it runs the plain version. ``laid`` as :func:`synth_detect`'s.
+    (launches of :func:`draws_per_launch` draws at ``precision``, counted in
+    ``synth_pass1.LAUNCHES`` and ``LAUNCHES_BY_PASSES``) on the current
+    stream, or raises; on CPU tensors it runs the plain version. ``laid``
+    as :func:`synth_detect`'s.
     """
     _check(s_t, wr, wi, None, nbatch, mix)
+    npass = passes(precision)
     if laid is not None:
         _check_laid(laid, wr)
     wr, wi, _ = pad_pupil(wr, wi, None)
     dev = s_t.device
     if dev.type == "cpu":
         return synth_pass1_reference(seed, s_t, wr, wi, nbatch, mix=mix,
-                                     stream=stream, draw0=draw0)
+                                     stream=stream, draw0=draw0,
+                                     precision=precision)
     if dev.type != "cuda":
         raise ValueError(f"synth_pass1 runs on CPU or CUDA, not {dev}")
     N = _launch_args(s_t, wr, wi, nbatch, mix, stream, "synth pass-1")
     k0, k1 = _key(seed)
     Pp = wr.shape[0]
-    wpack, mpack = _w_tables(wr, wi, mix, laid)
+    wpack, mpack = _w_tables(wr, wi, mix, laid, npass)
     lib, _ = _library()
     nbatch = int(nbatch)
     g = torch.empty((2, nbatch, N, Pp), dtype=torch.float32, device=dev)
@@ -865,13 +957,13 @@ def synth_pass1(seed, s_t, wr, wi, nbatch, mix=None, stream=0, draw0=0,
             err = lib.fast_synth_pass1(
                 k0, k1, int(stream), int(draw0) + d0, nb, s_t.data_ptr(),
                 wpack.data_ptr(), None if mpack is None else mpack.data_ptr(),
-                g[0, d0].data_ptr(), g[1, d0].data_ptr(), N, Pp, cs)
+                g[0, d0].data_ptr(), g[1, d0].data_ptr(), N, Pp, npass, cs)
             raise_on(lib, err, "synth_pass1 launch")
-            synth_pass1.LAUNCHES += 1
+            count(synth_pass1, npass)
     return g[0], g[1]
 
 
-synth_pass1.LAUNCHES = 0
+counters(synth_pass1)
 
 
 def device_sincos(phi):

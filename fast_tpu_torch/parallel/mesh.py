@@ -405,7 +405,8 @@ def _run_sharded_temporal_ar_layers(sim, mesh, seed):
             a, A = synthesis.ar_flow_series(
                 a, noise, phasor, sqrt_psd_df, alpha, sqrt1ma, n, True,
                 step0=s)
-            field = mesh.all_reduce(W @ A @ W.T, axis)
+            with synthesis.matmul_precision(sim._precision):
+                field = mesh.all_reduce(W @ A @ W.T, axis)
             yield synthesis.detector_coupling(field.real, pm, dx, norm)
 
     return sim._store(sim._series(logamp_seed, chunks(a0[lay])))

@@ -220,7 +220,7 @@ def _run_scan_sharded_temporal_ar(sims, mesh, seed=None):
         torch.stack([t["ns"] for t in T]) if boiling else None,
         T[0]["W"], torch.stack([t["pm"] for t in T]), s0.Niter,
         noise=s0.params["TEMPORAL_NOISE"], series0=lo,
-        laid=T[0].get("w_laid"))
+        laid=T[0].get("w_laid"), precision=s0._precision)
     outs = []
     for i, (s, t, (la, _)) in enumerate(zip(mine, T, seeds[lo:lo + per])):
         scale = float(t["dx"]) ** 2 / float(t["norm"])

@@ -186,7 +186,8 @@ def build_sweep(base_params, samples, device="cuda"):
             sims.append(s)
         tables = sample_tables(base._table_arrays(column_factors=False), per,
                                device=base.device, dtype=base.dtype,
-                               noise=p["MC_NOISE"])
+                               noise=p["MC_NOISE"],
+                               precision=base._precision)
         for s, T in zip(sims, tables):
             s.tables = T
     return sims

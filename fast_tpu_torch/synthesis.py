@@ -23,6 +23,7 @@ import torch
 from .ops.fourier import ft, ift2
 from .ops.interp import bilinear_periodic, sample_grid_periodic  # noqa: F401
 from .ops.rng import complex_normal
+from .ops.synth_detect import passes
 
 # the factor builds' diagonal jitters, relative to each column's mean
 # diagonal (the disk cache keys the float64 build on its jitter)
@@ -57,12 +58,16 @@ def synthesize_screens_complex(generator, sqrt_powerspec, df, nbatch,
     return scr
 
 
-def synthesize_screens_pruned(generator, sqrt_powerspec, df, nbatch, W):
-    """Pupil-cropped complex screens ``W @ X @ W^T`` by matrix products."""
+def synthesize_screens_pruned(generator, sqrt_powerspec, df, nbatch, W,
+                              precision="highest"):
+    """Pupil-cropped complex screens ``W @ X @ W^T`` by matrix products,
+    in TF32 at ``precision='default'`` on the card (:func:`matmul_precision`;
+    'high' and 'highest' full fp32)."""
     rand = complex_normal((nbatch,) + tuple(sqrt_powerspec.shape), generator,
                           dtype=W.dtype)
     rand = rand * (sqrt_powerspec * df)
-    return W @ rand @ W.T
+    with matmul_precision(precision):
+        return W @ rand @ W.T
 
 
 def _factor(C, jitter, floor):
@@ -95,10 +100,14 @@ def column_factors(sqrt_powerspec, df, W, jitter=JITTER_F64):
 
 
 @contextlib.contextmanager
-def _full_fp32():
-    """Matrix products in full float32 (no TF32) inside the block."""
+def matmul_precision(precision):
+    """The stock paths' float32 matrix products on the card at a
+    ``PRECISION`` value inside the block: TF32 cuBLAS at 'default' (one
+    TF32 pass, as the kernels' products), full float32 at 'high' and
+    'highest'. The CPU's products are float32 whatever it says."""
+    tf32 = passes(precision) == 1
     prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = tf32
     try:
         yield
     finally:
@@ -122,21 +131,23 @@ def column_factors_device(sqrt_powerspec, df, W, device,
                         .astype(np.float32), device=device)
     npup, N = W.shape
     C = torch.empty((N, npup, npup), dtype=torch.complex64, device=device)
-    with _full_fp32():
+    with matmul_precision("highest"):  # full float32 at every PRECISION
         for m0 in range(0, N, 128):
             A = W[None, :, :] * S.T[m0:m0 + 128, None, :]
             C[m0:m0 + 128] = A @ A.conj().transpose(1, 2)
     return _factor(C, jitter, 1e-30)
 
 
-def synthesize_screens_colfac(generator, L, W, nbatch):
+def synthesize_screens_colfac(generator, L, W, nbatch, precision="highest"):
     """Pupil-cropped complex screens from the column factors ``L``: the
     noise is drawn in the (Npup x N) basis of ``G = W X``, then ``G W^T``.
-    The same process as :func:`synthesize_screens_pruned`."""
+    The same process as :func:`synthesize_screens_pruned`; the products at
+    ``precision`` as there."""
     ncols, npup, _ = L.shape
     z = complex_normal((nbatch, ncols, npup), generator, dtype=L.dtype)
-    G = torch.einsum("mpq,bmq->bpm", L, z)
-    return torch.einsum("bpm,cm->bpc", G, W.to(L.dtype))
+    with matmul_precision(precision):
+        G = torch.einsum("mpq,bmq->bpm", L, z)
+        return torch.einsum("bpm,cm->bpc", G, W.to(L.dtype))
 
 
 def make_subharm_modes(subharm_fx, subharm_fy, N, dx, dtype=np.float64):
@@ -307,21 +318,24 @@ def ar_flow_series(a, noise, step_phasor, sqrt_psd_df, alpha, sqrt1ma, nsteps,
 
 
 def ar_flow_couplings(a, noise, step_phasor, sqrt_psd_df, alpha, sqrt1ma,
-                      chi, W, pm, dx, norm, boiling, step0=0):
+                      chi, W, pm, dx, norm, boiling, precision="highest",
+                      step0=0):
     """The AR(1) step, the pruned DFT and the detector, step by step: the
     process of :func:`ar_flow_series` followed by the centred ``ift2``,
     the pupil crop and :func:`detector_coupling`, with each step's screen
-    made by the pruned inverse-DFT products ``Re(W A W^T)`` and reduced at
-    once. ``chi`` (nsteps,) is the block's log-amplitude series. Returns
-    ``(a_final, out)`` with ``out`` (nsteps,) complex couplings scaled by
-    ``exp(chi) dx^2 / norm``."""
+    made by the pruned inverse-DFT products ``Re(W A W^T)`` (at
+    ``precision``, :func:`matmul_precision`) and reduced at once. ``chi``
+    (nsteps,) is the block's log-amplitude series. Returns ``(a_final,
+    out)`` with ``out`` (nsteps,) complex couplings scaled by ``exp(chi)
+    dx^2 / norm``."""
     out = []
     for t in range(chi.shape[0]):
         a = step_phasor * a
         if boiling:
             z = _ar_noise(noise, step0 + t, a)
             a = alpha * a + sqrt1ma * (z * sqrt_psd_df)
-        phs = (W @ a.sum(0) @ W.T).real
+        with matmul_precision(precision):
+            phs = (W @ a.sum(0) @ W.T).real
         pc = detector_coupling(phs, pm, dx, norm)
         out.append(torch.exp(chi[t]).to(pc.real.dtype) * pc)
     return a, torch.stack(out)

@@ -12,8 +12,11 @@ The shapes are chip_smoke.py's: K4 at the temporal flagship's (256^2, 4
 layers, P=82 padded to 96) per 4096 steps, K6 at the temporal orbit
 pass's (16 series of it) per 256 steps, K5 at the 16-layer 512^2 link's
 per 256 steps and K4 at the 1024^2 link's 402 px pupil (padded to 416)
-per 256 steps; 'uniform' boiling, inputs from a numpy seed. Each kernel
-is timed whole with CUDA events, then run once under ``torch.profiler``,
+per 256 steps; 'uniform' boiling, inputs from a numpy seed; at every
+``PRECISION`` of the products the checkout takes (``precision=``: one
+TF32 pass at 'default', 3xTF32 at 'highest'; a checkout without it runs
+3xTF32, reported as 'highest'). Each kernel is timed whole with CUDA
+events, then run once under ``torch.profiler``,
 which gives its passes' device time (``ar_dft`` is read this way in every
 checkout: older ones have no entry for it alone); its rate counts the
 pupil's own px (82, 402), not the padded tile. A checkout whose wrappers
@@ -79,29 +82,32 @@ def measure(root):
         if B == 1:  # one series: no series axis
             args = [x if x.ndim == 2 else x[0] for x in args]
         fn = getattr(af, entry)
-        # the laid W table, as the engine passes it, where the checkout's
-        # wrappers take one
-        kw = {}
-        if "laid" in inspect.signature(fn).parameters:
-            from fast_tpu_torch.ops.synth_detect import laid_w, pad_pupil
-            wr, wi, _ = pad_pupil(args[3].real.contiguous(),
-                                  args[3].imag.contiguous(), None)
-            kw["laid"] = laid_w(wr, wi)
+        params = inspect.signature(fn).parameters
+        for prec in (("highest", "default") if "precision" in params
+                     else ("highest",)):
+            # the laid W table, as the engine passes it, where the
+            # checkout's wrappers take one
+            kw = {"precision": prec} if "precision" in params else {}
+            if "laid" in params:
+                from fast_tpu_torch.ops.synth_detect import laid_w, pad_pupil
+                wr, wi, _ = pad_pupil(args[3].real.contiguous(),
+                                      args[3].imag.contiguous(), None)
+                kw["laid"] = laid_w(wr, wi, **kw) if kw else laid_w(wr, wi)
 
-        def call():
-            return fn(1, *args, nsteps, noise="uniform", **kw)
+            def call():
+                return fn(1, *args, nsteps, noise="uniform", **kw)
 
-        ms = cuda_ms(call, 5 if N <= 512 else 3)
-        _, busy, per = device_breakdown(call)
-        parts = {p: 1e3 * sum(v for k, v in per.items() if p in k)
-                 for p in PASSES}
-        # the work counts the pupil's own hi - lo px: W's padded rows are
-        # zeros and add nothing to G'
-        flops = 8 * (hi - lo) * N * N * nsteps * B
-        out.append({"what": label, "steps": nsteps, "kernel_ms": ms,
-                    "device_ms": 1e3 * busy, **{f"{p}_ms": v
-                                                for p, v in parts.items()},
-                    "ar_dft_tflops": flops / parts["ar_dft"] / 1e9})
+            ms = cuda_ms(call, 5 if N <= 512 else 3)
+            _, busy, per = device_breakdown(call)
+            parts = {p: 1e3 * sum(v for k, v in per.items() if p in k)
+                     for p in PASSES}
+            # the work counts the pupil's own hi - lo px: W's padded rows
+            # are zeros and add nothing to G'
+            flops = 8 * (hi - lo) * N * N * nsteps * B
+            out.append({"what": f"{label}, {prec}", "steps": nsteps,
+                        "kernel_ms": ms, "device_ms": 1e3 * busy,
+                        **{f"{p}_ms": v for p, v in parts.items()},
+                        "ar_dft_tflops": flops / parts["ar_dft"] / 1e9})
         del args
         torch.cuda.empty_cache()
     return out

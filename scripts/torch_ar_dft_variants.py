@@ -66,18 +66,20 @@ IDLE = """
           ring.release(it + q);
         }
       } else {
-        tile_products<NCH, TAIL>(gb, gt, KTile<AS>{as + s * ATile + roff},
-                                 ring, it, part, r, t, [](int) {});
+        tile_products<NCH, TAIL, kPasses>(
+            gb, gt, KTile<AS>{as + s * ATile + roff}, ring, it, part, r, t,
+            [](int) {});
       }"""
-PRODUCTS = (r"\n      tile_products<NCH, TAIL>\(gb, gt, KTile<AS>\{as \+ s \* "
-            r"ATile \+ roff\},\s*ring, it, part, r, t, \[\]\(int\) \{\}\);")
+PRODUCTS = (r"\n      tile_products<NCH, TAIL, kPasses>\(\s*gb, gt, KTile<AS>"
+            r"\{as \+ s \* ATile \+ roff\}, ring, it, part, r, t,\s*"
+            r"\[\]\(int\) \{\}\);")
 
 
 def one_row_group(src, what):
     """ar_flow.cu with ar_detect on one row group a block of work, the
     warpgroup 1's epilogue returning at once."""
-    src = replace_once(src, r"second_pass<NCH, TAIL, 2>",
-                       "second_pass<NCH, TAIL, 1>", what)
+    src = replace_once(src, r"second_pass<NCH, TAIL, 2, kPasses>",
+                       "second_pass<NCH, TAIL, 1, kPasses>", what)
     src = replace_once(src, r"(    const int R = r0 \+ \(\(tid >> 5\) & 3\) "
                        r"\* 16;  // the warp's rows\n)",
                        "    if (tid >= 128) return;\n"
@@ -85,8 +87,8 @@ def one_row_group(src, what):
                        what)
     src = replace_once(src, r"second_pass_grid\(P, nj, w\.nz, 2\)",
                        "second_pass_grid(P, nj, w.nz)", what)
-    for _ in range(2):
-        src = src.replace("detect_smem(PB, 2)", "detect_smem(PB)", 1)
+    src = replace_once(src, r"detect_smem\(PB, 2, kPasses\)",
+                       "detect_smem(PB, 1, kPasses)", what)
     return src
 
 
@@ -114,14 +116,14 @@ def main():
                           if not want or "fmad" in want else {})):
         if names:
             for name, (fn, log) in build(OUT, names, flags, "fast_ar_dft",
-                                         [i] + [p] * 5 + [i, i, p]).items():
+                                         [i] + [p] * 5 + [i, i, i, p]).items():
                 lib = ctypes.CDLL(os.path.join(OUT, name, "k.so"))
                 det = lib.fast_ar_detect
-                det.argtypes = [i, i] + [p] * 6 + [i, i, p]
+                det.argtypes = [i, i] + [p] * 6 + [i, i, i, p]
                 built[name] = (fn, det, log)
     for name, (_, _, log) in built.items():
         for kernel in ("ar_dft", "ar_detect"):
-            regs, warned = ptxas(log, kernel), serialized(log, kernel)
+            regs, warned = ptxas(log, kernel, 3), serialized(log, kernel, 3)
             for k in ("1, 32", "3, 16"):
                 print(f"ptxas {name}: {kernel} PB="
                       f"{64 * int(k[0]) + int(k[3:])}: {regs.get(k)}"
@@ -166,11 +168,12 @@ def main():
                     if kernel == "ar_dft":
                         err = dft(nj, wpack.data_ptr(), a[0].data_ptr(),
                                   a[1].data_ptr(), g[0].data_ptr(),
-                                  g[1].data_ptr(), N, P, cs)
+                                  g[1].data_ptr(), N, P, 3, cs)
                     else:
                         err = det(nj, 1, wpack.data_ptr(), gr.data_ptr(),
                                   gi.data_ptr(), pm_t.data_ptr(),
-                                  part.data_ptr(), out.data_ptr(), N, P, cs)
+                                  part.data_ptr(), out.data_ptr(), N, P, 3,
+                                  cs)
                     if err:
                         raise RuntimeError(f"{kernel} {name}: CUDA error "
                                            f"{err}")

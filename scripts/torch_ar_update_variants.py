@@ -145,7 +145,7 @@ def main():
         todo = {k: v for k, v in todo.items() if k in want | {"base"}}
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     built = build(OUT, todo, FLAGS, "fast_ar_flow",
-                  [u, u, u] + [i] * 7 + [p] * 13 + [i, i, p])
+                  [u, u, u] + [i] * 7 + [p] * 13 + [i, i, i, p])
     for name, (_, log) in built.items():
         regs = ptxas(log, "ar_update")
         for key in ("4, 1", "8, 1", "8, 2"):
@@ -201,7 +201,7 @@ def main():
                          ns32.data_ptr(), wpack.data_ptr(), pm_t.data_ptr(),
                          a[0].data_ptr(), a[1].data_ptr(), g[0].data_ptr(),
                          g[1].data_ptr(), part.data_ptr(), out.data_ptr(),
-                         N, P, cs)
+                         N, P, 3, cs)
                 if err:
                     raise RuntimeError(f"{name}: CUDA error {err}")
             call()

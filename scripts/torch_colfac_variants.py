@@ -60,10 +60,11 @@ def main():
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     groups = [
         ("K1 pass 1", "colfac_pass1", ["1, 6", "0, 6"], "fast_colfac_pass1",
-         [u, u, u, i, i, p, p, p, i, i, i, i, p],
+         [u, u, u, i, i, p, p, p, i, i, i, i, i, p],
          wgmma_variants("colfac_detect")),
         ("K3 pass 1", "split_pass1", ["1, 3, 16", "0, 3, 16"],
-         "fast_split_pass1", [u, u, u, i, i, p, p, p, i, i, i, i, i, p],
+         "fast_split_pass1",
+         [u, u, u, i, i, p, p, p, i, i, i, i, i, i, p],
          k3_variants()),
     ]
     want = set(sys.argv[1:])
@@ -74,7 +75,7 @@ def main():
         fns = build(os.path.join(OUT, kernel), todo, _build._NVCC_FLAGS,
                     entry, argtypes)
         for name, (_, log) in fns.items():
-            regs, warned = ptxas(log, kernel), serialized(log, kernel)
+            regs, warned = ptxas(log, kernel, 3), serialized(log, kernel, 3)
             for k in keys:
                 print(f"ptxas {name}: {kernel} {k}: {regs.get(k)}"
                       + (f"; wgmma serialized ({', '.join(warned[k])})"
@@ -115,7 +116,7 @@ def main():
                     args = ((N, P, K, mixed) if label == "K1 pass 1"
                             else (N, P, K, 512, mixed))
                     err = fn(1, 2, 0, 0, nb, tab.data_ptr(), g[0].data_ptr(),
-                             g[1].data_ptr(), *args, cs)
+                             g[1].data_ptr(), *args, 3, cs)
                     if err:
                         raise RuntimeError(f"{label}: CUDA error {err}")
                 return go

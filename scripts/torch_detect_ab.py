@@ -9,7 +9,11 @@ Each argument is the root of a checkout (a directory holding
 ``fast_tpu_torch/``); each is measured in a process of its own, in the
 order given, so that two versions compare on one card within one call.
 A checkout whose wrappers take the laid W table (``synth_detect.laid_w``)
-gets it laid out once, before the clock, as its engine keeps it.
+gets it laid out once, before the clock, as its engine keeps it. Every
+measurement is made at each ``PRECISION`` of the products the checkout
+takes (``precision=``: 3xTF32 at 'highest', one TF32 pass at 'default';
+a checkout without it runs 3xTF32, reported as 'highest'), the runs at
+that ``PRECISION``.
 
 * The detect pass alone (``colfac_detect.detect_pass``, CUDA events) on a
   random G' with screens of about 1.5 rad rms: at 256^2 and 512^2 with
@@ -20,8 +24,10 @@ gets it laid out once, before the clock, as its engine keeps it.
   K7 launch (the same way for every checkout: older ones have no entry
   for the pass alone).
 * Each kernel whole (CUDA events): K2 'mixed' at 256^2 (4096 draws), K1
-  'mixed' at 512^2 (4096), K3 'mixed' and K7 at 1024^2 (630), on random
-  tables from a seed (the kernels' time does not depend on their values).
+  'mixed' at 512^2 (4096), K3 'mixed', K7 and K2 'mixed' at 1024^2 (630),
+  on random tables from a seed (the kernels' time does not depend on their
+  values);
+  its two passes' device time from one launch under ``torch.profiler``.
 * The runs through these kernels, as chip_smoke.py makes them: the 256^2
   flagship through 'auto' (K2) and the 512^2 one through 'auto' (K1),
   262,144 realizations each; the 1024^2 link with the 4 m telescope
@@ -49,19 +55,37 @@ SEED = 0x5EED_1234_ABCD
 def measure(root):
     """Times in this process of the checkout at ``root``."""
     sys.path.insert(0, os.path.abspath(root))
-    import numpy as np
+    import inspect
+
     import torch
     from fast_tpu_torch.ops import _build
+    from fast_tpu_torch.ops import colfac_detect as cd
+
+    _build.build_all(["synth_detect", "colfac_detect", "colfac_split"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    takes = "precision" in inspect.signature(cd.detect_pass).parameters
+    out = []
+    for prec in ("highest", "default") if takes else ("highest",):
+        out += measure_at(prec, takes)
+    return out
+
+
+def measure_at(prec, takes):
+    """The measurements at one precision (``takes``: the checkout's
+    wrappers and tables take ``precision=``)."""
+    import numpy as np
+    import torch
     from fast_tpu_torch.ops import colfac_detect as cd
     from fast_tpu_torch.ops import synth_detect as sd
     from fast_tpu_torch.synthesis import pruned_ift2_matrix
     from fast_tpu_torch.utils.profiling import device_breakdown
 
-    _build.build_all(["synth_detect", "colfac_detect", "colfac_split"])
-    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
     out = []
+    pk = {"precision": prec} if takes else {}
+    passes = sd.passes(prec) if takes else 3
+    tag = f", {prec}"
 
     def tables(N, lo, hi):
         W = pruned_ift2_matrix(N, lo, hi, dtype=np.complex64)
@@ -72,9 +96,9 @@ def measure(root):
             torch.from_numpy(np.ascontiguousarray(pm.T, np.float32)).to(dev))
         # the laid W table, as the checkout's engine keeps it
         lw = ({"laid": sd.laid_w(wr, wi, torch.from_numpy(
-            sd.mixing_matrix(N).copy()).to(dev))}
+            sd.mixing_matrix(N).copy()).to(dev), **pk)}
               if hasattr(sd, "laid_w") else {})
-        return wr, wi, pm_t, lw
+        return wr, wi, pm_t, {**lw, **pk}
 
     def randn(shape, rms):
         return torch.randn(shape, device=dev, generator=gen) * rms
@@ -89,7 +113,8 @@ def measure(root):
             torch.complex(wr, wi).abs().max())))
         ms = cuda_ms(lambda: cd.detect_pass(g[0], g[1], wr, wi, pm_t, **lw),
                      reps)
-        out.append({"what": f"detect pass {N}^2, P={hi - lo}", "draws": nb,
+        out.append({"what": f"detect pass {N}^2, P={hi - lo}{tag}",
+                    "draws": nb,
                     "ms": ms,
                     "tflops": nb * 8 * (hi - lo) ** 2 * N / ms / 1e9})
         del g
@@ -101,8 +126,10 @@ def measure(root):
         second = 1e3 * sum(v for k, v in per.items()
                            if "detect_pass" in k or "sum_tiles" in k
                            or "screens_pass" in k)
-        out.append({"what": label, "draws": nb, "kernel_ms": ms,
-                    "device_ms": 1e3 * busy, "second_ms": second,
+        first = 1e3 * sum(v for k, v in per.items() if "pass1" in k)
+        out.append({"what": label + tag, "draws": nb, "kernel_ms": ms,
+                    "device_ms": 1e3 * busy, "first_ms": first,
+                    "second_ms": second,
                     "second_tflops": nb * 8 * npup ** 2 * N / second / 1e9})
 
     # K2 at 256^2, K1 at 512^2 ('mixed')
@@ -116,7 +143,8 @@ def measure(root):
     wr, wi, pm_t, lw = tables(N, lo, hi)
     P = wr.shape[0]
     S = randn((N, 256, P, 2), 1.5 / (N * 256) ** 0.5)
-    S = cd.lay_tables(S) if hasattr(cd, "lay_tables") else S
+    S = (cd.lay_tables(S, passes) if takes else
+         cd.lay_tables(S) if hasattr(cd, "lay_tables") else S)
     whole("K1 512^2, P=82, mixed", lambda: cd.colfac_detect(
         SEED, S, wr, wi, pm_t, nb, mixed=True, **lw), 5, hi - lo, N, nb)
     del S
@@ -125,7 +153,8 @@ def measure(root):
     wr, wi, pm_t, lw = tables(N, lo, hi)
     P = wr.shape[0]
     T = randn((N, 512, P, 2), 1.5 / (2 * N * 512) ** 0.5)
-    T = cd.lay_tables_split(T) if hasattr(cd, "lay_tables_split") else T
+    T = (cd.lay_tables_split(T, passes) if takes else
+         cd.lay_tables_split(T) if hasattr(cd, "lay_tables_split") else T)
     whole("K3 1024^2, P=402, mixed", lambda: cd.colfac_detect_split(
         SEED, T, wr, wi, pm_t, nb, mixed=True, LW=512, **lw), 3, hi - lo, N,
         nb)
@@ -134,6 +163,9 @@ def measure(root):
     s_t = randn((N, N), 1.5 / N).abs().contiguous()
     whole("K7 1024^2, P=402", lambda: sd.synth_screens(
         SEED, s_t, wr, wi, nb, npup=hi - lo, **lw), 3, hi - lo, N, nb)
+    mix = torch.from_numpy(sd.mixing_matrix(N).copy()).to(dev)
+    whole("K2 1024^2, P=402, mixed", lambda: sd.synth_detect(
+        SEED, s_t, wr, wi, pm_t, nb, mix=mix, **lw), 2, hi - lo, N, nb)
     del s_t
     torch.cuda.empty_cache()
 
@@ -143,12 +175,15 @@ def measure(root):
     os.environ["FAST_TPU_TABLE_CACHE"] = "0"
     wide = dict(**chip_smoke.WIDE, NCHUNKS=4, SEED=3, NITER=8192)
     for label, params in (
-            ("256^2 flagship, 'auto' (K2)", chip_smoke.flagship()),
-            ("512^2 flagship, 'auto' (K1)", chip_smoke.flagship(NPXLS=512)),
+            ("256^2 flagship, 'auto' (K2)",
+             chip_smoke.flagship(PRECISION=prec)),
+            ("512^2 flagship, 'auto' (K1)",
+             chip_smoke.flagship(NPXLS=512, PRECISION=prec)),
             ("1024^2 / 4 m, pinned 'pallas_colfac' (K3)",
-             chip_smoke.flagship(**wide, SYNTH="pallas_colfac")),
+             chip_smoke.flagship(**wide, SYNTH="pallas_colfac",
+                                 PRECISION=prec)),
             ("1024^2 / 4 m, 'pallas' (K7)",
-             chip_smoke.flagship(**wide, SYNTH="pallas"))):
+             chip_smoke.flagship(**wide, SYNTH="pallas", PRECISION=prec))):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         sim = Fast(params, device="cuda")
@@ -159,12 +194,14 @@ def measure(root):
             sim.run()
             torch.cuda.synchronize()
             rates.append(sim.Niter / (time.perf_counter() - t0))
-        out.append({"what": label, "run": True, "synth": sim._synth,
+        out.append({"what": label + tag, "run": True, "synth": sim._synth,
                     "tables_s": sim.timings.get("device_constants"),
                     "rates": rates[1:],
                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
         del sim
     return out
+
+
 
 
 def main():
@@ -189,7 +226,8 @@ def main():
             elif "kernel_ms" in r:
                 print(f"{root}: {r['what']}, {r['draws']} draws: kernel "
                       f"{r['kernel_ms']:.3f} ms; profiled device "
-                      f"{r['device_ms']:.3f} ms, second pass "
+                      f"{r['device_ms']:.3f} ms, pass 1 "
+                      f"{r['first_ms']:.3f} ms, second pass "
                       f"{r['second_ms']:.3f} ms ({r['second_tflops']:.1f} "
                       f"TFLOP/s) ({where})", flush=True)
             else:

@@ -73,8 +73,8 @@ def variants(name):
             r"if \(p1 \+ 1 < npup\) o\[1\] = v1;\s*\}",
             "o[0] = v0 + v1;", "no_epilogue"))}
     out["stages4"] = {"k.cu": out["base"]["k.cu"], "detect.cuh": replace_once(
-        det, r"return kRG == 1 \? \(PB <= 128 \? 8 : 4\)",
-        "return kRG == 1 ? (4)", "stages4")}
+        det, r"return \(kRG == 1 \? \(PB <= 128 \? 8 : 4\)",
+        "return (kRG == 1 ? (4)", "stages4")}
     out["one_atile"] = {"k.cu": out["base"]["k.cu"],
                         "detect.cuh": replace_once(
                             det, r"return kRG == 1 && PB > 128 \? 3 : 2;",
@@ -92,9 +92,9 @@ def main():
     p, i = ctypes.c_void_p, ctypes.c_int
     groups = [g for g in (
         ("detect pass", "colfac_detect", "detect_pass", "fast_detect_pass",
-         [i, p, p, p, p, p, p, p, i, i, p]),
+         [i, p, p, p, p, p, p, p, i, i, i, p]),
         ("screens pass", "synth_detect", "screens_pass", "fast_screens_pass",
-         [i, p, p, p, p, p, i, i, i, p]))
+         [i, p, p, p, p, p, i, i, i, i, p]))
         if not only or g[0].split()[0] in only]
     built = {}
     for label, src, kernel, entry, argtypes in groups:
@@ -104,7 +104,7 @@ def main():
         fns = build(os.path.join(OUT, kernel), todo, _build._NVCC_FLAGS,
                     entry, argtypes)
         for name, (_, log) in fns.items():
-            regs, warned = ptxas(log, kernel), serialized(log, kernel)
+            regs, warned = ptxas(log, kernel, 3), serialized(log, kernel, 3)
             for k in ("1, 32", "3, 16"):
                 print(f"ptxas {name}: {kernel} PB={64 * int(k[0]) + int(k[3:])}"
                       f": {regs.get(k)}"
@@ -138,10 +138,11 @@ def main():
             out = torch.empty((nb, 4), device=dev)
             part = torch.empty((nb, sd.detect_parts(P), 4), device=dev)
             args = (pm.data_ptr(), None, part.data_ptr(), out.data_ptr(),
-                    N, P, cs)
+                    N, P, 3, cs)
         else:
             scr = torch.empty((2, nb, npup, npup), device=dev)
-            args = (scr[0].data_ptr(), scr[1].data_ptr(), N, P, npup, cs)
+            args = (scr[0].data_ptr(), scr[1].data_ptr(), N, P, npup, 3,
+                    cs)
 
         def call(fn):
             def go():

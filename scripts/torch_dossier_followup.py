@@ -76,11 +76,14 @@ def report(tag, paths):
 def sim(niter=2 ** 20, nchunks=16, split=False, nlayers=4, **kw):
     from fast_tpu_torch import Fast
     from fast_tpu_torch.ops import colfac_detect as cd
+    from fast_tpu_torch.ops.synth_detect import passes
     s = Fast(flagship_params(nlayers, NITER=niter, NCHUNKS=nchunks, **kw),
              device="cuda")
-    if split:  # K3 on a pupil K1 takes: the split-layout tables
+    if split:  # K3 on a pupil K1 takes: the split-layout tables, laid out
+        # at the run's precision
         s.tables["T_colfac"] = cd.lay_tables_split(cd.pack_tables_split(
-            s.tables["L"], mixed=kw["MC_NOISE"] == "mixed"))
+            s.tables["L"], mixed=kw["MC_NOISE"] == "mixed"),
+            passes(s._precision))
     return s
 
 

@@ -48,9 +48,9 @@ def main():
         todo = {k: v for k, v in todo.items() if k in sys.argv[1:]}
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     built = build(OUT, todo, _build._NVCC_FLAGS, "fast_synth_pass1",
-                  [u, u, u, i, i, p, p, p, p, p, i, i, p])
+                  [u, u, u, i, i, p, p, p, p, p, i, i, i, p])
     for name, (_, log) in built.items():
-        regs = ptxas(log, "synth_pass1")
+        regs = ptxas(log, "synth_pass1", 3)
         for mixed in (1, 0):
             for nch, tail in ((1, 32), (3, 16)):
                 # 'mixed' over two slices of 208 px runs as pairs
@@ -81,7 +81,7 @@ def main():
                     err = fn(
                         1, 2, 0, 0, nb, s_t.data_ptr(), wpack.data_ptr(),
                         None if mpack is None else mpack.data_ptr(),
-                        g[0].data_ptr(), g[1].data_ptr(), N, P,
+                        g[0].data_ptr(), g[1].data_ptr(), N, P, 3,
                         torch.cuda.current_stream().cuda_stream)
                     if err:
                         raise RuntimeError(f"{name}: CUDA error {err}")

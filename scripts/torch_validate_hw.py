@@ -284,6 +284,7 @@ class Dossier:
 
     def section_folded_mix(self, n):
         from fast_tpu_torch.ops import colfac_detect as cd
+        from fast_tpu_torch.ops import synth_detect as sd
         print(f"\n== 2. folded-mix colfac tables at n={n} ==", flush=True)
         sim = self.sim(n, SYNTH="pallas_colfac", MC_NOISE="mixed")
         a, ok_a, note_a = self.run(sim, "K1", 31)
@@ -300,9 +301,10 @@ class Dossier:
         npup = sim.Npxls_pup
         try:
             T = cd.pack_tables_split(sim.tables["L"], mixed=True)
-            # the card's kernel reads the table laid out for its pass 1
-            sim.tables["T_colfac"] = cd.lay_tables_split(T) if T.is_cuda \
-                else T
+            # the card's kernel reads the table laid out for its pass 1, at
+            # the run's precision
+            sim.tables["T_colfac"] = cd.lay_tables_split(
+                T, sd.passes(sim._precision)) if T.is_cuda else T
             c, ok_c, note_c = self.run(sim, "K3", 33)
         except (ValueError, RuntimeError) as e:
             self.record("fold", "merged vs split layout (same RV family)",

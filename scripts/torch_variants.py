@@ -105,9 +105,9 @@ def wgmma_variants(name):
     return {
         "base": {"k.cu": src},
         "one_mma": {"k.cu": src, "wgmma.cuh": replace_body(
-            wg, "mma3_group", ONE_MMA, "one_mma")},
+            wg, "mma_group", ONE_MMA, "one_mma")},
         "no_mma": {"k.cu": src, "wgmma.cuh": replace_body(
-            wg, "mma3_group", NO_MMA, "no_mma")},
+            wg, "mma_group", NO_MMA, "no_mma")},
         "no_split": {"k.cu": src, "tf32x3.cuh": replace_body(
             tf32x3, "split", "\n  hi = __float_as_uint(x);\n  lo = 0u;",
             "no_split")},
@@ -154,17 +154,28 @@ def build(out, todo, flags, entry, argtypes):
     return built
 
 
-def ptxas(log, kernel):
+def _key(args, passes):
+    """The template arguments of an entry function as ``ptxas`` and
+    ``serialized`` key them: all of them, or, with ``passes``, those of the
+    instantiations of that TF32 pass count (the last argument) without
+    it; None for another pass count."""
+    if passes is None:
+        return ", ".join(args)
+    return ", ".join(args[:-1]) if args[-1] == str(passes) else None
+
+
+def ptxas(log, kernel, passes=None):
     """{template arguments: "registers; spills"} of ptxas for each entry
     function ``kernel`` in an nvcc log (the package builds with -Xptxas
     -v): e.g. {"6, 1": "Used 255 registers ...; 80 bytes stack frame,
-    ..."}."""
+    ..."}; with ``passes``, of that pass count's instantiations only
+    (:func:`_key`)."""
     out, key = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             e = re.search(kernel + r"I((?:L[bi]\d+E)+)E", m.group(1))
-            key = e and ", ".join(re.findall(r"L[bi](\d+)E", e.group(1)))
+            key = e and _key(re.findall(r"L[bi](\d+)E", e.group(1)), passes)
             continue
         if key and ("Used" in line or "spill" in line):
             out[key] = "; ".join(
@@ -172,16 +183,17 @@ def ptxas(log, kernel):
     return out
 
 
-def serialized(log, kernel):
+def serialized(log, kernel, passes=None):
     """{template arguments: [ptxas warning codes]} of each entry function
     ``kernel`` in an nvcc log whose wgmma ptxas serialized or fenced
-    (C7510-C7519: "Potential Performance Loss")."""
+    (C7510-C7519: "Potential Performance Loss"); ``passes`` as
+    :func:`ptxas`'s."""
     out = {}
     for line in log.splitlines():
         m = re.search(r"\((C751\d)\).*function '(\S+)'", line)
         e = m and re.search(kernel + r"I((?:L[bi]\d+E)+)E", m.group(2))
-        if e:
-            key = ", ".join(re.findall(r"L[bi](\d+)E", e.group(1)))
+        key = e and _key(re.findall(r"L[bi](\d+)E", e.group(1)), passes)
+        if key:
             out.setdefault(key, []).append(m.group(1))
     return out
 

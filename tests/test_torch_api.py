@@ -61,6 +61,8 @@ FUNCTIONS = [
     ("ops.bessel", "besselj"),
     ("synthesis", "synthesize_subharm_complex"),
     ("synthesis", "make_subharm_modes"),
+    ("synthesis", "synthesize_screens_pruned"),
+    ("synthesis", "synthesize_screens_colfac"),
     ("grids", "mesh_frequency_axes"),
     ("models.ao", "zernike_ft"),
     ("models.ao", "zernike_filter"),

@@ -483,3 +483,57 @@ def test_k4_laid_table_is_the_per_call_table_on_card(cuda_device, case):
     assert torch.equal(a, a_ref)
     assert float((c - c_ref).abs().max()) <= KERNEL_REL * float(
         c_ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(256, 87, 169, 1024), (1024, 311, 713, 64)],
+                         ids=lambda c: f"N{c[0]}P{c[2] - c[1]}")
+def test_products_at_default_match_plain_on_card(cuda_device, case):
+    """ar_dft and ar_detect at PRECISION='default' (one TF32 pass, from the
+    hi planes of the laid W table) on the same inputs as their plain
+    versions at 'default': within the 3xTF32 limits, both taking the same
+    float32 operands."""
+    from fast_tpu_torch.ops.synth_detect import laid_w, pad_pupil
+    N, lo, hi, nj = case
+    rng = np.random.default_rng(15)
+    a = torch.from_numpy((rng.normal(size=(2, nj, N, N)) * 0.5 / N)
+                         .astype(np.float32)).to(cuda_device)
+    W = ts.pruned_ift2_matrix(N, lo, hi, dtype=np.complex64)
+    wr = torch.from_numpy(W.real.copy()).to(cuda_device)
+    wi = torch.from_numpy(W.imag.copy()).to(cuda_device)
+    wrp, wip, _ = pad_pupil(wr, wi, None)
+    laid = laid_w(wr, wi, precision="default")
+    gr, gi = af.ar_dft(a[0], a[1], wr, wi, laid=laid, precision="default")
+    rr, ri = af.ar_dft_reference(a[0], a[1], wrp, wip, precision="default")
+    top = max(float(rr.abs().max()), float(ri.abs().max()))
+    err = max(float((gr - rr).abs().max()), float((gi - ri).abs().max()))
+    assert err <= GPRIME_REL * N * 2.0 ** -24 * top
+    pm_t = torch.rand((1, wrp.shape[0], wrp.shape[0]), device=cuda_device)
+    got = af.ar_detect(gr, gi, wr, wi, pm_t, laid=laid, precision="default")
+    ref = af.ar_detect_reference(gr, gi, wrp, wip, pm_t, precision="default")
+    assert float((got - ref).abs().max()) <= KERNEL_REL * float(
+        ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise", [None, "uniform"])
+def test_k4_at_default_matches_plain_on_card(cuda_device, noise):
+    """K4 at PRECISION='default' over two launches: the final state bit for
+    bit the plain version's (the update is the same at every precision),
+    the couplings within ONE_PASS_MAX and ONE_PASS_RMS of the TF32
+    distance of the plain version at 'default'."""
+    from test_torch_tf32x3 import ONE_PASS_MAX, ONE_PASS_RMS, tf32_readings
+    t = tensors(ar_inputs(L=4, N=64, seed=21, boiling=noise is not None),
+                cuda_device)
+    kw = dict(noise=noise or "uniform", max_steps=300)
+    before = af.ar_flow_fused.LAUNCHES_BY_PASSES[1]
+    c, a = af.ar_flow_fused(SEED, *t, 520, precision="default", **kw)
+    kw.pop("max_steps")
+    (c1, a1), (c3, _) = (af.ar_flow_reference(SEED, *t, 520, precision=p,
+                                              **kw)
+                         for p in ("default", "highest"))
+    torch.cuda.synchronize()
+    assert af.ar_flow_fused.LAUNCHES_BY_PASSES[1] == before + 2
+    assert torch.equal(a, a1)
+    mx, rms = tf32_readings((c,), (c1,), (c3,))
+    assert mx <= ONE_PASS_MAX and rms <= ONE_PASS_RMS

@@ -73,11 +73,14 @@ def readings(case, noise, monkeypatch):
         out = {"ref": ref}
         for passes in (3, 1):
             with monkeypatch.context() as m:
+                # the plain version's precision argument ('highest' here)
+                # is replaced by the emulated pass count
                 m.setattr(af, "ar_dft_reference",
-                          lambda ar, ai, wr, wi, p=passes:
+                          lambda ar, ai, wr, wi, precision=None, p=passes:
                           ar_dft_emulated(ar, ai, wr, wi, p))
                 m.setattr(af, "ar_detect_reference",
-                          lambda gr, gi, wr, wi, pm_t, p=passes:
+                          lambda gr, gi, wr, wi, pm_t, precision=None,
+                          p=passes:
                           ar_detect_emulated(gr, gi, wr, wi, pm_t, p))
                 out[passes] = af.ar_flow_reference(SEED, *t, nsteps,
                                                    noise=noise)[0]

@@ -449,13 +449,13 @@ CPU, CUDA = torch.device("cpu"), torch.device("cuda")
 
 
 @pytest.mark.parametrize("args,synth", [
-    (("auto", torch.float32, CUDA, 512, 82, "mixed"), "pallas_colfac"),
-    (("auto", torch.float32, CUDA, 4096, 128, "gauss"), "pallas_colfac"),
-    (("auto", torch.float32, CPU, 512, 82, "gauss"), "pallas_colfac"),
-    (("auto", torch.float32, CUDA, 256, 82, "mixed"), "pallas_fused"),
-    (("auto", torch.float32, CPU, 512, 130, "mixed"), "pallas_fused"),
-    (("auto", torch.float64, CUDA, 512, 82, "mixed"), "fft"),
-    (("colfac", torch.float32, CUDA, 512, 130, "mixed"), "colfac"),
+    (("auto", torch.float32, CUDA, 512, 82), "pallas_colfac"),
+    (("auto", torch.float32, CUDA, 4096, 128), "pallas_colfac"),
+    (("auto", torch.float32, CPU, 512, 82), "pallas_colfac"),
+    (("auto", torch.float32, CUDA, 256, 82), "pallas_fused"),
+    (("auto", torch.float32, CPU, 512, 130), "pallas_fused"),
+    (("auto", torch.float64, CUDA, 512, 82), "fft"),
+    (("colfac", torch.float32, CUDA, 512, 130), "colfac"),
 ])
 def test_resolve_synth_colfac_rule(args, synth):
     from fast_tpu_torch.engine import resolve_synth
@@ -469,7 +469,7 @@ def test_pinned_pallas_colfac_refuses_wide_pupils(device):
     from fast_tpu_torch.engine import resolve_synth
     for npup in (130, 402, 1000):
         assert resolve_synth("pallas_colfac", torch.float32, device, 1024,
-                             npup, "mixed") == "pallas_colfac"
+                             npup) == "pallas_colfac"
         assert cd.colfac_layout(npup) == "split"
     assert cd.colfac_layout(128) == cd.colfac_layout(82) == "merged"
 
@@ -642,3 +642,37 @@ def test_detect_pass_matches_plain_on_card(cuda_device, case):
         assert bool(torch.isfinite(got).all())
         err = float((got - ref).abs().max())
         assert err <= KERNEL_REL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise", ["gauss", "mixed"])
+def test_pass1_at_default_matches_plain_on_card(cuda_device, noise):
+    """K1's pass 1 at PRECISION='default' from the table laid out for one
+    TF32 pass, against its plain version at 'default': 'mixed' noise
+    (the same float32 operands) within GPRIME_REL N 2^-24 max |G'|,
+    Box-Muller noise (computed otherwise on the card) within ONE_PASS_MAX
+    and ONE_PASS_RMS of the TF32 distance (tests/test_torch_tf32x3.py); a
+    table laid out for the other pass count is refused."""
+    from test_torch_tf32x3 import ONE_PASS_MAX, ONE_PASS_RMS, tf32_readings
+    N, lo, hi, nbatch = 512, 215, 297, 70
+    mixed = noise == "mixed"
+    S = k1_inputs(N, lo, hi, phase_rms=1.5, mixed=mixed)[1]["S"]
+    S = S.to(cuda_device)
+    laid = cd.lay_tables(S, passes=1)
+    assert laid.data.shape[2] == 1
+    kw = dict(mixed=mixed, stream=4)
+    g = cd.colfac_pass1(0xABCDEF0123, laid, nbatch, precision="default",
+                        **kw)
+    p1, p3 = (cd.colfac_pass1_reference(0xABCDEF0123, S, nbatch,
+                                        precision=p, **kw)
+              for p in ("default", "highest"))
+    torch.cuda.synchronize()
+    if mixed:
+        top = max(float(x.abs().max()) for x in p1)
+        err = max(float((x - y).abs().max()) for x, y in zip(g, p1))
+        assert err <= GPRIME_REL * N * 2.0 ** -24 * top
+    else:
+        mx, rms = tf32_readings(g, p1, p3)
+        assert mx <= ONE_PASS_MAX and rms <= ONE_PASS_RMS
+    with pytest.raises(ValueError, match="TF32 pass"):
+        cd.colfac_pass1(0xABCDEF0123, laid, nbatch, **kw)

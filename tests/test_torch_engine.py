@@ -104,25 +104,25 @@ CPU, CUDA = torch.device("cpu"), torch.device("cuda")
 
 
 @pytest.mark.parametrize("args,synth", [
-    (("auto", torch.float32, CUDA, 256, 82, "mixed"), "pallas_fused"),
-    (("auto", torch.float32, CUDA, 102, 102, "mixed"), "pallas_fused"),
-    (("pallas_fused", torch.float32, CUDA, 4096, 128, "gauss"),
-     "pallas_fused"),
-    (("auto", torch.float32, CPU, 1024, 402, "mixed"), "pallas_fused"),
-    (("auto", torch.float32, CUDA, 1024, 402, "mixed"), "pallas_fused"),
-    (("auto", torch.float64, CUDA, 1024, 402, "mixed"), "fft"),
-    (("matmul", torch.float32, CUDA, 1024, 402, "mixed"), "matmul"),
+    (("auto", torch.float32, CUDA, 256, 82), "pallas_fused"),
+    (("auto", torch.float32, CUDA, 102, 102), "pallas_fused"),
+    (("pallas_fused", torch.float32, CUDA, 4096, 128), "pallas_fused"),
+    (("auto", torch.float32, CPU, 1024, 402), "pallas_fused"),
+    (("auto", torch.float32, CUDA, 1024, 402), "pallas_fused"),
+    (("auto", torch.float64, CUDA, 1024, 402), "fft"),
+    (("matmul", torch.float32, CUDA, 1024, 402), "matmul"),
 ])
 def test_resolve_synth(args, synth):
     assert resolve_synth(*args) == synth
 
 
 @pytest.mark.parametrize("args", [
-    ("pallas_fused", torch.float32, CUDA, 4096, 128, "mixed"),
+    ("pallas_fused", torch.float32, CUDA, 4096, 255 * 128 + 1),
 ])
 def test_resolve_synth_refuses_what_the_kernel_does_not_take(args):
     """On the card 'auto' never falls back to another path: a shape the
-    kernel does not take raises, naming the stock-op path."""
+    kernel does not take (a pupil over the 32640 px of 255 tiles) raises,
+    naming the stock-op path."""
     with pytest.raises(ValueError, match="SYNTH='matmul'"):
         resolve_synth(*args)
 

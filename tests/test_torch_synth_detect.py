@@ -12,6 +12,12 @@ they must agree to KERNEL_REL times the largest |sum|: float32 products
 and sums in another order differ by a few units in the last place of the
 sums, and products at TF32 precision would not pass.
 
+At PRECISION='default' (one TF32 pass) the card cases hold each pass
+against its plain version at 'default' with the limits of
+tests/test_torch_tf32x3.py: the 3xTF32 limits where both take the same
+float32 operands, else in units of the TF32 distance |plain('default') -
+plain('highest')| (ONE_PASS_MAX, ONE_PASS_RMS).
+
 The JAX package is imported inside the tests that compare with it, so
 that the card-only cases also run where JAX is not installed:
 
@@ -185,7 +191,13 @@ def test_kernel_shape_rule():
     assert sd.supports(512, 128) and sd.supports(2304, 128)
     # any pupil width: the pupil axis is tiled past 128 px
     assert sd.supports(256, 129) and sd.supports(1024, 402)
-    assert sd.supports(2368, 402) and not sd.supports(4096, 402)
+    # any grid side with 'mixed' noise too: pass 1 keeps two chunks of
+    # uniforms where a grid's do not fit (the first kernel's envelope, 2304
+    # px at a 128 px pupil, is gone); pupils up to 255 tiles of 128 px
+    assert sd.supports(2368, 402) and sd.supports(4096, 402)
+    assert sd.supports(2305, 128) and sd.supports(8192, 128)
+    assert sd.supports(64, 255 * 128) and not sd.supports(64, 255 * 128 + 1)
+    assert not sd.supports(0, 82) and not sd.supports(256, 0)
     # pupil slices of at most 208 columns a block: two at the 4 m link's
     assert sd._pass1_geom(96) == (96, 1) and sd._pass1_geom(144) == (144, 1)
     assert sd._pass1_geom(416) == (208, 2) and sd._pass1_geom(1040) == (208, 5)
@@ -193,8 +205,11 @@ def test_kernel_shape_rule():
     assert sd.draws_per_launch(256, 96) == 4096
     assert sd.draws_per_launch(1024, 416) == 630
     assert sd.draws_per_launch(1024, 416, 8) == 8
-    # 16 rows of 'mixed' uniforms overflow shared memory; 'gauss' keeps none
-    assert not sd.supports(2305, 128) and sd.supports(4096, 128, mixed=False)
+    # past 2304 px: 'mixed' keeps two chunks of uniforms, 'gauss' none
+    assert sd.supports(2305, 128) and sd.supports(4096, 128)
+    for N, P in [(2305, 128), (4096, 128), (4096, 402)]:
+        for passes in (1, 3):
+            assert sd._smem_bytes(N, P, True, passes) <= 232448
     # the flagship keeps all 8 chunks of its uniforms; the 1024^2 link
     # remakes two for every column tile, and its two slices' blocks make
     # every other x tile for both; 'gauss' keeps two x tiles
@@ -204,6 +219,11 @@ def test_kernel_shape_rule():
                                                    + 2 * 4096) + 96
     assert sd._smem_bytes(1024, 402, False) == 4 * (4 * 6656
                                                     + 2 * 8192) + 96
+    # one TF32 pass: the hi planes alone, half the words of a ring slot
+    assert sd._smem_bytes(256, 82, True, 1) == 4 * (4 * 2048 + 8192
+                                                    + 8 * 4096) + 96
+    assert sd._smem_bytes(1024, 402, False, 1) == 4 * (4 * 3328
+                                                       + 2 * 8192) + 96
     assert sd.padded_pupil(82) == 96 and sd.padded_pupil(96) == 96
 
 
@@ -227,7 +247,7 @@ PARENT_SHAPES = [
                          ids=lambda s: f"N{s[0]}P{s[1]}{s[2]}")
 def test_parent_shapes_still_taken(shape):
     N, P, noise = shape
-    assert sd.supports(N, P, mixed=noise == "mixed")
+    assert sd.supports(N, P)
     assert sd._smem_bytes(N, P, noise == "mixed") <= 232448
 
 
@@ -287,9 +307,11 @@ def cuda_device():
 
 # (N, lo, hi, draws): one launch at 64^2; 4100 draws, two launches with the
 # second from draw 4096; a grid side that is no multiple of 64 (the default
-# config's 102); a grid whose 'mixed' uniforms take one row per thread
+# config's 102); a grid whose 'mixed' uniforms take one row per thread; and
+# a grid past the first kernel's 2304 px at a 128 px pupil (two chunks of
+# 'mixed' uniforms remade for every column tile)
 KERNEL_CASES = [(64, 20, 44, 37), (64, 20, 44, 4100), (102, 0, 102, 64),
-                (1600, 784, 816, 3)]
+                (1600, 784, 816, 3), (2432, 1152, 1280, 3)]
 
 
 @pytest.mark.cuda
@@ -345,3 +367,82 @@ def test_pass1_matches_plain_on_card(cuda_device, noise, case):
     top = max(float(rr.abs().max()), float(ri.abs().max()))
     err = max(float((gr - rr).abs().max()), float((gi - ri).abs().max()))
     assert err <= GPRIME_REL * N * 2.0 ** -24 * top
+
+
+def tf32_distance_readings(got, plain1, plain3):
+    """(max, rms) of |got - plain1| over those of |plain1 - plain3| (the
+    TF32 distance), tensors or tuples of them."""
+    from test_torch_tf32x3 import tf32_readings
+    many = [(x,) if torch.is_tensor(x) else tuple(x)
+            for x in (got, plain1, plain3)]
+    return tf32_readings(*many)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(256, 87, 169, 64), (1024, 311, 713, 4),
+                                  (2432, 1152, 1280, 2)],
+                         ids=lambda c: f"N{c[0]}P{c[2] - c[1]}")
+@pytest.mark.parametrize("noise", ["gauss", "mixed"])
+def test_passes_at_default_match_plain_on_card(cuda_device, noise, case):
+    """At PRECISION='default': pass 1 (its one-pass instantiation, counted
+    in LAUNCHES_BY_PASSES[1]) within ONE_PASS_MAX and ONE_PASS_RMS of the
+    TF32 distance of its plain version at 'default'; the detect pass and
+    K7's screens pass on that same G' within the 3xTF32 limits."""
+    from fast_tpu_torch.ops import colfac_detect as cd
+    from test_torch_tf32x3 import ONE_PASS_MAX, ONE_PASS_RMS
+    N, lo, hi, nbatch = case
+    _, t = k2_inputs(N, lo, hi, phase_rms=1.5)
+    t = {k: v.to(cuda_device) for k, v in t.items()}
+    mix = t["mix"] if noise == "mixed" else None
+    wr, wi, pm_t = sd.pad_pupil(t["wr"], t["wi"], t["pm_t"])
+    laid = sd.laid_w(t["wr"], t["wi"], mix, precision="default")
+    before = sd.synth_pass1.LAUNCHES_BY_PASSES[1]
+    g = sd.synth_pass1(0xABCDEF0123, t["s_t"], t["wr"], t["wi"], nbatch,
+                       mix=mix, stream=4, laid=laid, precision="default")
+    p1, p3 = (sd.synth_pass1_reference(0xABCDEF0123, t["s_t"], wr, wi,
+                                       nbatch, mix=mix, stream=4,
+                                       precision=p)
+              for p in ("default", "highest"))
+    torch.cuda.synchronize()
+    assert sd.synth_pass1.LAUNCHES_BY_PASSES[1] == before + 1
+    mx, rms = tf32_distance_readings(g, p1, p3)
+    assert mx <= ONE_PASS_MAX and rms <= ONE_PASS_RMS
+    got = cd.detect_pass(*g, wr, wi, pm_t, laid=laid, precision="default")
+    ref = sd.detect_reference(*g, wr, wi, pm_t, precision="default")
+    assert float((got - ref).abs().max()) <= KERNEL_REL * float(
+        ref.abs().max())
+    if mix is None:
+        npup = hi - lo
+        got = sd.screens_pass(*g, wr, wi, npup, laid=laid,
+                              precision="default")
+        ref = sd.screens_pass_reference(*g, wr, wi, npup,
+                                        precision="default")
+        assert float((got - ref).abs().max()) <= 2 * N * 2.0 ** -24 * float(
+            ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise", ["gauss", "mixed"])
+def test_kernel_at_default_matches_plain_on_card(cuda_device, noise):
+    """K2 whole at PRECISION='default', two launches, against its plain
+    version at 'default', in units of the TF32 distance; the engine's laid
+    table at 'default' holds the hi planes alone and lays the 3xTF32 ones
+    at their first use."""
+    from test_torch_tf32x3 import ONE_PASS_MAX, ONE_PASS_RMS
+    _, t = k2_inputs(64, 20, 44, phase_rms=1.5)
+    t = {k: v.to(cuda_device) for k, v in t.items()}
+    mix = t["mix"] if noise == "mixed" else None
+    laid = sd.laid_w(t["wr"], t["wi"], mix, precision="default")
+    assert laid.wpack.shape[2] == 2 and laid.tables(3)[0].shape[2] == 4
+    args = (0xABCDEF0123, t["s_t"], t["wr"], t["wi"], t["pm_t"], 4100)
+    before = dict(sd.synth_detect.LAUNCHES_BY_PASSES)
+    got = sd.synth_detect(*args, mix=mix, stream=4, laid=laid,
+                          precision="default")
+    p1, p3 = (sd.synth_detect_reference(*args, mix=mix, stream=4,
+                                        precision=p)
+              for p in ("default", "highest"))
+    torch.cuda.synchronize()
+    assert sd.synth_detect.LAUNCHES_BY_PASSES == {
+        1: before[1] + 2, 3: before[3]}
+    mx, rms = tf32_distance_readings(got, p1, p3)
+    assert mx <= ONE_PASS_MAX and rms <= ONE_PASS_RMS

@@ -30,6 +30,21 @@ where the fold groups read under it.
 It also fixes the limit of the card test of pass 1 alone
 (``test_torch_synth_detect.test_pass1_matches_plain_on_card``): G'
 element by element within ``GPRIME_REL * N * 2^-24 * max |G'|``.
+
+At ``PRECISION='default'`` the kernels run one TF32 pass (``a_hi b_hi``
+alone, the operands rounded once) and are held against their plain
+version at 'default', which rounds the same operands the same way. The
+last tests state the per-pass limits of that check (``chip_smoke.py``'s
+precision phase, the card tests at 'default'): a pass whose float32
+operands are the plain version's bit for bit keeps the 3xTF32 limits
+(only the order of sums differs); a pass whose operands come out of
+float32 work done otherwise (pass 1's X' = (u M) s_t; Box-Muller noise;
+a whole kernel's second product on its own G') can round values a few
+float32 units apart to TF32 values a TF32 unit apart, and is held in
+units of the TF32 distance |plain('default') - plain('highest')|: its
+max within ONE_PASS_MAX of the distance's max, its rms within
+ONE_PASS_RMS of the distance's rms. A kernel that ran three passes reads
+about 1 in both.
 """
 
 import numpy as np
@@ -42,6 +57,8 @@ from test_torch_synth_detect import GPRIME_REL, KERNEL_REL, k2_inputs
 torch.set_num_threads(1)
 
 SEED = 0xABCDEF0123
+ONE_PASS_MAX = 1.0   # max |kernel - plain| over the TF32 distance's max
+ONE_PASS_RMS = 0.25  # rms |kernel - plain| over the TF32 distance's rms
 
 
 def tf32(x):
@@ -222,11 +239,12 @@ def rz32(x):
     return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
 
 
-def product_rz(a, b, fold=FOLD):
+def product_rz(a, b, fold=FOLD, passes=3):
     """``a @ b`` as pass 1 sums it: fold groups of ``fold`` deep, each a
     fresh accumulator rounded toward zero after every 8-deep product (the
-    group's a_lo b_hi and a_hi b_lo first, then its a_hi b_hi), added to
-    an fp32 sum; ``fold=None``: one accumulator over the whole depth."""
+    group's a_lo b_hi and a_hi b_lo first, then its a_hi b_hi; the a_hi
+    b_hi alone at ``passes=1``), added to an fp32 sum; ``fold=None``: one
+    accumulator over the whole depth."""
     f64 = torch.float64
     ah, bh = tf32(a), tf32(b)
     al, bl = tf32(a - ah), tf32(b - bh)
@@ -236,7 +254,7 @@ def product_rz(a, b, fold=FOLD):
     for g0 in range(0, K, fold):
         steps = range(g0, min(K, g0 + fold), 8)
         d = torch.zeros_like(acc)
-        for x, y in [(al, bh), (ah, bl)]:
+        for x, y in [(al, bh), (ah, bl)] if passes != 1 else []:
             for k in steps:
                 d = rz32(d.to(f64) + x[..., k:k + 8].to(f64)
                          @ y[k:k + 8].to(f64))
@@ -304,3 +322,80 @@ def test_hi_products_kept_over_the_whole_depth_miss_the_limit():
     whole, _ = pass1_sums(case, True, None, phase_rms=2.5)
     assert folded < 0.5
     assert whole > 1.0
+
+
+# ---- one TF32 pass (PRECISION='default') ------------------------------------
+
+
+def one_pass_gprime(case, mixed, passes):
+    """Pass 1's G' with both products as the kernel sums them
+    (:func:`product_rz` at ``passes``), the plain version's at 'default'
+    and at 'highest', and the tables (the pupil padded as the kernels
+    pad it)."""
+    N, lo, hi, nb = case
+    _, t = k2_inputs(N, lo, hi, phase_rms=1.5)
+    t["wr"], t["wi"], t["pm_t"] = sd.pad_pupil(t["wr"], t["wi"], t["pm_t"])
+    mix = t["mix"] if mixed else None
+    b1, b2 = sd.philox_bits(SEED, nb, N)
+    if mixed:
+        z1 = product_rz(sd.uniforms(b1), mix, passes=passes)
+        z2 = product_rz(sd.uniforms(b2), mix, passes=passes)
+    else:
+        z1, z2 = sd.box_muller(b1, b2)
+    xr, xi = z1 * t["s_t"], z2 * t["s_t"]
+    wrt, wit = t["wr"].T.contiguous(), t["wi"].T.contiguous()
+    g = (product_rz(xr, wrt, passes=passes)
+         - product_rz(xi, wit, passes=passes),
+         product_rz(xr, wit, passes=passes)
+         + product_rz(xi, wrt, passes=passes))
+    plain = [sd.synth_pass1_reference(SEED, t["s_t"], t["wr"], t["wi"], nb,
+                                      mix=mix, precision=p)
+             for p in ("default", "highest")]
+    return g, plain, t
+
+
+def tf32_readings(got, plain1, plain3):
+    """(max, rms) of |got - plain1| over those of the TF32 distance
+    |plain1 - plain3|, as chip_smoke.py's ``one_pass`` reads them."""
+    def norms(a, b):
+        d = torch.cat([(x - y).double().reshape(-1) for x, y in zip(a, b)])
+        return float(d.abs().max()), float(d.pow(2).mean().sqrt())
+    (mk, rk), (mt, rt) = norms(got, plain1), norms(plain1, plain3)
+    return mk / mt, rk / rt
+
+
+@pytest.mark.parametrize("mixed", [True, False], ids=["mixed", "gauss"])
+@pytest.mark.parametrize("case", RZ_CASES,
+                         ids=lambda c: f"N{c[0]}P{c[2] - c[1]}")
+def test_gprime_at_one_pass_within_the_one_pass_limits(case, mixed):
+    """Pass 1 at one TF32 pass, summed as the kernel sums, against the
+    plain version at 'default': within half of ONE_PASS_MAX and of
+    ONE_PASS_RMS of the TF32 distance ('mixed': the mixing product's other
+    order of sums moves X' by float32 units, which its TF32 rounding can
+    turn into TF32 units); and the control, pass 1 at three passes,
+    reads over ONE_PASS_RMS."""
+    g, (p1, p3), _ = one_pass_gprime(case, mixed, 1)
+    mx, rms = tf32_readings(g, p1, p3)
+    assert mx < ONE_PASS_MAX / 2 and rms < ONE_PASS_RMS / 2
+    g3, _, _ = one_pass_gprime(case, mixed, 3)
+    assert tf32_readings(g3, p1, p3)[1] > ONE_PASS_RMS
+
+
+@pytest.mark.parametrize("case", RZ_CASES,
+                         ids=lambda c: f"N{c[0]}P{c[2] - c[1]}")
+def test_one_pass_on_the_same_operands_keeps_the_3xtf32_limits(case):
+    """The detect pass at one TF32 pass on a G' both versions take
+    (H^T's two terms of a part in one accumulator, fold groups of 16 deep
+    rounded toward zero, added in fp32) against the plain detect pass at
+    'default': within a quarter of KERNEL_REL, as at three passes."""
+    from test_torch_detect_wgmma import kernel_sums
+    (gr, gi), (g3, _), t = one_pass_gprime(case, True, 1)
+    wr, wi, pm_t = t["wr"], t["wi"], t["pm_t"]
+    ar, ai = gr.transpose(-2, -1), gi.transpose(-2, -1)
+    br, bi = wr.T.contiguous(), wi.T.contiguous()
+    hr = product_rz(torch.cat([ar, -ai], -1), torch.cat([br, bi]), passes=1)
+    hi = product_rz(torch.cat([ar, ai], -1), torch.cat([bi, br]), passes=1)
+    got = kernel_sums(hr, hi, pm_t)
+    ref = sd.detect_reference(gr, gi, wr, wi, pm_t, precision="default")
+    assert (float((got - ref).abs().max())
+            < 0.25 * KERNEL_REL * float(ref.abs().max()))
