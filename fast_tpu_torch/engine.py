@@ -767,55 +767,71 @@ class Fast:
         ``progress=True`` writes a progress line per chunk to stderr; the
         numbers are those of ``run()``, bit for bit.
         """
-        with self.profile.stage("mc_run"):
-            return self._run(progress=progress)
+        return self._run(progress=progress)
 
     def _run(self, progress=False):
-        """The run from the seeds of :meth:`_run_seeds`."""
-        logamp_seed, seed_mc = self._run_seeds()
-        # the complex pupil couplings of every chunk, before the
-        # log-amplitude factor
-        if not self.temporal:
-            chunks = self._iid_chunks(seed_mc)
-        elif self._ar_route is None:
-            chunks = self._temporal_screens_chunks(seed_mc)
-        else:
-            chunks = self._ar_chunks(*self._ar_start(seed_mc))
-        if progress:
-            chunks = chunk_progress(
-                chunks, self.Nchunks, per_item=self.Niter_per_chunk,
-                unit="steps" if self.temporal else "realizations")
-        return self._store(self._series(logamp_seed, chunks))
+        """The run from the seeds of :meth:`_run_seeds`, in the span
+        ``fast.run`` whose run id is the seed."""
+        with self.profile.span("run", run=self.seed):
+            logamp_seed, seed_mc = self._run_seeds()
+            # the complex pupil couplings of every chunk, before the
+            # log-amplitude factor
+            if not self.temporal:
+                chunks = self._iid_chunks(seed_mc)
+            elif self._ar_route is None:
+                chunks = self._temporal_screens_chunks(seed_mc)
+            else:
+                chunks = self._ar_chunks(*self._ar_start(seed_mc))
+            if progress:
+                chunks = chunk_progress(
+                    chunks, self.Nchunks, per_item=self.Niter_per_chunk,
+                    unit="steps" if self.temporal else "realizations")
+            return self._store(self._series(logamp_seed, chunks))
 
     def _series(self, logamp_seed, chunks, t0=0):
         """The iterates of the chunks' couplings (in series order, of any
         lengths), from the iterate ``t0`` on (0, or a rank's window of a
         sharded run): the log-amplitude factor of ``logamp_seed``'s series,
-        then ``|.|^2`` unless ``COHERENT``."""
+        then ``|.|^2`` unless ``COHERENT``. Spans: ``fast.logamp`` around
+        the series' draw, ``fast.enqueue`` around each chunk's making (its
+        kernels' launch) and its factor."""
         self._logamp_seed, self._logamp_cache = logamp_seed, None
-        chi = self._draw_logamp().to(self.device)
+        span = self.profile.span
+        with span("logamp"):
+            chi = self._draw_logamp().to(self.device)
         coherent = bool(self.params["COHERENT"])
         outs = []
-        for pc in chunks:
-            n = pc.shape[0]
-            out = torch.exp(chi[t0:t0 + n]).to(pc.real.dtype) * pc
-            outs.append(out if coherent else out.abs() ** 2)
+        chunks = iter(chunks)
+        while True:
+            try:
+                with span("enqueue"):
+                    pc = next(chunks)
+                    n = pc.shape[0]
+                    out = torch.exp(chi[t0:t0 + n]).to(pc.real.dtype) * pc
+                    outs.append(out if coherent else out.abs() ** 2)
+            except StopIteration:
+                break
             t0 += n
         return torch.cat(outs)
 
     def _store(self, out):
         """The result of the whole series ``out``: its moments on the
         device and the non-finite guard; stores and returns
-        :attr:`result`."""
-        mean, si, nbad = _moments(out)
-        if nbad:
-            raise FloatingPointError(
-                "Monte Carlo run produced non-finite iterates "
-                f"({nbad} non-finite values over {out.shape[0]} iterates)")
-        self.result = FastResult(out, self.diffraction_limit,
-                                 moments=(mean, si))
-        logger.info(self.result)
-        return self.result
+        :attr:`result`. Spans: ``fast.store``, and in it ``fast.wait``
+        around the moments, whose first read blocks until the card has
+        run the series."""
+        with self.profile.span("store"):
+            with self.profile.span("wait"):
+                mean, si, nbad = _moments(out)
+            if nbad:
+                raise FloatingPointError(
+                    "Monte Carlo run produced non-finite iterates "
+                    f"({nbad} non-finite values over {out.shape[0]} "
+                    "iterates)")
+            self.result = FastResult(out, self.diffraction_limit,
+                                     moments=(mean, si))
+            logger.info(self.result)
+            return self.result
 
     def _run_seeds(self, seed=None):
         """The seeds of a run, from ``seed`` (default: the sim's seed): that
