@@ -570,6 +570,13 @@ class Fast:
         out = psd.assemble_main(*grid, g.f, self.lf_mask, self.hf_mask,
                                 self.pupil_filter, *rest, **flags)
         ao_on = self.ao_mode != "NOAO"
+        # the share of the main grid the AO-band terms were evaluated on
+        rows, cols = ao_spectra._band_box(self.lf_mask)
+        self.psd_band_share = ((rows.stop - rows.start)
+                               * (cols.stop - cols.start)
+                               / self.lf_mask.size if ao_on else 0.0)
+        logger.debug("powerspec: psd_band_share %s (rows %s, columns %s)",
+                     self.psd_band_share, rows, cols)
         self.turb_powerspec = out["turb_powerspec"].numpy()
         self.G_ao = out["G_ao"].numpy()
         self.alias_powerspec = (out["alias_powerspec"].numpy()

@@ -27,6 +27,9 @@ from ..ops.zernike import noll_to_nm
 from .atmosphere import _vonkarman, turb_powerspectrum_vonKarman  # noqa
 
 _F64 = torch.float64
+# float64 points in torch's elementwise loop step on the CPU: two vectors of
+# AVX-512 (AVX2's step of 8 divides it)
+_LANES = 16
 
 
 def _t(x):
@@ -104,6 +107,13 @@ def zernike_squared_filter(fabs, fx, fy, D, n_noll, n_noll_start=1,
     (reference ``fast/ao_power_spectra.py:54-95``). With ``plusminus``
     each term is ``Z_j(f) conj(Z_j(-f))``, ``(-1)^m`` times the plain
     one; ``gamma`` scales the aperture per entry, adding a leading axis."""
+    return _dc_fix(_zernike_squared(fabs, fx, fy, D, n_noll, n_noll_start,
+                                    gamma, plusminus, x_max), n_noll_start)
+
+
+def _zernike_squared(fabs, fx, fy, D, n_noll, n_noll_start, gamma,
+                     plusminus, x_max):
+    """:func:`zernike_squared_filter` before its DC pixel is set."""
     phi = torch.atan2(fy, fx)
     terms = []
     for j in range(n_noll_start, n_noll + 1):
@@ -129,10 +139,8 @@ def zernike_squared_filter(fabs, fx, fy, D, n_noll, n_noll_start=1,
         return out
 
     if gamma is None:
-        out = accumulate(D)
-    else:
-        out = torch.stack([accumulate(g * D) for g in np.atleast_1d(gamma)])
-    return _dc_fix(out, n_noll_start)
+        return accumulate(D)
+    return torch.stack([accumulate(g * D) for g in np.atleast_1d(gamma)])
 
 
 def _bessel_highpass(fabs, D, orders, weights, dc, x_max):
@@ -213,6 +221,39 @@ def mask_hf(freq, d_WFS, modal=False, modal_mult=1, Zmax=None, D=None,
                        Zmax=Zmax, D=D, Gtilt=Gtilt)
 
 
+def _band_box(lf_mask):
+    """The rows and the columns of the last two axes that hold every
+    non-zero point of ``lf_mask`` over all its leading axes: two slices,
+    both empty for a mask with no non-zero point.
+
+    The columns are widened to a multiple of ``_LANES`` (shifted left at the
+    grid's edge), so that torch's elementwise kernels run every row of the
+    box in whole vector steps, as they run a whole grid of such rows: a
+    point's transcendental ops then take the same vector code, and give the
+    same bits, as on the whole grid. A box that cannot be widened so is the
+    whole grid.
+    """
+    nz = _t(lf_mask) != 0
+    H, W = nz.shape[-2:]
+    nz = nz.reshape(-1, H, W).any(0)
+    rows = torch.nonzero(nz.any(1))[:, 0]
+    cols = torch.nonzero(nz.any(0))[:, 0]
+    if rows.numel() == 0:
+        return slice(0, 0), slice(0, 0)
+    c0, c1 = int(cols[0]), int(cols[-1]) + 1
+    width = -(-(c1 - c0) // _LANES) * _LANES
+    if width > W:
+        return slice(0, H), slice(0, W)
+    c0 = min(c0, W - width)
+    return slice(int(rows[0]), int(rows[-1]) + 1), slice(c0, c0 + width)
+
+
+def _box_point(box, i):
+    """Index ``i`` of an axis in the box's slice ``box`` of that axis, or
+    None outside it."""
+    return i - box.start if box.start <= i < box.stop else None
+
+
 def Jol_noise_openloop(freq, Dsubap, noise_variance, lf_mask):
     """Open-loop WFS noise PSD inside the corrected band.
 
@@ -243,14 +284,25 @@ def Jol_alias_openloop(freq, Dsubap, p, lf_mask, v=None, Delta_t=None,
     end (the same order of sums as the JAX package's ``lax.scan``).
     ``wvl`` is the reference's argument; the spectrum does not depend on
     it (``fast_tpu`` reads it nowhere either).
+
+    The sum is evaluated on the box of ``lf_mask``'s support alone
+    (:func:`_band_box`) and is 0 outside it, where the mask zeroes it: the
+    same bits as the whole grid's evaluation, at the box's share of its
+    cost.
     """
     fx, fy, fabs = _t(freq.fx), _t(freq.fy), _t(freq.fabs)
     fx_axis, fy_axis = _t(freq.fx_axis), _t(freq.fy_axis)
+    lf_mask = _t(lf_mask)
     p = _t(p).reshape(-1)
     v = torch.zeros((p.shape[0], 2), dtype=_F64) if v is None \
         else _t(v).reshape(-1, 2)
     Delta_t = 0.0 if Delta_t is None else Delta_t
+    shape = np.broadcast_shapes(p.shape + fabs.shape, lf_mask.shape)
     mid2, mid1 = fx.shape[-2] // 2, fy.shape[-1] // 2
+    rows, cols = _band_box(lf_mask)
+    box = (Ellipsis, rows, cols)
+    fx, fy, fabs, lf_mask = fx[box], fy[box], fabs[box], lf_mask[box]
+    fx_axis, fy_axis = fx_axis[..., cols], fy_axis[..., rows]
     # unrotated axis meshes (the reference shifts the axes)
     X = fx_axis[..., None, :] * torch.ones_like(fy_axis)[..., :, None]
     Y = torch.ones_like(fx_axis)[..., None, :] * fy_axis[..., :, None]
@@ -261,13 +313,18 @@ def Jol_alias_openloop(freq, Dsubap, p, lf_mask, v=None, Delta_t=None,
 
     fabs_safe = torch.where(fabs == 0, 1.0, fabs)
     term_0 = fx ** 2 * fy ** 2 / fabs_safe ** 4
-    # masks of the last two axes, broadcast over any leading ones
+    # the grid's zero row, column and DC pixel where the box holds them, as
+    # masks of the last two axes broadcast over any leading ones
+    r, c = _box_point(rows, mid2), _box_point(cols, mid1)
     row_mask = torch.zeros(fx.shape[-2:], dtype=_F64)
-    row_mask[mid2, :] = 1.0
     col_mask = torch.zeros(fx.shape[-2:], dtype=_F64)
-    col_mask[:, mid1] = 1.0
     dc_mask = torch.zeros(fx.shape[-2:], dtype=_F64)
-    dc_mask[mid2, mid1] = 1.0
+    if r is not None:
+        row_mask[r, :] = 1.0
+    if c is not None:
+        col_mask[:, c] = 1.0
+    if r is not None and c is not None:
+        dc_mask[r, c] = 1.0
 
     acc = torch.zeros((1,) + fabs.shape, dtype=_F64)
     for l in range(-lmax, lmax + 1):
@@ -289,7 +346,9 @@ def Jol_alias_openloop(freq, Dsubap, p, lf_mask, v=None, Delta_t=None,
             acc = acc + mult
     alias = acc * _per_layer(p, fabs.ndim)
     alias = alias * sinc_term * lf_mask
-    return torch.nan_to_num(alias, nan=0.0, posinf=0.0, neginf=0.0)
+    out = torch.zeros(shape, dtype=_F64)
+    out[box] = torch.nan_to_num(alias, nan=0.0, posinf=0.0, neginf=0.0)
+    return out
 
 
 def G_AO_PAOLA(freq, mask, mode="AO", h=None, v=None, dtheta=(0, 0), Tx=None,
@@ -305,6 +364,11 @@ def G_AO_PAOLA(freq, mask, mode="AO", h=None, v=None, dtheta=(0, 0), Tx=None,
     ``modal`` and ``modal_mult`` are the reference's arguments; the
     function does not depend on them (``fast_tpu`` reads them nowhere
     either).
+
+    The transfer function is evaluated on the box of ``mask``'s support
+    alone (:func:`_band_box`) and is 1 outside it, where the mask passes
+    it through: the same bits as the whole grid's evaluation. LGSAO's
+    Zernike filter keeps the whole grid's ``x_max``, and so its quadrature.
     """
     if mode not in ("NOAO", "AO", "TT", "LGSAO"):
         raise ValueError(
@@ -313,7 +377,14 @@ def G_AO_PAOLA(freq, mask, mode="AO", h=None, v=None, dtheta=(0, 0), Tx=None,
     if mode == "NOAO":
         return 1.0
     fx, fy, fabs = _t(freq.fx), _t(freq.fy), _t(freq.fabs)
+    mask = _t(mask)
+    if mode == "LGSAO" and x_max is None:
+        # the whole grid's, as zernike_squared_filter reads it there
+        x_max = float(fabs.abs().max()) * Tx / 2
     h = _t(h).reshape(-1)
+    shape = np.broadcast_shapes(h.shape + fx.shape, mask.shape)
+    box = (Ellipsis,) + _band_box(mask)
+    fx, fy, fabs, mask = fx[box], fy[box], fabs[box], mask[box]
     dtheta = _t(dtheta)
     dr = dtheta[None, :] / 206265.0 * h[:, None]  # (nlayers, 2)
     dr_dot_kappa = (fx[None] * _per_layer(dr[:, 0], fx.ndim)
@@ -328,13 +399,16 @@ def G_AO_PAOLA(freq, mask, mode="AO", h=None, v=None, dtheta=(0, 0), Tx=None,
     term_1 = 2 * torch.cos(dr_dot_kappa - tl * v_dot_kappa)
     term_2 = torch.sinc(Delta_t * v_dot_kappa / (2 * math.pi))
     aniso = 1 - term_1 * term_2 + term_2 ** 2
+    out = torch.ones(shape, dtype=_F64)
     if mode in ("AO", "TT"):
-        return aniso * mask + (1 - mask)
+        out[box] = aniso * mask + (1 - mask)
+        return out
     term_1_lgs = 2 * torch.cos(-tl * v_dot_kappa)
     aniso_lgs = 1 - term_1_lgs * term_2 + term_2 ** 2
-    Z = zernike_squared_filter(fabs, fx, fy, Tx, 4, n_noll_start=1,
-                               x_max=x_max)
-    return mask * (Z * aniso + (1 - Z) * aniso_lgs) + (1 - mask)
+    # the filter's DC pixel is left unset: both aniso terms are 0 there
+    Z = _zernike_squared(fabs, fx, fy, Tx, 4, 1, None, False, x_max)
+    out[box] = mask * (Z * aniso + (1 - Z) * aniso_lgs) + (1 - mask)
+    return out
 
 
 def DM_transfer_function(fx, fy, fabs, mode, Zmax=None, D=None, dsubap=None):

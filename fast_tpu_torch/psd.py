@@ -7,6 +7,12 @@ and total spectra, every error-budget integral (Simpson) and the
 log-amplitude PSD; on the subharmonic grids (:func:`assemble_subharm`) the
 same residual spectra and their per-level variances. It runs once per
 configuration on the CPU and is never on the Monte Carlo hot path.
+
+The AO-band terms (the aliasing PSD and the PAOLA transfer function) are
+evaluated on the box of the corrected mask's support alone, with the same
+bits as on the whole grid; ``Fast.psd_band_share`` is the share of the
+main grid's points they were evaluated on (1.0 for a box that is the whole
+grid, 0.0 without AO).
 """
 
 import types
