@@ -253,6 +253,7 @@ class Fast:
             self.init_atmos()
             self.init_beam_params()
             self.init_frequency_grid()
+        self.ar_kernel = self.ar_layer_blocks = None
         if self.temporal:
             self._resolve_temporal_route()
         else:
@@ -444,7 +445,13 @@ class Fast:
         ``SYNTH != 'fft'``: K4 or K5 on a CUDA device, their plain version
         on the CPU) and 'fft' for the exact batched ``ift2``. On a CUDA
         device a shape the kernels do not take (a grid over 32768 px or a
-        pupil over 32640 px) raises here."""
+        pupil over 32640 px) raises here.
+
+        On the kernel route the counters ``ar_kernel`` ('fused' for K4,
+        'streamed' for K5: ``ar_flow.select``) and ``ar_layer_blocks``
+        (the blocks of layers each step's update walks: 1 for K4,
+        ceil(L / ``STREAM_LAYERS``) for K5) say which kernel the run
+        takes; both are None off it."""
         p = self.params
         exact = p["SYNTH"] == "fft" or self.dtype == torch.float64
         self._synth = "fft" if exact else p["SYNTH"]
@@ -459,6 +466,15 @@ class Fast:
                 f"grid of at most 32768 px and a pupil of at most 32640 px; "
                 f"got NPXLS={self.Npxls}, a {self.Npxls_pup} px pupil. "
                 f"SYNTH='fft' runs the exact stock-op route")
+        if self._ar_route == "kernel":
+            L = len(self.h)
+            if ar_flow.select(L) is ar_flow.ar_flow_streamed:
+                self.ar_kernel = "streamed"
+                self.ar_layer_blocks = -(-L // ar_flow.STREAM_LAYERS)
+            else:
+                self.ar_kernel, self.ar_layer_blocks = "fused", 1
+        logger.info("AR route %s: ar_kernel %s, ar_layer_blocks %s",
+                    self._ar_route, self.ar_kernel, self.ar_layer_blocks)
 
     def init_pupil_mask(self):
         logger.info("Initialising pupil mask")
@@ -612,10 +628,11 @@ class Fast:
             # streamed per temporal bin: O(Ny * block) memory instead of
             # the reference's O(nlayers * Ny * NITER)
             t = self.freq.temporal
-            self.temporal_logamp_powerspec = temporal_logamp_powerspec(
-                t.fx_axis, t.fy_axis, self.h, self.cn2, self.wvl,
-                self.pupil_filter_temporal, float(self.freq.main.dfy),
-                L0=self.L0, l0=self.l0)
+            with self.profile.stage("temporal_logamp"):
+                self.temporal_logamp_powerspec = temporal_logamp_powerspec(
+                    t.fx_axis, t.fy_axis, self.h, self.cn2, self.wvl,
+                    self.pupil_filter_temporal, float(self.freq.main.dfy),
+                    L0=self.L0, l0=self.l0)
         self.validate()
 
     def validate(self):
@@ -914,14 +931,16 @@ class Fast:
 
     def _ar_start(self, seed_scr):
         """The initial Fourier state of an AR series and the seed of its
-        boiling noise, both from the run's screen seed."""
+        boiling noise, both from the run's screen seed, in the span
+        ``fast.ar_start``."""
         T = self.tables
-        gen = make_generator(seed_scr, device=self.device)
-        cdtype = (torch.complex64 if self.dtype == torch.float32
-                  else torch.complex128)
-        a = complex_normal(tuple(T["sqrt_psd_df"].shape), gen,
-                           dtype=cdtype) * T["sqrt_psd_df"]
-        return a, draw_seed(gen)
+        with self.profile.span("ar_start"):
+            gen = make_generator(seed_scr, device=self.device)
+            cdtype = (torch.complex64 if self.dtype == torch.float32
+                      else torch.complex128)
+            a = complex_normal(tuple(T["sqrt_psd_df"].shape), gen,
+                               dtype=cdtype) * T["sqrt_psd_df"]
+            return a, draw_seed(gen)
 
     def _ar_series_chunks(self, a, seed_noise, series=0, step0=0,
                           nsteps=None):

@@ -2,7 +2,8 @@
 
 * An iid run and a temporal AR run record one ``fast.run`` with the
   seed as its run id, one ``fast.enqueue`` a chunk, and one each of
-  ``fast.logamp``, ``fast.store`` and ``fast.wait``; every span nests
+  ``fast.logamp``, ``fast.store`` and ``fast.wait`` (and of
+  ``fast.ar_start`` on the AR route); every span nests
   inside its run's ``fast.run`` and carries its seed; each name's self
   time is at most its total, and a parent's total is its self time plus
   its children's, to the clock's resolution; the power series is the
@@ -37,7 +38,8 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: Children of each span name in the run path.
-CHILDREN = {"fast.run": ("fast.logamp", "fast.enqueue", "fast.store"),
+CHILDREN = {"fast.run": ("fast.ar_start", "fast.logamp", "fast.enqueue",
+                         "fast.store"),
             "fast.store": ("fast.wait",)}
 
 
@@ -81,7 +83,8 @@ def test_run_records_its_spans(sim):
     names = [r.name for r in recs]
     for name, count in (("fast.run", 1), ("fast.logamp", 1),
                         ("fast.enqueue", sim.Nchunks), ("fast.store", 1),
-                        ("fast.wait", 1)):
+                        ("fast.wait", 1),
+                        ("fast.ar_start", int(sim.temporal))):
         assert names.count(name) == count * len(seeds), name
     by_id = {r.id: r for r in recs}
     roots = [r for r in recs if r.parent is None]
@@ -105,7 +108,8 @@ def test_run_records_its_spans(sim):
         assert 0 <= t["self_s"] <= t["total_s"] + 1e-9, name
     for parent, kids in CHILDREN.items():
         assert tot[parent]["total_s"] == pytest.approx(
-            tot[parent]["self_s"] + sum(tot[k]["total_s"] for k in kids),
+            tot[parent]["self_s"]
+            + sum(tot[k]["total_s"] for k in kids if k in tot),
             abs=1e-6)
 
 
