@@ -123,6 +123,43 @@
 // cost most: 81.5 with a hash for Philox, 80.7 with no products, 99.5
 // with one product.
 //
+// The noise a tile ahead (synth_pass1_ahead). At one TF32 pass the
+// products of a block (64 rows of one draw at 256^2 with the 82 px
+// pupil: 29.4 MFLOP, ~7.8 us of the tensor cores at peak) take less time
+// than its noise (16,384 Philox4x32-10 calls, ~5.7 us at the integer
+// multipliers' rate) and the work around both, and in synth_pass1 the
+// consumers make every uniform in the first column tile's mixing loop,
+// between their own products. So 'mixed' noise at one pass over one
+// pupil slice of at most 96 columns, where every chunk of uniforms is
+// kept (the flagship's case), takes a kernel of its own: warps of three
+// roles in a persistent block an SM that walks the launch's (draw, 64
+// rows) tiles.
+// * Two noise warpgroups (48 registers a thread) make the uniforms of the
+//   block's tiles, chunk after chunk, into a ring of nkc + 2 chunk slots
+//   where they fit (10 at the flagship: 160 KB of the 229,600 B), each
+//   slot on a full and an empty mbarrier, rounded to TF32 as the
+//   consumers' one-pass A fragments take them. A slot is free once the
+//   last column tile's mixing loop has read its chunk, so the noise
+//   warps make the next tile's first two chunks while this tile's column
+//   tiles run and the other six as the last one releases this tile's:
+//   about a quarter of a tile, which is why they are 8 warps, not 4.
+// * The two consumer warpgroups (176 registers a thread) only load A
+//   fragments, issue wgmma and fold, write x = z * s_t (as TF32) and G';
+//   a chunk is a wait on its full barrier, not a Philox loop and a named
+//   barrier.
+// * One producer thread streams the ring's stages, tile after tile.
+// The arithmetic is synth_pass1's: the same Philox counters and bits, the
+// same fold groups folded in the same order, the same x and G'; only who
+// makes the noise and when differ, so G' is the same bit for bit
+// (scripts/torch_pass1_ab.py compares digests of G' across checkouts).
+// takes_ahead is the rule; ops/synth_detect.py, pass1_route, mirrors it.
+// On the H100 (700 W), per 4,096 draws at 256^2, 'default' (ms): with
+// one noise warpgroup at 72 registers and the consumers at 208, 4.549
+// against synth_pass1's 5.009, 3.454 with no products and 3.384 with a
+// hash for Philox (scripts/torch_pass1_variants.py --cell): the noise
+// bounded it; with two noise warpgroups 3.85-3.94 (at 176/48 and
+// 168/56), while one at 72 with the consumers at 184 or 168 read 4.34-4.56.
+
 // Random bits. Philox4x32-10 (Salmon et al., SC'11) keyed by the 64-bit
 // seed (k0 = low word, k1 = high word). Counter layout, one call per grid
 // point of X' (row-major element index e = row * N + col):
@@ -211,16 +248,19 @@ int pass1_u_chunks(int N, int PB, bool pair, int kPasses) {
 
 // ---- the noise -------------------------------------------------------------
 
-// Pairs i0 and i0 + 256 of a 'mixed' chunk of uniforms: rows row0.., grid
-// columns col0.. (32 a chunk, 16 pairs a row), both components from one
-// Philox call per grid point, into chunk buffer u (component 0, then 1).
+// Pairs i0 and i0 + kStride of a 'mixed' chunk of uniforms: rows row0..,
+// grid columns col0.. (32 a chunk, 16 pairs a row), both components from
+// one Philox call per grid point, into chunk buffer u (component 0, then
+// 1); kTf32: each rounded to TF32 (to_tf32) as a one-pass A fragment
+// takes it, so that its reader need not round it.
+template <int kStride = kConsumers, bool kTf32 = false>
 __device__ __forceinline__ void make_uniforms(float* u, int i0, int row0,
                                               int col0, int N, uint32_t draw,
                                               uint32_t stream, uint32_t k0,
                                               uint32_t k1) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int e = i0 + h * kConsumers;
+    const int e = i0 + h * kStride;
     const int r = e >> 4, f = e & 15;
     const int row = row0 + r;
     float a[2] = {0.0f, 0.0f}, b[2] = {0.0f, 0.0f};
@@ -232,6 +272,10 @@ __device__ __forceinline__ void make_uniforms(float* u, int i0, int row0,
                                    draw, stream, 0u, k0, k1);
         a[v] = mixed_uniform(w.x);
         b[v] = mixed_uniform(w.y);
+        if (kTf32) {
+          a[v] = __uint_as_float(to_tf32(a[v]));
+          b[v] = __uint_as_float(to_tf32(b[v]));
+        }
       }
     }
     *reinterpret_cast<float2*>(u + swz(r, f, kKU)) = make_float2(a[0], a[1]);
@@ -274,6 +318,37 @@ __device__ __forceinline__ void make_gauss(float* x, int i0, int row0,
 }
 
 // ---- pass 1 ----------------------------------------------------------------
+
+// G' rows r, r + 8 (of the tile at row0) of draw j into gout (nbatch, N,
+// P) from a consumer's sums: columns p0 + 64c + 8i + 2t, + 1 of each
+// 64-column chunk c (gb) and of the tail (gt).
+template <int NCH, int TAIL>
+__device__ __forceinline__ void store_gprime(
+    float* __restrict__ gout, const float (&gb)[NCH > 0 ? NCH : 1][32],
+    const float (&gt)[(TAIL > 0 ? TAIL : 16) / 2], int j, int row0, int r,
+    int t, int p0, int N, int P) {
+  const auto put = [&](int col, float v0, float v1, int h) {
+    const int row = row0 + r + 8 * h, p = p0 + col;
+    if (row < N && p < P)
+      *reinterpret_cast<float2*>(
+          gout + (static_cast<size_t>(j) * N + row) * P + p) =
+          make_float2(v0, v1);
+  };
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        put(64 * c + 8 * i + 2 * t, gb[c][4 * i + 2 * h],
+            gb[c][4 * i + 2 * h + 1], h);
+#pragma unroll
+  for (int i = 0; i < TAIL / 8; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      put(64 * NCH + 8 * i + 2 * t, gt[4 * i + 2 * h], gt[4 * i + 2 * h + 1],
+          h);
+}
 
 // Pass 1: one block per (draw, 64 rows of X', slice of PB = 64 NCH + TAIL
 // pupil columns). Consumer warpgroup w makes component w of the noise's
@@ -505,30 +580,291 @@ __global__ void __launch_bounds__(kPass1Threads, 1)
     }
   }
 
-  // G' rows r, r + 8 of part wg: columns 8i + 2t, + 1 of each chunk
-  float* gout = wg ? g_im : g_re;
-  const auto put = [&](int col, float v0, float v1, int h) {
-    const int row = row0 + r + 8 * h, p = zb * PB + col;
-    if (row < N && p < P)
-      *reinterpret_cast<float2*>(
-          gout + (static_cast<size_t>(j) * N + row) * P + p) =
-          make_float2(v0, v1);
-  };
-#pragma unroll
-  for (int c = 0; c < NCH; ++c)
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        put(64 * c + 8 * i + 2 * t, gb[c][4 * i + 2 * h],
-            gb[c][4 * i + 2 * h + 1], h);
-#pragma unroll
-  for (int i = 0; i < TAIL / 8; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      put(64 * NCH + 8 * i + 2 * t, gt[4 * i + 2 * h], gt[4 * i + 2 * h + 1],
-          h);
+  store_gprime<NCH, TAIL>(wg ? g_im : g_re, gb, gt, j, row0, r, t,
+                          zb * PB, N, P);
   if (kPair) cluster_sync();
+}
+
+// ---- pass 1 with the noise a tile ahead --------------------------------------
+
+constexpr int kNoiseThreads = 256;  // two noise warpgroups
+constexpr int kAheadThreads = kConsumers + 128 + kNoiseThreads;
+// Registers a thread, within the 96 a thread of 640 starts with:
+// 256 x 176 + 128 x 24 + 256 x 48 <= 640 x 96
+constexpr int kAheadConsumerRegs = 176;
+constexpr int kNoiseRegs = 48;
+
+// Bytes of synth_pass1_ahead's shared memory: the ring, one x tile, nslots
+// chunk slots of uniforms and the mbarriers (the ring's and a full and an
+// empty one a chunk slot). _ahead_smem_bytes of
+// fast_tpu_torch/ops/synth_detect.py mirrors it.
+__host__ __device__ constexpr int ahead_smem(int PB, int nslots) {
+  return 4 * (kStages * pass1_slot_words(true, PB, 1) + kXTile +
+              nslots * kUChunk) +
+         8 * (2 * kStages + 2 * nslots);
+}
+
+// Whether 'mixed' noise at one TF32 pass over one pupil slice takes
+// synth_pass1_ahead: where synth_pass1 keeps every chunk of uniforms and
+// the slice is at most 96 columns (the flagship's), the widths measured
+// on the card; wider slices keep more G' sums live in the consumers' 176
+// registers (ptxas spilled 36 bytes at 112). pass1_route of
+// fast_tpu_torch/ops/synth_detect.py mirrors it.
+bool takes_ahead(int N, int PB, int nz) {
+  return nz == 1 && PB <= 96 &&
+         pass1_u_chunks(N, PB, false, 1) >= (N + kKU - 1) / kKU;
+}
+
+// Chunk slots of synth_pass1_ahead: the grid's chunks and up to two more,
+// as many as fit, so that the next tile's first chunks are made while
+// this tile's column tiles still read all of its own.
+int ahead_slots(int N, int PB) {
+  const int nkc = (N + kKU - 1) / kKU;
+  int n = nkc + 2;
+  while (n > nkc && ahead_smem(PB, n) > kSmemLimit) --n;
+  return n;
+}
+
+// A one-pass A fragment of load_frag's rows and slots from a tile whose
+// values are TF32 already: the bits as stored (to_tf32 leaves them as
+// they are), negated if neg.
+__device__ __forceinline__ Frag load_tf32(const float* tile, int r, int f,
+                                          int words, bool neg) {
+  const float2 v0 = *reinterpret_cast<const float2*>(tile + swz(r, f, words));
+  const float2 v1 =
+      *reinterpret_cast<const float2*>(tile + swz(r + 8, f, words));
+  const uint32_t s = neg ? 0x80000000u : 0u;
+  Frag a;
+  a.h[0] = __float_as_uint(v0.x) ^ s;
+  a.h[1] = __float_as_uint(v1.x) ^ s;
+  a.h[2] = __float_as_uint(v0.y) ^ s;
+  a.h[3] = __float_as_uint(v1.y) ^ s;
+#pragma unroll
+  for (int v = 0; v < 4; ++v) a.l[v] = 0u;
+  return a;
+}
+
+// An x tile written as TF32 values; tile_products takes its A through
+// this a_frag overload.
+struct Tf32X {
+  const float* x;
+};
+
+template <int kPasses>
+__device__ __forceinline__ Frag a_frag(const Tf32X& x, int part, int step,
+                                       int r, int t, bool neg) {
+  static_assert(kPasses == 1, "a TF32 tile is read at one pass");
+  return load_tf32(x.x + part * kXRows * kXDepth, r, 4 * step + t, kXDepth,
+                   neg);
+}
+
+// Pass 1 for 'mixed' noise at one TF32 pass over one pupil slice of PB =
+// 64 NCH + TAIL columns, where every chunk of uniforms is kept: the
+// arithmetic of synth_pass1<true, false, NCH, TAIL, 1>, in warps of three
+// roles. The block is persistent: block b takes tiles b, b + gridDim.x,
+// .. of the launch's nbatch x ceil(N / 64) (draw, 64 rows of X') tiles.
+// * Warpgroups 0 and 1, the consumers: per column tile c, component wg's
+//   z = u @ M[:, 64c:64c + 64] from the chunk slots, then x = z * s_t into
+//   the x tile and part wg of G' over it, as synth_pass1 does; they wait
+//   on a chunk's full mbarrier in the first column tile and release it on
+//   its empty one after the last, and write the tile's G'.
+// * Warpgroup 2: one thread streams the ring's stages, tile after tile.
+// * Warpgroups 3 and 4, the noise: the uniforms of the block's tiles chunk
+//   after chunk into a ring of nslots chunk slots (chunk q of the block's
+//   walk in slot q % nslots), each once its slot is released, rounded to
+//   TF32.
+//   With nslots = nkc + 2 it makes the next tile's first two chunks while
+//   this tile's column tiles run, and the rest as the last column tile
+//   releases this tile's.
+template <int NCH, int TAIL>
+__global__ void __launch_bounds__(kAheadThreads, 1)
+    synth_pass1_ahead(uint32_t k0, uint32_t k1, uint32_t stream, int draw0,
+                      int nbatch, const float* __restrict__ s_t,
+                      const float* __restrict__ wpack,
+                      const float* __restrict__ mpack,
+                      float* __restrict__ g_re, float* __restrict__ g_im,
+                      int N, int P, int nslots) {
+  constexpr int PB = 64 * NCH + TAIL;
+  constexpr int TW = TAIL > 0 ? TAIL : 16;  // the tail's wgmma width
+  constexpr int kMStage = mix_stage_words(1);
+  constexpr int kWStage = w_stage_words(PB, 1);
+  extern __shared__ __align__(128) float smem[];
+  const int slot_words = pass1_slot_words(true, PB, 1);
+  float* xs = smem + kStages * slot_words;  // the x tile
+  float* us = xs + kXTile;                  // the chunk slots
+  uint64_t* bars = reinterpret_cast<uint64_t*>(us + nslots * kUChunk);
+  const Ring<kStages> ring{smem, bars, bars + kStages, slot_words};
+  uint64_t* ufull = bars + 2 * kStages;  // slot s made
+  uint64_t* uempty = ufull + nslots;     // slot s read for the last time
+
+  const int NR = (N + kRows - 1) / kRows;  // row tiles a draw
+  const int ntiles = nbatch * NR;
+  const int NC = (N + kZC - 1) / kZC;   // column tiles
+  const int nkc = (N + kKU - 1) / kKU;  // chunks of the depth
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&ring.full[s], 1);
+      mbar_init(&ring.empty[s], kConsumers / 32);
+    }
+    for (int s = 0; s < nslots; ++s) {
+      mbar_init(&ufull[s], kNoiseThreads);
+      mbar_init(&uempty[s], kConsumers / 32);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers + 128) {
+    // the noise: every chunk of every tile in turn, into the next slot
+    setmaxnreg_dec<kNoiseRegs>();
+    const int i0 = tid - (kConsumers + 128);
+    int s = 0;
+    uint32_t ph = 0;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const uint32_t draw = static_cast<uint32_t>(draw0 + tile / NR);
+      const int row0 = (tile % NR) * kRows;
+      for (int kc = 0; kc < nkc; ++kc) {
+        mbar_wait(&uempty[s], ph ^ 1);
+        float* u = us + s * kUChunk;
+#pragma unroll 1
+        for (int m = 0; m < kUChunk / 4; m += 2 * kNoiseThreads)
+          make_uniforms<kNoiseThreads, true>(u, i0 + m, row0, kc * kKU, N,
+                                             draw, stream, k0, k1);
+        mbar_arrive(&ufull[s]);
+        if (++s == nslots) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+    }
+    return;
+  }
+  if (tid >= kConsumers) {
+    // the producer: one thread walks the schedule, per tile and column
+    // tile the mixing slices, then the W steps
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid == kConsumers) {
+      uint32_t it = 0;
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x)
+        for (int c = 0; c < NC; ++c) {
+          for (int kc = 0; kc < nkc; ++kc)
+            ring.load(it++, mpack + static_cast<size_t>(c * nkc + kc) *
+                                        kMStage,
+                      4 * kMStage);
+          for (int q = 0; q < 8; ++q)
+            ring.load(it++, wpack + static_cast<size_t>(c * 8 + q) * kWStage,
+                      4 * kWStage);
+        }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kAheadConsumerRegs>();
+  const int wg = tid >> 7;                   // component / part of G'
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int r = ((tid >> 5) & 3) * 16 + g;   // the thread's rows r, r + 8
+  float gb[NCH > 0 ? NCH : 1][32], gt[TW / 2];
+  uint32_t it = 0;
+  int s0 = 0;        // the slot of the tile's first chunk
+  uint32_t ph0 = 0;  // and its phase
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int j = tile / NR;
+    const int row0 = (tile % NR) * kRows;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int v = 0; v < 32; ++v) gb[c][v] = 0.0f;
+#pragma unroll
+    for (int v = 0; v < TAIL / 2; ++v) gt[v] = 0.0f;
+
+    for (int c = 0; c < NC; ++c) {
+      // z = u @ M[:, 64c : 64c + 64] for component wg
+      float z[32];
+#pragma unroll
+      for (int v = 0; v < 32; ++v) z[v] = 0.0f;
+      // a fold group: the A fragments of steps 2h, 2h + 1 of a chunk of
+      // uniforms, against the mixing slice ms, into d
+      const auto issue = [&](const float* uc, const float* ms, int h,
+                             Frag (&a)[1][2], float (&d)[32]) {
+        uint64_t bh[1][2];
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const int step = 2 * h + s;
+          a[0][s] = load_tf32(uc + wg * kRows * kKU, r, 4 * step + t, kKU,
+                              false);
+          bh[0][s] = b_desc(ms + step * kZC * 8);
+        }
+        mma_group<64, 1, 1>(d, a, bh, bh);
+      };
+      // both fold groups of a chunk in flight: group 1 is issued before
+      // group 0 is folded
+      Frag a0[1][2], a1[1][2];
+      float d0[32], d1[32];
+      const bool last = c + 1 == NC;
+      for (int kc = 0; kc < nkc; ++kc, ++it) {
+        int s = s0 + kc;
+        uint32_t ph = ph0;
+        if (s >= nslots) {
+          s -= nslots;
+          ph ^= 1;
+        }
+        if (c == 0) mbar_wait(&ufull[s], ph);  // the chunk is made
+        const float* u = us + s * kUChunk;
+        const float* ms = ring.take(it);
+        issue(u, ms, 0, a0, d0);
+        issue(u, ms, 1, a1, d1);
+        fold<1>(z, d0);
+        fold(z, d1);
+        ring.release(it);
+        if (last) {  // the slot may take the next tile's chunk
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&uempty[s]);
+        }
+      }
+      // x = z * s_t into the x tile, as TF32: the thread's z holds rows r,
+      // r + 8, columns 8i + 2t, 8i + 2t + 1 of the tile; its s_t is loaded
+      // before the barrier, so that the loads overlap the wait (loaded
+      // after it, pass 1 took 4.615 ms against 3.85-3.89 at the flagship)
+      float sv[8][2][2];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + r + 8 * h, col = c * kZC + 8 * i + 2 * t;
+          sv[i][h][0] = sv[i][h][1] = 0.0f;
+          if (row < N) {
+            const float* sr = s_t + static_cast<size_t>(row) * N;
+            if (col < N) sv[i][h][0] = sr[col];
+            if (col + 1 < N) sv[i][h][1] = sr[col + 1];
+          }
+        }
+      named_sync(1, kConsumers);  // the previous tile's x is read
+      float* x = xs + wg * kRows * kZC;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(x + swz(r + 8 * h, 4 * i + t, kZC)) =
+              make_float2(
+                  __uint_as_float(to_tf32(z[4 * i + 2 * h] * sv[i][h][0])),
+                  __uint_as_float(
+                      to_tf32(z[4 * i + 2 * h + 1] * sv[i][h][1])));
+      named_sync(1, kConsumers);  // both components written
+      tile_products<NCH, TAIL, 1>(gb, gt, Tf32X{xs}, ring, it, wg, r, t,
+                                  [](int) {});
+      it += 8;
+    }
+    s0 += nkc;
+    if (s0 >= nslots) {
+      s0 -= nslots;
+      ph0 ^= 1;
+    }
+
+    store_gprime<NCH, TAIL>(wg ? g_im : g_re, gb, gt, j, row0, r, t, 0, N,
+                            P);
+  }
 }
 
 struct Pass1Args {
@@ -567,14 +903,60 @@ cudaError_t launch_pass1(const Pass1Args& a, int nz) {
                             a.P, nbuf);
 }
 
+// synth_pass1_ahead over the launch's tiles: one block an SM, or one a
+// tile where there are fewer.
+template <int NCH, int TAIL>
+cudaError_t launch_ahead(const Pass1Args& a) {
+  constexpr int PB = 64 * NCH + TAIL;
+  const int nslots = ahead_slots(a.N, PB);
+  const int smem = ahead_smem(PB, nslots);
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  auto* k_ahead = synth_pass1_ahead<NCH, TAIL>;
+  cudaError_t err = cudaFuncSetAttribute(
+      k_ahead, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  const long long ntiles =
+      static_cast<long long>(a.nbatch) * ((a.N + kRows - 1) / kRows);
+  if (ntiles > 0x7FFFFFFF) return cudaErrorInvalidValue;
+  k_ahead<<<static_cast<int>(ntiles < sms ? ntiles : sms), kAheadThreads,
+            smem, a.stream>>>(a.k0, a.k1, a.stream_id, a.draw0, a.nbatch,
+                              a.s_t, a.wpack, a.mpack, a.g_re, a.g_im, a.N,
+                              a.P, nslots);
+  return cudaGetLastError();
+}
+
 // How pass 1 covers the padded pupil P: nz blocks along it, each a slice
 // of PB <= 208 columns, the laid W table's (w_slices of detect.cuh).
 // 'mixed' noise over two pupil slices (nz = 2, slices of 112 to 208 px)
 // runs as pairs: the two slices' blocks of a draw's rows, a cluster of
-// two, make the noise once between them.
+// two, make the noise once between them. 'mixed' noise at one TF32 pass
+// over one slice whose uniforms are all kept takes synth_pass1_ahead
+// (takes_ahead), every other case synth_pass1.
 template <bool kMixed, int kPasses>
 cudaError_t dispatch_pass1(const Pass1Args& a) {
   const WSlices g = w_slices(a.P);
+  if constexpr (kMixed && kPasses == 1) {
+#define FAST_AHEAD(PB) \
+  case PB:             \
+    return launch_ahead<PB / 64, PB % 64>(a);
+    if (takes_ahead(a.N, g.PB, g.nz)) {
+      switch (g.PB) {
+        FAST_AHEAD(16)
+        FAST_AHEAD(32)
+        FAST_AHEAD(48)
+        FAST_AHEAD(64)
+        FAST_AHEAD(80)
+        FAST_AHEAD(96)
+      }
+      return cudaErrorInvalidValue;
+    }
+#undef FAST_AHEAD
+  }
 #define FAST_CASE(PAIR, PB) \
   case PB:                  \
     return launch_pass1<kMixed, PAIR, PB / 64, PB % 64, kPasses>(a, g.nz);
@@ -670,6 +1052,15 @@ extern "C" int fast_synth_pass1(uint32_t k0, uint32_t k1, uint32_t stream_id,
   return static_cast<int>(pass1({k0, k1, stream_id, draw0, nbatch, s_t,
                                  wpack, mpack, g_re, g_im, N, P, passes,
                                  static_cast<cudaStream_t>(stream)}));
+}
+
+// 1 where pass 1 of an (N, N) grid and a padded pupil P with 'mixed'
+// noise (mixed != 0) at `passes` TF32 passes takes synth_pass1_ahead, 0
+// where it takes synth_pass1 (dispatch_pass1's rule).
+extern "C" int fast_pass1_ahead(int N, int P, int mixed, int passes) {
+  if (N <= 0 || !pass2_takes(P)) return 0;
+  const WSlices g = w_slices(P);
+  return mixed && passes == 1 && takes_ahead(N, g.PB, g.nz) ? 1 : 0;
 }
 
 // K7. Pass 1 with Box-Muller noise, then the screens of the nbatch draws:

@@ -64,8 +64,8 @@ from .ops.integrate import (integrate_path,  # noqa: F401
                             integrate_powerspectrum)
 from .ops.rng import complex_normal, draw_seed, make_generator
 from .ops import colfac_detect as cd
-from .ops.synth_detect import (pack_subharm, passes, supports, synth_detect,
-                               synth_screens)
+from .ops.synth_detect import (pack_subharm, pass1_route, passes, supports,
+                               synth_detect, synth_screens)
 from . import synthesis
 from .utils import diskcache, fits
 from .utils.log import init_logging, progress as chunk_progress
@@ -253,12 +253,13 @@ class Fast:
             self.init_atmos()
             self.init_beam_params()
             self.init_frequency_grid()
-        self.ar_kernel = self.ar_layer_blocks = None
+        self.ar_kernel = self.ar_layer_blocks = self.pass1_route = None
         if self.temporal:
             self._resolve_temporal_route()
         else:
             self._synth = resolve_synth(p["SYNTH"], self.dtype, self.device,
                                         self.Npxls, self.Npxls_pup)
+            self._resolve_pass1_route()
         with self.profile.stage("init_masks"):
             self.init_ao_params()
         with self.profile.stage("init_pupils"):
@@ -475,6 +476,18 @@ class Fast:
                 self.ar_kernel, self.ar_layer_blocks = "fused", 1
         logger.info("AR route %s: ar_kernel %s, ar_layer_blocks %s",
                     self._ar_route, self.ar_kernel, self.ar_layer_blocks)
+
+    def _resolve_pass1_route(self):
+        """The counter ``pass1_route``: the kernel that K2's pass 1 takes
+        in an iid run through K2 on the card (``SYNTH`` 'pallas_fused', as
+        'auto' picks it; :func:`~fast_tpu_torch.ops.synth_detect.pass1_route`),
+        'ahead' or 'inline'; None off K2 and on the CPU, where K2's plain
+        version runs and no kernel is launched."""
+        if self._synth == "pallas_fused" and self.device.type == "cuda":
+            self.pass1_route = pass1_route(
+                self.Npxls, self.Npxls_pup,
+                self.params["MC_NOISE"] == "mixed", passes(self._precision))
+        logger.info("SYNTH %s: pass1_route %s", self._synth, self.pass1_route)
 
     def init_pupil_mask(self):
         logger.info("Initialising pupil mask")

@@ -423,16 +423,59 @@ def _smem_bytes(N, P, mixed, passes=3):
     mbarriers."""
     PB, nz = _pass1_geom(padded_pupil(P))
     xtiles = 1 if mixed and nz != 2 else 2
-    planes = _planes_of(passes)
-
-    def words(nbuf):
-        slot = planes * max(_M_PLANE if mixed else 0, 16 * PB)
-        return (4 * slot + xtiles * _X_TILE
-                + (nbuf * _U_CHUNK if mixed else 0))
-
     nkc = -(-int(N) // _KU)
-    nbuf = nkc if 4 * words(nkc) + 96 <= _SMEM_LIMIT else 2
-    return 4 * words(nbuf) + 96
+    nbuf = (nkc if 4 * _pass1_words(PB, mixed, xtiles, nkc, passes) + 96
+            <= _SMEM_LIMIT else 2)
+    return 4 * _pass1_words(PB, mixed, xtiles, nbuf, passes) + 96
+
+
+def _pass1_words(PB, mixed, xtiles, nbuf, passes):
+    """Words of pass 1's ring, ``xtiles`` x tiles and (with 'mixed' noise)
+    ``nbuf`` chunks of uniforms (:func:`_smem_bytes`)."""
+    slot = _planes_of(passes) * max(_M_PLANE if mixed else 0, 16 * PB)
+    return 4 * slot + xtiles * _X_TILE + (nbuf * _U_CHUNK if mixed else 0)
+
+
+def pass1_route(N, P, mixed, passes):
+    """Which pass-1 kernel of ``csrc/synth_detect.cu`` a launch at an (N,
+    N) grid and a P-pixel pupil takes (``dispatch_pass1``'s rule, which
+    the library reports as ``fast_pass1_ahead``): 'ahead'
+    (``synth_pass1_ahead``: the noise made a tile ahead by warps of its
+    own, in a persistent block an SM) for 'mixed' noise (``mixed``) at
+    one TF32 pass (``passes``) over one pupil slice of at most 96
+    columns where ``synth_pass1`` keeps every chunk of its uniforms;
+    'inline' (``synth_pass1``, its consumers making the noise) for every
+    other case."""
+    PB, nz = _pass1_geom(padded_pupil(P))
+    nkc = -(-int(N) // _KU)
+    if (mixed and passes == 1 and nz == 1 and PB <= 96
+            and 4 * _pass1_words(PB, True, 1, nkc, 1) + 96 <= _SMEM_LIMIT):
+        return "ahead"
+    return "inline"
+
+
+def _launch_route(lib, N, P, mixed, passes):
+    """The pass-1 kernel that the library's launches at these arguments
+    take, by its own rule (``fast_pass1_ahead``)."""
+    return ("ahead" if lib.fast_pass1_ahead(int(N), int(P), int(mixed),
+                                            int(passes)) else "inline")
+
+
+def _ahead_smem_bytes(N, P):
+    """Dynamic shared memory of ``synth_pass1_ahead`` (``ahead_smem`` and
+    ``ahead_slots`` of the CUDA source): the ring of one-pass stages, one
+    x tile, the grid's chunks of uniforms and up to two more chunk slots,
+    as many as fit, and the mbarriers (the ring's 8, two a chunk
+    slot)."""
+    PB, _ = _pass1_geom(padded_pupil(P))
+    nkc = -(-int(N) // _KU)
+
+    def size(nslots):
+        return (4 * _pass1_words(PB, True, 1, nslots, 1)
+                + 8 * (8 + 2 * nslots))
+
+    return next((size(n) for n in (nkc + 2, nkc + 1) if size(n)
+                 <= _SMEM_LIMIT), size(nkc))
 
 
 def supports(N, P):
@@ -655,6 +698,8 @@ def _library():
         lib.fast_synth_pass1.restype = i
         lib.fast_sincos.argtypes = [p, p, p, i, p]
         lib.fast_sincos.restype = i
+        lib.fast_pass1_ahead.argtypes = [i, i, i, i]
+        lib.fast_pass1_ahead.restype = i
         lib.fast_error_string.argtypes = [i]
         lib.fast_error_string.restype = ctypes.c_char_p
         lib._fast_typed = True
@@ -726,9 +771,11 @@ def synth_detect(seed, s_t, wr, wi, pm_t, nbatch, mix=None, stream=0,
     :func:`draws_per_launch` draws, each launch from the draw index it
     starts at) on the current stream, its products in the TF32 passes of
     ``precision`` (:data:`PASSES`), and counts each launch in
-    ``synth_detect.LAUNCHES`` and in ``LAUNCHES_BY_PASSES``, or raises for
-    a shape it does not take (:func:`supports`); on CPU tensors it runs
-    the plain version at ``precision``. ``sh_t`` is padded as ``wr`` is.
+    ``synth_detect.LAUNCHES``, in ``LAUNCHES_BY_PASSES`` and, by the
+    kernel its pass 1 takes (:func:`pass1_route`), in
+    ``LAUNCHES_BY_ROUTE``, or raises for a shape it does not take
+    (:func:`supports`); on CPU tensors it runs the plain version at
+    ``precision``. ``sh_t`` is padded as ``wr`` is.
     ``laid``: the :class:`LaidW` of ``wr``, ``wi`` (and ``mix``), the
     engine's; without it the kernel's tables are laid out for the call.
     """
@@ -756,6 +803,7 @@ def synth_detect(seed, s_t, wr, wi, pm_t, nbatch, mix=None, stream=0,
     g = torch.empty((2, per, N, Pp), dtype=torch.float32, device=dev)
     part = torch.empty((per, detect_parts(Pp), 4), dtype=torch.float32,
                        device=dev)
+    route = _launch_route(lib, N, Pp, mpack is not None, npass)
     with torch.cuda.device(dev):
         cs = torch.cuda.current_stream(dev).cuda_stream
         for d0 in range(0, nbatch, per):
@@ -769,6 +817,7 @@ def synth_detect(seed, s_t, wr, wi, pm_t, nbatch, mix=None, stream=0,
                 out[d0:d0 + nb].data_ptr(), N, Pp, npass, cs)
             raise_on(lib, err, "synth_detect launch")
             count(synth_detect, npass)
+            synth_detect.LAUNCHES_BY_ROUTE[route] += 1
     return _pack(out)
 
 
@@ -788,6 +837,8 @@ def counters(wrapper):
 
 
 counters(synth_detect)
+# launches by the kernel their pass 1 takes (pass1_route)
+synth_detect.LAUNCHES_BY_ROUTE = {"ahead": 0, "inline": 0}
 
 
 def synth_screens(seed, s_t, wr, wi, nbatch, npup=None, stream=0,
@@ -926,9 +977,9 @@ def synth_pass1(seed, s_t, wr, wi, nbatch, mix=None, stream=0, draw0=0,
 
     On CUDA tensors this launches pass 1 of ``csrc/synth_detect.cu``
     (launches of :func:`draws_per_launch` draws at ``precision``, counted in
-    ``synth_pass1.LAUNCHES`` and ``LAUNCHES_BY_PASSES``) on the current
-    stream, or raises; on CPU tensors it runs the plain version. ``laid``
-    as :func:`synth_detect`'s.
+    ``synth_pass1.LAUNCHES``, ``LAUNCHES_BY_PASSES`` and
+    ``LAUNCHES_BY_ROUTE``) on the current stream, or raises; on CPU
+    tensors it runs the plain version. ``laid`` as :func:`synth_detect`'s.
     """
     _check(s_t, wr, wi, None, nbatch, mix)
     npass = passes(precision)
@@ -950,6 +1001,7 @@ def synth_pass1(seed, s_t, wr, wi, nbatch, mix=None, stream=0, draw0=0,
     nbatch = int(nbatch)
     g = torch.empty((2, nbatch, N, Pp), dtype=torch.float32, device=dev)
     per = draws_per_launch(N, Pp, nbatch)
+    route = _launch_route(lib, N, Pp, mpack is not None, npass)
     with torch.cuda.device(dev):
         cs = torch.cuda.current_stream(dev).cuda_stream
         for d0 in range(0, nbatch, per):
@@ -960,10 +1012,12 @@ def synth_pass1(seed, s_t, wr, wi, nbatch, mix=None, stream=0, draw0=0,
                 g[0, d0].data_ptr(), g[1, d0].data_ptr(), N, Pp, npass, cs)
             raise_on(lib, err, "synth_pass1 launch")
             count(synth_pass1, npass)
+            synth_pass1.LAUNCHES_BY_ROUTE[route] += 1
     return g[0], g[1]
 
 
 counters(synth_pass1)
+synth_pass1.LAUNCHES_BY_ROUTE = {"ahead": 0, "inline": 0}
 
 
 def device_sincos(phi):

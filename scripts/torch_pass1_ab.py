@@ -3,6 +3,7 @@ for one or more checkouts of fast_tpu_torch, in turns.
 
     python scripts/torch_pass1_ab.py                     # this checkout
     python scripts/torch_pass1_ab.py OLD . . OLD         # A/B, in turns
+    python scripts/torch_pass1_ab.py --precision default OLD . . OLD
 
 Each argument is the root of a checkout (a directory holding
 ``fast_tpu_torch/``); each is measured in a process of its own, in the
@@ -11,12 +12,17 @@ The shapes are chip_smoke.py's: the 256^2 flagship's (P=82, padded to 96)
 per 4096 draws, and the 1024^2 link with a 4 m pupil (P=402, padded to
 416) per launch of 630 draws; inputs from a numpy seed, screens of about
 1.5 rad rms. Prints one line per measurement and the card's name and
-power limit. Then the warm ``run()`` rate through ``SYNTH='auto'`` (K2)
-of chip_smoke.py's 256^2 flagship (262,144 realizations, NCHUNKS=16) and
-of its 1024^2 link with a 4 m telescope (16,384 realizations, NCHUNKS=4),
-the mean of two runs after a warm one.
+power limit. The kernels take ``--precision`` ('highest', 3xTF32, unless
+given; 'default' is one TF32 pass, what the engine runs). Then the warm
+``run()`` rate through ``SYNTH='auto'`` (K2) of chip_smoke.py's 256^2
+flagship (262,144 realizations, NCHUNKS=16) and of its 1024^2 link with a
+4 m telescope (16,384 realizations, NCHUNKS=4), the mean of two runs
+after a warm one. Last, whether pass 1's G' at 256^2 with 'mixed' noise,
+4096 draws from each of three seeds, is the same bit for bit in every
+checkout (a SHA-256 of its bytes).
 """
 
+import hashlib
 import json
 import os
 import subprocess
@@ -49,8 +55,9 @@ def flagship(**overrides):
     return p
 
 
-def measure(root):
-    """Times in this process of the checkout at ``root``."""
+def measure(root, precision):
+    """Times in this process of the checkout at ``root``, the kernels at
+    ``precision``; then the digests of G' (``"bits"``)."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
     from fast_tpu_torch.ops import synth_detect as sd
@@ -92,17 +99,31 @@ def measure(root):
             # product FLOPs: 4N^3 mixing ('mixed'), 8N^2 P for G'
             flops = nb * ((4 * N ** 3 if m is not None else 0)
                           + 8 * N * N * P)
-            ms1 = cuda_ms(lambda: sd.synth_pass1(1, s_t, wr, wi, nb, mix=m),
+            ms1 = cuda_ms(lambda: sd.synth_pass1(1, s_t, wr, wi, nb, mix=m,
+                                                 precision=precision),
                           reps)
             ms2 = cuda_ms(lambda: sd.synth_detect(1, s_t, wr, wi, pm_t, nb,
-                                                  mix=m), reps)
+                                                  mix=m,
+                                                  precision=precision),
+                          reps)
             out.append({"shape": label, "what": f"K2 {noise}", "draws": nb,
                         "pass1_ms": ms1, "pass1_tflops": flops / ms1 / 1e9,
                         "kernel_ms": ms2})
         ms7 = cuda_ms(lambda: sd.synth_screens(1, s_t, wr, wi, nb,
-                                               npup=hi - lo), reps)
+                                               npup=hi - lo,
+                                               precision=precision), reps)
         out.append({"shape": label, "what": "K7", "draws": nb,
                     "kernel_ms": ms7})
+        if N == 256:
+            bits = []
+            for seed in (1, 2, 3):
+                gr, gi = sd.synth_pass1(seed, s_t, wr, wi, nb, mix=mix,
+                                        precision=precision)
+                h = hashlib.sha256(gr.cpu().numpy().tobytes())
+                h.update(gi.cpu().numpy().tobytes())
+                bits.append(h.hexdigest()[:16])
+                del gr, gi
+            out.append({"bits": bits})
         del s_t, wr, wi, pm_t, mix
         torch.cuda.empty_cache()
     import time
@@ -123,21 +144,31 @@ def measure(root):
 
 
 def main():
-    if len(sys.argv) > 2 and sys.argv[1] == "--one":
-        print(json.dumps(measure(sys.argv[2])))
+    if len(sys.argv) > 3 and sys.argv[1] == "--one":
+        print(json.dumps(measure(sys.argv[2], sys.argv[3])))
         return
-    roots = sys.argv[1:] or ["."]
+    args = sys.argv[1:]
+    precision = "highest"
+    if args[:1] == ["--precision"]:
+        precision, args = args[1], args[2:]
+    roots = args or ["."]
+    digests = {}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
     for root in roots:
-        proc = subprocess.run([sys.executable, __file__, "--one", root],
-                              capture_output=True, text=True)
+        proc = subprocess.run([sys.executable, __file__, "--one", root,
+                               precision], capture_output=True, text=True)
         if proc.returncode:
             print(proc.stdout, proc.stderr, file=sys.stderr)
             raise SystemExit(f"measuring {root} failed")
         for r in json.loads(proc.stdout.strip().splitlines()[-1]):
+            if "bits" in r:
+                digests.setdefault(tuple(r["bits"]), []).append(root)
+                print(f"{root}: G' 256^2 'mixed' {precision}, seeds 1-3: "
+                      f"{' '.join(r['bits'])}")
+                continue
             if "run" in r:
                 print(f"{root}: run() {r['run']} through 'auto' "
                       f"({r['synth']}): {r['rate']:,.0f} realizations/s "
@@ -148,6 +179,7 @@ def main():
                   if "pass1_ms" in r else "")
             print(f"{root}: {r['what']} {r['shape']}, {r['draws']} draws: "
                   f"{p1}kernel {r['kernel_ms']:.3f} ms ({card})")
+    print(f"G' bit for bit in every checkout: {len(digests) == 1}")
     print(card)
 
 

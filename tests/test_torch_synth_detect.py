@@ -251,6 +251,78 @@ def test_parent_shapes_still_taken(shape):
     assert sd._smem_bytes(N, P, noise == "mixed") <= 232448
 
 
+# (N, P, mixed, TF32 passes) of every route the rule draws a line between
+ROUTE_CASES = {
+    "ahead": [(256, 82, True, 1), (64, 82, True, 1), (128, 82, True, 1),
+              (200, 82, True, 1), (320, 82, True, 1), (256, 96, True, 1),
+              (1, 1, True, 1)],
+    "inline": [(256, 82, True, 3), (256, 82, False, 1), (1024, 402, True, 1),
+               (352, 82, True, 1), (512, 82, True, 1), (2048, 128, True, 1),
+               (64, 82, False, 3), (256, 97, True, 1), (256, 112, True, 1),
+               (256, 208, True, 1)],
+}
+
+
+@pytest.mark.parametrize("route", sorted(ROUTE_CASES))
+def test_pass1_route_rule(route):
+    """'ahead' (synth_pass1_ahead) for 'mixed' noise at one TF32 pass over
+    one pupil slice of at most 96 columns where every chunk of uniforms
+    is kept: the flagship and smaller grids up to 320 px at an 82 px
+    pupil; 'inline' at three passes, with 'gauss' noise, over two slices,
+    past 320 px, where the uniforms do not fit, and over a slice of more
+    than 96 columns."""
+    for args in ROUTE_CASES[route]:
+        assert sd.pass1_route(*args) == route, args
+
+
+def test_ahead_smem_fits_wherever_the_rule_takes_it():
+    """synth_pass1_ahead's shared memory, as mirrored, within a block's
+    wherever pass1_route says 'ahead'; the flagship's: the one-pass ring,
+    one x tile, its 8 chunks and two more, 28 mbarriers."""
+    ahead = 0
+    for N in range(1, 400, 3):
+        for P in (1, 16, 24, 42, 82, 96, 128, 144, 200, 208, 209, 402):
+            if sd.pass1_route(N, P, True, 1) == "ahead":
+                ahead += 1
+                assert sd._ahead_smem_bytes(N, P) <= 232448, (N, P)
+    assert ahead > 400
+    assert sd._ahead_smem_bytes(256, 82) == 4 * (4 * 2048 + 8192
+                                                 + 10 * 4096) + 8 * 28
+
+
+def test_route_counters_count_no_cpu_run():
+    """K2's wrappers count launches by route, K7's does not; their plain
+    versions on the CPU launch nothing and count nothing."""
+    _, t = k2_inputs(16, 3, 9)
+    for w in (sd.synth_detect, sd.synth_pass1):
+        assert sorted(w.LAUNCHES_BY_ROUTE) == ["ahead", "inline"]
+    assert not hasattr(sd.synth_screens, "LAUNCHES_BY_ROUTE")
+    before = [dict(w.LAUNCHES_BY_ROUTE)
+              for w in (sd.synth_detect, sd.synth_pass1)]
+    sd.synth_pass1(5, t["s_t"], t["wr"], t["wi"], 2, mix=t["mix"],
+                   precision="default")
+    sd.synth_detect(5, t["s_t"], t["wr"], t["wi"], t["pm_t"], 2,
+                    mix=t["mix"], precision="default")
+    assert [w.LAUNCHES_BY_ROUTE
+            for w in (sd.synth_detect, sd.synth_pass1)] == before
+
+
+def test_fast_logs_its_pass1_route():
+    """Fast.pass1_route: None on the CPU, where K2's plain version runs and
+    no kernel is launched, and off K2."""
+    from fast_tpu_torch import Fast, conf, turbulence_models
+    h, cn2, w = turbulence_models.HV57_Bufton_profile(4)
+    p = dict(conf.DEFAULTS)
+    p.update(NPXLS=64, DX=0.02, NITER=64, NCHUNKS=2, TEMPORAL=False,
+             D_GROUND=0.8, DSUBAP=0.1, H_TURB=h, CN2_TURB=cn2, WIND_SPD=w,
+             WIND_DIR=np.arange(4) * 90.0, LOGLEVEL="WARNING")
+    sim = Fast(p, device="cpu")
+    assert sim._synth == "pallas_fused" and sim.pass1_route is None
+    assert Fast(dict(p, SYNTH="matmul"), device="cpu").pass1_route is None
+    assert Fast(dict(p, TEMPORAL=True, TEMPORAL_SYNTH="ar", DT=0.001),
+                device="cpu").pass1_route is None
+
+
 def _word(col, depth):
     """Word of column ``col`` and depth ``depth`` within an 8-deep step of
     wgmma's B layout (csrc/wgmma.cuh), in the kernel's depth-slot order:
@@ -446,3 +518,96 @@ def test_kernel_at_default_matches_plain_on_card(cuda_device, noise):
         1: before[1] + 2, 3: before[3]}
     mx, rms = tf32_distance_readings(got, p1, p3)
     assert mx <= ONE_PASS_MAX and rms <= ONE_PASS_RMS
+
+
+# (N, lo, hi) of the 'ahead' pass 1 at an 82 px pupil: a grid narrower
+# than the pupil (one column tile, one row tile), one that is no multiple
+# of 64 (ragged row and column tiles) and the flagship's
+AHEAD_GRIDS = [(64, 0, 82), (200, 59, 141), (256, 87, 169)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbatch", [1, 131, 4096])
+@pytest.mark.parametrize("grid", AHEAD_GRIDS, ids=lambda g: f"N{g[0]}")
+def test_ahead_pass1_matches_plain_on_card(cuda_device, grid, nbatch):
+    """synth_pass1_ahead ('mixed', one TF32 pass; pass1_route 'ahead')
+    within ONE_PASS_MAX and ONE_PASS_RMS of the TF32 distance of its plain
+    version at 'default', for a draw alone, an odd count that leaves SMs
+    idle and tiles ragged, and a whole launch; counted as 'ahead'."""
+    from test_torch_tf32x3 import ONE_PASS_MAX, ONE_PASS_RMS
+    N, lo, hi = grid
+    assert sd.pass1_route(N, hi - lo, True, 1) == "ahead"
+    _, t = k2_inputs(N, lo, hi, phase_rms=1.5)
+    t = {k: v.to(cuda_device) for k, v in t.items()}
+    wr, wi, _ = sd.pad_pupil(t["wr"], t["wi"], None)
+    laid = sd.laid_w(t["wr"], t["wi"], t["mix"], precision="default")
+    before = dict(sd.synth_pass1.LAUNCHES_BY_ROUTE)
+    g = sd.synth_pass1(0xABCDEF0123, t["s_t"], t["wr"], t["wi"], nbatch,
+                       mix=t["mix"], stream=4, draw0=7, laid=laid,
+                       precision="default")
+    p1, p3 = (sd.synth_pass1_reference(0xABCDEF0123, t["s_t"], wr, wi,
+                                       nbatch, mix=t["mix"], stream=4,
+                                       draw0=7, precision=p)
+              for p in ("default", "highest"))
+    torch.cuda.synchronize()
+    assert sd.synth_pass1.LAUNCHES_BY_ROUTE == {
+        "ahead": before["ahead"] + 1, "inline": before["inline"]}
+    assert bool(torch.isfinite(g[0]).all() and torch.isfinite(g[1]).all())
+    mx, rms = tf32_distance_readings(g, p1, p3)
+    assert mx <= ONE_PASS_MAX and rms <= ONE_PASS_RMS
+
+
+@pytest.mark.cuda
+def test_pass1_route_mirrors_the_library_on_card(cuda_device):
+    """pass1_route, the Python mirror, says what the library's own rule
+    (fast_pass1_ahead, dispatch_pass1's) says, at the rule's cases and
+    over a grid of shapes."""
+    lib, _ = sd._library()
+    cases = [c for cs in ROUTE_CASES.values() for c in cs]
+    cases += [(N, P, m, n) for N in range(1, 400, 7)
+              for P in (1, 16, 42, 82, 96, 112, 113, 144, 208, 209, 402)
+              for m in (True, False) for n in (1, 3)]
+    for N, P, m, n in cases:
+        Pp = sd.padded_pupil(P)
+        assert sd._launch_route(lib, N, Pp, m, n) == sd.pass1_route(
+            N, P, m, n), (N, P, m, n)
+
+
+@pytest.mark.cuda
+def test_ahead_walk_changes_no_draw_on_card(cuda_device):
+    """Draw j of a 4096-draw launch of synth_pass1_ahead, whose blocks
+    walk many (draw, row) tiles each, equals bit for bit that draw
+    launched alone from draw0 = j, whose blocks take one tile each."""
+    N, lo, hi = AHEAD_GRIDS[-1]
+    _, t = k2_inputs(N, lo, hi, phase_rms=1.5)
+    t = {k: v.to(cuda_device) for k, v in t.items()}
+    laid = sd.laid_w(t["wr"], t["wi"], t["mix"], precision="default")
+    kw = dict(mix=t["mix"], stream=4, laid=laid, precision="default")
+    args = (0xABCDEF0123, t["s_t"], t["wr"], t["wi"])
+    gr, gi = sd.synth_pass1(*args, 4096, **kw)
+    for j in (0, 1, 131, 132, 2047, 4095):
+        ar, ai = sd.synth_pass1(*args, 1, draw0=j, **kw)
+        assert torch.equal(gr[j], ar[0]) and torch.equal(gi[j], ai[0]), j
+
+
+@pytest.mark.cuda
+def test_flagship_run_takes_the_ahead_route_on_card(cuda_device):
+    """A run() of the 256^2 flagship at its PRECISION 'default' launches
+    K2 through synth_pass1_ahead alone: Fast.pass1_route 'ahead', one
+    'ahead' launch a chunk."""
+    from fast_tpu_torch import Fast, conf, turbulence_models
+    h, cn2, w = turbulence_models.HV57_Bufton_profile(4)
+    p = dict(conf.DEFAULTS)
+    p.update(NPXLS=256, DX=0.01, NITER=32768, NCHUNKS=4, TEMPORAL=False,
+             D_GROUND=0.8, WVL=1550e-9, ZENITH_ANGLE=55, AO_MODE="AO",
+             DSUBAP=0.1, TLOOP=0.001, TEXP=0.001, ALIAS=True, H_TURB=h,
+             CN2_TURB=cn2, WIND_SPD=w, WIND_DIR=np.arange(4) * 90.0,
+             SEED=1, LOGLEVEL="WARNING")
+    sim = Fast(p, device="cuda")
+    assert sim._synth == "pallas_fused" and sim.pass1_route == "ahead"
+    before = dict(sd.synth_detect.LAUNCHES_BY_ROUTE)
+    r = sim.run()
+    torch.cuda.synchronize()
+    assert sd.synth_detect.LAUNCHES_BY_ROUTE == {
+        "ahead": before["ahead"] + 4, "inline": before["inline"]}
+    assert np.isfinite(np.asarray(r.power)).all()
